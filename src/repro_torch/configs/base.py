@@ -1,0 +1,82 @@
+"""Architecture configuration (own copy of the JAX package's ``ArchConfig``).
+
+One frozen dataclass covers every architecture family; fields a family
+does not use are ignored. The field set and defaults match the JAX
+package, so ``repr(cfg)`` names the same architecture in both.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    # identity ---------------------------------------------------------
+    name: str
+    family: str  # dense | moe | hybrid | ssm | vlm | audio
+    source: str  # citation for the config numbers
+
+    # trunk ------------------------------------------------------------
+    num_layers: int = 12
+    d_model: int = 1024
+    num_heads: int = 16
+    num_kv_heads: int = 16
+    head_dim: Optional[int] = None  # default d_model // num_heads
+    d_ff: int = 4096
+    vocab_size: int = 32000
+    max_seq_len: int = 532_480  # positional capacity (rope-based: free)
+
+    # attention variants -------------------------------------------------
+    qk_norm: bool = False                 # qwen3
+    mlp_act: str = "silu"                 # silu (SwiGLU) | gelu (GeGLU)
+    rope_theta: float = 10_000.0
+    sliding_window: Optional[int] = None  # local attention window (if set)
+    logit_soft_cap: Optional[float] = None
+    tie_embeddings: bool = False
+
+    # MoE ----------------------------------------------------------------
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    num_shared_experts: int = 0
+    moe_d_ff: Optional[int] = None
+    first_dense_layers: int = 0
+    router_aux_loss_coef: float = 0.001
+
+    # hybrid -------------------------------------------------------------
+    # layer_pattern is tiled to num_layers; entries: "attn", "rglru",
+    # "mlstm", "slstm". None => all-"attn".
+    layer_pattern: Optional[Sequence[str]] = None
+    rglru_d_conv: int = 4
+    local_attn_window: int = 2048
+
+    # ssm ----------------------------------------------------------------
+    slstm_num_heads: int = 4
+
+    # vlm ----------------------------------------------------------------
+    vision_tokens: int = 0
+    mrope_sections: Sequence[int] = ()
+
+    # audio / encoder-decoder --------------------------------------------
+    encoder_layers: int = 0
+    audio_frames: int = 0
+
+    # norm/init ----------------------------------------------------------
+    norm_eps: float = 1e-6
+    init_scale: float = 0.02
+
+    # ------------------------------------------------------------------
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim if self.head_dim is not None else self.d_model // self.num_heads
+
+    @property
+    def pattern(self) -> tuple:
+        if self.layer_pattern is None:
+            return ("attn",) * self.num_layers
+        p = tuple(self.layer_pattern)
+        reps = (self.num_layers + len(p) - 1) // len(p)
+        return (p * reps)[: self.num_layers]
+
+    def with_(self, **kw) -> "ArchConfig":
+        return dataclasses.replace(self, **kw)

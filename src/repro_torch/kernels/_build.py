@@ -1,0 +1,130 @@
+"""Build and load the CUDA kernels: nvcc by hand, a plain C interface, ctypes.
+
+Every ``*.cu`` under ``kernels/csrc`` compiles, one ``nvcc`` process per
+source started together, into an object for ``sm_90a``; the objects link
+into one shared library loaded with ``ctypes``. The library's name
+carries a hash of the sources and flags, so an edited source rebuilds
+and an unchanged one loads the library already built. Nothing happens at
+import: the first CUDA launch calls ``library()``. Machines without
+``nvcc`` (the CPU test runs) never get here, because CPU tensors take
+the plain PyTorch versions.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+import tempfile
+import threading
+
+import torch
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+# <repo>/build/repro_torch for a source checkout (src/repro_torch/kernels)
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC")
+
+# dtype codes shared with csrc/common.cuh
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+_c_ll = ctypes.c_longlong
+_c_int = ctypes.c_int
+_c_ptr = ctypes.c_void_p
+# C signatures, in the order of the extern "C" declarations in csrc/*.cu
+_SIGNATURES = {
+    "repro_bvsb": [_c_ptr, _c_int, _c_ll, _c_ll, _c_int, _c_ptr, _c_ptr,
+                   _c_ptr],
+    "repro_flash_attention": [_c_ptr] * 4 + [_c_int] * 6 + [_c_ll] * 12
+    + [_c_int, _c_int, ctypes.c_float, _c_ptr],
+}
+
+_LOCK = threading.Lock()
+_LIB = None
+
+
+def sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def build_key() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.iterdir()):
+        if path.suffix in (".cu", ".cuh"):
+            h.update(path.name.encode())
+            h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = pathlib.Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels of repro_torch are "
+                       "built from kernels/csrc on the machine with the card")
+
+
+def _run_all(cmds, cwd, verbose):
+    """Start every command at once, wait for all; raise with the first
+    failure's output, and print every output when ``verbose``."""
+    procs = [subprocess.Popen(c, cwd=cwd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): "
+                               f"{' '.join(cmd)}\n{out}")
+        if verbose and out:
+            print(out, end="", file=sys.stderr)
+
+
+def build(verbose: bool = False) -> pathlib.Path:
+    """Compile the library for this source hash unless it exists; its path.
+    ``verbose`` adds ptxas's register/spill report to stderr."""
+    lib_path = BUILD_DIR / f"librepro_torch_kernels_{build_key()}.so"
+    if lib_path.exists():
+        return lib_path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    extra = ("-Xptxas", "-v") if verbose else ()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [pathlib.Path(tmp) / f"{src.stem}.o" for src in sources()]
+        _run_all([[nvcc, *NVCC_FLAGS, *extra, "-c", str(src), "-o", str(obj)]
+                  for src, obj in zip(sources(), objs)], CSRC, verbose)
+        staged = pathlib.Path(tmp) / lib_path.name
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", *map(str, objs), "-o",
+                   str(staged)]], CSRC, verbose)
+        os.replace(staged, lib_path)  # atomic: concurrent builders agree
+    return lib_path
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _LIB
+    with _LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _LIB = lib
+        return _LIB
+
+
+def check(rc: int, name: str) -> None:
+    """Raise if a C entry point returned a non-zero cudaError_t."""
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError_t {rc}")
+
+
+def stream_ptr(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream

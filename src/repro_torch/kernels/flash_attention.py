@@ -1,0 +1,96 @@
+"""Causal / sliding-window prefill attention with GQA.
+
+q: (B, S, H, hd); k/v: (B, S, KV, hd) -> (B, S, H, hd) in q's dtype, the
+KV head of query head h being h // (H // KV). ``flash_attention`` runs
+the hand-written CUDA kernel ``csrc/flash_attention.cu`` on CUDA tensors
+and ``flash_attention_plain`` on CPU tensors; on any other device it
+raises.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import _build
+
+NEG_INF = -1e30
+MAX_HEAD_DIM = 128  # csrc/flash_attention.cu kMaxHD
+
+# kernel launches since the last ops.reset_launch_counts()
+launches = 0
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True,
+                          window: Optional[int] = None):
+    """The masked-einsum form, float32 softmax (JAX ``flash_attention_ref``)."""
+    b, s, h, hd = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    qg = q.reshape(b, s, kvh, g, hd).float()
+    scores = torch.einsum("bskgh,btkh->bkgst", qg, k.float())
+    scores = scores * float(np.float32(1.0 / np.sqrt(hd)))
+    qpos = torch.arange(s, device=q.device)[:, None]
+    kpos = torch.arange(s, device=q.device)[None, :]
+    ok = kpos <= qpos if causal else torch.ones(s, s, dtype=torch.bool,
+                                                device=q.device)
+    if window is not None:
+        ok = ok & ((qpos - kpos) < window)
+    scores = scores.masked_fill(~ok, NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgst,btkh->bskgh", p, v.float())
+    return out.reshape(b, s, h, hd).to(q.dtype)
+
+
+def _check(q, k, v):
+    if not (q.device == k.device == v.device):
+        raise ValueError("flash_attention: q, k, v on different devices")
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    b, s, h, hd = q.shape
+    if k.shape[0] != b or k.shape[1] != s or k.shape[3] != hd:
+        raise ValueError(f"flash_attention: k {tuple(k.shape)} does not "
+                         f"match q {tuple(q.shape)}")
+    kvh = k.shape[2]
+    if kvh == 0 or h % kvh:
+        raise ValueError(f"flash_attention: {h} heads over {kvh} KV heads")
+    if not (0 < hd <= MAX_HEAD_DIM):
+        raise ValueError(f"flash_attention: head dim {hd} not in "
+                         f"[1, {MAX_HEAD_DIM}]")
+    if b == 0 or s == 0 or b > 65535 or h > 65535:
+        raise ValueError(f"flash_attention: unsupported shape {tuple(q.shape)}")
+    if q.dtype not in _build.DTYPE_CODES or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention: dtypes {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(3) != 1:
+            raise ValueError(f"flash_attention: {name} needs a contiguous "
+                             "head dim")
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    window: Optional[int] = None):
+    """Attention of q over k/v; CUDA kernel on CUDA tensors, plain on CPU."""
+    global launches
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    _check(q, k, v)
+    if window is not None and window < 1:
+        raise ValueError(f"flash_attention: window {window} < 1")
+    b, s, h, hd = q.shape
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    lib = _build.library()
+    _build.check(lib.repro_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        _build.DTYPE_CODES[q.dtype], b, s, h, k.shape[2], hd,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+        int(causal), 0 if window is None else int(window),
+        float(np.float32(1.0 / np.sqrt(hd))), _build.stream_ptr(q)),
+        "flash_attention")
+    launches += 1
+    return out

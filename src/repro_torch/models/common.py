@@ -1,0 +1,118 @@
+"""Shared building blocks: init, RMSNorm, RoPE, gated MLP, embeddings.
+
+Plain functions on tensors, in the JAX package's layout: activations
+(B, S, d), heads (B, S, H, hd), weights applied as ``x @ W`` with W of
+shape (d_in, d_out). The small modules here, in ``attention.py`` and in
+``transformer.py`` hold the parameters, named as the JAX parameter tree
+names them, and call these.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def param(*shape, device, dtype) -> nn.Parameter:
+    """An uninitialised inference parameter; the model's init or the
+    weight converter fills it."""
+    return nn.Parameter(torch.empty(shape, device=device, dtype=dtype),
+                        requires_grad=False)
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, d, *, device, dtype):
+        super().__init__()
+        self.scale = param(d, device=device, dtype=dtype)
+
+    def forward(self, x, eps):
+        return rmsnorm(self.scale, x, eps)
+
+
+class MLP(nn.Module):
+    def __init__(self, d, f, *, device, dtype):
+        super().__init__()
+        self.w_gate = param(d, f, device=device, dtype=dtype)
+        self.w_up = param(d, f, device=device, dtype=dtype)
+        self.w_down = param(f, d, device=device, dtype=dtype)
+
+    def forward(self, x, act):
+        return mlp_apply(self.w_gate, self.w_up, self.w_down, x, act)
+
+
+class Embedding(nn.Module):
+    """Embedding table over the padded vocab, shared with the LM head
+    when the config ties them."""
+
+    def __init__(self, vocab, d, *, device, dtype):
+        super().__init__()
+        self.table = param(padded_vocab(vocab), d, device=device, dtype=dtype)
+
+
+def trunc_normal_(t: torch.Tensor, scale: float,
+                  generator: torch.Generator) -> torch.Tensor:
+    """Fill ``t`` with a normal truncated to [-2, 2], times ``scale``.
+
+    The distribution of the JAX package's ``dense_init``, not its bits.
+    Drawn on the CPU from ``generator`` and copied, so a seed gives the
+    same weights on every device.
+    """
+    cpu = torch.empty(t.shape, dtype=torch.float32)
+    torch.nn.init.trunc_normal_(cpu, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    with torch.no_grad():
+        t.copy_(cpu * scale)
+    return t
+
+
+def rmsnorm(scale, x, eps=1e-6):
+    dt = x.dtype
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * scale.float()).to(dt)
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    half = head_dim // 2
+    exponent = torch.arange(0, half, dtype=torch.float32, device=device) / half
+    return 1.0 / (theta ** exponent)
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (B, S, H, hd); positions: (B, S) int. Rotates split halves
+    (``x1, x2 = split(x, 2)``), not interleaved pairs."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                 # (hd/2,)
+    ang = positions.float()[..., None] * freqs              # (B, S, hd/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def mlp_apply(w_gate, w_up, w_down, x, act: str = "silu"):
+    """Gated MLP: SwiGLU for ``silu``, GeGLU (tanh GELU, as jax.nn.gelu)
+    for ``gelu``."""
+    g = x @ w_gate
+    g = F.silu(g) if act == "silu" else F.gelu(g, approximate="tanh")
+    return (g * (x @ w_up)) @ w_down
+
+
+def padded_vocab(vocab_size: int, multiple: int = 128) -> int:
+    return ((vocab_size + multiple - 1) // multiple) * multiple
+
+
+def embed_apply(table, tokens):
+    return table[tokens.long()]
+
+
+def lm_head_apply(table, x, vocab_size: int):
+    """Logits over the PADDED vocab, padding columns set to finfo.min, so
+    softmax/BvSB see them and give them exactly zero mass."""
+    logits = x @ table.T
+    pv = table.shape[0]
+    if pv != vocab_size:
+        pad = torch.arange(pv, device=logits.device) >= vocab_size
+        logits = logits.masked_fill(pad, torch.finfo(logits.dtype).min)
+    return logits

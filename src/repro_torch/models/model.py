@@ -1,0 +1,124 @@
+"""Model API: build the dense decoder on a device, initialise it from a
+``torch.Generator``, or carry the JAX package's weights across.
+
+    model = init_params(cfg, torch.Generator().manual_seed(0))   # on the card
+    model = params_from_jax(jax.tree.map(np.asarray, params), cfg, device="cpu")
+    logits = model(tokens)                                       # (B, S, V_pad)
+
+Every entry point defaults to ``device="cuda"`` and raises when no card
+is present: nothing moves quietly to the CPU.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.models import common
+from repro_torch.models.transformer import Model
+
+__all__ = ["Model", "build_model", "init_params", "params_from_jax"]
+
+
+def resolve_device(device) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on a CUDA device by default and none is "
+            "present; pass device='cpu' to run the plain versions on the CPU")
+    return dev
+
+
+def build_model(cfg, *, device="cuda", dtype=torch.float32) -> Model:
+    """The dense decoder for ``cfg`` on ``device``, parameters allocated
+    but not yet filled (``init_params`` or ``params_from_jax`` fill them)."""
+    if cfg.family != "dense" or cfg.encoder_layers or cfg.num_experts \
+            or cfg.mrope_sections or set(cfg.pattern) != {"attn"}:
+        raise NotImplementedError(
+            f"{cfg.name}: only dense all-attention decoders are ported to "
+            "repro_torch (ROADMAP.md Queue A, the rest of the model zoo)")
+    return Model(cfg, device=resolve_device(device), dtype=dtype)
+
+
+def init_params(cfg, generator: torch.Generator, device="cuda",
+                dtype=torch.float32) -> Model:
+    """A model with weights drawn as the JAX package draws them: norm
+    scales 1, every other weight truncated normal in [-2, 2] times
+    ``cfg.init_scale``."""
+    model = build_model(cfg, device=device, dtype=dtype)
+    for name, p in model.named_parameters():
+        if name.endswith("scale"):
+            with torch.no_grad():
+                p.fill_(1.0)
+        else:
+            common.trunc_normal_(p, cfg.init_scale, generator)
+    return model
+
+
+def _flatten(tree, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _flatten(v, path + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _flatten(v, path + (i,))
+    elif tree is not None:
+        yield path, np.asarray(tree)
+
+
+def _stacking(cfg) -> Tuple[int, int]:
+    """(layers per stacked super-block, number of super-blocks), as the
+    JAX ``transformer.init_params`` stacks them."""
+    plen = len(tuple(cfg.layer_pattern)) if cfg.layer_pattern else 1
+    return plen, (cfg.num_layers - cfg.first_dense_layers) // plen
+
+
+def _jax_location(name: str, cfg) -> Tuple[tuple, int]:
+    """Module parameter name -> (JAX leaf path, layer index into a stacked
+    leaf or -1)."""
+    parts = name.split(".")
+    if parts[0] != "layers":
+        return tuple(parts), -1
+    i, rest = int(parts[1]), tuple(parts[2:])
+    n_prefix = cfg.first_dense_layers
+    plen, n_sb = _stacking(cfg)
+    tail_start = n_prefix + n_sb * plen
+    if i < n_prefix:
+        return ("prefix", i) + rest, -1
+    if i >= tail_start:
+        return ("tail", i - tail_start) + rest, -1
+    sb, k = divmod(i - n_prefix, plen)
+    return ("blocks", k) + rest, sb
+
+
+def params_from_jax(tree, cfg, device="cuda") -> Model:
+    """The port's model holding the JAX package's weights.
+
+    ``tree`` is the JAX parameter pytree as nested dicts, lists and tuples
+    of numpy arrays (``jax.tree.map(np.asarray, params)``). The stacked
+    layer axis of ``blocks`` is unstacked, the (d_in, d_out) layout kept.
+    Every leaf's shape is checked against ``cfg``, and a leaf that no
+    parameter consumed raises.
+    """
+    leaves: Dict[tuple, np.ndarray] = dict(_flatten(tree))
+    model = build_model(cfg, device=device, dtype=torch.float32)
+    consumed = set()
+    for name, p in model.named_parameters():
+        path, layer = _jax_location(name, cfg)
+        if path not in leaves:
+            raise KeyError(f"params_from_jax: no JAX leaf {path} for {name}")
+        leaf = leaves[path]
+        want = tuple(p.shape) if layer < 0 else \
+            (_stacking(cfg)[1],) + tuple(p.shape)
+        if leaf.shape != want:
+            raise ValueError(f"params_from_jax: {path} has shape {leaf.shape},"
+                             f" {cfg.name} needs {want}")
+        value = leaf if layer < 0 else leaf[layer]
+        with torch.no_grad():
+            p.copy_(torch.from_numpy(np.array(value, np.float32)))
+        consumed.add(path)
+    extra = sorted(map(str, set(leaves) - consumed))
+    if extra:
+        raise ValueError(f"params_from_jax: leaves not consumed: {extra}")
+    return model

@@ -1,0 +1,152 @@
+"""The CUDA kernels held to their plain versions on the card.
+
+Needs an NVIDIA GPU and ``nvcc`` (the kernels build from
+``src/repro_torch/kernels/csrc`` on first use); every test here skips on
+a machine without a card. Imports no JAX, so it runs where JAX is absent:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py
+"""
+import pytest
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.configs.cascade_tiers import BATCH_LADDER
+from repro_torch.kernels import ops
+from repro_torch.kernels.bvsb import bvsb_plain
+from repro_torch.kernels.flash_attention import flash_attention_plain
+
+pytestmark = pytest.mark.cuda
+
+torch.set_num_threads(2)
+
+F32_CONF_ATOL = 1e-5   # float32 sums taken in another order
+BF16_CONF_ATOL = 2e-3  # the repo's kernel gate (NUMERIC_ATOL)
+FLASH_ATOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _check_bvsb(x, atol):
+    ops.reset_launch_counts()
+    conf, top1 = ops.bvsb(x)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["bvsb"] == 1
+    pconf, ptop1 = bvsb_plain(x)
+    assert conf.dtype == torch.float32 and top1.dtype == torch.int32
+    torch.testing.assert_close(conf, pconf, atol=atol, rtol=0,
+                               equal_nan=True)
+    assert torch.equal(top1, ptop1.to(top1.device))
+
+
+@pytest.mark.parametrize("b,v", [(1, 2048), (64, 2048), (20, 1000), (3, 130)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bvsb_kernel_matches_plain(dev, b, v, dtype):
+    gen = torch.Generator(device=dev).manual_seed(b * 4096 + v)
+    x = (torch.randn(b, v, generator=gen, device=dev) * 4).to(dtype)
+    _check_bvsb(x, F32_CONF_ATOL if dtype == torch.float32 else BF16_CONF_ATOL)
+
+
+def test_bvsb_kernel_ties_extremes_and_strides(dev):
+    x = torch.full((6, 2048), -1.0, device=dev)
+    x[0, [7, 1999]] = 3.0     # tied maxima in different warps
+    x[1, [0, 1]] = 2.5        # tied maxima in neighbouring threads
+    x[2] = 0.0                # fully tied row
+    x[3] = -1e38
+    x[3, 5] = 1e4
+    x[4, :10] = float("-inf")
+    x[4, 11] = 2.0
+    x[5, 1000:] = torch.finfo(torch.float32).min   # LM-head padding
+    _check_bvsb(x, F32_CONF_ATOL)
+    conf, top1 = ops.bvsb(x)
+    assert conf[:3].abs().max() == 0 and top1[:3].tolist() == [7, 0, 0]
+    # the classify path hands the kernel a strided (B, V) view
+    logits = torch.randn(4, 16, 2048, device=dev)
+    _check_bvsb(logits[:, -1, :], F32_CONF_ATOL)
+
+
+@pytest.mark.parametrize("b", BATCH_LADDER)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bvsb_kernel_serving_buckets(dev, b, dtype):
+    # the classify path's input at every ladder bucket: the last position
+    # of (B, S, V) logits, a view with row stride S * V
+    gen = torch.Generator(device=dev).manual_seed(b)
+    logits = (torch.randn(b, 16, 2048, generator=gen, device=dev) * 4).to(dtype)
+    _check_bvsb(logits[:, -1, :],
+                F32_CONF_ATOL if dtype == torch.float32 else BF16_CONF_ATOL)
+
+
+def test_bvsb_kernel_pos_inf_is_nan(dev):
+    x = torch.zeros(2, 64, device=dev)
+    x[0, 3] = float("inf")
+    x[1, [5, 9]] = float("inf")
+    conf, _ = ops.bvsb(x)
+    assert torch.isnan(conf).all() and torch.isnan(bvsb_plain(x)[0]).all()
+
+
+FLASH_CASES = [(1, 16, 4, 4, 32, None), (64, 16, 8, 8, 48, None),
+               (64, 16, 8, 8, 64, None), (2, 200, 8, 2, 128, None),
+               (2, 200, 8, 2, 64, 40), (3, 37, 4, 1, 48, 7)]
+
+
+# every attention shape of the live cascade: tier-low at the clients'
+# B = 1, each server tier at every ladder bucket
+SERVING_FLASH_CASES = [
+    (b, 16, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, None)
+    for tier, buckets in (("tier-low", (1,)),
+                          ("tier-server-fast", BATCH_LADDER),
+                          ("tier-server-heavy", BATCH_LADDER))
+    for cfg in (get_config(tier),) for b in buckets]
+
+
+@pytest.mark.parametrize("b,s,h,kv,hd,window",
+                         FLASH_CASES + SERVING_FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain(dev, b, s, h, kv, hd, window, dtype):
+    gen = torch.Generator(device=dev).manual_seed(s * 1000 + hd)
+    q = torch.randn(b, s, h, hd, generator=gen, device=dev).to(dtype)
+    k = torch.randn(b, s, kv, hd, generator=gen, device=dev).to(dtype)
+    v = torch.randn(b, s, kv, hd, generator=gen, device=dev).to(dtype)
+    ops.reset_launch_counts()
+    out = ops.flash_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == 1
+    assert out.dtype == dtype and out.shape == q.shape
+    ref = flash_attention_plain(q, k, v, causal=True, window=window)
+    torch.testing.assert_close(out.float(), ref.float(),
+                               atol=FLASH_ATOL[dtype], rtol=0)
+
+
+def test_flash_kernel_non_causal_and_strided(dev):
+    qkv = torch.randn(2, 24, 3, 4, 32, device=dev)      # packed q/k/v
+    q, k, v = qkv.unbind(dim=2)                         # strided views
+    out = ops.flash_attention(q, k, v, causal=False)
+    ref = flash_attention_plain(q, k, v, causal=False)
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+
+
+def test_kernels_refuse_what_they_do_not_take(dev):
+    q = torch.randn(1, 8, 2, 256, device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.flash_attention(q, q, q)
+    q = torch.randn(1, 8, 2, 32, device=dev)
+    with pytest.raises(TypeError):
+        ops.flash_attention(q, q.half(), q)
+    strided_hd = torch.randn(1, 8, 32, 2, device=dev).transpose(2, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.flash_attention(strided_hd, q, q)
+    with pytest.raises(ValueError, match="column stride"):
+        ops.bvsb(torch.randn(8, 4, device=dev).T)
+    with pytest.raises(TypeError):
+        ops.bvsb(torch.zeros(2, 8, dtype=torch.int32, device=dev))
+    # float32 and bfloat16 only
+    with pytest.raises(TypeError):
+        ops.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(TypeError):
+        ops.bvsb(torch.zeros(2, 8, dtype=torch.float16, device=dev))
