@@ -10,18 +10,26 @@ then exits non-zero without the final result line:
 2. build: the CUDA kernels from src/repro_torch/kernels/csrc (set-up);
 3. kernels: each CUDA kernel against its plain PyTorch version on the
    card, at the serving shapes and edge cases, with the stated
-   tolerances; kernel, plain, library and bound times at the main path's
+   tolerances; kernel, plain, library and bound times at the two paths'
    shapes (CUDA events, after warm-up);
-4. main path: the live cascade — 16 device clients on tier-low, a server
-   engine hosting tier-server-fast and tier-server-heavy with model
-   switching, the MultiTASC++ scheduler — through ``run_cascade``, with
-   the kernels' launch counters read around it. The run must keep some
-   samples on the devices and forward the rest, move the thresholds
+4. cascade path: the live cascade — 16 device clients on tier-low, a
+   server engine hosting tier-server-fast and tier-server-heavy with
+   model switching, the MultiTASC++ scheduler — through ``run_cascade``,
+   with the kernels' launch counters read around it. The run must keep
+   some samples on the devices and forward the rest, move the thresholds
    until S(C) switches the server model, and serve batches on both
    server models. Then one 64-sample tier-server-heavy batch on the card
    against the same weights on the CPU (plain versions);
-5. the kernels line: one JSON object describing every ported kernel;
-6. the result line: {"ok": true, "device": {...}}.
+5. RecurrentGemma path: RecurrentGemma-9B at full width and depth (38
+   layers, random weights drawn on the card) through the zoo's serving
+   entry points — ``make_prefill_step`` on 4 prompts of 3,000 tokens,
+   then 32 ``make_serve_step`` decode steps feeding back each top-1 —
+   with the launch counters read around it and held to 12 flash, 26
+   RG-LRU scan, 384 decode-attention and 33 BvSB launches; the ring
+   caches must hold positions 952..2999 at slot pos % 2048. Then the
+   card against the CPU at full width and one super-block of depth;
+6. the kernels line: one JSON object describing every ported kernel;
+7. the result line: {"ok": true, "device": {...}}.
 
 ``throughput`` of the cascade is a virtual-clock figure from the paper's
 latency profiles, not a measurement of the card.
@@ -47,8 +55,15 @@ from repro_torch.configs.cascade_tiers import (BATCH_LADDER,  # noqa: E402
                                                SERVER_PROFILES)
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels.bvsb import bvsb_plain  # noqa: E402
+from repro_torch.kernels.decode_attention import \
+    decode_attention_plain  # noqa: E402
 from repro_torch.kernels.flash_attention import \
     flash_attention_plain  # noqa: E402
+from repro_torch.kernels.rglru_scan import rglru_scan_plain  # noqa: E402
+from repro_torch.launch.distributed import (head_bvsb,  # noqa: E402
+                                            make_prefill_step,
+                                            make_serve_step)
+from repro_torch.models import attention, common  # noqa: E402
 from repro_torch.models.model import build_model, init_params  # noqa: E402
 from repro_torch.serving.cascade import run_cascade  # noqa: E402
 from repro_torch.serving.client import DeviceClient  # noqa: E402
@@ -65,7 +80,17 @@ SLO, WINDOW, THRESHOLD = 0.15, 0.25, 0.5
 LOW_INIT_SCALE = 0.5
 BVSB_ATOL = {torch.float32: 1e-5, torch.bfloat16: 2e-3}
 FLASH_ATOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+DECODE_ATOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# kernel and plain loop round each step's product and sum alike: the
+# tolerance, relative to max|h|, leaves room for nothing but that
+RGLRU_RTOL = 1e-6
 CLASSIFY_CONF_ATOL, TOP2_GAP = 1e-5, 1e-4
+
+# the RecurrentGemma path: B prompts of S tokens, then STEPS decode steps
+RG_ARCH, RG_B, RG_S, RG_STEPS = "recurrentgemma-9b", 4, 3000, 32
+# and its card-vs-CPU check: one super-block, B prompts of S, STEPS steps
+RG_CHECK_LAYERS, RG_CHECK_B, RG_CHECK_S, RG_CHECK_STEPS = 3, 2, 300, 4
+RING_ATOL = 1e-4    # ring keys against a recomputation at another batch
 
 
 def card_rates(name: str):
@@ -76,7 +101,7 @@ def card_rates(name: str):
     return 3.35e12, 67e12       # H100 SXM
 
 
-def time_ms(fn, iters=25, warmup=10):
+def time_ms(fn, iters=25, warmup=10, spin=True):
     """(device ms per call, host ms per call) of ``fn``.
 
     Device time: a spin kernel holds the stream while the host enqueues
@@ -86,12 +111,28 @@ def time_ms(fn, iters=25, warmup=10):
     queues only about a thousand pending launches before the host blocks,
     and a plain version makes some twenty per call. Host time: wall clock
     per call, synchronised, which is what a caller of ``fn`` waits for.
+
+    ``spin=False`` is for a function that launches more kernels per call
+    than the launch queue holds (the plain RG-LRU loop: three per time
+    step):
+    the events then span back-to-back calls with no spin, so the device
+    time includes the gaps in which the device waits for the host's
+    launches. It is an upper bound, and the callers say so.
     """
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if not spin:
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) * 1e3 / iters
+        return start.elapsed_time(end) / iters, host
     spin = 20_000_000            # clock cycles: ~10 ms at the H100's ~2 GHz
     while True:
         torch.cuda._sleep(spin)
@@ -144,6 +185,12 @@ def bvsb_cases(dev):
             x = torch.randn(b, SEQ, VOCAB, generator=gen, device=dev) * 4
             cases.append((f"randn({b},{SEQ},{VOCAB})[:,-1,:]",
                           x.to(dt)[:, -1, :]))
+    # what the RecurrentGemma path hands the kernel: contiguous rows over
+    # its vocab of 256,000, at the path's B = 4 and at 64
+    for b in (RG_B, 64):
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.randn(b, 256_000, generator=gen, device=dev) * 4
+            cases.append((f"randn({b},256000)", x.to(dt)))
     x = torch.full((5, 2048), -1.0, device=dev)
     x[0, [7, 1999]] = 3.0            # tied maxima in different warps
     x[1, [0, 1]] = 2.5               # tied maxima in neighbouring threads
@@ -181,7 +228,10 @@ def check_bvsb(dev):
 
 FLASH_CASES = [(1, 16, 4, 4, 32, None), (64, 16, 8, 8, 48, None),
                (64, 16, 8, 8, 64, None), (2, 200, 8, 2, 128, None),
-               (2, 200, 8, 2, 128, 64)]
+               (2, 200, 8, 2, 128, 64),
+               # RecurrentGemma's prefill attention at B = 1: hd 256, one
+               # KV head for 16, S = 3000 past the window of 2048
+               (1, RG_S, 16, 1, 256, 2048)]
 
 
 def serving_flash_cases():
@@ -220,6 +270,69 @@ def check_flash(dev):
                                      f" window={window} {dt}")
 
 
+def decode_cases():
+    """(B, W, KV, G, hd, lengths): RecurrentGemma's decode shape at B in
+    {1, 4, 64} with lengths 1, 777, W and mixed, and a small GQA ring."""
+    cases = []
+    for b in (1, RG_B, 64):
+        for lengths in ([1] * b, [777] * b, [2048] * b,
+                        [(1, 777, 2048, 1500)[i % 4] for i in range(b)]):
+            cases.append((b, 2048, 1, 16, 256, lengths))
+    return cases + [(3, 100, 2, 4, 64, [1, 100, 37]),
+                    (3, 100, 2, 4, 128, [100, 1, 63])]
+
+
+def decode_inputs(dev, b, w, kv, g, hd, lengths, dtype=torch.float32):
+    gen = torch.Generator(device=dev).manual_seed(b * w + hd)
+    q = torch.randn(b, kv * g, hd, generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn(b, w, kv, hd, generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    return q, k, v, torch.tensor(lengths, dtype=torch.int32, device=dev)
+
+
+def check_decode(dev):
+    for b, w, kv, g, hd, lengths in decode_cases():
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v, lens = decode_inputs(dev, b, w, kv, g, hd, lengths, dt)
+            out = ops.decode_attention(q, k, v, lens)
+            torch.cuda.synchronize()
+            ref = decode_attention_plain(q, k, v, lens)
+            err, atol = max_err(out, ref), DECODE_ATOL[dt]
+            print(f"decode_attention (B,W,KV,G,hd)=({b},{w},{kv},{g},{hd}) "
+                  f"lengths {sorted(set(lengths))} {str(dt)[6:]}: max|err| "
+                  f"{err:.3g} (atol {atol:g})")
+            if not (err <= atol and out.dtype == dt):
+                raise AssertionError("decode_attention kernel disagrees with "
+                                     f"its plain version at {(b, w, kv, g, hd)}"
+                                     f" lengths {sorted(set(lengths))} {dt}")
+
+
+def rglru_inputs(dev, b, s, d, with_h0, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    # a in (0.499, 0.999), the range the RG-LRU's gates give
+    a = torch.rand(b, s, d, generator=gen, device=dev) * 0.5 + 0.499
+    u = torch.randn(b, s, d, generator=gen, device=dev)
+    h0 = torch.randn(b, d, generator=gen, device=dev) if with_h0 else None
+    return a, u, h0
+
+
+def check_rglru(dev):
+    for b, s, d in ((RG_B, RG_S, 4096), (1, 1, 256), (3, 129, 300)):
+        for with_h0 in (False, True):
+            a, u, h0 = rglru_inputs(dev, b, s, d, with_h0)
+            h = ops.rglru_scan(a, u, h0)
+            torch.cuda.synchronize()
+            ref = rglru_scan_plain(a, u, h0)
+            err, scale = max_err(h, ref), float(ref.abs().max())
+            print(f"rglru_scan (B,S,D)=({b},{s},{d}) h0={with_h0} float32: "
+                  f"max|err| {err:.3g} (atol {RGLRU_RTOL:g} x max|h| "
+                  f"{scale:.3g})")
+            if not (err <= RGLRU_RTOL * scale and h.dtype == torch.float32):
+                raise AssertionError("rglru_scan kernel disagrees with its "
+                                     f"plain version at {(b, s, d)} "
+                                     f"h0={with_h0}")
+
+
 def bvsb_bound_ms(b, v, elt, bw, flops):
     moved = b * v * elt + b * 8              # logits in, conf + top1 out
     ops_ = 4 * b * v                         # compare, subtract, exp, add
@@ -227,13 +340,39 @@ def bvsb_bound_ms(b, v, elt, bw, flops):
         "bytes" if moved / bw >= ops_ / flops else "operations"
 
 
-def flash_bound_ms(q, k, bw, flops):
-    b, s, h, hd = q.shape
-    pairs = s * (s + 1) // 2                 # (query, key) pairs causal keeps
-    moved = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-    ops_ = 4 * hd * pairs * b * h            # q.k and p.v, 2 FLOP per FMA
+def _bound(moved, ops_, bw, flops):
     return max(moved / bw, ops_ / flops) * 1e3, \
         "bytes" if moved / bw >= ops_ / flops else "operations"
+
+
+def flash_bound_ms(q, k, bw, flops, window=None):
+    b, s, h, hd = q.shape
+    # (query, key) pairs causal attention keeps: min(i + 1, window) keys
+    # for query i
+    w = window or s
+    pairs = w * (w + 1) // 2 + (s - w) * w if s > w else s * (s + 1) // 2
+    moved = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    ops_ = 4 * hd * pairs * b * h            # q.k and p.v, 2 FLOP per FMA
+    return _bound(moved, ops_, bw, flops)
+
+
+def decode_bound_ms(q, k, lengths, bw, flops):
+    """Each valid cache slot read once (K and V), q read and out written
+    once; a q.k and a p.v FMA per (query head, valid slot, head dim)."""
+    b, h, hd = q.shape
+    kv = k.shape[2]
+    slots = int(lengths.clamp(max=k.shape[1]).sum())
+    elt = q.element_size()
+    moved = (2 * q.numel() + 2 * slots * kv * hd) * elt + lengths.numel() * 4
+    ops_ = 4 * hd * slots * h
+    return _bound(moved, ops_, bw, flops)
+
+
+def rglru_bound_ms(a, bw, flops):
+    """a and u read once, h written once (f32); a multiply and an add per
+    element."""
+    return _bound(a.numel() * (2 * a.element_size() + 4), 2 * a.numel(),
+                  bw, flops)
 
 
 class Timer:
@@ -246,21 +385,29 @@ class Timer:
         self.dev, self.bw, self.flops = dev, bw, flops
         self.rows = {}
 
-    def _row(self, key, kernel, plain, library, bound, err, atol, shape):
+    def _row(self, key, kernel, plain, library, bound, err, atol, shape,
+             plain_spin=True):
+        """``library`` None: no single PyTorch call computes the function.
+        ``plain_spin`` False: the plain version launches more kernels than
+        the launch queue holds, so it is timed without the spin (an upper
+        bound: it includes the device's waits for the host)."""
         if not err <= atol:
             raise AssertionError(f"{key[0]} {key[1]}: max|err| {err:.3g} "
                                  f"above atol {atol:g}")
         ms, by = bound
-        (k_ms, call_ms), (p_ms, _), (l_ms, _) = map(time_ms, (kernel, plain,
-                                                             library))
+        k_ms, call_ms = time_ms(kernel)
+        p_ms = time_ms(plain, spin=True)[0] if plain_spin else \
+            time_ms(plain, iters=3, warmup=1, spin=False)[0]
+        l_ms = None if library is None else time_ms(library)[0]
         r = self.rows[key] = dict(
             ms=k_ms, call_ms=call_ms, plain_ms=p_ms, library_ms=l_ms,
             bound_ms=ms, bound_by=by, max_abs_err=err, shape=list(shape))
+        lib = "none" if l_ms is None else f"{l_ms * 1e3:.2f} us"
         print(f"time {key[0]} {key[1]} {tuple(shape)} f32: kernel "
               f"{k_ms * 1e3:.2f} us on the device ({call_ms * 1e3:.2f} us "
-              f"per call on the host), plain {p_ms * 1e3:.2f} us, library "
-              f"{l_ms * 1e3:.2f} us, bound {ms * 1e3:.4f} us ({by}), "
-              f"max|err| {err:.3g}")
+              f"per call on the host), plain {p_ms * 1e3:.2f} us"
+              f"{'' if plain_spin else ' (host-bound, no spin)'}, library "
+              f"{lib}, bound {ms * 1e3:.4f} us ({by}), max|err| {err:.3g}")
         return r
 
     def bvsb(self, b, v=2048):
@@ -275,6 +422,64 @@ class Timer:
             lambda: torch.topk(torch.softmax(x, dim=-1), 2, dim=-1),
             bvsb_bound_ms(b, v, 4, self.bw, self.flops),
             max_err(conf, pconf), BVSB_ATOL[torch.float32], (b, v))
+
+    def bvsb_rows(self, b, v):
+        """Contiguous (B, V) rows, as the serving head hands them over."""
+        key = ("bvsb", f"{RG_ARCH} B={b}")
+        x = torch.randn(b, v, device=self.dev) * 4
+        (conf, top1), (pconf, ptop1) = ops.bvsb(x), bvsb_plain(x)
+        if not torch.equal(top1, ptop1):
+            raise AssertionError(f"bvsb {key[1]}: top-1 differs")
+        return self._row(
+            key, lambda: ops.bvsb(x), lambda: bvsb_plain(x),
+            lambda: torch.topk(torch.softmax(x, dim=-1), 2, dim=-1),
+            bvsb_bound_ms(b, v, 4, self.bw, self.flops),
+            max_err(conf, pconf), BVSB_ATOL[torch.float32], (b, v))
+
+    def flash_rg(self, b=RG_B, s=RG_S, window=2048):
+        key = ("flash_attention", f"{RG_ARCH} B={b}")
+        q, k, v = qkv(self.dev, b, s, 16, 1, 256)
+        qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+        i = torch.arange(s, device=self.dev)
+        mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
+        err = max_err(ops.flash_attention(q, k, v, window=window),
+                      flash_attention_plain(q, k, v, window=window))
+        return self._row(
+            key, lambda: ops.flash_attention(q, k, v, window=window),
+            lambda: flash_attention_plain(q, k, v, window=window),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                   enable_gqa=True),
+            flash_bound_ms(q, k, self.bw, self.flops, window), err,
+            FLASH_ATOL[torch.float32], (b, s, 16, 1, 256, window))
+
+    def decode_rg(self, b=RG_B, w=2048):
+        """Every ring full (length W), as on every decode step of the
+        path: its prompts of 3,000 tokens fill the 2048-slot rings."""
+        key = ("decode_attention", f"{RG_ARCH} B={b}")
+        q, k, v, lens = decode_inputs(self.dev, b, w, 1, 16, 256, [w] * b)
+        qt = q[:, :, None, :]
+        kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+        mask = (torch.arange(w, device=self.dev)[None, :]
+                < lens[:, None])[:, None, None, :]
+        err = max_err(ops.decode_attention(q, k, v, lens),
+                      decode_attention_plain(q, k, v, lens))
+        return self._row(
+            key, lambda: ops.decode_attention(q, k, v, lens),
+            lambda: decode_attention_plain(q, k, v, lens),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                   enable_gqa=True),
+            decode_bound_ms(q, k, lens, self.bw, self.flops), err,
+            DECODE_ATOL[torch.float32], (b, w, 1, 16, 256))
+
+    def rglru_rg(self, b=RG_B, s=RG_S, d=4096):
+        key = ("rglru_scan", f"{RG_ARCH} B={b}")
+        a, u, _ = rglru_inputs(self.dev, b, s, d, False, seed=1)
+        ref = rglru_scan_plain(a, u)
+        err = max_err(ops.rglru_scan(a, u), ref)
+        return self._row(
+            key, lambda: ops.rglru_scan(a, u), lambda: rglru_scan_plain(a, u),
+            None, rglru_bound_ms(a, self.bw, self.flops), err,
+            RGLRU_RTOL * float(ref.abs().max()), (b, s, d), plain_spin=False)
 
     def flash(self, tier, b, s=16):
         if ("flash_attention", f"{tier} B={b}") in self.rows:
@@ -351,21 +556,31 @@ def cascade(models):
     return clients, engine, res
 
 
-def profile_main_path(models, wall):
-    """Device time of a second, identical run under torch.profiler; the
-    idle share compares it with the unprofiled run's wall time."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        cascade(models)
+def _top_kernels(prof, n=6):
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    print(f"main path device time (profiled rerun): {busy_us / 1e6:.4f} s "
-          f"busy over {wall:.3f} s of unprofiled wall, idle share "
-          f"{1 - busy_us / 1e6 / wall:.4f}; {sum(e.count for e in kernels)} "
-          "kernel launches")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:n]
+    return busy, sum(e.count for e in kernels), top
+
+
+def profile_main_path(models, wall):
+    """Device time of a second, identical run under torch.profiler; the
+    idle share compares it with the unprofiled run's wall time. Only CUDA
+    activity is traced: the host-side operator records cost most of the
+    profiler's time over the run's ~356,000 launches and are not read."""
+    from torch.profiler import ProfilerActivity, profile
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        cascade(models)
+    busy, launches, top = _top_kernels(prof, 8)
+    if busy <= 0:
+        raise AssertionError("the profiled rerun traced no device time")
+    print(f"main path device time (profiled rerun, "
+          f"{time.perf_counter() - t0:.1f} s with the profiler): "
+          f"{busy:.4f} s busy over {wall:.3f} s of unprofiled wall, "
+          f"idle share {1 - busy / wall:.4f}; {launches} kernel launches")
+    for e in top:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  "
               f"{e.key[:90]}")
 
@@ -412,6 +627,8 @@ def main_path(dev):
                 for r in engine.records),
         "bvsb launches": counts["bvsb"] == n + len(engine.records),
         "flash_attention launches": counts["flash_attention"] == want_flash,
+        "no decode or scan launches":
+            counts["decode_attention"] == counts["rglru_scan"] == 0,
         "finite confidences": bool(np.isfinite(confs).all())
         and len(confs) == n + answered,
         "some samples kept local, some forwarded":
@@ -435,7 +652,7 @@ def main_path(dev):
     fn = classify_fn(heavy, 64)
     conf, pred = fn(heavy, torch.as_tensor(tokens, device=dev))
     with torch.inference_mode():
-        last = cpu(torch.as_tensor(tokens))[:, -1, :]
+        last = cpu(torch.as_tensor(tokens))[0][:, -1, :]
     cconf, cpred = ops.bvsb(last)
     top2 = torch.topk(last, 2, dim=-1).values
     clear = (top2[:, 0] - top2[:, 1]) > TOP2_GAP
@@ -448,6 +665,183 @@ def main_path(dev):
         raise AssertionError("tier-server-heavy on the card disagrees with "
                              "the CPU")
     return counts, engine
+
+
+# ---------------------------------------------------------------------------
+# phase 5: RecurrentGemma-9B prefill + decode
+# ---------------------------------------------------------------------------
+def rg_expected_launches(cfg, steps):
+    kinds = cfg.pattern
+    return {"bvsb": 1 + steps, "flash_attention": kinds.count("lattn"),
+            "rglru_scan": kinds.count("rglru"),
+            "decode_attention": kinds.count("lattn") * steps}
+
+
+def ring_keys(model, tokens, layer):
+    """The rotated keys (S, KV, hd) of ``layer`` (an lattn layer) for the
+    first prompt, recomputed at batch 1 from the layers below it."""
+    cfg = model.cfg
+    with torch.inference_mode():
+        x = common.embed_apply(model.embed.table, tokens[:1])
+        positions = torch.arange(tokens.shape[1], device=x.device)[None]
+        for below in model.layers[:layer]:
+            x, _ = below(x, positions, cfg)
+        lyr = model.layers[layer]
+        _, k, _ = attention._qkv(lyr.attn, lyr.norm1(x, cfg.norm_eps), cfg)
+        return common.apply_rope(k, positions, cfg.rope_theta)[0]
+
+
+def recurrentgemma_path(dev):
+    cfg = get_config(RG_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    weights_gb = sum(p.numel() * p.element_size()
+                     for p in model.parameters()) / 1e9
+    print(f"{RG_ARCH}: {cfg.num_layers} layers {cfg.pattern.count('rglru')} "
+          f"rglru / {cfg.pattern.count('lattn')} lattn, {n_params} "
+          f"parameters, {weights_gb:.3f} GB float32, drawn on the card in "
+          f"{init_s:.3f} s")
+
+    rng = np.random.default_rng(2)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (RG_B, RG_S)),
+                             device=dev)
+    prefill, serve = make_prefill_step(model), make_serve_step(model)
+    lattn = cfg.pattern.index("lattn")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    conf, top1, cache = prefill(tokens)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    ring = cache[lattn]["k"][0].clone()     # before decode overwrites it
+    confs, tops = [conf], [top1]
+    pos = torch.full((RG_B,), RG_S, device=dev)
+    t0 = time.perf_counter()
+    for i in range(RG_STEPS):
+        conf, top1, cache = serve(top1[:, None], cache, pos + i)
+        confs.append(conf)
+        tops.append(top1)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    want = rg_expected_launches(cfg, RG_STEPS)
+    confs, tops = torch.stack(confs), torch.stack(tops)
+    w = ring.shape[0]
+    keys = ring_keys(model, tokens, lattn)
+    kept = torch.arange(RG_S - w, RG_S, device=dev)
+    ring_err = max_err(ring[kept % w], keys[kept])
+    shifted_err = max_err(ring[(kept + 1) % w], keys[kept])
+    print(f"{RG_ARCH} prefill of {RG_B} x {RG_S} tokens: wall {prefill_s:.3f} "
+          "s on the card")
+    print(f"{RG_ARCH} decode of {RG_STEPS} steps at B={RG_B}: wall "
+          f"{decode_s:.3f} s on the card ({decode_s / RG_STEPS * 1e3:.2f} ms "
+          "per step)")
+    print(f"{RG_ARCH} path: peak device memory {peak_gb:.3f} GB; launches "
+          f"{counts} (expected {want}); conf range [{float(confs.min()):.3g},"
+          f" {float(confs.max()):.3g}]; ring of layer {lattn}: positions "
+          f"{RG_S - w}..{RG_S - 1} at slot pos % {w}, max|err| "
+          f"{ring_err:.3g} (atol {RING_ATOL:g}; one slot off: "
+          f"{shifted_err:.3g})")
+    checks = {
+        "launches": counts == want,
+        "finite confidences": bool(torch.isfinite(confs).all()),
+        "top-1 in the vocab": bool(((tops >= 0)
+                                    & (tops < cfg.vocab_size)).all()),
+        "shapes": confs.shape == tops.shape == (RG_STEPS + 1, RG_B),
+        "ring holds the last W positions at pos % W":
+            ring_err <= RING_ATOL < shifted_err,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"{RG_ARCH} path checks failed: {failed}")
+    del cache, keys, ring
+    profile_rg(prefill, serve, tokens, top1, prefill_s, decode_s)
+    rg_check_cpu(model, dev)
+    return counts, dict(init_s=init_s, prefill_s=prefill_s,
+                        decode_s=decode_s, peak_gb=peak_gb)
+
+
+def profile_rg(prefill, serve, tokens, top1, prefill_s, decode_s, steps=4):
+    """Device time by kernel of a second prefill and ``steps`` decode
+    steps under torch.profiler (CUDA activity only); busy time against the
+    unprofiled run's wall time gives the idle share."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, _, cache = prefill(tokens)
+        torch.cuda.synchronize()
+    busy, launches, top = _top_kernels(prof)
+    print(f"{RG_ARCH} prefill device time (profiled rerun): {busy:.4f} s busy"
+          f" over {prefill_s:.3f} s of unprofiled wall, idle share "
+          f"{1 - busy / prefill_s:.4f}; {launches} kernel launches")
+    for e in top:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  "
+              f"{e.key[:90]}")
+    pos = torch.full((RG_B,), RG_S, device=tokens.device)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(steps):
+            _, top1, cache = serve(top1[:, None], cache, pos + i)
+        torch.cuda.synchronize()
+    busy, launches, top = _top_kernels(prof)
+    wall = decode_s / RG_STEPS * steps
+    print(f"{RG_ARCH} decode device time (profiled rerun of {steps} steps): "
+          f"{busy:.4f} s busy over {wall:.3f} s of unprofiled wall, idle "
+          f"share {1 - busy / wall:.4f}; {launches} kernel launches")
+    for e in top:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  "
+              f"{e.key[:90]}")
+
+
+def rg_check_cpu(model, dev):
+    """One super-block of the same weights at full width, card against
+    CPU: prefill of (2, 300) and 4 decode steps, each fed the card's
+    top-1. BvSB within CLASSIFY_CONF_ATOL; top-1 equal wherever the CPU's
+    top-2 logit gap exceeds TOP2_GAP."""
+    cfg = model.cfg.with_(num_layers=RG_CHECK_LAYERS)
+    card = build_model(cfg, device=dev)
+    card.load_state_dict(model.state_dict(), strict=False)
+    cpu = build_model(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    table = cpu.head_table
+    rng = np.random.default_rng(3)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                          (RG_CHECK_B, RG_CHECK_S)))
+    t0 = time.perf_counter()
+    prefill, serve = make_prefill_step(card), make_serve_step(card)
+    conf, top1, cache = prefill(tokens.to(dev))
+    with torch.inference_mode():
+        hidden, ccache = cpu(tokens, collect_cache=True, return_hidden=True)
+    errs, same, clear_rows = [], True, 0
+    for i in range(RG_CHECK_STEPS + 1):
+        with torch.inference_mode():
+            cconf, ctop1 = head_bvsb(hidden[:, -1:], table, cfg.vocab_size)
+            top2 = torch.topk(hidden[:, -1] @ table.T, 2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > TOP2_GAP
+        errs.append(max_err(conf.cpu(), cconf))
+        same &= torch.equal(top1.cpu()[clear], ctop1[clear])
+        clear_rows += int(clear.sum())
+        if i == RG_CHECK_STEPS:
+            break
+        pos = torch.full((RG_CHECK_B,), RG_CHECK_S + i)
+        tok = top1.cpu()[:, None]
+        conf, top1, cache = serve(tok.to(dev), cache, pos.to(dev))
+        with torch.inference_mode():
+            hidden, ccache = cpu.decode_step(tok, ccache, pos,
+                                             return_hidden=True)
+    n = RG_CHECK_B * (RG_CHECK_STEPS + 1)
+    print(f"{RG_ARCH} {RG_CHECK_LAYERS} layers at full width, prefill "
+          f"{RG_CHECK_B} x {RG_CHECK_S} + {RG_CHECK_STEPS} decode steps, "
+          f"card vs CPU: max|conf err| {max(errs):.3g} (atol "
+          f"{CLASSIFY_CONF_ATOL:g}), top-1 equal on {clear_rows}/{n} rows "
+          f"with top-2 gap > {TOP2_GAP:g}: {same} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    if not (max(errs) <= CLASSIFY_CONF_ATOL and same):
+        raise AssertionError(f"{RG_ARCH} on the card disagrees with the CPU")
 
 
 def main() -> int:
@@ -476,6 +870,8 @@ def main() -> int:
     t1 = time.perf_counter()
     check_bvsb(dev)
     check_flash(dev)
+    check_decode(dev)
+    check_rglru(dev)
     timer = Timer(dev, bw, flops)
     for b in (1, 16, 64):
         timer.bvsb(b)
@@ -483,31 +879,52 @@ def main() -> int:
     for tier in ("tier-server-fast", "tier-server-heavy"):
         for b in (16, 64):
             timer.flash(tier, b)
+    rg_rows = {"bvsb": timer.bvsb_rows(RG_B, 256_000),
+               "flash_attention": timer.flash_rg(),
+               "decode_attention": timer.decode_rg(),
+               "rglru_scan": timer.rglru_rg()}
+    timer.bvsb_rows(64, 256_000)
+    timer.decode_rg(b=64)
+    torch.cuda.empty_cache()
 
     t2 = time.perf_counter()
     counts, engine = main_path(dev)
-    print(f"phase seconds: build {t1 - t0:.1f}, kernels {t2 - t1:.1f}, main "
-          f"path with its profiled rerun {time.perf_counter() - t2:.1f}")
+    t3 = time.perf_counter()
+    rg_counts, rg = recurrentgemma_path(dev)
+    print(f"phase seconds: build {t1 - t0:.1f}, kernels {t2 - t1:.1f}, "
+          f"cascade path with its profiled rerun {t3 - t2:.1f}, "
+          f"{RG_ARCH} path with its CPU check {time.perf_counter() - t3:.1f}")
 
-    # the kernels line times each kernel at the shape of the main path's
-    # most frequent server batch (the clients' B = 1 calls are launch-bound)
+    # the kernels line times each kernel at the RecurrentGemma path's shape;
+    # BvSB and flash also at the cascade's most frequent server batch (the
+    # clients' B = 1 calls are launch-bound)
     pairs = [(r["model"], r["bucket"]) for r in engine.records]
     tier, bucket = max(set(pairs), key=pairs.count)
+    cascade_rows = {"bvsb": timer.bvsb(bucket),
+                    "flash_attention": timer.flash(tier, bucket)}
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "call_ms", "shape")
     kernels = []
-    for name, row, source, replaces in (
-            ("bvsb", timer.bvsb(bucket),
-             "src/repro_torch/kernels/csrc/bvsb.cu",
-             "src/repro/kernels/bvsb.py:82"),
-            ("flash_attention", timer.flash(tier, bucket),
-             "src/repro_torch/kernels/csrc/flash_attention.cu",
-             "src/repro/kernels/flash_attention.py:81")):
-        kernels.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": counts[name],
-            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            "call_ms": row["call_ms"], "shape": row["shape"]})
+    for name, source, replaces in (
+            ("bvsb", "bvsb.cu", "src/repro/kernels/bvsb.py:82"),
+            ("flash_attention", "flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:81"),
+            ("decode_attention", "decode_attention.cu",
+             "src/repro/kernels/decode_attention.py:59"),
+            ("rglru_scan", "rglru_scan.cu",
+             "src/repro/kernels/rglru_scan.py:44")):
+        by_path = {"cascade": counts[name], RG_ARCH: rg_counts[name]}
+        entry = {"name": name, "route": "cuda",
+                 "source": f"src/repro_torch/kernels/csrc/{source}",
+                 "replaces": replaces, "launches": sum(by_path.values()),
+                 "launches_by_path": by_path, "path": RG_ARCH,
+                 **{k: rg_rows[name][k] for k in keys}}
+        if name in cascade_rows:
+            entry["cascade"] = {k: cascade_rows[name][k] for k in keys}
+        kernels.append(entry)
+    print(f"{RG_ARCH} path seconds: init {rg['init_s']:.3f}, prefill "
+          f"{rg['prefill_s']:.3f}, decode {rg['decode_s']:.3f}; peak "
+          f"{rg['peak_gb']:.3f} GB")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

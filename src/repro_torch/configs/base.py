@@ -78,5 +78,43 @@ class ArchConfig:
         reps = (self.num_layers + len(p) - 1) // len(p)
         return (p * reps)[: self.num_layers]
 
+    @property
+    def is_moe(self) -> bool:
+        return self.num_experts > 0
+
+    @property
+    def is_encoder_decoder(self) -> bool:
+        return self.encoder_layers > 0
+
     def with_(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
+
+    def reduced(self) -> "ArchConfig":
+        """The JAX package's CPU-smoke-size variant of the same family:
+        narrow widths, the family's layer pattern kept whole."""
+        kw = dict(
+            num_layers=2,
+            d_model=min(self.d_model, 256),
+            num_heads=4,
+            num_kv_heads=min(self.num_kv_heads, 4) if self.num_kv_heads > 1 else 1,
+            head_dim=64,
+            d_ff=min(self.d_ff, 512) if self.d_ff else 0,
+            vocab_size=min(self.vocab_size, 1024),
+        )
+        if self.is_moe:
+            kw.update(num_experts=4, num_experts_per_tok=2,
+                      num_shared_experts=min(self.num_shared_experts, 1),
+                      moe_d_ff=64, first_dense_layers=min(self.first_dense_layers, 1))
+        if self.layer_pattern is not None:
+            kw["num_layers"] = max(2, len(tuple(self.layer_pattern)))
+        if self.is_encoder_decoder:
+            kw["encoder_layers"] = 2
+            kw["audio_frames"] = min(self.audio_frames, 64) or 64
+        if self.family == "vlm":
+            kw["vision_tokens"] = 16
+            kw["mrope_sections"] = (8, 12, 12)
+        if self.sliding_window:
+            kw["sliding_window"] = 128
+        if self.family == "hybrid":
+            kw["local_attn_window"] = 128
+        return self.with_(**kw)

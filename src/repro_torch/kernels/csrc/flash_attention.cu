@@ -24,6 +24,22 @@
 // ragged sequence edge is masked in the kernel, so S need not be a
 // multiple of a tile. Products are plain FMAs: at S = 16 a tensor-core
 // tile would be mostly padding.
+//
+// Head dims up to 256 (RecurrentGemma's local attention): the tiles' row
+// length HD is a template parameter, 128 for hd <= 128 and 256 above, so
+// every shared-memory stride is a constant. At HD 128 the three tiles
+// (kBQ HD + kBK (HD + 1) + kBK HD floats, 40.5 KB) are static shared
+// memory, as before hd 256 was added; at HD 256 they take 81 KB, above
+// the 48 KB a block gets statically, so they are dynamic shared memory
+// and the launch raises the kernel's limit once per type. At
+// RecurrentGemma's prefill (S = 3000, window 2048) the tile skip drops the
+// key tiles left of each query tile's window as well as those above the
+// diagonal. There the kernel is bound by operations, not bytes: 4.05 M
+// (query, key) pairs per head times 4 hd FLOPs is 265 GFLOP at B = 4,
+// H = 16, about 4 ms at the FP32 rate; these FMAs read both operands from
+// shared memory, and 81 KB of tiles leave room for two blocks (eight
+// warps) an SM, too few to hide the latency, so they reach a fraction of
+// that rate (a tensor-core version is a later change).
 #include "common.cuh"
 
 namespace repro {
@@ -33,8 +49,7 @@ constexpr int kBQ = 16;      // query rows per block
 constexpr int kBK = 32;      // keys per tile = lanes per warp
 constexpr int kWarps = 4;
 constexpr int kRowsPerWarp = kBQ / kWarps;
-constexpr int kMaxHD = 128;
-constexpr int kDPerLane = kMaxHD / 32;
+constexpr int kMaxHD = 256;
 constexpr float kNegInf = -1e30f;
 
 struct Strides {
@@ -53,15 +68,37 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <typename T>
+// floats of the three tiles at row length HD
+template <int HD>
+__host__ __device__ constexpr int tile_floats() {
+  return kBQ * HD + kBK * (HD + 1) + kBK * HD;
+}
+
+template <int HD>
+__host__ __device__ constexpr bool tiles_static() {
+  return tile_floats<HD>() * 4 <= 48 * 1024;
+}
+
+// HD: the tiles' row length, hd <= HD
+template <typename T, int HD>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o, int S,
                        int group, int hd, Strides qs, Strides ks, Strides vs,
                        Strides os, int causal, int window, float scale) {
-  __shared__ float q_s[kBQ][kMaxHD];
-  __shared__ float k_s[kBK][kMaxHD + 1];
-  __shared__ float v_s[kBK][kMaxHD];
+  constexpr int kDPerLane = HD / 32;
+  constexpr int kld = HD + 1;  // padded: lanes read distinct banks
+  // q_s[kBQ][HD], k_s[kBK][HD + 1], v_s[kBK][HD], all f32
+  float* q_s;
+  if constexpr (tiles_static<HD>()) {
+    __shared__ float tiles[tile_floats<HD>()];
+    q_s = tiles;
+  } else {
+    extern __shared__ float tiles_dyn[];
+    q_s = tiles_dyn;
+  }
+  float* k_s = q_s + kBQ * HD;
+  float* v_s = k_s + kBK * kld;
 
   const int q_start = blockIdx.x * kBQ;
   const int h = blockIdx.y, b = blockIdx.z, kvh = h / group;
@@ -72,7 +109,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int e = tid; e < kBQ * hd; e += kWarps * 32) {
     const int r = e / hd, d = e % hd, s = q_start + r;
-    q_s[r][d] = s < S ? to_f32(qb[s * qs.s + d]) : 0.f;
+    q_s[r * HD + d] = s < S ? to_f32(qb[s * qs.s + d]) : 0.f;
   }
 
   float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][kDPerLane];
@@ -95,8 +132,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int e = tid; e < kBK * hd; e += kWarps * 32) {
       const int j = e / hd, d = e % hd, s = kt + j;
       const bool in = s < S;
-      k_s[j][d] = in ? to_f32(kb[s * ks.s + d]) : 0.f;
-      v_s[j][d] = in ? to_f32(vb[s * vs.s + d]) : 0.f;
+      k_s[j * kld + d] = in ? to_f32(kb[s * ks.s + d]) : 0.f;
+      v_s[j * HD + d] = in ? to_f32(vb[s * vs.s + d]) : 0.f;
     }
     __syncthreads();
 
@@ -106,7 +143,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (qi >= S) continue;  // warp-uniform
       const int kj = kt + lane;
       float sc = 0.f;
-      for (int d = 0; d < hd; ++d) sc = fmaf(q_s[r][d], k_s[lane][d], sc);
+      const float* qr = q_s + r * HD;
+      const float* kr = k_s + lane * kld;
+      for (int d = 0; d < hd; ++d) sc = fmaf(qr[d], kr[d], sc);
       sc *= scale;
       const bool ok = kj < S && (!causal || kj <= qi) &&
                       (window <= 0 || qi - kj < window);
@@ -123,7 +162,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int u = 0; u < kDPerLane; ++u) {
           const int d = lane + 32 * u;
-          if (d < hd) acc[t][u] = fmaf(pj, v_s[j][d], acc[t][u]);
+          if (d < hd) acc[t][u] = fmaf(pj, v_s[j * HD + d], acc[t][u]);
         }
       }
       m[t] = m_new;
@@ -144,24 +183,48 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int S, int H, int KV, int hd, Strides qs,
-                   Strides ks, Strides vs, Strides os, int causal,
-                   int window, float scale, cudaStream_t stream) {
+template <typename T, int HD>
+cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o,
+                      int B, int S, int H, int KV, int hd, Strides qs,
+                      Strides ks, Strides vs, Strides os, int causal,
+                      int window, float scale, cudaStream_t stream) {
+  size_t smem = 0;
+  if constexpr (!tiles_static<HD>()) {
+    smem = sizeof(float) * tile_floats<HD>();
+    static bool raised = false;  // the dynamic limit, once per type
+    if (!raised) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          flash_attention_kernel<T, HD>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      if (err != cudaSuccess) return err;
+      raised = true;
+    }
+  }
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  flash_attention_kernel<T><<<grid, kWarps * 32, 0, stream>>>(
+  flash_attention_kernel<T, HD><<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), S, H / KV, hd, qs, ks,
       vs, os, causal, window, scale);
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   int B, int S, int H, int KV, int hd, Strides qs,
+                   Strides ks, Strides vs, Strides os, int causal,
+                   int window, float scale, cudaStream_t stream) {
+  if (hd <= 128)
+    return launch_hd<T, 128>(q, k, v, o, B, S, H, KV, hd, qs, ks, vs, os,
+                             causal, window, scale, stream);
+  return launch_hd<T, 256>(q, k, v, o, B, S, H, KV, hd, qs, ks, vs, os,
+                           causal, window, scale, stream);
+}
+
 }  // namespace
 }  // namespace repro
 
 // q/o: (B, S, H, hd), k/v: (B, S, KV, hd), each with a contiguous head dim
-// and the given (batch, seq, head) element strides; hd <= 128, H % KV == 0.
+// and the given (batch, seq, head) element strides; hd <= 256, H % KV == 0.
 // window <= 0 means no window. Returns the launch's cudaError_t.
 extern "C" int repro_flash_attention(
     const void* q, const void* k, const void* v, void* o, int dtype, int B,

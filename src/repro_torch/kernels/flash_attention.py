@@ -16,7 +16,7 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-MAX_HEAD_DIM = 128  # csrc/flash_attention.cu kMaxHD
+MAX_HEAD_DIM = 256  # csrc/flash_attention.cu kMaxHD
 
 # kernel launches since the last ops.reset_launch_counts()
 launches = 0

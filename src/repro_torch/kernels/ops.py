@@ -1,8 +1,9 @@
 """Kernel dispatch layer: the single entry point into the port's kernels.
 
-Every hot-path consumer (``serving/executables.py`` through the decision
-metrics, ``models/attention.py``) calls the functions here. Dispatch
-follows the tensor's device, never a mode switch:
+Every hot-path consumer (``serving/executables.py`` and
+``launch/distributed.py`` through BvSB, ``models/attention.py``,
+``models/recurrent.py``) calls the functions here. Dispatch follows the
+tensor's device, never a mode switch:
 
 * a CPU tensor runs the kernel's plain PyTorch version;
 * a CUDA tensor launches the hand-written CUDA kernel, or raises.
@@ -18,12 +19,17 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels import bvsb as _bvsb
+from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import rglru_scan as _rglru
 
 bvsb = _bvsb.bvsb
 flash_attention = _flash.flash_attention
+decode_attention = _decode.decode_attention
+rglru_scan = _rglru.rglru_scan
 
-_KERNELS = {"bvsb": _bvsb, "flash_attention": _flash}
+_KERNELS = {"bvsb": _bvsb, "flash_attention": _flash,
+            "decode_attention": _decode, "rglru_scan": _rglru}
 
 
 def launch_counts() -> Dict[str, int]:

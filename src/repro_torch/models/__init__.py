@@ -1,1 +1,1 @@
-"""The dense tier decoder as PyTorch modules."""
+"""The decoder (the dense tiers, RecurrentGemma) as PyTorch modules."""

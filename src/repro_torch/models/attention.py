@@ -1,13 +1,18 @@
-"""Causal GQA self-attention for the dense decoder.
+"""Causal GQA self-attention and cached single-token decode.
 
-Every self-attention goes through ``kernels.ops.flash_attention``: the
-hand-written CUDA kernel on the card, its plain version on the CPU. The
-JAX package reaches the same function through XLA's dense path
-(``repro.models.attention.attention_core``) at the tiers' lengths; the
-tests hold this port to both.
+Every full-sequence self-attention goes through
+``kernels.ops.flash_attention`` and every decode step through
+``kernels.ops.decode_attention``: the hand-written CUDA kernels on the
+card, their plain versions on the CPU. The JAX package reaches the same
+functions through XLA (``repro.models.attention.attention_core`` and the
+dense softmax of ``attn_decode``); the tests hold this port to both.
+
+Decode keeps a ring-buffer KV cache of W = min(cache_len, window) slots
+per request: the key of absolute position p lives in slot p % W.
 """
 from __future__ import annotations
 
+import torch
 from torch import nn
 
 from repro_torch.kernels import ops
@@ -53,11 +58,75 @@ def attention_core(q, k, v, *, causal=True, window=None, soft_cap=None):
 
 
 def self_attention(p: Attention, x, positions, cfg, *, window=None):
-    """x: (B, S, d); positions: (B, S) int. Returns (B, S, d)."""
+    """x: (B, S, d); positions: (B, S) int. Returns (out (B, S, d), (k, v)),
+    k already rotated, for the cache."""
     q, k, v = _qkv(p, x, cfg)
     q = common.apply_rope(q, positions, cfg.rope_theta)
     k = common.apply_rope(k, positions, cfg.rope_theta)
     out = attention_core(q, k, v, causal=True, window=window,
                          soft_cap=cfg.logit_soft_cap)
     b, s, _, _ = out.shape
-    return out.reshape(b, s, -1) @ p.wo
+    return out.reshape(b, s, -1) @ p.wo, (k, v)
+
+
+# ---------------------------------------------------------------------------
+# cached decode
+# ---------------------------------------------------------------------------
+def init_kv_cache(batch, cache_len, cfg, dtype, device=None):
+    kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    shape = (batch, cache_len, kv, hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def fill_kv_cache(cache, k, v):
+    """Write prefill K/V (B, S, KV, hd) into a ring of W slots, in place.
+
+    S <= W: positions 0..S-1 go to slots 0..S-1. S > W: only the last W
+    positions are kept, position p in slot p % W (the JAX package slices
+    them and rolls by (S - W) % W, which is the same placement)."""
+    w, s = cache["k"].shape[1], k.shape[1]
+    if s > w:
+        roll = (s - w) % w
+        k = torch.roll(k[:, s - w:], roll, dims=1)
+        v = torch.roll(v[:, s - w:], roll, dims=1)
+    cache["k"][:, :k.shape[1]] = k.to(cache["k"].dtype)
+    cache["v"][:, :v.shape[1]] = v.to(cache["v"].dtype)
+    return cache
+
+
+def ring_lengths(pos, w):
+    """Valid slots of a ring of W slots whose newest token sits at
+    absolute position ``pos`` (B,): min(pos + 1, W).
+
+    The JAX package's ``attn_decode`` masks slot j by its absolute
+    position abs_j = pos - ((pos % W - j) mod W): valid iff abs_j >= 0
+    (and pos - abs_j < window, which always holds, since W <= window).
+    For pos >= W - 1 every (slot - j) mod W <= W - 1 <= pos: all W slots
+    are valid. For pos < W the slot is pos itself, so j <= pos gives
+    abs_j = j >= 0 and j > pos gives abs_j = j - W < 0: exactly the slots
+    j < pos + 1. Both cases are slots [0, min(pos + 1, W)), the length
+    operand of ``ops.decode_attention``."""
+    return torch.clamp(pos + 1, max=w)
+
+
+def attn_decode(p: Attention, x1, cache, pos, cfg):
+    """One token per request. x1: (B, 1, d); cache: ring (B, W, KV, hd),
+    updated in place (slot pos % W); pos: (B,) absolute position of the
+    new token. Returns (out (B, 1, d), cache)."""
+    if cfg.logit_soft_cap is not None:
+        raise NotImplementedError(
+            "soft-capped attention has no kernel in repro_torch yet "
+            "(ROADMAP.md Queue A, the rest of the model zoo)")
+    b = x1.shape[0]
+    w = cache["k"].shape[1]
+    q, k_new, v_new = _qkv(p, x1, cfg)
+    q = common.apply_rope(q, pos[:, None], cfg.rope_theta)
+    k_new = common.apply_rope(k_new, pos[:, None], cfg.rope_theta)
+    slot = pos % w
+    rows = torch.arange(b, device=pos.device)
+    cache["k"][rows, slot] = k_new[:, 0].to(cache["k"].dtype)
+    cache["v"][rows, slot] = v_new[:, 0].to(cache["v"].dtype)
+    out = ops.decode_attention(q[:, 0], cache["k"], cache["v"],
+                               ring_lengths(pos, w))
+    return out.reshape(b, 1, -1) @ p.wo, cache

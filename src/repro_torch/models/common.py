@@ -54,13 +54,21 @@ def trunc_normal_(t: torch.Tensor, scale: float,
     """Fill ``t`` with a normal truncated to [-2, 2], times ``scale``.
 
     The distribution of the JAX package's ``dense_init``, not its bits.
-    Drawn on the CPU from ``generator`` and copied, so a seed gives the
-    same weights on every device.
+    Drawn on the generator's device: in place when that is ``t``'s
+    device, else drawn there and copied (a CPU generator gives the same
+    weights on every device).
     """
-    cpu = torch.empty(t.shape, dtype=torch.float32)
-    torch.nn.init.trunc_normal_(cpu, 0.0, 1.0, -2.0, 2.0, generator=generator)
     with torch.no_grad():
-        t.copy_(cpu * scale)
+        if torch.device(generator.device) == t.device \
+                and t.dtype == torch.float32:
+            torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0,
+                                        generator=generator)
+            return t.mul_(scale)
+        draw = torch.empty(t.shape, dtype=torch.float32,
+                           device=generator.device)
+        torch.nn.init.trunc_normal_(draw, 0.0, 1.0, -2.0, 2.0,
+                                    generator=generator)
+        t.copy_(draw * scale)
     return t
 
 

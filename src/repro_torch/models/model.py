@@ -1,9 +1,11 @@
-"""Model API: build the dense decoder on a device, initialise it from a
+"""Model API: build the decoder on a device, initialise it from a
 ``torch.Generator``, or carry the JAX package's weights across.
 
     model = init_params(cfg, torch.Generator().manual_seed(0))   # on the card
     model = params_from_jax(jax.tree.map(np.asarray, params), cfg, device="cpu")
-    logits = model(tokens)                                       # (B, S, V_pad)
+    logits, _ = model(tokens)                                    # (B, S, V_pad)
+    hidden, cache = model(tokens, collect_cache=True, return_hidden=True)
+    logits, cache = model.decode_step(tokens1, cache, pos)
 
 Every entry point defaults to ``device="cuda"`` and raises when no card
 is present: nothing moves quietly to the CPU.
@@ -15,8 +17,8 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from repro_torch.models import common
-from repro_torch.models.transformer import Model
+from repro_torch.models import common, recurrent
+from repro_torch.models.transformer import KINDS, Model
 
 __all__ = ["Model", "build_model", "init_params", "params_from_jax"]
 
@@ -31,28 +33,41 @@ def resolve_device(device) -> torch.device:
 
 
 def build_model(cfg, *, device="cuda", dtype=torch.float32) -> Model:
-    """The dense decoder for ``cfg`` on ``device``, parameters allocated
-    but not yet filled (``init_params`` or ``params_from_jax`` fill them)."""
-    if cfg.family != "dense" or cfg.encoder_layers or cfg.num_experts \
-            or cfg.mrope_sections or set(cfg.pattern) != {"attn"}:
+    """The decoder for ``cfg`` on ``device``, parameters allocated but not
+    yet filled (``init_params`` or ``params_from_jax`` fill them). Dense
+    and hybrid decoders of ``attn``, ``lattn`` and ``rglru`` layers are
+    ported; MoE, xLSTM, VLM and encoder-decoder configs raise."""
+    if cfg.family not in ("dense", "hybrid") or cfg.encoder_layers \
+            or cfg.num_experts or cfg.mrope_sections \
+            or not set(cfg.pattern) <= set(KINDS):
         raise NotImplementedError(
-            f"{cfg.name}: only dense all-attention decoders are ported to "
-            "repro_torch (ROADMAP.md Queue A, the rest of the model zoo)")
+            f"{cfg.name}: only decoders of {'/'.join(KINDS)} layers are "
+            "ported to repro_torch (ROADMAP.md Queue A, the rest of the "
+            "model zoo)")
     return Model(cfg, device=resolve_device(device), dtype=dtype)
 
 
 def init_params(cfg, generator: torch.Generator, device="cuda",
                 dtype=torch.float32) -> Model:
     """A model with weights drawn as the JAX package draws them: norm
-    scales 1, every other weight truncated normal in [-2, 2] times
-    ``cfg.init_scale``."""
+    scales 1; the RG-LRU's ``lam`` 0.65 and its biases 0; every other
+    weight truncated normal in [-2, 2] times ``cfg.init_scale``.
+
+    The draws run on the generator's device: a CUDA generator fills a
+    model on the card in place (seconds for RecurrentGemma-9B's 8.6 B
+    weights), a CPU generator draws on the host and copies."""
     model = build_model(cfg, device=device, dtype=dtype)
     for name, p in model.named_parameters():
-        if name.endswith("scale"):
-            with torch.no_grad():
+        leaf = name.rsplit(".", 1)[-1]
+        with torch.no_grad():
+            if leaf == "scale":
                 p.fill_(1.0)
-        else:
-            common.trunc_normal_(p, cfg.init_scale, generator)
+            elif leaf == "lam":
+                p.fill_(recurrent.LAM_INIT)
+            elif leaf in recurrent.ZERO_INIT:
+                p.zero_()
+            else:
+                common.trunc_normal_(p, cfg.init_scale, generator)
     return model
 
 

@@ -48,7 +48,7 @@ def classify_fn(model, bucket: int, metric: str = "bvsb") -> Callable:
 
         def fn(model, tokens):
             with torch.inference_mode():
-                logits = model(tokens)
+                logits, _ = model(tokens)
                 return metric_fn(logits[:, -1, :])
 
         _CACHE[key] = fn

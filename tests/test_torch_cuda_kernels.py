@@ -13,7 +13,11 @@ from repro_torch.configs import get_config
 from repro_torch.configs.cascade_tiers import BATCH_LADDER
 from repro_torch.kernels import ops
 from repro_torch.kernels.bvsb import bvsb_plain
+from repro_torch.kernels.decode_attention import decode_attention_plain
 from repro_torch.kernels.flash_attention import flash_attention_plain
+from repro_torch.kernels.rglru_scan import rglru_scan_plain
+from repro_torch.launch.distributed import make_prefill_step, make_serve_step
+from repro_torch.models.model import init_params
 
 pytestmark = pytest.mark.cuda
 
@@ -22,6 +26,7 @@ torch.set_num_threads(2)
 F32_CONF_ATOL = 1e-5   # float32 sums taken in another order
 BF16_CONF_ATOL = 2e-3  # the repo's kernel gate (NUMERIC_ATOL)
 FLASH_ATOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+DECODE_ATOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
 @pytest.fixture
@@ -92,7 +97,10 @@ def test_bvsb_kernel_pos_inf_is_nan(dev):
 
 FLASH_CASES = [(1, 16, 4, 4, 32, None), (64, 16, 8, 8, 48, None),
                (64, 16, 8, 8, 64, None), (2, 200, 8, 2, 128, None),
-               (2, 200, 8, 2, 64, 40), (3, 37, 4, 1, 48, 7)]
+               (2, 200, 8, 2, 64, 40), (3, 37, 4, 1, 48, 7),
+               # RecurrentGemma's local attention: 16 heads over 1 of 256
+               (1, 300, 16, 1, 256, 128), (2, 77, 8, 2, 256, None),
+               (1, 1000, 16, 1, 256, 512)]
 
 
 # every attention shape of the live cascade: tier-low at the clients'
@@ -131,10 +139,108 @@ def test_flash_kernel_non_causal_and_strided(dev):
     torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
 
 
+# (B, W, KV, G, hd, lengths): RecurrentGemma's decode (W 2048, one KV head
+# of 256 for 16 query heads) and a small GQA ring
+DECODE_CASES = [
+    (1, 2048, 1, 16, 256, [1]), (1, 2048, 1, 16, 256, [2048]),
+    (4, 2048, 1, 16, 256, [1, 777, 2048, 1500]),
+    (64, 2048, 1, 16, 256, None),
+    (3, 100, 2, 4, 64, [1, 100, 37]), (2, 100, 2, 4, 128, [99, 64]),
+]
+
+
+@pytest.mark.parametrize("b,w,kvh,g,hd,lengths", DECODE_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_matches_plain(dev, b, w, kvh, g, hd, lengths, dtype):
+    gen = torch.Generator(device=dev).manual_seed(b * w + hd)
+    q = torch.randn(b, kvh * g, hd, generator=gen, device=dev).to(dtype)
+    k = torch.randn(b, w, kvh, hd, generator=gen, device=dev).to(dtype)
+    v = torch.randn(b, w, kvh, hd, generator=gen, device=dev).to(dtype)
+    lens = torch.tensor(lengths, device=dev) if lengths else \
+        torch.randint(1, w + 1, (b,), generator=gen, device=dev)
+    ops.reset_launch_counts()
+    out = ops.decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["decode_attention"] == 1
+    assert out.dtype == dtype and out.shape == q.shape
+    ref = decode_attention_plain(q, k, v, lens)
+    torch.testing.assert_close(out.float(), ref.float(),
+                               atol=DECODE_ATOL[dtype], rtol=0)
+
+
+def test_decode_kernel_strided_query_and_masked_slots(dev):
+    qkv = torch.randn(2, 3, 8, 64, device=dev)
+    q = qkv[:, 0]                                   # (B, H, hd), strided
+    k = torch.randn(2, 128, 2, 64, device=dev)
+    v = torch.randn(2, 128, 2, 64, device=dev)
+    lens = torch.tensor([5, 128], device=dev)
+    out = ops.decode_attention(q, k, v, lens)
+    k[0, 5:] = float("nan")                         # never read
+    v[0, 5:] = float("nan")
+    out2 = ops.decode_attention(q, k, v, lens)
+    assert torch.equal(out, out2)
+    torch.testing.assert_close(
+        out[1], decode_attention_plain(q, k, v, lens)[1], atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("b,s,d", [(1, 1, 256), (3, 129, 300), (2, 3000, 512)])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_rglru_kernel_matches_plain(dev, b, s, d, with_h0):
+    """Both round the product and the sum apart: equal bit for bit."""
+    gen = torch.Generator(device=dev).manual_seed(s * d)
+    a = torch.rand(b, s, d, generator=gen, device=dev) * 0.5 + 0.499
+    u = torch.randn(b, s, d, generator=gen, device=dev)
+    h0 = torch.randn(b, d, generator=gen, device=dev) if with_h0 else None
+    ops.reset_launch_counts()
+    h = ops.rglru_scan(a, u, h0)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["rglru_scan"] == 1
+    assert h.dtype == torch.float32 and h.shape == a.shape
+    assert torch.equal(h, rglru_scan_plain(a, u, h0))
+    hb = ops.rglru_scan(a.bfloat16(), u.bfloat16(), h0)
+    assert torch.equal(hb, rglru_scan_plain(a.bfloat16(), u.bfloat16(), h0))
+
+
+def test_reduced_recurrentgemma_steps_on_the_card_match_the_cpu(dev):
+    """Prefill past the window and 4 decode steps: card kernels against
+    the CPU's plain versions on the same weights."""
+    cfg = get_config("recurrentgemma-9b").reduced()
+    cpu = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card = init_params(cfg, torch.Generator().manual_seed(0), device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 150),
+                           generator=torch.Generator().manual_seed(1))
+    runs = []
+    for model in (card, cpu):
+        ops.reset_launch_counts()
+        conf, top1, cache = make_prefill_step(model)(tokens.to(model.device))
+        serve, confs = make_serve_step(model), [conf.cpu()]
+        for i in range(4):
+            pos = torch.full((2,), 150 + i, device=model.device)
+            conf, top1, cache = serve(top1[:, None], cache, pos)
+            confs.append(conf.cpu())
+        runs.append((torch.stack(confs), ops.launch_counts()))
+    torch.testing.assert_close(runs[0][0], runs[1][0], atol=1e-5, rtol=0)
+    assert runs[0][1] == {"bvsb": 5, "flash_attention": 1,
+                          "decode_attention": 4, "rglru_scan": 2}
+    assert runs[1][1] == dict.fromkeys(runs[1][1], 0)
+
+
 def test_kernels_refuse_what_they_do_not_take(dev):
-    q = torch.randn(1, 8, 2, 256, device=dev)
+    q = torch.randn(1, 8, 2, 512, device=dev)
     with pytest.raises(ValueError, match="head dim"):
         ops.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.decode_attention(q[:, 0], q, q, torch.ones(1, device=dev).int())
+    with pytest.raises(ValueError, match="KV heads"):
+        qd = torch.randn(1, 32, 64, device=dev)
+        kd = torch.randn(1, 16, 1, 64, device=dev)
+        ops.decode_attention(qd, kd, kd, torch.ones(1, device=dev).int())
+    with pytest.raises(ValueError, match="h0"):
+        a = torch.rand(2, 4, 8, device=dev)
+        ops.rglru_scan(a, a, torch.zeros(2, 8, device=dev).double())
+    with pytest.raises(ValueError, match="channel"):
+        a = torch.rand(2, 8, 4, device=dev).transpose(1, 2)
+        ops.rglru_scan(a, a)
     q = torch.randn(1, 8, 2, 32, device=dev)
     with pytest.raises(TypeError):
         ops.flash_attention(q, q.half(), q)

@@ -27,6 +27,10 @@ def _modules():
 def test_every_module_imports_without_jax_or_repro():
     mods = _modules()
     assert "repro_torch.kernels.ops" in mods and len(mods) > 20
+    assert {"repro_torch.kernels.decode_attention",
+            "repro_torch.kernels.rglru_scan", "repro_torch.models.recurrent",
+            "repro_torch.launch.distributed",
+            "repro_torch.configs.recurrentgemma_9b"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -68,3 +72,6 @@ def test_entry_points_default_to_the_card():
         init_params(cfg, torch.Generator().manual_seed(0))
     with pytest.raises(RuntimeError, match="CUDA"):
         params_from_jax({}, cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_params(get_config("recurrentgemma-9b").reduced(),
+                    torch.Generator().manual_seed(0))

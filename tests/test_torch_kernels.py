@@ -17,7 +17,9 @@ from repro.kernels import ref as jref
 from repro.models import attention as jattn
 from repro_torch.kernels import ops
 from repro_torch.kernels.bvsb import bvsb_plain
+from repro_torch.kernels.decode_attention import decode_attention_plain
 from repro_torch.kernels.flash_attention import flash_attention_plain
+from repro_torch.kernels.rglru_scan import rglru_scan_plain
 
 torch.set_num_threads(2)
 
@@ -127,6 +129,23 @@ def test_flash_attention_plain_matches_jax(hd, g, s, window):
     np.testing.assert_allclose(out, np.asarray(core), atol=FLASH_ATOL)
 
 
+@pytest.mark.parametrize("s,window", [(40, 16), (77, None), (130, 128)])
+def test_flash_attention_plain_matches_jax_at_head_dim_256(s, window):
+    """RecurrentGemma's local attention: 16 query heads over 1 KV head of
+    256, a window shorter than the sequence."""
+    rng = np.random.default_rng(s)
+    q = rng.standard_normal((2, s, 16, 256)).astype(np.float32)
+    k = rng.standard_normal((2, s, 1, 256)).astype(np.float32)
+    v = rng.standard_normal((2, s, 1, 256)).astype(np.float32)
+    out = flash_attention_plain(*map(torch.from_numpy, (q, k, v)),
+                                causal=True, window=window).numpy()
+    ref = jref.flash_attention_ref(q, k, v, causal=True, window=window)
+    core = jattn.attention_core(jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(v), causal=True, window=window)
+    np.testing.assert_allclose(out, np.asarray(ref), atol=FLASH_ATOL)
+    np.testing.assert_allclose(out, np.asarray(core), atol=FLASH_ATOL)
+
+
 def test_flash_attention_plain_non_causal_and_bf16():
     rng = np.random.default_rng(11)
     q = rng.standard_normal((1, 16, 4, 32)).astype(np.float32)
@@ -150,7 +169,14 @@ def test_cpu_tensors_take_the_plain_versions_without_launching():
     q = torch.from_numpy(rng.standard_normal((1, 16, 4, 32)).astype(np.float32))
     assert torch.equal(ops.flash_attention(q, q, q),
                        flash_attention_plain(q, q, q))
-    assert ops.launch_counts() == {"bvsb": 0, "flash_attention": 0}
+    lengths = torch.tensor([16])
+    assert torch.equal(ops.decode_attention(q[:, 0], q, q, lengths),
+                       decode_attention_plain(q[:, 0], q, q, lengths))
+    a = torch.rand(2, 5, 8)
+    assert torch.equal(ops.rglru_scan(a, x[:2, :40].reshape(2, 5, 8)),
+                       rglru_scan_plain(a, x[:2, :40].reshape(2, 5, 8)))
+    assert ops.launch_counts() == {"bvsb": 0, "flash_attention": 0,
+                                   "decode_attention": 0, "rglru_scan": 0}
 
 
 def test_other_devices_raise_instead_of_falling_back():
@@ -160,6 +186,10 @@ def test_other_devices_raise_instead_of_falling_back():
     q = torch.zeros(1, 4, 2, 8, device="meta")
     with pytest.raises(ValueError):
         ops.flash_attention(q, q, q)
+    with pytest.raises(ValueError):
+        ops.decode_attention(q[:, 0], q, q, torch.ones(1, device="meta"))
+    with pytest.raises(ValueError):
+        ops.rglru_scan(q[0], q[0])
 
 
 def test_cache_token_separates_devices():

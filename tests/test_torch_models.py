@@ -56,7 +56,7 @@ def test_forward_matches_jax(pairs, name, batch):
         0, tcfg.vocab_size, (batch, 16)).astype(np.int32)
     jlogits = np.asarray(fwd(tree, tokens))
     with torch.inference_mode():
-        logits = model(torch.from_numpy(tokens)).numpy()
+        logits = model(torch.from_numpy(tokens))[0].numpy()
     assert logits.shape == jlogits.shape == \
         (batch, 16, padded_vocab(tcfg.vocab_size))
     np.testing.assert_allclose(logits, jlogits, **LOGIT_TOL)
@@ -74,7 +74,7 @@ def test_padded_vocab_columns_masked(pairs):
     _, tree, tcfg = pairs["tier-low-v1000"]
     model = params_from_jax(tree, tcfg, device="cpu")
     with torch.inference_mode():
-        logits = model(torch.zeros(2, 16, dtype=torch.int32))
+        logits, _ = model(torch.zeros(2, 16, dtype=torch.int32))
     assert logits.shape[-1] == 1024
     assert (logits[..., 1000:] == torch.finfo(torch.float32).min).all()
     assert torch.isfinite(logits[..., :1000]).all()
@@ -127,7 +127,7 @@ def test_unported_families_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(cfg.with_(family="moe", num_experts=4), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(cfg.with_(layer_pattern=("attn", "rglru")), device="cpu")
+        build_model(cfg.with_(layer_pattern=("attn", "mlstm")), device="cpu")
     with pytest.raises(KeyError, match="ROADMAP"):
         get_config("qwen3-32b")
     with pytest.raises(KeyError):

@@ -1,0 +1,308 @@
+"""The port's RG-LRU scan, RG-LRU block and RecurrentGemma decoder held to
+the JAX package on the CPU.
+
+The same numpy inputs and the JAX package's own weights (carried across by
+``params_from_jax``) go through both sides. Tolerances:
+
+* scan: 1e-6 relative to max|h| against the sequential forms (the same
+  float32 recurrence; XLA may fuse a * h + u into one rounding), 1e-5
+  against the associative scan (products taken in another order);
+* block pieces and the reduced model's logits: 1e-4 (float32 matmuls
+  and sums in another order);
+* decode past the window: 5e-3, the tolerance of the JAX package's own
+  prefill/decode test (tests/test_models.py).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jget_config
+from repro.kernels import ref as jref
+from repro.kernels.rglru_scan import rglru_scan as jrglru_scan
+from repro.models import recurrent as jrec
+from repro.models.common import KeyGen
+from repro.models.model import build_model as jbuild_model
+from repro_torch.configs import get_config
+from repro_torch.kernels import ops
+from repro_torch.kernels.rglru_scan import rglru_scan_plain
+from repro_torch.models import recurrent
+from repro_torch.models.model import init_params, params_from_jax
+
+torch.set_num_threads(2)
+
+SCAN_RTOL_SEQ = 1e-6
+SCAN_RTOL_ASSOC = 1e-5
+TOL = dict(atol=1e-4, rtol=1e-4)
+DECODE_ATOL = 5e-3
+
+
+def _au(b, s, d, seed, with_h0):
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(0.5, 0.999, (b, s, d)).astype(np.float32)
+    u = rng.standard_normal((b, s, d)).astype(np.float32)
+    h0 = rng.standard_normal((b, d)).astype(np.float32) if with_h0 else None
+    return a, u, h0
+
+
+def _plain(a, u, h0):
+    return rglru_scan_plain(torch.from_numpy(a), torch.from_numpy(u),
+                            None if h0 is None else torch.from_numpy(h0)).numpy()
+
+
+def _close(h, ref, rtol):
+    ref = np.asarray(ref)
+    assert h.shape == ref.shape and h.dtype == np.float32
+    np.testing.assert_allclose(h, ref, atol=rtol * np.abs(ref).max(), rtol=0)
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("b,s,d", [(2, 256, 256), (1, 128, 512)])
+def test_rglru_scan_plain_matches_jax_kernel(b, s, d, with_h0):
+    """S a multiple of the Pallas kernel's 128-step tile (its assert)."""
+    a, u, h0 = _au(b, s, d, s + d, with_h0)
+    h = _plain(a, u, h0)
+    kern = jrglru_scan(jnp.asarray(a), jnp.asarray(u),
+                       None if h0 is None else jnp.asarray(h0),
+                       interpret=True)
+    _close(h, kern, SCAN_RTOL_SEQ)
+    _close(h, jref.rglru_scan_ref(a, u, h0), SCAN_RTOL_SEQ)
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("b,s,d", [(3, 129, 300), (1, 1, 256), (2, 77, 64)])
+def test_rglru_scan_plain_matches_refs_at_ragged_lengths(b, s, d, with_h0):
+    a, u, h0 = _au(b, s, d, 7 * s + d, with_h0)
+    h = _plain(a, u, h0)
+    _close(h, jref.rglru_scan_ref(a, u, h0), SCAN_RTOL_SEQ)
+    assoc = jrec.rglru_scan_ref(jnp.asarray(a), jnp.asarray(u),
+                                None if h0 is None else jnp.asarray(h0))
+    _close(h, assoc, SCAN_RTOL_ASSOC)
+
+
+def test_rglru_scan_cpu_takes_the_plain_loop():
+    a, u, h0 = _au(2, 9, 16, 0, True)
+    ops.reset_launch_counts()
+    h = ops.rglru_scan(torch.from_numpy(a), torch.from_numpy(u),
+                       torch.from_numpy(h0))
+    assert torch.equal(h, torch.from_numpy(_plain(a, u, h0)))
+    assert ops.launch_counts()["rglru_scan"] == 0
+    # bf16 inputs still give a float32 state
+    hb = ops.rglru_scan(torch.from_numpy(a).bfloat16(),
+                        torch.from_numpy(u).bfloat16())
+    assert hb.dtype == torch.float32
+
+
+# ---------------------------------------------------------------------------
+# the RG-LRU block
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module", params=[256, 72], ids=["d256", "d72"])
+def block(request):
+    """(jax params, port RGLRU, cfg); d = 72 has no 16 gate blocks."""
+    d = request.param
+    cfg = get_config("recurrentgemma-9b").reduced().with_(d_model=d)
+    jp = jrec.rglru_init(KeyGen(jax.random.key(d)), cfg, jnp.float32)
+    # non-zero biases and conv bias, so the test sees them
+    rng = np.random.default_rng(d)
+    jp = {k: np.array(v) for k, v in jp.items()}
+    for k in recurrent.ZERO_INIT:
+        jp[k] = (rng.standard_normal(d) * 0.1).astype(np.float32)
+    jp["w_a"] = jp["w_a"] * 20     # gates away from 0.5
+    p = recurrent.RGLRU(cfg, device="cpu", dtype=torch.float32)
+    with torch.no_grad():
+        for name, t in p.named_parameters():
+            t.copy_(torch.from_numpy(jp[name]))
+    return jp, p, cfg
+
+
+def test_rglru_params_match_jax_names_and_shapes(block):
+    jp, p, cfg = block
+    assert {n: tuple(t.shape) for n, t in p.named_parameters()} == \
+        {k: v.shape for k, v in jp.items()}
+    nb = 16 if cfg.d_model % 16 == 0 else 1
+    assert p.w_a.shape[0] == nb and p.lam.dtype == torch.float32
+
+
+def test_rglru_block_pieces_match_jax(block):
+    jp, p, cfg = block
+    d = cfg.d_model
+    rng = np.random.default_rng(1)
+    xr = rng.standard_normal((2, 11, d)).astype(np.float32)
+    tail = rng.standard_normal((2, 3, d)).astype(np.float32)
+    txr, ttail = torch.from_numpy(xr), torch.from_numpy(tail)
+    np.testing.assert_allclose(
+        recurrent._block_proj(txr, p.w_a).numpy(),
+        np.asarray(jrec._block_proj(xr, jp["w_a"])), **TOL)
+    for tl, jtl in ((None, None), (ttail, tail)):
+        out, new_tail = recurrent._causal_conv(txr, p.conv_w, p.conv_b, tl)
+        jout, jnew = jrec._causal_conv(xr, jp["conv_w"], jp["conv_b"], jtl)
+        np.testing.assert_allclose(out.numpy(), np.asarray(jout), **TOL)
+        assert np.array_equal(new_tail.numpy(), np.asarray(jnew))
+    a, u = recurrent._gates(p, txr)
+    ja, ju = jrec._gates(jp, xr)
+    np.testing.assert_allclose(a.numpy(), np.asarray(ja), **TOL)
+    np.testing.assert_allclose(u.numpy(), np.asarray(ju), **TOL)
+    assert a.min() > 0 and a.max() < 1
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+def test_rglru_block_and_decode_match_jax(block, with_state):
+    jp, p, cfg = block
+    d = cfg.d_model
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((2, 13, d)).astype(np.float32)
+    state = jstate = None
+    if with_state:
+        jstate = {"h": rng.standard_normal((2, d)).astype(np.float32),
+                  "conv_tail": rng.standard_normal((2, 3, d)).astype(np.float32)}
+        state = {k: torch.from_numpy(v) for k, v in jstate.items()}
+    out, st = recurrent.rglru_block(p, torch.from_numpy(x), state)
+    jout, jst = jrec.rglru_block(jp, jnp.asarray(x), jstate)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout), **TOL)
+    for k in ("h", "conv_tail"):
+        np.testing.assert_allclose(st[k].numpy(), np.asarray(jst[k]), **TOL)
+    # one decode step from the block's state, on both sides
+    x1 = rng.standard_normal((2, 1, d)).astype(np.float32)
+    out1, st1 = recurrent.rglru_decode(p, torch.from_numpy(x1), st)
+    jout1, jst1 = jrec.rglru_decode(jp, jnp.asarray(x1), jst)
+    np.testing.assert_allclose(out1.numpy(), np.asarray(jout1), **TOL)
+    np.testing.assert_allclose(st1["h"].numpy(), np.asarray(jst1["h"]), **TOL)
+    # decode of a token == the block over the sequence extended by it
+    full, _ = recurrent.rglru_block(
+        p, torch.from_numpy(np.concatenate([x, x1], axis=1)), state)
+    np.testing.assert_allclose(out1.numpy()[:, 0], full.numpy()[:, -1], **TOL)
+
+
+def test_rglru_init_state_shapes_and_types():
+    st = recurrent.rglru_init_state(3, 8, torch.bfloat16)
+    assert st["h"].shape == (3, 8) and st["h"].dtype == torch.float32
+    assert st["conv_tail"].shape == (3, 3, 8)
+    assert st["conv_tail"].dtype == torch.bfloat16
+    assert not st["h"].any() and not st["conv_tail"].any()
+
+
+# ---------------------------------------------------------------------------
+# the reduced RecurrentGemma decoder
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def reduced():
+    """(jax model, jax params (numpy), port model, cfg) for the reduced
+    RecurrentGemma: 3 layers (rglru, rglru, lattn), d 256, 4 heads over 1
+    KV head of 64, window 128, vocab 1024."""
+    jcfg = jget_config("recurrentgemma-9b").reduced()
+    cfg = get_config("recurrentgemma-9b").reduced()
+    assert repr(cfg) == repr(jcfg)
+    jm = jbuild_model(jcfg)
+    tree = jax.tree.map(np.asarray, jm.init(jax.random.key(0)))
+    # non-zero RG-LRU biases, so the converter's mapping of them shows
+    rng = np.random.default_rng(0)
+    for k in range(2):
+        for name in recurrent.ZERO_INIT:
+            leaf = tree["blocks"][k]["rglru"][name]
+            tree["blocks"][k]["rglru"][name] = \
+                (rng.standard_normal(leaf.shape) * 0.1).astype(np.float32)
+    return jm, tree, params_from_jax(tree, cfg, device="cpu"), cfg
+
+
+def test_reduced_config_shape():
+    cfg = get_config("recurrentgemma-9b").reduced()
+    assert cfg.pattern == ("rglru", "rglru", "lattn")
+    assert (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+            cfg.resolved_head_dim, cfg.local_attn_window, cfg.vocab_size) \
+        == (256, 4, 1, 64, 128, 1024)
+    full = get_config("recurrentgemma-9b")
+    assert full.pattern.count("rglru") == 26 and full.pattern.count("lattn") == 12
+
+
+def test_converter_maps_the_stacked_super_block(reduced):
+    _, tree, model, _ = reduced
+    rg = tree["blocks"][0]["rglru"]
+    assert rg["w_a"].shape == (1, 16, 16, 16) and rg["conv_w"].shape == (1, 4, 256)
+    assert np.array_equal(model.layers[0].rglru.w_a.numpy(), rg["w_a"][0])
+    assert np.array_equal(model.layers[1].rglru.b_x.numpy(),
+                          tree["blocks"][1]["rglru"]["b_x"][0])
+    assert np.array_equal(model.layers[2].attn.wk.numpy(),
+                          tree["blocks"][2]["attn"]["wk"][0])
+    assert (model.layers[0].rglru.lam == np.float32(0.65)).all()
+
+
+@pytest.mark.parametrize("s", [16, 150])
+def test_reduced_forward_matches_jax(reduced, s):
+    jm, tree, model, cfg = reduced
+    tokens = np.random.default_rng(s).integers(
+        0, cfg.vocab_size, (2, s)).astype(np.int32)
+    jlogits, _, _ = jax.jit(lambda p, t: jm.forward(p, {"tokens": t}))(
+        tree, tokens)
+    with torch.inference_mode():
+        logits, cache = model(torch.from_numpy(tokens))
+    assert cache is None
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), **TOL)
+
+
+@pytest.mark.parametrize("s,cache_len", [(150, None), (100, None), (40, 60)])
+def test_reduced_prefill_cache_matches_jax(reduced, s, cache_len):
+    """S = 150 lies past the window of 128, so the ring keeps positions
+    22..149 at slot pos % 128; S = 100 fills slots 0..99."""
+    jm, tree, model, cfg = reduced
+    tokens = np.random.default_rng(s).integers(
+        0, cfg.vocab_size, (2, s)).astype(np.int32)
+    _, jcache, _ = jax.jit(lambda p, t: jm.forward(
+        p, {"tokens": t}, collect_cache=True, cache_len=cache_len))(
+            tree, tokens)
+    with torch.inference_mode():
+        hidden, cache = model(torch.from_numpy(tokens), collect_cache=True,
+                              cache_len=cache_len, return_hidden=True)
+    assert hidden.shape == (2, s, cfg.d_model)
+    for i, (kind, entry) in enumerate(zip(cfg.pattern, cache)):
+        jentry = jcache["blocks"][i]
+        for key, value in entry.items():
+            np.testing.assert_allclose(value.numpy(),
+                                       np.asarray(jentry[key])[0], **TOL)
+    ring = cache[2]["k"]
+    assert ring.shape[1] == min(cache_len or s, cfg.local_attn_window)
+
+
+def test_reduced_decode_past_the_window_matches_jax(reduced):
+    """40 tokens one at a time over a ring of 16 slots (window 16), as the
+    JAX package's test_ring_cache_beyond_window does: each step against
+    JAX's decode step and against the full-sequence forward."""
+    jm0, tree, _, cfg = reduced
+    cfg2 = cfg.with_(local_attn_window=16)
+    jm = jbuild_model(jget_config("recurrentgemma-9b").reduced().with_(
+        local_attn_window=16))
+    model = params_from_jax(tree, cfg2, device="cpu")
+    b, s = 2, 40
+    toks = np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (b, s)).astype(np.int32)
+    jdec = jax.jit(jm.decode_step)
+    jcache = jm.init_cache(tree, b, s, jnp.float32)
+    with torch.inference_mode():
+        full, _ = model(torch.from_numpy(toks))
+        cache = model.init_cache(b, s)
+        assert cache[2]["k"].shape == (b, 16, 1, 64)
+        for t in range(s):
+            pos = np.full((b,), t, np.int32)
+            lg, cache = model.decode_step(torch.from_numpy(toks[:, t:t + 1]),
+                                          cache, torch.from_numpy(pos).long())
+            jlg, jcache = jdec(tree, toks[:, t:t + 1], jcache, pos)
+            np.testing.assert_allclose(lg.numpy(), np.asarray(jlg),
+                                       atol=DECODE_ATOL)
+            np.testing.assert_allclose(lg.numpy()[:, 0], full.numpy()[:, t],
+                                       atol=DECODE_ATOL)
+
+
+def test_init_params_rglru_leaves():
+    cfg = get_config("recurrentgemma-9b").reduced()
+    m = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    for name, p in m.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf == "lam":
+            assert p.dtype == torch.float32 and (p == 0.65).all(), name
+        elif leaf in ("conv_b", "b_a", "b_x"):
+            assert not p.any(), name
+        elif leaf == "scale":
+            assert (p == 1).all(), name
+        else:
+            assert p.std() > 0 and p.abs().max() <= 2 * cfg.init_scale, name
+    assert m.layers[0].rglru.w_a.shape == (16, 16, 16)

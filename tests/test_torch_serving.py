@@ -258,7 +258,7 @@ def _run_both(tiers, scheduler, threshold, **kw):
     res = run_cascade(clients, engine,
                       make_scheduler(scheduler, N_DEV, **sched_kw),
                       data, window=SLICE_WINDOW, **kw)
-    assert ops.launch_counts() == {"bvsb": 0, "flash_attention": 0}
+    assert ops.launch_counts() == dict.fromkeys(ops.launch_counts(), 0)
     return jres, res
 
 
