@@ -7,11 +7,15 @@ Phases, each printing its own lines; any failure raises, and the script
 then exits non-zero without the final result line:
 
 1. card: name and power limit, as nvidia-smi prints them;
-2. build: the CUDA kernels from src/repro_torch/kernels/csrc (set-up);
+2. build: the CUDA kernels from src/repro_torch/kernels/csrc (set-up),
+   with one line per flash kernel from ptxas (registers, spills);
 3. kernels: each CUDA kernel against its plain PyTorch version on the
    card, at the serving shapes and edge cases, with the stated
-   tolerances; kernel, plain, library and bound times at the two paths'
-   shapes (CUDA events, after warm-up);
+   tolerances (flash on both sides of the tensor-core threshold, and
+   both flash kernels forced at shapes around it); kernel, plain,
+   library and bound times at the two paths' shapes (CUDA events, after
+   warm-up), flash's bound at the tensor-core rate beside its FP32
+   CUDA-core bound, and the threshold sweep of the two flash kernels;
 4. cascade path: the live cascade — 16 device clients on tier-low, a
    server engine hosting tier-server-fast and tier-server-heavy with
    model switching, the MultiTASC++ scheduler — through ``run_cascade``,
@@ -36,8 +40,11 @@ latency profiles, not a measurement of the card.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -54,6 +61,7 @@ from repro_torch.configs.cascade_tiers import (BATCH_LADDER,  # noqa: E402
                                                DEVICE_PROFILES,
                                                SERVER_PROFILES)
 from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels import flash_attention as _flash  # noqa: E402
 from repro_torch.kernels.bvsb import bvsb_plain  # noqa: E402
 from repro_torch.kernels.decode_attention import \
     decode_attention_plain  # noqa: E402
@@ -94,11 +102,13 @@ RING_ATOL = 1e-4    # ring keys against a recomputation at another batch
 
 
 def card_rates(name: str):
-    """(HBM bytes/s, FP32 FLOP/s outside the tensor cores) from the data
+    """(HBM bytes/s, FP32 FLOP/s outside the tensor cores, dense
+    tensor-core FLOP/s by input type: TF32 for float32, bf16) from the data
     sheet of the H100 part nvidia-smi names."""
     if "PCIe" in name:
-        return 2.0e12, 51e12
-    return 3.35e12, 67e12       # H100 SXM
+        return 2.0e12, 51e12, {torch.float32: 378e12, torch.bfloat16: 756e12}
+    return 3.35e12, 67e12, {torch.float32: 495e12,        # H100 SXM
+                            torch.bfloat16: 989e12}
 
 
 def time_ms(fn, iters=25, warmup=10, spin=True):
@@ -158,6 +168,27 @@ def time_ms(fn, iters=25, warmup=10, spin=True):
         fn()
     torch.cuda.synchronize()
     return device_ms, (time.perf_counter() - t0) * 1e3 / iters
+
+
+def print_ptxas(log: str, stem: str):
+    """One line per kernel of ``stem``.cu from nvcc's -Xptxas -v report:
+    registers, spill stores and loads, static shared memory."""
+    for fn, body in re.findall(r"Compiling entry function '(\w+)' for "
+                               r"'sm_90a'(.*?)(?=Compiling entry|\Z)", log,
+                               re.S):
+        if stem not in fn:
+            continue
+        name = re.search(r"(flash_(?:tc|fma)_kernel)I(\w+?)EEv", fn)
+        regs = re.search(r"Used (\d+) registers", body)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", body)
+        smem = re.search(r"(\d+) bytes smem", body)
+        print(f"ptxas {name.group(1) if name else fn} "
+              f"<{name.group(2) if name else ''}>: "
+              f"{regs.group(1) if regs else '?'} registers, spill stores/loads "
+              f"{spill.group(1) if spill else '?'}/"
+              f"{spill.group(2) if spill else '?'} bytes, static smem "
+              f"{smem.group(1) if smem else 0} bytes")
 
 
 def max_err(a, b) -> float:
@@ -231,7 +262,18 @@ FLASH_CASES = [(1, 16, 4, 4, 32, None), (64, 16, 8, 8, 48, None),
                (2, 200, 8, 2, 128, 64),
                # RecurrentGemma's prefill attention at B = 1: hd 256, one
                # KV head for 16, S = 3000 past the window of 2048
-               (1, RG_S, 16, 1, 256, 2048)]
+               (1, RG_S, 16, 1, 256, 2048),
+               # both sides of the tensor-core threshold (S 48 at hd <=
+               # 128, 80 above) at hd 64, 128 and 256: GQA 16:1 and 4:1,
+               # windows under one 32-key tile (7, 20) and off its
+               # multiples (100, 2000), S off the 32-key tile and (with 4
+               # heads a group) off the 128-row tile
+               (2, 40, 8, 2, 64, 20), (2, 48, 8, 2, 64, 20),
+               (2, 1000, 8, 2, 64, 100), (1, 1000, 16, 1, 64, 7),
+               (1, 47, 16, 1, 128, None), (1, 1000, 16, 1, 128, 20),
+               (2, RG_S, 8, 2, 128, 2000), (2, 79, 16, 1, 256, 20),
+               (2, 80, 16, 1, 256, 20), (1, 1000, 8, 2, 256, 100),
+               (1, 999, 16, 1, 256, None)]
 
 
 def serving_flash_cases():
@@ -253,6 +295,35 @@ def qkv(dev, b, s, h, kv, hd, dtype=torch.float32, seed=0):
                  .to(dtype) for n in (h, kv, kv))
 
 
+def flash_kernel(q, k, v, window, kernel, causal=True):
+    """One flash kernel forced (1: CUDA-core FMAs, 2: tensor cores) through
+    the library's measuring entry point; not counted as a launch."""
+    return _flash.run_entry(_build.library().repro_flash_attention_kernel, q,
+                            k, v, causal=causal, window=window,
+                            extra=(kernel,))
+
+
+def strided_qkv(dev, b, s, h, kv, hd, dt, offset):
+    """q, k, v as views into one packed (B, S, 3, H, hd + 1) tensor: (B, S,
+    H) strides that are not the contiguous ones; ``offset`` 1 also moves
+    every row start off 16 bytes, which the tensor-core kernel loads
+    without cp.async."""
+    gen = torch.Generator(device=dev).manual_seed(s + hd)
+    packed = torch.randn(b, s, 3, h, hd + 1, generator=gen,
+                         device=dev).to(dt)
+    q, k, v = (packed[:, :, i, :, offset:offset + hd] for i in range(3))
+    return q, k[:, :, :kv], v[:, :, :kv]
+
+
+def _check_flash_out(name, out, ref, dt):
+    err, atol = max_err(out, ref), FLASH_ATOL[dt]
+    print(f"flash_attention {name} {str(dt)[6:]}: max|err| {err:.3g} "
+          f"(atol {atol:g})")
+    if not (err <= atol and out.dtype == dt):
+        raise AssertionError("flash_attention kernel disagrees with its "
+                             f"plain version at {name} {dt}")
+
+
 def check_flash(dev):
     for b, s, h, kv, hd, window in FLASH_CASES + serving_flash_cases():
         for dt in (torch.float32, torch.bfloat16):
@@ -260,14 +331,39 @@ def check_flash(dev):
             out = ops.flash_attention(q, k, v, causal=True, window=window)
             torch.cuda.synchronize()
             ref = flash_attention_plain(q, k, v, causal=True, window=window)
-            err, atol = max_err(out, ref), FLASH_ATOL[dt]
-            print(f"flash_attention (B,S,H,KV,hd)=({b},{s},{h},{kv},{hd}) "
-                  f"window={window} {str(dt)[6:]}: max|err| {err:.3g} "
-                  f"(atol {atol:g})")
-            if not (err <= atol and out.dtype == dt):
-                raise AssertionError("flash_attention kernel disagrees with "
-                                     f"its plain version at {(b, s, h, kv, hd)}"
-                                     f" window={window} {dt}")
+            _check_flash_out(f"(B,S,H,KV,hd)=({b},{s},{h},{kv},{hd}) "
+                             f"window={window}", out, ref, dt)
+    # strided (B, S, H) views on both sides of the threshold, aligned and
+    # not; non-causal on both kernels
+    for s in (40, 1000):
+        for offset in (0, 1):
+            for dt in (torch.float32, torch.bfloat16):
+                q, k, v = strided_qkv(dev, 2, s, 8, 2, 64, dt, offset)
+                out = ops.flash_attention(q, k, v, window=100)
+                torch.cuda.synchronize()
+                _check_flash_out(
+                    f"strided (2,{s},8,2,64) offset={offset} window=100", out,
+                    flash_attention_plain(q, k, v, window=100), dt)
+    for s in (24, 300):
+        q, k, v = qkv(dev, 2, s, 8, 2, 64)
+        _check_flash_out(f"non-causal (2,{s},8,2,64)",
+                         ops.flash_attention(q, k, v, causal=False),
+                         flash_attention_plain(q, k, v, causal=False),
+                         torch.float32)
+    # both kernels at the same shapes around the threshold
+    for b, s, h, kv, hd, window in ((64, 16, 8, 8, 64, None),
+                                    (2, 63, 16, 1, 256, 20),
+                                    (2, 47, 8, 2, 128, None),
+                                    (1, 200, 16, 1, 256, 7)):
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = qkv(dev, b, s, h, kv, hd, dt)
+            ref = flash_attention_plain(q, k, v, window=window)
+            for kernel in (1, 2):
+                out = flash_kernel(q, k, v, window, kernel)
+                torch.cuda.synchronize()
+                _check_flash_out(f"kernel {kernel} (B,S,H,KV,hd)=({b},{s},"
+                                 f"{h},{kv},{hd}) window={window}", out, ref,
+                                 dt)
 
 
 def decode_cases():
@@ -345,7 +441,11 @@ def _bound(moved, ops_, bw, flops):
         "bytes" if moved / bw >= ops_ / flops else "operations"
 
 
-def flash_bound_ms(q, k, bw, flops, window=None):
+def flash_bounds_ms(q, k, bw, flops, tc, window=None):
+    """The bound at the rate of the kernel the shape picks (on tensor
+    cores f32 is 3xTF32, three TF32 products per FMA pair, and bf16 one
+    product) and, under its own key, the bound at the FP32 CUDA-core
+    rate."""
     b, s, h, hd = q.shape
     # (query, key) pairs causal attention keeps: min(i + 1, window) keys
     # for query i
@@ -353,7 +453,11 @@ def flash_bound_ms(q, k, bw, flops, window=None):
     pairs = w * (w + 1) // 2 + (s - w) * w if s > w else s * (s + 1) // 2
     moved = (2 * q.numel() + 2 * k.numel()) * q.element_size()
     ops_ = 4 * hd * pairs * b * h            # q.k and p.v, 2 FLOP per FMA
-    return _bound(moved, ops_, bw, flops)
+    fp32 = _bound(moved, ops_, bw, flops)
+    if not _flash.uses_tensor_cores(s, hd):
+        return fp32, fp32
+    products = 3 if q.dtype == torch.float32 else 1
+    return _bound(moved, products * ops_, bw, tc[q.dtype]), fp32
 
 
 def decode_bound_ms(q, k, lengths, bw, flops):
@@ -381,16 +485,18 @@ class Timer:
     path gives them; the kernel's output on the timed inputs is held to
     its plain version's within the float32 tolerance."""
 
-    def __init__(self, dev, bw, flops):
-        self.dev, self.bw, self.flops = dev, bw, flops
+    def __init__(self, dev, bw, flops, tc):
+        self.dev, self.bw, self.flops, self.tc = dev, bw, flops, tc
         self.rows = {}
 
     def _row(self, key, kernel, plain, library, bound, err, atol, shape,
-             plain_spin=True):
+             plain_spin=True, bound_fp32=None):
         """``library`` None: no single PyTorch call computes the function.
         ``plain_spin`` False: the plain version launches more kernels than
         the launch queue holds, so it is timed without the spin (an upper
-        bound: it includes the device's waits for the host)."""
+        bound: it includes the device's waits for the host).
+        ``bound_fp32``: the bound at the FP32 CUDA-core rate, beside a
+        ``bound`` at the tensor-core rate."""
         if not err <= atol:
             raise AssertionError(f"{key[0]} {key[1]}: max|err| {err:.3g} "
                                  f"above atol {atol:g}")
@@ -402,12 +508,18 @@ class Timer:
         r = self.rows[key] = dict(
             ms=k_ms, call_ms=call_ms, plain_ms=p_ms, library_ms=l_ms,
             bound_ms=ms, bound_by=by, max_abs_err=err, shape=list(shape))
+        fp32 = ""
+        if bound_fp32 is not None:
+            r["bound_fp32_ms"], r["bound_fp32_by"] = bound_fp32
+            fp32 = (f", FP32 CUDA-core bound {bound_fp32[0] * 1e3:.4f} us "
+                    f"({bound_fp32[1]})")
         lib = "none" if l_ms is None else f"{l_ms * 1e3:.2f} us"
         print(f"time {key[0]} {key[1]} {tuple(shape)} f32: kernel "
               f"{k_ms * 1e3:.2f} us on the device ({call_ms * 1e3:.2f} us "
               f"per call on the host), plain {p_ms * 1e3:.2f} us"
               f"{'' if plain_spin else ' (host-bound, no spin)'}, library "
-              f"{lib}, bound {ms * 1e3:.4f} us ({by}), max|err| {err:.3g}")
+              f"{lib}, bound {ms * 1e3:.4f} us ({by}){fp32}, max|err| "
+              f"{err:.3g}")
         return r
 
     def bvsb(self, b, v=2048):
@@ -444,13 +556,34 @@ class Timer:
         mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
         err = max_err(ops.flash_attention(q, k, v, window=window),
                       flash_attention_plain(q, k, v, window=window))
-        return self._row(
+        bound, fp32 = flash_bounds_ms(q, k, self.bw, self.flops, self.tc,
+                                      window)
+        row = self._row(
             key, lambda: ops.flash_attention(q, k, v, window=window),
             lambda: flash_attention_plain(q, k, v, window=window),
             lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                                    enable_gqa=True),
-            flash_bound_ms(q, k, self.bw, self.flops, window), err,
-            FLASH_ATOL[torch.float32], (b, s, 16, 1, 256, window))
+            bound, err, FLASH_ATOL[torch.float32], (b, s, 16, 1, 256, window),
+            bound_fp32=fp32)
+        # the same call with the GQA group's heads not packed into the
+        # tile's rows: K and V expanded to 16 heads (stride 0), so each
+        # block takes 128 positions of one head
+        ku, vu = k.expand(-1, -1, 16, -1), v.expand(-1, -1, 16, -1)
+        unpacked = max_err(ops.flash_attention(q, ku, vu, window=window),
+                           ops.flash_attention(q, k, v, window=window))
+        u_ms = time_ms(
+            lambda: ops.flash_attention(q, ku, vu, window=window))[0]
+        print(f"time flash_attention {key[1]} heads not packed: "
+              f"{u_ms * 1e3:.2f} us on the device against "
+              f"{row['ms'] * 1e3:.2f} packed, max|diff| {unpacked:.3g}")
+        row["unpacked_ms"] = u_ms
+        # the CUDA-core kernel, forced at the same shape
+        f_ms = time_ms(lambda: flash_kernel(q, k, v, window, 1), iters=5,
+                       warmup=2)[0]
+        print(f"time flash_attention {key[1]} CUDA-core kernel forced: "
+              f"{f_ms * 1e3:.2f} us on the device")
+        row["fma_ms"] = f_ms
+        return row
 
     def decode_rg(self, b=RG_B, w=2048):
         """Every ring full (length W), as on every decode step of the
@@ -490,13 +623,36 @@ class Timer:
         qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
         err = max_err(ops.flash_attention(q, k, v),
                       flash_attention_plain(q, k, v))
+        bound, fp32 = flash_bounds_ms(q, k, self.bw, self.flops, self.tc)
         return self._row(
             ("flash_attention", f"{tier} B={b}"),
             lambda: ops.flash_attention(q, k, v),
             lambda: flash_attention_plain(q, k, v),
             lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
-            flash_bound_ms(q, k, self.bw, self.flops), err,
-            FLASH_ATOL[torch.float32], (b, s, h, kv, hd))
+            bound, err, FLASH_ATOL[torch.float32], (b, s, h, kv, hd),
+            bound_fp32=fp32)
+
+    def flash_threshold(self, seqs=(16, 32, 40, 48, 64, 80, 96, 128, 256)):
+        """Device us of both flash kernels, forced, over S at the tiers'
+        shapes and RecurrentGemma's heads (f32): where the tensor-core
+        kernel starts to win sets the entry point's threshold."""
+        shapes = [(name, b, cfg.num_heads, cfg.num_kv_heads,
+                   cfg.resolved_head_dim)
+                  for name, b in (("tier-low", 1), ("tier-server-fast", 8),
+                                  ("tier-server-heavy", 64), (RG_ARCH, 1))
+                  for cfg in (get_config(name),)]
+        for name, b, h, kv, hd in shapes:
+            cells = []
+            for s in seqs:
+                q, k, v = qkv(self.dev, b, s, h, kv, hd)
+                fma_ms, tc_ms = (time_ms(lambda: flash_kernel(q, k, v, None,
+                                                              kernel))[0]
+                                 for kernel in (1, 2))
+                pick = "tc" if _flash.uses_tensor_cores(s, hd) else "fma"
+                cells.append(f"S={s} {fma_ms * 1e3:.2f}/{tc_ms * 1e3:.2f}"
+                             f"({pick})")
+            print(f"flash threshold {name} (B,H,KV,hd)=({b},{h},{kv},{hd}) "
+                  f"f32, device us fma/tc (picked): {'; '.join(cells)}")
 
 
 # ---------------------------------------------------------------------------
@@ -859,10 +1015,14 @@ def main() -> int:
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
-    bw, flops = card_rates(card)
+    bw, flops, tc = card_rates(card)
 
     t0 = time.perf_counter()
-    _build.build(verbose=True)
+    log = io.StringIO()
+    with contextlib.redirect_stderr(log):
+        _build.build(verbose=True)
+    sys.stderr.write(log.getvalue())
+    print_ptxas(log.getvalue(), "flash")
     _build.library()
     print(f"build: {time.perf_counter() - t0:.1f} s (set-up; "
           f"{len(_build.sources())} sources, key {_build.build_key()})")
@@ -872,13 +1032,14 @@ def main() -> int:
     check_flash(dev)
     check_decode(dev)
     check_rglru(dev)
-    timer = Timer(dev, bw, flops)
+    timer = Timer(dev, bw, flops, tc)
     for b in (1, 16, 64):
         timer.bvsb(b)
     timer.flash("tier-low", 1)
     for tier in ("tier-server-fast", "tier-server-heavy"):
         for b in (16, 64):
             timer.flash(tier, b)
+    timer.flash_threshold()
     rg_rows = {"bvsb": timer.bvsb_rows(RG_B, 256_000),
                "flash_attention": timer.flash_rg(),
                "decode_attention": timer.decode_rg(),
@@ -903,7 +1064,7 @@ def main() -> int:
     cascade_rows = {"bvsb": timer.bvsb(bucket),
                     "flash_attention": timer.flash(tier, bucket)}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "call_ms", "shape")
+            "bound_fp32_ms", "library_ms", "call_ms", "shape")
     kernels = []
     for name, source, replaces in (
             ("bvsb", "bvsb.cu", "src/repro/kernels/bvsb.py:82"),
@@ -918,9 +1079,10 @@ def main() -> int:
                  "source": f"src/repro_torch/kernels/csrc/{source}",
                  "replaces": replaces, "launches": sum(by_path.values()),
                  "launches_by_path": by_path, "path": RG_ARCH,
-                 **{k: rg_rows[name][k] for k in keys}}
+                 **{k: rg_rows[name][k] for k in keys if k in rg_rows[name]}}
         if name in cascade_rows:
-            entry["cascade"] = {k: cascade_rows[name][k] for k in keys}
+            entry["cascade"] = {k: cascade_rows[name][k] for k in keys
+                                if k in cascade_rows[name]}
         kernels.append(entry)
     print(f"{RG_ARCH} path seconds: init {rg['init_s']:.3f}, prefill "
           f"{rg['prefill_s']:.3f}, decode {rg['decode_s']:.3f}; peak "

@@ -2,9 +2,10 @@
 
 q: (B, S, H, hd); k/v: (B, S, KV, hd) -> (B, S, H, hd) in q's dtype, the
 KV head of query head h being h // (H // KV). ``flash_attention`` runs
-the hand-written CUDA kernel ``csrc/flash_attention.cu`` on CUDA tensors
-and ``flash_attention_plain`` on CPU tensors; on any other device it
-raises.
+the hand-written CUDA kernels of ``csrc/flash_attention.cu`` on CUDA
+tensors (``uses_tensor_cores`` says which: tensor cores for long
+sequences, CUDA-core FMAs for short ones) and ``flash_attention_plain`` on
+CPU tensors; on any other device it raises.
 """
 from __future__ import annotations
 
@@ -43,6 +44,13 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
     return out.reshape(b, s, h, hd).to(q.dtype)
 
 
+def uses_tensor_cores(s: int, hd: int) -> bool:
+    """Whether the C entry point runs the tensor-core kernel at sequence
+    length ``s`` and head dim ``hd`` (else the CUDA-core FMA kernel), as
+    the kernel library decides it; needs the library."""
+    return bool(_build.library().repro_flash_uses_tensor_cores(s, hd))
+
+
 def _check(q, k, v):
     if not (q.device == k.device == v.device):
         raise ValueError("flash_attention: q, k, v on different devices")
@@ -71,26 +79,37 @@ def _check(q, k, v):
                              "head dim")
 
 
-def flash_attention(q, k, v, *, causal: bool = True,
-                    window: Optional[int] = None):
-    """Attention of q over k/v; CUDA kernel on CUDA tensors, plain on CPU."""
-    global launches
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+def run_entry(entry, q, k, v, *, causal: bool = True,
+              window: Optional[int] = None, extra=()):
+    """Check CUDA tensors and run the C entry point ``entry`` of the kernel
+    library on them (``extra``: its arguments after the stream); the new
+    output. Counts nothing: ``flash_attention`` is the counted launch."""
     _check(q, k, v)
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window {window} < 1")
     b, s, h, hd = q.shape
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
-    lib = _build.library()
-    _build.check(lib.repro_flash_attention(
+    _build.check(entry(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         _build.DTYPE_CODES[q.dtype], b, s, h, k.shape[2], hd,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
         int(causal), 0 if window is None else int(window),
-        float(np.float32(1.0 / np.sqrt(hd))), _build.stream_ptr(q)),
+        float(np.float32(1.0 / np.sqrt(hd))), _build.stream_ptr(q), *extra),
         "flash_attention")
+    return out
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    window: Optional[int] = None):
+    """Attention of q over k/v; CUDA kernel on CUDA tensors, plain on CPU.
+    The C entry point picks the kernel from the shape
+    (``uses_tensor_cores``)."""
+    global launches
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    out = run_entry(_build.library().repro_flash_attention, q, k, v,
+                    causal=causal, window=window)
     launches += 1
     return out

@@ -11,7 +11,8 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.configs.cascade_tiers import BATCH_LADDER
-from repro_torch.kernels import ops
+from repro_torch.kernels import _build, ops
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels.bvsb import bvsb_plain
 from repro_torch.kernels.decode_attention import decode_attention_plain
 from repro_torch.kernels.flash_attention import flash_attention_plain
@@ -100,7 +101,17 @@ FLASH_CASES = [(1, 16, 4, 4, 32, None), (64, 16, 8, 8, 48, None),
                (2, 200, 8, 2, 64, 40), (3, 37, 4, 1, 48, 7),
                # RecurrentGemma's local attention: 16 heads over 1 of 256
                (1, 300, 16, 1, 256, 128), (2, 77, 8, 2, 256, None),
-               (1, 1000, 16, 1, 256, 512)]
+               (1, 1000, 16, 1, 256, 512),
+               # both sides of the tensor-core threshold (S 48 at hd <=
+               # 128, 80 above) at hd 64, 128 and 256: GQA 16:1 and 4:1,
+               # windows under one 32-key tile and off its multiples, S
+               # off the 32-key and 128-row tiles
+               (2, 40, 8, 2, 64, 20), (2, 48, 8, 2, 64, 20),
+               (2, 1000, 8, 2, 64, 100), (1, 1000, 16, 1, 64, 7),
+               (1, 47, 16, 1, 128, None), (1, 1000, 16, 1, 128, 20),
+               (1, 3000, 8, 2, 128, 2000), (2, 79, 16, 1, 256, 20),
+               (2, 80, 16, 1, 256, 20), (1, 1000, 8, 2, 256, 100),
+               (1, 999, 16, 1, 256, None)]
 
 
 # every attention shape of the live cascade: tier-low at the clients'
@@ -131,12 +142,50 @@ def test_flash_kernel_matches_plain(dev, b, s, h, kv, hd, window, dtype):
                                atol=FLASH_ATOL[dtype], rtol=0)
 
 
-def test_flash_kernel_non_causal_and_strided(dev):
-    qkv = torch.randn(2, 24, 3, 4, 32, device=dev)      # packed q/k/v
+@pytest.mark.parametrize("s", [24, 300])
+def test_flash_kernel_non_causal_and_strided(dev, s):
+    qkv = torch.randn(2, s, 3, 4, 32, device=dev)       # packed q/k/v
     q, k, v = qkv.unbind(dim=2)                         # strided views
     out = ops.flash_attention(q, k, v, causal=False)
     ref = flash_attention_plain(q, k, v, causal=False)
     torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("s", [40, 1000])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_strided_heads_both_sides(dev, s, offset, dtype):
+    """(B, S, H) strides of a packed tensor; offset 1 moves every row start
+    off 16 bytes, so the tensor-core kernel loads without cp.async."""
+    packed = torch.randn(2, s, 3, 8, 65, device=dev).to(dtype)
+    q, k, v = (packed[:, :, i, :, offset:offset + 64] for i in range(3))
+    k, v = k[:, :, :2], v[:, :, :2]
+    out = ops.flash_attention(q, k, v, window=100)
+    ref = flash_attention_plain(q, k, v, window=100)
+    torch.testing.assert_close(out.float(), ref.float(),
+                               atol=FLASH_ATOL[dtype], rtol=0)
+
+
+@pytest.mark.parametrize("b,s,h,kv,hd,window",
+                         [(64, 16, 8, 8, 64, None), (2, 63, 16, 1, 256, 20),
+                          (2, 47, 8, 2, 128, None), (1, 200, 16, 1, 256, 7),
+                          (3, 37, 4, 1, 48, 7)])
+@pytest.mark.parametrize("kernel", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_both_kernels_match_plain(dev, b, s, h, kv, hd, window, kernel,
+                                        dtype):
+    """The CUDA-core (1) and tensor-core (2) kernels forced at shapes
+    around the threshold, through the library's measuring entry."""
+    gen = torch.Generator(device=dev).manual_seed(s * 1000 + hd)
+    q = torch.randn(b, s, h, hd, generator=gen, device=dev).to(dtype)
+    k = torch.randn(b, s, kv, hd, generator=gen, device=dev).to(dtype)
+    v = torch.randn(b, s, kv, hd, generator=gen, device=dev).to(dtype)
+    out = _flash.run_entry(_build.library().repro_flash_attention_kernel,
+                           q, k, v, window=window, extra=(kernel,))
+    torch.cuda.synchronize()
+    ref = flash_attention_plain(q, k, v, window=window)
+    torch.testing.assert_close(out.float(), ref.float(),
+                               atol=FLASH_ATOL[dtype], rtol=0)
 
 
 # (B, W, KV, G, hd, lengths): RecurrentGemma's decode (W 2048, one KV head
