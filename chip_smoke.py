@@ -8,14 +8,18 @@ then exits non-zero without the final result line:
 
 1. card: name and power limit, as nvidia-smi prints them;
 2. build: the CUDA kernels from src/repro_torch/kernels/csrc (set-up),
-   with one line per flash kernel from ptxas (registers, spills);
+   with one line per attention and BvSB kernel from ptxas (registers,
+   spills);
 3. kernels: each CUDA kernel against its plain PyTorch version on the
    card, at the serving shapes and edge cases, with the stated
    tolerances (flash on both sides of the tensor-core threshold, and
-   both flash kernels forced at shapes around it); kernel, plain,
-   library and bound times at the two paths' shapes (CUDA events, after
-   warm-up), flash's bound at the tensor-core rate beside its FP32
-   CUDA-core bound, and the threshold sweep of the two flash kernels;
+   both flash kernels forced at shapes around it; BvSB and decode
+   attention called twice, bitwise equal, and decode with NaN in every
+   slot past the length); kernel, plain, library and bound times at the
+   two paths' shapes and at B = 64 (CUDA events, after warm-up), flash's
+   bound at the tensor-core rate beside its FP32 CUDA-core bound, the
+   threshold sweep of the two flash kernels, and BvSB cut into chunks
+   and decode attention into splits, forced, around the plans' choices;
 4. cascade path: the live cascade — 16 device clients on tier-low, a
    server engine hosting tier-server-fast and tier-server-heavy with
    model switching, the MultiTASC++ scheduler — through ``run_cascade``,
@@ -61,6 +65,8 @@ from repro_torch.configs.cascade_tiers import (BATCH_LADDER,  # noqa: E402
                                                DEVICE_PROFILES,
                                                SERVER_PROFILES)
 from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels import bvsb as _bvsb  # noqa: E402
+from repro_torch.kernels import decode_attention as _decode  # noqa: E402
 from repro_torch.kernels import flash_attention as _flash  # noqa: E402
 from repro_torch.kernels.bvsb import bvsb_plain  # noqa: E402
 from repro_torch.kernels.decode_attention import \
@@ -170,21 +176,25 @@ def time_ms(fn, iters=25, warmup=10, spin=True):
     return device_ms, (time.perf_counter() - t0) * 1e3 / iters
 
 
-def print_ptxas(log: str, stem: str):
-    """One line per kernel of ``stem``.cu from nvcc's -Xptxas -v report:
-    registers, spill stores and loads, static shared memory."""
+PTXAS_KERNELS = ("flash_tc", "flash_fma", "decode_partial", "decode_merge",
+                 "bvsb_chunk", "bvsb_merge")
+
+
+def print_ptxas(log: str):
+    """One line per attention and BvSB kernel from nvcc's -Xptxas -v
+    report: registers, spill stores and loads, static shared memory."""
     for fn, body in re.findall(r"Compiling entry function '(\w+)' for "
                                r"'sm_90a'(.*?)(?=Compiling entry|\Z)", log,
                                re.S):
-        if stem not in fn:
+        name = re.search(rf"((?:{'|'.join(PTXAS_KERNELS)})_kernel)"
+                         r"(?:I(\w+?)EEv)?", fn)
+        if not name:
             continue
-        name = re.search(r"(flash_(?:tc|fma)_kernel)I(\w+?)EEv", fn)
         regs = re.search(r"Used (\d+) registers", body)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", body)
         smem = re.search(r"(\d+) bytes smem", body)
-        print(f"ptxas {name.group(1) if name else fn} "
-              f"<{name.group(2) if name else ''}>: "
+        print(f"ptxas {name.group(1)} <{name.group(2) or ''}>: "
               f"{regs.group(1) if regs else '?'} registers, spill stores/loads "
               f"{spill.group(1) if spill else '?'}/"
               f"{spill.group(2) if spill else '?'} bytes, static smem "
@@ -217,11 +227,22 @@ def bvsb_cases(dev):
             cases.append((f"randn({b},{SEQ},{VOCAB})[:,-1,:]",
                           x.to(dt)[:, -1, :]))
     # what the RecurrentGemma path hands the kernel: contiguous rows over
-    # its vocab of 256,000, at the path's B = 4 and at 64
+    # its vocab of 256,000, at the path's B = 4 and at 64, several chunks a
+    # row; and the same rows starting 4 (2) bytes off 16-byte alignment
     for b in (RG_B, 64):
         for dt in (torch.float32, torch.bfloat16):
             x = torch.randn(b, 256_000, generator=gen, device=dev) * 4
             cases.append((f"randn({b},256000)", x.to(dt)))
+            x = torch.randn(b, 256_001, generator=gen, device=dev) * 4
+            cases.append((f"randn({b},256001)[:,1:]", x.to(dt)[:, 1:]))
+        # edges across chunks: tied maxima in the first and the last chunk,
+        # the second chunk all -inf, +inf in the last chunk
+        _, per = _bvsb.chunks(b, 256_000, _build.sm_count(dev))
+        x = torch.randn(b, 256_000, generator=gen, device=dev) * 4
+        x[0, [7, 255_993]] = 30.0
+        x[1, per:2 * per] = float("-inf")
+        x[2, 255_990] = float("inf")
+        cases.append((f"ties/-inf chunk/+inf last chunk({b},256000)", x))
     x = torch.full((5, 2048), -1.0, device=dev)
     x[0, [7, 1999]] = 3.0            # tied maxima in different warps
     x[1, [0, 1]] = 2.5               # tied maxima in neighbouring threads
@@ -238,6 +259,11 @@ def bvsb_cases(dev):
     return cases
 
 
+def bits(t):
+    """A float tensor's bit patterns (NaN equal to itself)."""
+    return t.contiguous().view(torch.int32)
+
+
 def check_bvsb(dev):
     for name, x in bvsb_cases(dev):
         conf, top1 = ops.bvsb(x)
@@ -247,14 +273,22 @@ def check_bvsb(dev):
         finite = ~torch.isnan(pconf)
         top1_ok = torch.equal(top1[finite], ptop1[finite])
         nan_ok = torch.equal(torch.isnan(conf), torch.isnan(pconf))
+        conf2, top2 = ops.bvsb(x)
+        same = torch.equal(bits(conf), bits(conf2)) and torch.equal(top1, top2)
         print(f"bvsb {name} {str(x.dtype)[6:]}: max|err| {err:.3g} "
               f"(atol {atol:g}), top-1 {'equal' if top1_ok else 'DIFFERS'}, "
-              f"NaN rows {int((~finite).sum())}")
-        if not (err <= atol and top1_ok and nan_ok):
+              f"NaN rows {int((~finite).sum())}, second call "
+              f"{'bitwise equal' if same else 'DIFFERS'}")
+        if not (err <= atol and top1_ok and nan_ok and same):
             raise AssertionError(f"bvsb kernel disagrees with its plain "
                                  f"version on {name} {x.dtype}")
         if name.startswith("+inf") and not torch.isnan(conf).all():
             raise AssertionError("bvsb: +inf logits must give NaN")
+        if name.startswith("ties/-inf chunk") and not (
+                float(conf[0]) == 0.0 and int(top1[0]) == 7
+                and bool(torch.isnan(conf[2]))):
+            raise AssertionError(f"bvsb {name}: a tie across chunks must give "
+                                 "margin 0 at the first index, +inf NaN")
 
 
 FLASH_CASES = [(1, 16, 4, 4, 32, None), (64, 16, 8, 8, 48, None),
@@ -368,14 +402,21 @@ def check_flash(dev):
 
 def decode_cases():
     """(B, W, KV, G, hd, lengths): RecurrentGemma's decode shape at B in
-    {1, 4, 64} with lengths 1, 777, W and mixed, and a small GQA ring."""
+    {1, 4, 64} with lengths 1, 777, W and mixed; lengths on both sides of
+    the 16-key tiles and of the splits; two KV heads (a split's K rows
+    not contiguous) and groups of 8 and 4 at hd 256; small GQA rings."""
     cases = []
     for b in (1, RG_B, 64):
         for lengths in ([1] * b, [777] * b, [2048] * b,
                         [(1, 777, 2048, 1500)[i % 4] for i in range(b)]):
             cases.append((b, 2048, 1, 16, 256, lengths))
+    edges = [1, 63, 65, 2047, 2048]
+    cases += [(5, 2048, 1, 16, 256, edges), (5, 2048, 2, 16, 256, edges),
+              (5, 2048, 1, 8, 256, edges), (5, 2048, 2, 4, 256, edges)]
+    # a small GQA ring; hd 48 (under the tile row of 64) takes plain loads
     return cases + [(3, 100, 2, 4, 64, [1, 100, 37]),
-                    (3, 100, 2, 4, 128, [100, 1, 63])]
+                    (3, 100, 2, 4, 128, [100, 1, 63]),
+                    (3, 100, 2, 4, 48, [1, 100, 37])]
 
 
 def decode_inputs(dev, b, w, kv, g, hd, lengths, dtype=torch.float32):
@@ -387,6 +428,9 @@ def decode_inputs(dev, b, w, kv, g, hd, lengths, dtype=torch.float32):
 
 
 def check_decode(dev):
+    """Each case against the plain version; then a second call, and a call
+    with NaN in every slot at or past the length (slots the kernel must
+    never read), each bitwise equal to the first."""
     for b, w, kv, g, hd, lengths in decode_cases():
         for dt in (torch.float32, torch.bfloat16):
             q, k, v, lens = decode_inputs(dev, b, w, kv, g, hd, lengths, dt)
@@ -394,10 +438,16 @@ def check_decode(dev):
             torch.cuda.synchronize()
             ref = decode_attention_plain(q, k, v, lens)
             err, atol = max_err(out, ref), DECODE_ATOL[dt]
+            again = ops.decode_attention(q, k, v, lens)
+            past = torch.arange(w, device=dev)[None, :] >= lens[:, None]
+            k[past], v[past] = float("nan"), float("nan")
+            poisoned = ops.decode_attention(q, k, v, lens)
+            same = torch.equal(again, out) and torch.equal(poisoned, out)
             print(f"decode_attention (B,W,KV,G,hd)=({b},{w},{kv},{g},{hd}) "
                   f"lengths {sorted(set(lengths))} {str(dt)[6:]}: max|err| "
-                  f"{err:.3g} (atol {atol:g})")
-            if not (err <= atol and out.dtype == dt):
+                  f"{err:.3g} (atol {atol:g}); again and with NaN past the "
+                  f"length: {'bitwise equal' if same else 'DIFFER'}")
+            if not (err <= atol and out.dtype == dt and same):
                 raise AssertionError("decode_attention kernel disagrees with "
                                      f"its plain version at {(b, w, kv, g, hd)}"
                                      f" lengths {sorted(set(lengths))} {dt}")
@@ -547,6 +597,62 @@ class Timer:
             lambda: torch.topk(torch.softmax(x, dim=-1), 2, dim=-1),
             bvsb_bound_ms(b, v, 4, self.bw, self.flops),
             max_err(conf, pconf), BVSB_ATOL[torch.float32], (b, v))
+
+    def bvsb_chunks(self, shapes=((8, 2048), (8, 8192), (8, 12288),
+                                  (8, 16384), (1, 16384), (64, 16384),
+                                  (8, 65536), (RG_B, 256_000),
+                                  (64, 256_000))):
+        """Device us of the BvSB kernel forced to about n chunks a row
+        (``bvsb.run_entry``, not counted), each held to the plain version:
+        where cutting a row (and the merge launch) starts to pay sets the
+        row length from which the plan cuts (MIN_CHUNKS * MIN_CHUNK)."""
+        sms = _build.sm_count(self.dev)
+        for b, v in shapes:
+            x = torch.randn(b, v, device=self.dev) * 4
+            pconf, ptop1 = bvsb_plain(x)
+            planned = _bvsb.chunks(b, v, sms)[0]
+            cells = []
+            for n in sorted({1, 2, 4, 8, 16, 32, 64, planned}):
+                if n > v // _bvsb.VEC or b * n > 8 * sms:
+                    continue
+                conf, top1 = _bvsb.run_entry(x, n)
+                if not (max_err(conf, pconf) <= BVSB_ATOL[torch.float32]
+                        and torch.equal(top1, ptop1)):
+                    raise AssertionError(f"bvsb ({b},{v}) cut into {n} chunks "
+                                         "disagrees with its plain version")
+                ms = time_ms(lambda: _bvsb.run_entry(x, n))[0]
+                cells.append(f"n={n} {ms * 1e3:.2f}")
+            print(f"bvsb chunks (B,V)=({b},{v}) f32, planned "
+                  f"n={planned}, device us: {'; '.join(cells)}")
+
+    def decode_splits(self, batches=(RG_B, 64), w=2048):
+        """Device us of the decode kernel at RecurrentGemma's shape, rings
+        full, forced to about n splits (``decode_attention.run_entry``,
+        not counted), each held to the plain version: how the blocks per
+        SM that the plan picks compare with more and fewer."""
+        sms = _build.sm_count(self.dev)
+        for b in batches:
+            q, k, v, lens = decode_inputs(self.dev, b, w, 1, 16, 256, [w] * b)
+            ref = decode_attention_plain(q, k, v, lens)
+            planned = _decode.splits(b, 1, w, sms)[0]
+            cells = []
+            for n in sorted({1, 2, 4, 8, 16, 32, 64, 128, planned}):
+                if n > w // _decode.TILE or b * n > 8 * sms:
+                    continue
+                err = max_err(_decode.run_entry(q, k, v, lens, n), ref)
+                if not err <= DECODE_ATOL[torch.float32]:
+                    raise AssertionError(f"decode B={b} in {n} splits "
+                                         "disagrees with its plain version")
+                ms = time_ms(lambda: _decode.run_entry(q, k, v, lens, n))[0]
+                cells.append(f"n={n} {ms * 1e3:.2f}")
+            # the card's read rate on the same bytes: one library reduction
+            # over the K and V caches
+            kv = torch.stack((k, v))
+            sum_ms = time_ms(lambda: kv.sum())[0]
+            print(f"decode splits (B,W,KV,G,hd)=({b},{w},1,16,256) f32, "
+                  f"planned n={planned}, device us: {'; '.join(cells)}; "
+                  f"torch.sum over the caches {sum_ms * 1e3:.2f} us "
+                  f"({kv.numel() * 4 / sum_ms / 1e9:.3f} TB/s)")
 
     def flash_rg(self, b=RG_B, s=RG_S, window=2048):
         key = ("flash_attention", f"{RG_ARCH} B={b}")
@@ -1022,7 +1128,7 @@ def main() -> int:
     with contextlib.redirect_stderr(log):
         _build.build(verbose=True)
     sys.stderr.write(log.getvalue())
-    print_ptxas(log.getvalue(), "flash")
+    print_ptxas(log.getvalue())
     _build.library()
     print(f"build: {time.perf_counter() - t0:.1f} s (set-up; "
           f"{len(_build.sources())} sources, key {_build.build_key()})")
@@ -1044,8 +1150,10 @@ def main() -> int:
                "flash_attention": timer.flash_rg(),
                "decode_attention": timer.decode_rg(),
                "rglru_scan": timer.rglru_rg()}
-    timer.bvsb_rows(64, 256_000)
-    timer.decode_rg(b=64)
+    b64_rows = {"bvsb": timer.bvsb_rows(64, 256_000),
+                "decode_attention": timer.decode_rg(b=64)}
+    timer.bvsb_chunks()
+    timer.decode_splits()
     torch.cuda.empty_cache()
 
     t2 = time.perf_counter()
@@ -1083,6 +1191,9 @@ def main() -> int:
         if name in cascade_rows:
             entry["cascade"] = {k: cascade_rows[name][k] for k in keys
                                 if k in cascade_rows[name]}
+        if name in b64_rows:
+            entry["b64"] = {k: b64_rows[name][k] for k in keys
+                            if k in b64_rows[name]}
         kernels.append(entry)
     print(f"{RG_ARCH} path seconds: init {rg['init_s']:.3f}, prefill "
           f"{rg['prefill_s']:.3f}, decode {rg['decode_s']:.3f}; peak "

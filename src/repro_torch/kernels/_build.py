@@ -37,8 +37,8 @@ _c_int = ctypes.c_int
 _c_ptr = ctypes.c_void_p
 # C signatures, in the order of the extern "C" declarations in csrc/*.cu
 _SIGNATURES = {
-    "repro_bvsb": [_c_ptr, _c_int, _c_ll, _c_ll, _c_int, _c_ptr, _c_ptr,
-                   _c_ptr],
+    "repro_bvsb": [_c_ptr, _c_int, _c_ll, _c_ll, _c_int, _c_int, _c_int,
+                   _c_ptr, _c_ptr, _c_ptr, _c_ptr],
     "repro_flash_attention": [_c_ptr] * 4 + [_c_int] * 6 + [_c_ll] * 12
     + [_c_int, _c_int, ctypes.c_float, _c_ptr],
     "repro_flash_attention_kernel": [_c_ptr] * 4 + [_c_int] * 6 + [_c_ll] * 12
@@ -51,6 +51,7 @@ _SIGNATURES = {
 
 _LOCK = threading.Lock()
 _LIB = None
+_SMS = {}
 
 
 def sources():
@@ -130,6 +131,17 @@ def check(rc: int, name: str) -> None:
     """Raise if a C entry point returned a non-zero cudaError_t."""
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError_t {rc}")
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device, read once per device:
+    the property query costs some 100 us of host time, more than the
+    kernels that plan their grids by it."""
+    n = _SMS.get(device.index)
+    if n is None:
+        n = _SMS[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return n
 
 
 def stream_ptr(t: torch.Tensor) -> int:

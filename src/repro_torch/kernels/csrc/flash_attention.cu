@@ -280,81 +280,15 @@ constexpr int kWarps = 8;    // 16 rows each
 constexpr int kThreads = kWarps * 32;
 constexpr int kNT = kKeys / 8;  // score n-tiles of 8 keys a warp
 
-// Row pitches (elements) of the Q/K tiles and of the V tile, padded so
-// that every fragment load of a warp hits 32 distinct banks.
-template <typename T> struct Layout;
-template <> struct Layout<float> {
-  static constexpr int kPadQK = 8;  // float2 loads: pitch = 8 mod 32 words
-  static constexpr int kPadV = 4;   // column loads of rows 2c: 4 mod 16
-};
-template <> struct Layout<__nv_bfloat16> {
-  static constexpr int kPadQK = 8;  // pitch = 4 mod 32 words
-  static constexpr int kPadV = 8;
-};
-
+// padded row pitches (elements) of the Q/K tiles and of the V tile
 template <typename T, int HD>
-__host__ __device__ constexpr int ld_qk() { return HD + Layout<T>::kPadQK; }
+__host__ __device__ constexpr int ld_qk() { return HD + TilePads<T>::kQK; }
 template <typename T, int HD>
-__host__ __device__ constexpr int ld_v() { return HD + Layout<T>::kPadV; }
+__host__ __device__ constexpr int ld_v() { return HD + TilePads<T>::kV; }
 template <typename T, int HD>
 __host__ __device__ constexpr size_t smem_bytes() {
   return sizeof(T) * (size_t(kRows + kKeys) * ld_qk<T, HD>() +
                       size_t(kKeys) * ld_v<T, HD>());
-}
-
-// hi = tf32(x), round to nearest with ties away (as cvt.rna.tf32.f32),
-// lo = x - hi; the tensor core reads only the top 19 bits of each.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  const uint32_t h = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  hi = h;
-  lo = __float_as_uint(x - __uint_as_float(h));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  return uint32_t(__bfloat16_as_ushort(lo)) |
-         (uint32_t(__bfloat16_as_ushort(hi)) << 16);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  return pack_bf16(__float2bfloat16(lo), __float2bfloat16(hi));
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const void* p) {
-  return *static_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool in) {
-  const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  // src-size 0 zero-fills the 16 bytes (rows past the sequence)
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(gmem), "r"(in ? 16 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // Copy `rows` rows of hd elements into a tile of pitch ld. row_ptr(r)

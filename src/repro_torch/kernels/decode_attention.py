@@ -9,6 +9,8 @@ is h // (H // KV). ``decode_attention`` runs the hand-written CUDA kernel
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -17,8 +19,9 @@ from repro_torch.kernels import _build
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256   # csrc/decode_attention.cu kMaxHD
 MAX_GROUP = 16       # csrc/decode_attention.cu kMaxG: query heads per KV head
-MAX_SPLITS = 64      # csrc/decode_attention.cu kMaxSplits
-TILE = 64            # csrc/decode_attention.cu kTile: keys per tile
+MAX_SPLITS = 256     # csrc/decode_attention.cu kMaxSplits
+TILE = 16            # csrc/decode_attention.cu kTile: keys per ring slot
+BLOCKS_PER_SM = 1    # partial-kernel blocks the plan gives each SM
 
 # kernel launches since the last ops.reset_launch_counts()
 launches = 0
@@ -74,11 +77,47 @@ def _check(q, k, v, lengths):
 
 
 def splits(b: int, kvh: int, w: int, sms: int):
-    """(number of splits, keys per split) of the window: enough blocks to
-    give every SM two, no more splits than key tiles, at most MAX_SPLITS."""
-    n = max(1, min(-(-w // TILE), -(-2 * sms // (b * kvh)), MAX_SPLITS))
-    chunk = -(-w // n)
+    """(number of splits, keys per split) of the window: whole TILE-key
+    tiles per split, as many splits as keep the b * kvh * splits blocks
+    within one wave of BLOCKS_PER_SM on each of ``sms`` SMs, no more
+    splits than tiles or MAX_SPLITS, none empty."""
+    return _cut(w, max(1, min(-(-w // TILE), BLOCKS_PER_SM * sms // (b * kvh),
+                              MAX_SPLITS)))
+
+
+def _cut(w: int, n: int):
+    """A window of w slots cut into about n splits of whole tiles."""
+    chunk = TILE * -(-w // (n * TILE))
     return -(-w // chunk), chunk
+
+
+def run_entry(q, k_cache, v_cache, lengths, n_splits: Optional[int] = None):
+    """Check CUDA tensors and run the kernel on them with the planned
+    splits (``splits``) or, for measuring, about ``n_splits`` splits of
+    whole tiles. Counts nothing: ``decode_attention`` is the counted
+    launch."""
+    _check(q, k_cache, v_cache, lengths)
+    b, h, hd = q.shape
+    _, w, kvh, _ = k_cache.shape
+    g = h // kvh
+    ns, chunk = splits(b, kvh, w, _build.sm_count(q.device)) \
+        if n_splits is None else _cut(w, n_splits)
+    lengths = lengths.to(torch.int32).contiguous()
+    out = torch.empty(b, h, hd, dtype=q.dtype, device=q.device)
+    # one scratch buffer: running max, running sum, then the unnormalised
+    # output of every (request, KV head, split, query head of the group)
+    rows = b * kvh * ns * g
+    scratch = torch.empty(rows * (2 + hd), dtype=torch.float32,
+                          device=q.device)
+    _build.check(_build.library().repro_decode_attention(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        lengths.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+        _build.DTYPE_CODES[q.dtype], b, w, h, kvh, hd, ns, chunk,
+        q.stride(0), q.stride(1), *k_cache.stride()[:3],
+        *v_cache.stride()[:3], out.stride(0), out.stride(1),
+        float(np.float32(1.0 / np.sqrt(hd))), _build.stream_ptr(q)),
+        "decode_attention")
+    return out
 
 
 def decode_attention(q, k_cache, v_cache, lengths):
@@ -90,27 +129,6 @@ def decode_attention(q, k_cache, v_cache, lengths):
         return decode_attention_plain(q, k_cache, v_cache, lengths)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: no kernel for device {q.device}")
-    _check(q, k_cache, v_cache, lengths)
-    b, h, hd = q.shape
-    _, w, kvh, _ = k_cache.shape
-    g = h // kvh
-    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    ns, chunk = splits(b, kvh, w, sms)
-    lengths = lengths.to(torch.int32).contiguous()
-    out = torch.empty(b, h, hd, dtype=q.dtype, device=q.device)
-    # one scratch buffer: running max, running sum, then the unnormalised
-    # output of every (request, KV head, split, query head of the group)
-    rows = b * kvh * ns * g
-    scratch = torch.empty(rows * (2 + hd), dtype=torch.float32,
-                          device=q.device)
-    lib = _build.library()
-    _build.check(lib.repro_decode_attention(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        lengths.data_ptr(), scratch.data_ptr(), out.data_ptr(),
-        _build.DTYPE_CODES[q.dtype], b, w, h, kvh, hd, ns, chunk,
-        q.stride(0), q.stride(1), *k_cache.stride()[:3],
-        *v_cache.stride()[:3], out.stride(0), out.stride(1),
-        float(np.float32(1.0 / np.sqrt(hd))), _build.stream_ptr(q)),
-        "decode_attention")
+    out = run_entry(q, k_cache, v_cache, lengths)
     launches += 1
     return out

@@ -13,7 +13,7 @@ from repro_torch.configs import get_config
 from repro_torch.configs.cascade_tiers import BATCH_LADDER
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import flash_attention as _flash
-from repro_torch.kernels.bvsb import bvsb_plain
+from repro_torch.kernels.bvsb import bvsb_plain, chunks
 from repro_torch.kernels.decode_attention import decode_attention_plain
 from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.kernels.rglru_scan import rglru_scan_plain
@@ -94,6 +94,57 @@ def test_bvsb_kernel_pos_inf_is_nan(dev):
     x[1, [5, 9]] = float("inf")
     conf, _ = ops.bvsb(x)
     assert torch.isnan(conf).all() and torch.isnan(bvsb_plain(x)[0]).all()
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+def _bvsb_twice(x, atol):
+    """The kernel against its plain version (top-1 on the rows whose
+    confidence is a number: a row with +inf is NaN in both, and the plain
+    argmax of a NaN row means nothing), and a second call on the same input
+    bitwise equal to the first."""
+    conf, top1 = ops.bvsb(x)
+    pconf, ptop1 = bvsb_plain(x)
+    torch.testing.assert_close(conf, pconf, atol=atol, rtol=0, equal_nan=True)
+    finite = ~torch.isnan(pconf)
+    assert torch.equal(top1[finite], ptop1[finite])
+    conf2, top2 = ops.bvsb(x)
+    assert torch.equal(_bits(conf), _bits(conf2)) and torch.equal(top1, top2)
+    return conf, top1
+
+
+@pytest.mark.parametrize("b", [4, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bvsb_kernel_edges_across_chunks(dev, b, dtype):
+    """Rows of 256,000 take several chunk blocks: tied maxima in the first
+    and the last chunk (columns 7 and 255,993), the second chunk all -inf,
+    +inf in the last chunk."""
+    n, per = chunks(b, 256_000, _build.sm_count(dev))
+    assert n > 2 and 255_990 // per == n - 1   # +inf in the last chunk
+    gen = torch.Generator(device=dev).manual_seed(b)
+    x = torch.randn(b, 256_000, generator=gen, device=dev) * 4
+    x[0, [7, 255_993]] = 30.0
+    x[1, per:2 * per] = float("-inf")
+    x[2, 255_990] = float("inf")
+    x = x.to(dtype)
+    conf, top1 = _bvsb_twice(
+        x, F32_CONF_ATOL if dtype == torch.float32 else BF16_CONF_ATOL)
+    assert float(conf[0]) == 0.0 and int(top1[0]) == 7
+    assert torch.isfinite(conf[1]) and torch.isnan(conf[2])
+
+
+@pytest.mark.parametrize("b,v", [(4, 256_000), (64, 256_000), (8, 2048),
+                                 (3, 130)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bvsb_kernel_rows_off_alignment(dev, b, v, dtype):
+    """A [:, 1:] view: every row starts 4 (2) bytes past a 16-byte
+    boundary, so each chunk has a scalar head and tail around its vectors."""
+    gen = torch.Generator(device=dev).manual_seed(v + b)
+    x = (torch.randn(b, v + 1, generator=gen, device=dev) * 4).to(dtype)
+    _bvsb_twice(x[:, 1:],
+                F32_CONF_ATOL if dtype == torch.float32 else BF16_CONF_ATOL)
 
 
 FLASH_CASES = [(1, 16, 4, 4, 32, None), (64, 16, 8, 8, 48, None),
@@ -215,6 +266,72 @@ def test_decode_kernel_matches_plain(dev, b, w, kvh, g, hd, lengths, dtype):
     ref = decode_attention_plain(q, k, v, lens)
     torch.testing.assert_close(out.float(), ref.float(),
                                atol=DECODE_ATOL[dtype], rtol=0)
+
+
+# lengths on both sides of the 16-key tiles and of the splits, at hd 256:
+# RecurrentGemma's group of 16 over one KV head and over two (a split's K
+# rows then not contiguous), groups of 8 and 4; and the RG path's shape
+DECODE_EDGE_CASES = [(5, 2048, kvh, g, 256, [1, 63, 65, 2047, 2048])
+                     for kvh, g in ((1, 16), (2, 16), (1, 8), (2, 4))] + [
+    (4, 2048, 1, 16, 256, [1, 777, 2048, 1500])]
+
+
+@pytest.mark.parametrize("b,w,kvh,g,hd,lengths", DECODE_EDGE_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_edges_nan_past_the_length_and_repeatable(
+        dev, b, w, kvh, g, hd, lengths, dtype):
+    """Held to the plain version; a second call and a call with NaN in
+    every slot at or past the length (never read) are bitwise equal."""
+    gen = torch.Generator(device=dev).manual_seed(b * w + hd + g)
+    q = torch.randn(b, kvh * g, hd, generator=gen, device=dev).to(dtype)
+    k = torch.randn(b, w, kvh, hd, generator=gen, device=dev).to(dtype)
+    v = torch.randn(b, w, kvh, hd, generator=gen, device=dev).to(dtype)
+    lens = torch.tensor(lengths, device=dev)
+    out = ops.decode_attention(q, k, v, lens)
+    torch.testing.assert_close(
+        out.float(), decode_attention_plain(q, k, v, lens).float(),
+        atol=DECODE_ATOL[dtype], rtol=0)
+    assert torch.equal(ops.decode_attention(q, k, v, lens), out)
+    past = torch.arange(w, device=dev)[None, :] >= lens[:, None]
+    k[past], v[past] = float("nan"), float("nan")
+    assert torch.equal(ops.decode_attention(q, k, v, lens), out)
+
+
+@pytest.mark.parametrize("hd,offset", [(48, 0), (64, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_plain_load_path(dev, hd, offset, dtype):
+    """A head dim under the tile row (48 of 64), or cache rows that start
+    one element past 16 bytes (views into a wider tensor), take the
+    kernel's plain loads instead of cp.async."""
+    gen = torch.Generator(device=dev).manual_seed(hd + offset)
+    q = torch.randn(3, 8, hd, generator=gen, device=dev).to(dtype)
+    kv = torch.randn(3, 100, 2, 2, hd + 1, generator=gen,
+                     device=dev).to(dtype)
+    k = kv[:, :, :, 0, offset:offset + hd]
+    v = kv[:, :, :, 1, offset:offset + hd]
+    lens = torch.tensor([1, 100, 37], device=dev)
+    out = ops.decode_attention(q, k, v, lens)
+    torch.testing.assert_close(
+        out.float(), decode_attention_plain(q, k, v, lens).float(),
+        atol=DECODE_ATOL[dtype], rtol=0)
+    past = torch.arange(100, device=dev)[None, :] >= lens[:, None]
+    k[past], v[past] = float("nan"), float("nan")
+    assert torch.equal(ops.decode_attention(q, k, v, lens), out)
+
+
+def test_kernel_wrappers_read_the_sm_count_once(dev, monkeypatch):
+    """The grid plans of decode attention and BvSB read the SM count from
+    a per-device cache, not from a property query on every call."""
+    q = torch.randn(2, 16, 256, device=dev)
+    kv = torch.randn(2, 64, 1, 256, device=dev)
+    lens = torch.tensor([64, 5], device=dev)
+    x = torch.randn(2, 40_000, device=dev)
+    ops.decode_attention(q, kv, kv, lens), ops.bvsb(x)
+
+    def refuse(*args, **kw):
+        raise AssertionError("device properties queried per call")
+    monkeypatch.setattr(torch.cuda, "get_device_properties", refuse)
+    ops.decode_attention(q, kv, kv, lens), ops.bvsb(x)
 
 
 def test_decode_kernel_strided_query_and_masked_slots(dev):

@@ -22,7 +22,8 @@ from repro.models.common import KeyGen
 from repro.models.model import build_model as jbuild_model
 from repro_torch.configs import get_config
 from repro_torch.kernels import ops
-from repro_torch.kernels.decode_attention import (decode_attention_plain,
+from repro_torch.kernels.decode_attention import (BLOCKS_PER_SM, MAX_SPLITS,
+                                                  TILE, decode_attention_plain,
                                                   splits)
 from repro_torch.launch.distributed import (head_bvsb, make_prefill_step,
                                             make_serve_step)
@@ -96,10 +97,14 @@ def test_decode_attention_cpu_takes_the_plain_version():
                                          (1, 1, 1, 132), (8, 4, 3000, 114)])
 def test_decode_splits_cover_the_window(b, kvh, w, sms):
     ns, chunk = splits(b, kvh, w, sms)
-    assert 1 <= ns <= 64 and ns * chunk >= w and (ns - 1) * chunk < w
-    assert ns <= -(-w // 64)           # no more splits than key tiles
-    if b * kvh * ns < 2 * sms:
-        assert ns == min(-(-w // 64), 64)
+    tiles = -(-w // TILE)
+    assert 1 <= ns <= MAX_SPLITS and chunk % TILE == 0
+    assert ns * chunk >= w and (ns - 1) * chunk < w   # covered, none empty
+    assert ns <= tiles                 # no more splits than key tiles
+    wave = BLOCKS_PER_SM * sms
+    assert b * kvh * ns <= max(wave, b * kvh)         # one wave of blocks
+    # and at least half the splits that the wave and the tiles allow
+    assert 2 * ns >= min(tiles, wave // (b * kvh), MAX_SPLITS)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,8 @@
-"""The precision scheme of the tensor-core flash kernel, emulated on the CPU.
+"""The precision scheme of the tensor-core attention kernels, emulated on
+the CPU.
 
-``csrc/flash_attention.cu`` runs f32 attention on TF32 tensor cores as
+``csrc/flash_attention.cu`` (and ``csrc/decode_attention.cu`` alike) runs
+f32 attention on TF32 tensor cores as
 3xTF32: each operand x splits into hi = tf32(x) (round to nearest, ties
 away from zero: add half a TF32 ulp, mask the low 13 bits) and lo = x - hi,
 whose low 13 bits the tensor core drops; a product is hi.hi + hi.lo +
@@ -9,13 +11,16 @@ divided by the row sum at the end), go through it. Here the same split
 runs in torch on numpy inputs and is held to the JAX package's
 ``flash_attention_ref`` within the card gate for f32 (1e-4, as in
 ``tests/test_torch_cuda_kernels.py``); one TF32 product per operand pair
-(1xTF32) misses that gate by more than ten times.
+(1xTF32) misses that gate by more than ten times. The decode kernel's
+split-K form (partial softmax states over 32-key splits, merged by their
+maxima) is held to ``decode_attention_plain`` the same way.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro.kernels import ref as jref
+from repro_torch.kernels.decode_attention import decode_attention_plain
 
 torch.set_num_threads(2)
 
@@ -139,3 +144,61 @@ def test_tf32_products_are_exact_in_f32():
     for x in a:
         for y in b:
             assert torch.equal((x * y).double(), x.double() * y.double())
+
+
+def decode(q, k, v, lengths, mm, split=32):
+    """One-token GQA attention over the first ``lengths`` slots, both
+    products taken by ``mm``, as the decode kernel forms it: per split of
+    ``split`` keys the unnormalised (m, l, acc), then the splits merged by
+    their maxima."""
+    b, h, hd = q.shape
+    w, kvh = k.shape[1], k.shape[2]
+    qg = q.reshape(b, kvh, h // kvh, hd)
+    scores = mm(qg, k.permute(0, 2, 3, 1)) * np.float32(1.0 / np.sqrt(hd))
+    valid = torch.arange(w)[None, :] < lengths[:, None]
+    scores = scores.masked_fill(~valid[:, None, None, :], -1e30)
+    vt = v.permute(0, 2, 1, 3)                       # (b, kv, w, hd)
+    ms, ls, accs = [], [], []
+    for k0 in range(0, w, split):
+        s = scores[..., k0:k0 + split]
+        m = s.amax(-1, keepdim=True)
+        p = torch.exp(s - m)
+        ms.append(m)
+        ls.append(p.sum(-1, keepdim=True))
+        accs.append(mm(p, vt[:, :, k0:k0 + split]))
+    mx = torch.stack(ms).amax(0)
+    weights = [torch.exp(m - mx) for m in ms]
+    out = sum(a * wt for a, wt in zip(accs, weights)) \
+        / sum(l * wt for l, wt in zip(ls, weights))
+    return out.reshape(b, h, hd)
+
+
+# (B, H, KV, hd, W, lengths): RecurrentGemma's decode (16 query heads over
+# one KV head of 256) at a reduced ring, and over two KV heads
+DECODE_CASES = [(2, 16, 1, 256, 256, [256, 100]),
+                (2, 32, 2, 256, 128, [128, 65])]
+
+
+def _decode_errors(case):
+    b, h, kv, hd, w, lengths = case
+    rng = np.random.default_rng(w + h)
+    q = torch.from_numpy(rng.standard_normal((b, h, hd)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((b, w, kv, hd))
+                             .astype(np.float32)) for _ in range(2))
+    lens = torch.tensor(lengths)
+    ref = decode_attention_plain(q, k, v, lens)
+    return {name: float((decode(q, k, v, lens, mm) - ref).abs().max())
+            for name, mm in (("3xtf32", mm_3xtf32), ("1xtf32", mm_1xtf32))}
+
+
+@pytest.mark.parametrize("case", DECODE_CASES, ids=str)
+def test_3xtf32_decode_within_the_f32_gate(case):
+    err = _decode_errors(case)["3xtf32"]
+    assert err <= F32_GATE / 10, err
+
+
+@pytest.mark.parametrize("case", DECODE_CASES, ids=str)
+def test_1xtf32_decode_misses_the_f32_gate(case):
+    errs = _decode_errors(case)
+    assert errs["1xtf32"] > F32_GATE, errs
+    assert errs["1xtf32"] > 10 * errs["3xtf32"], errs

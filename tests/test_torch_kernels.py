@@ -16,7 +16,8 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.models import attention as jattn
 from repro_torch.kernels import ops
-from repro_torch.kernels.bvsb import bvsb_plain
+from repro_torch.kernels.bvsb import (BLOCKS_PER_SM, MIN_CHUNK, MIN_CHUNKS,
+                                     VEC, bvsb_plain, chunks)
 from repro_torch.kernels.decode_attention import decode_attention_plain
 from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.kernels.rglru_scan import rglru_scan_plain
@@ -106,6 +107,90 @@ def test_bvsb_plain_padding_columns_have_no_mass():
     pconf, ptop1 = bvsb_plain(torch.from_numpy(padded))
     np.testing.assert_allclose(pconf.numpy(), conf.numpy(), atol=CONF_ATOL)
     assert torch.equal(ptop1, top1)
+
+
+@pytest.mark.parametrize("b,v,sms", [(4, 256_000, 132), (64, 256_000, 132),
+                                     (8, 2048, 132), (1, 2048, 132),
+                                     (1, 1, 132), (3, 130, 132),
+                                     (8, 8192, 132), (1, 256_000, 114),
+                                     (1000, 256_000, 132), (2, 8191, 132)])
+def test_bvsb_chunks_cover_the_row(b, v, sms):
+    n, per = chunks(b, v, sms)
+    assert per % VEC == 0                            # whole 16-byte vectors
+    assert n * per >= v and (n - 1) * per < v        # [0, V) covered, none empty
+    assert 1 <= n <= max(1, -(-BLOCKS_PER_SM * sms // b))   # the stated maximum
+    assert n == 1 or per >= MIN_CHUNK
+    if v < MIN_CHUNKS * MIN_CHUNK:   # the cascade's (B, 2048): one block
+        assert n == 1
+
+
+def _fold(s, x, col):
+    """The kernel's one-exp fold of element x (float32) into (m1, m2, z,
+    idx)."""
+    m1, m2, z, idx = s
+    if x > m1:
+        return x, m1, np.float32(z * np.exp(np.float32(m1 - x)) + 1), col
+    e = np.float32(0) if x == -np.inf else np.exp(np.float32(x - m1))
+    return m1, max(m2, x), np.float32(z + e), idx
+
+
+def _merge(a, b):
+    m1 = max(a[0], b[0])
+    m2 = max(a[1], b[1], min(a[0], b[0]))
+    za = np.float32(0) if a[0] == -np.inf else a[2] * np.exp(a[0] - m1)
+    zb = np.float32(0) if b[0] == -np.inf else b[2] * np.exp(b[0] - m1)
+    idx = a[3] if a[0] > b[0] else b[3] if b[0] > a[0] else min(a[3], b[3])
+    return m1, m2, np.float32(za + zb), idx
+
+
+def _bvsb_chunked(x, per, threads):
+    """``csrc/bvsb.cu``'s algorithm in float32 numpy: chunks of ``per``
+    columns, ``threads`` threads a chunk each folding its strided columns
+    in order, the threads' and the chunks' tuples merged."""
+    empty = (np.float32(-np.inf), np.float32(-np.inf), np.float32(0), 2 ** 31)
+    conf, top1 = [], []
+    with np.errstate(invalid="ignore", over="ignore"):
+        for row in x.astype(np.float32):
+            total = empty
+            for c0 in range(0, len(row), per):
+                chunk = empty
+                for t in range(threads):
+                    s = empty
+                    for col in range(c0 + t, min(c0 + per, len(row)), threads):
+                        s = _fold(s, row[col], col)
+                    chunk = _merge(chunk, s)
+                if chunk[3] == 2 ** 31:   # every logit -inf
+                    chunk = chunk[:3] + (c0,)
+                total = _merge(total, chunk)
+            m1, m2, z, idx = total
+            conf.append(np.float32((1 - np.exp(np.float32(m2 - m1))) / z))
+            top1.append(idx)
+    return np.array(conf, np.float32), np.array(top1)
+
+
+def _fold_cases():
+    cases = dict(BVSB_CASES)
+    x = np.random.default_rng(9).standard_normal((3, 300)).astype(np.float32)
+    x[0, [7, 290]] = 9.0                     # a tie across chunks
+    x[1, 64:128] = -np.inf                   # a chunk all -inf
+    x[2, 299] = np.inf                       # +inf in the last chunk
+    return [("ties", cases["ties"][:, :300], 64, 8),
+            ("extreme", cases["extreme"], 128, 16),
+            ("randn-3x130", cases["randn-3x130"], 32, 4),
+            ("chunk edges", x, 64, 8)]
+
+
+@pytest.mark.parametrize("name,x,per,threads", _fold_cases(),
+                         ids=[c[0] for c in _fold_cases()])
+def test_bvsb_one_exp_fold_matches_plain(name, x, per, threads):
+    """The kernel's fold and merges, emulated: the same confidence as the
+    plain version, the first index on ties also across chunks, -inf and
+    -1e38 without mass, +inf NaN."""
+    conf, top1 = _bvsb_chunked(x, per, threads)
+    pconf, ptop1 = bvsb_plain(torch.from_numpy(x))
+    np.testing.assert_allclose(conf, pconf.numpy(), atol=CONF_ATOL)
+    finite = ~np.isnan(pconf.numpy())
+    assert np.array_equal(top1[finite], ptop1.numpy()[finite])
 
 
 FLASH_CASES = [(hd, g, s, window) for hd in (32, 48, 64) for g in (1, 4)
