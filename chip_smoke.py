@@ -8,18 +8,20 @@ then exits non-zero without the final result line:
 
 1. card: name and power limit, as nvidia-smi prints them;
 2. build: the CUDA kernels from src/repro_torch/kernels/csrc (set-up),
-   with one line per attention and BvSB kernel from ptxas (registers,
-   spills);
+   with one line per kernel from ptxas (registers, spills);
 3. kernels: each CUDA kernel against its plain PyTorch version on the
    card, at the serving shapes and edge cases, with the stated
    tolerances (flash on both sides of the tensor-core threshold, and
    both flash kernels forced at shapes around it; BvSB and decode
    attention called twice, bitwise equal, and decode with NaN in every
-   slot past the length); kernel, plain, library and bound times at the
-   two paths' shapes and at B = 64 (CUDA events, after warm-up), flash's
-   bound at the tensor-core rate beside its FP32 CUDA-core bound, the
-   threshold sweep of the two flash kernels, and BvSB cut into chunks
-   and decode attention into splits, forced, around the plans' choices;
+   slot past the length; the RG-LRU scan bit for bit, in f32 and bf16,
+   on its ring and its per-element path); kernel, plain, library and
+   bound times at the two paths' shapes and at B = 64 (CUDA events,
+   after warm-up), the scan also in bf16 and at B = 1, flash's bound at
+   the tensor-core rate beside its FP32 CUDA-core bound, the threshold
+   sweep of the two flash kernels, and BvSB cut into chunks, decode
+   attention into splits and the scan's ring into (steps, stages),
+   forced, around the plans' choices;
 4. cascade path: the live cascade — 16 device clients on tier-low, a
    server engine hosting tier-server-fast and tier-server-heavy with
    model switching, the MultiTASC++ scheduler — through ``run_cascade``,
@@ -68,6 +70,7 @@ from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import bvsb as _bvsb  # noqa: E402
 from repro_torch.kernels import decode_attention as _decode  # noqa: E402
 from repro_torch.kernels import flash_attention as _flash  # noqa: E402
+from repro_torch.kernels import rglru_scan as _rglru  # noqa: E402
 from repro_torch.kernels.bvsb import bvsb_plain  # noqa: E402
 from repro_torch.kernels.decode_attention import \
     decode_attention_plain  # noqa: E402
@@ -95,9 +98,6 @@ LOW_INIT_SCALE = 0.5
 BVSB_ATOL = {torch.float32: 1e-5, torch.bfloat16: 2e-3}
 FLASH_ATOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 DECODE_ATOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-# kernel and plain loop round each step's product and sum alike: the
-# tolerance, relative to max|h|, leaves room for nothing but that
-RGLRU_RTOL = 1e-6
 CLASSIFY_CONF_ATOL, TOP2_GAP = 1e-5, 1e-4
 
 # the RecurrentGemma path: B prompts of S tokens, then STEPS decode steps
@@ -177,12 +177,12 @@ def time_ms(fn, iters=25, warmup=10, spin=True):
 
 
 PTXAS_KERNELS = ("flash_tc", "flash_fma", "decode_partial", "decode_merge",
-                 "bvsb_chunk", "bvsb_merge")
+                 "bvsb_chunk", "bvsb_merge", "rglru_ring", "rglru_elem")
 
 
 def print_ptxas(log: str):
-    """One line per attention and BvSB kernel from nvcc's -Xptxas -v
-    report: registers, spill stores and loads, static shared memory."""
+    """One line per kernel from nvcc's -Xptxas -v report: registers, spill
+    stores and loads, static shared memory."""
     for fn, body in re.findall(r"Compiling entry function '(\w+)' for "
                                r"'sm_90a'(.*?)(?=Compiling entry|\Z)", log,
                                re.S):
@@ -462,21 +462,50 @@ def rglru_inputs(dev, b, s, d, with_h0, seed=0):
     return a, u, h0
 
 
+def rglru_cases(dev, dt, with_h0):
+    """(name, a, u, h0, forced per-element path) in ``dt``: RecurrentGemma's
+    shape (a ragged last tile: 3000 steps are no multiple of 32 or 64); S
+    under one tile (1, 7); D off a strip (300, 4100; in bf16 off 16 bytes
+    too, so per-element); a [:, :, 1:] view (base 4 or 2 bytes off 16, so
+    per-element); a view strided in time (x[:, ::2], still on the ring);
+    and RG's shape forced onto the per-element path. Views are cut after
+    the cast."""
+    def inputs(b, s, d, seed, view=lambda x: x):
+        a, u, h0 = rglru_inputs(dev, b, s, d, with_h0, seed=seed)
+        a, u = view(a.to(dt)), view(u.to(dt))
+        return a, u, None if h0 is None else h0[:, :a.shape[2]].contiguous()
+
+    cases = [(f"({b},{s},{d})", *inputs(b, s, d, s + d), False)
+             for b, s, d in ((RG_B, RG_S, 4096), (1, 1, 256), (2, 7, 256),
+                             (3, 129, 300), (2, RG_S, 4100))]
+    cases.append(("(2,300,513)[:, :, 1:]",
+                  *inputs(2, 300, 513, 3, lambda x: x[:, :, 1:]), False))
+    cases.append(("(2,600,512)[:, ::2]",
+                  *inputs(2, 600, 512, 4, lambda x: x[:, ::2]), False))
+    cases.append((f"({RG_B},{RG_S},4096) forced per-element",
+                  *inputs(RG_B, RG_S, 4096, 5), True))
+    return cases
+
+
 def check_rglru(dev):
-    for b, s, d in ((RG_B, RG_S, 4096), (1, 1, 256), (3, 129, 300)):
+    """Each case bit for bit against the plain loop (torch.equal): both
+    round each step's product and sum alike."""
+    for dt in (torch.float32, torch.bfloat16):
         for with_h0 in (False, True):
-            a, u, h0 = rglru_inputs(dev, b, s, d, with_h0)
-            h = ops.rglru_scan(a, u, h0)
-            torch.cuda.synchronize()
-            ref = rglru_scan_plain(a, u, h0)
-            err, scale = max_err(h, ref), float(ref.abs().max())
-            print(f"rglru_scan (B,S,D)=({b},{s},{d}) h0={with_h0} float32: "
-                  f"max|err| {err:.3g} (atol {RGLRU_RTOL:g} x max|h| "
-                  f"{scale:.3g})")
-            if not (err <= RGLRU_RTOL * scale and h.dtype == torch.float32):
-                raise AssertionError("rglru_scan kernel disagrees with its "
-                                     f"plain version at {(b, s, d)} "
-                                     f"h0={with_h0}")
+            for name, a, u, h0, elem in rglru_cases(dev, dt, with_h0):
+                h = _rglru.run_entry(a, u, h0, aligned=False) if elem \
+                    else ops.rglru_scan(a, u, h0)
+                torch.cuda.synchronize()
+                same = torch.equal(h, rglru_scan_plain(a, u, h0))
+                path = "per-element" if elem or not _rglru.is_aligned(a, u) \
+                    else "ring, plan (steps, stages) " + str(_rglru.tiles(
+                        *a.shape, a.element_size(), _build.sm_count(dev)))
+                print(f"rglru_scan {name} {str(dt)[6:]} h0={with_h0}: "
+                      f"{path}: {'bitwise equal' if same else 'DIFFERS'}")
+                if not (same and h.dtype == torch.float32):
+                    raise AssertionError(f"rglru_scan kernel differs from its "
+                                         f"plain version at {name} {dt} "
+                                         f"h0={with_h0}")
 
 
 def bvsb_bound_ms(b, v, elt, bw, flops):
@@ -531,16 +560,17 @@ def rglru_bound_ms(a, bw, flops):
 
 class Timer:
     """Kernel / plain / library device times (``time_ms``) beside the bound,
-    per shape, each shape timed once, on float32 inputs shaped as the main
-    path gives them; the kernel's output on the timed inputs is held to
-    its plain version's within the float32 tolerance."""
+    per shape, each shape timed once, on inputs shaped as the main path
+    gives them (float32 unless a row says bf16); the kernel's output on
+    the timed inputs is held to its plain version's within the float32
+    tolerance (the RG-LRU scan: bit for bit)."""
 
     def __init__(self, dev, bw, flops, tc):
         self.dev, self.bw, self.flops, self.tc = dev, bw, flops, tc
         self.rows = {}
 
     def _row(self, key, kernel, plain, library, bound, err, atol, shape,
-             plain_spin=True, bound_fp32=None):
+             plain_spin=True, bound_fp32=None, dt="f32"):
         """``library`` None: no single PyTorch call computes the function.
         ``plain_spin`` False: the plain version launches more kernels than
         the launch queue holds, so it is timed without the spin (an upper
@@ -564,7 +594,7 @@ class Timer:
             fp32 = (f", FP32 CUDA-core bound {bound_fp32[0] * 1e3:.4f} us "
                     f"({bound_fp32[1]})")
         lib = "none" if l_ms is None else f"{l_ms * 1e3:.2f} us"
-        print(f"time {key[0]} {key[1]} {tuple(shape)} f32: kernel "
+        print(f"time {key[0]} {key[1]} {tuple(shape)} {dt}: kernel "
               f"{k_ms * 1e3:.2f} us on the device ({call_ms * 1e3:.2f} us "
               f"per call on the host), plain {p_ms * 1e3:.2f} us"
               f"{'' if plain_spin else ' (host-bound, no spin)'}, library "
@@ -710,15 +740,62 @@ class Timer:
             decode_bound_ms(q, k, lens, self.bw, self.flops), err,
             DECODE_ATOL[torch.float32], (b, w, 1, 16, 256))
 
-    def rglru_rg(self, b=RG_B, s=RG_S, d=4096):
-        key = ("rglru_scan", f"{RG_ARCH} B={b}")
+    def rglru_rg(self, b=RG_B, s=RG_S, d=4096, dt=torch.float32):
+        name = "f32" if dt == torch.float32 else "bf16"
+        key = ("rglru_scan", f"{RG_ARCH} B={b}" + (" bf16" if name == "bf16"
+                                                   else ""))
         a, u, _ = rglru_inputs(self.dev, b, s, d, False, seed=1)
-        ref = rglru_scan_plain(a, u)
-        err = max_err(ops.rglru_scan(a, u), ref)
+        a, u = a.to(dt), u.to(dt)
+        if not torch.equal(ops.rglru_scan(a, u), rglru_scan_plain(a, u)):
+            raise AssertionError(f"rglru_scan {key[1]}: differs from its "
+                                 "plain version")
         return self._row(
             key, lambda: ops.rglru_scan(a, u), lambda: rglru_scan_plain(a, u),
-            None, rglru_bound_ms(a, self.bw, self.flops), err,
-            RGLRU_RTOL * float(ref.abs().max()), (b, s, d), plain_spin=False)
+            None, rglru_bound_ms(a, self.bw, self.flops), 0.0, 0.0,
+            (b, s, d), plain_spin=False, dt=name)
+
+    def rglru_tiles(self, shapes=((RG_B, torch.float32), (1, torch.float32),
+                                  (RG_B, torch.bfloat16)), s=RG_S, d=4096):
+        """Device us of the scan's ring forced to (steps, stages)
+        (``rglru_scan.run_entry``, not counted) around the plan at
+        RecurrentGemma's shape, each bitwise equal to the plain loop;
+        beside them the card's rate over the same bytes, one
+        ``torch.add(a, u, out=h)``: a and u read, h written in f32, as
+        the scan moves them. A yardstick of bytes: no PyTorch call
+        computes the scan."""
+        sms = _build.sm_count(self.dev)
+        for b, dt in shapes:
+            a, u, _ = rglru_inputs(self.dev, b, s, d, False, seed=2)
+            a, u = a.to(dt), u.to(dt)
+            ref = rglru_scan_plain(a, u)
+            elt = a.element_size()
+            plan = _rglru.tiles(b, s, d, elt, sms)
+            row = 2 * _rglru.STRIP * elt
+            base = _rglru.MIN_TILE // row
+            times = {}
+            for steps, stages in sorted(
+                    {(base << k, n) for k in range(4)
+                     for n in range(2, _rglru.MAX_STAGES + 1)} | {plan}):
+                if not torch.equal(_rglru.run_entry(a, u, None, steps, stages),
+                                   ref):
+                    raise AssertionError(f"rglru_scan ({b},{s},{d}) {dt} at "
+                                         f"steps={steps} stages={stages} "
+                                         "differs from its plain version")
+                times[steps, stages] = time_ms(
+                    lambda: _rglru.run_entry(a, u, None, steps, stages))[0]
+            elem_ms = time_ms(lambda: _rglru.run_entry(a, u, aligned=False))[0]
+            h = torch.empty(b, s, d, device=self.dev)
+            add_ms = time_ms(lambda: torch.add(a, u, out=h))[0]
+            moved = a.numel() * (2 * elt + 4)
+            cells = "; ".join(
+                f"{st}x{n} ({st * n * row // 1024} KB) {ms * 1e3:.2f}"
+                for (st, n), ms in times.items())
+            print(f"rglru tiles (B,S,D)=({b},{s},{d}) {str(dt)[6:]}, planned "
+                  f"steps x stages {plan[0]}x{plan[1]} "
+                  f"({moved / times[plan] / 1e9:.3f} TB/s), device us: "
+                  f"{cells}; per-element path {elem_ms * 1e3:.2f}; "
+                  f"torch.add(a, u, out=h) over the same bytes "
+                  f"{add_ms * 1e3:.2f} us ({moved / add_ms / 1e9:.3f} TB/s)")
 
     def flash(self, tier, b, s=16):
         if ("flash_attention", f"{tier} B={b}") in self.rows:
@@ -1152,8 +1229,11 @@ def main() -> int:
                "rglru_scan": timer.rglru_rg()}
     b64_rows = {"bvsb": timer.bvsb_rows(64, 256_000),
                 "decode_attention": timer.decode_rg(b=64)}
+    scan_rows = {"bf16": timer.rglru_rg(dt=torch.bfloat16),
+                 "b1": timer.rglru_rg(b=1)}
     timer.bvsb_chunks()
     timer.decode_splits()
+    timer.rglru_tiles()
     torch.cuda.empty_cache()
 
     t2 = time.perf_counter()
@@ -1194,6 +1274,9 @@ def main() -> int:
         if name in b64_rows:
             entry["b64"] = {k: b64_rows[name][k] for k in keys
                             if k in b64_rows[name]}
+        if name == "rglru_scan":
+            entry.update({tag: {k: row[k] for k in keys if k in row}
+                          for tag, row in scan_rows.items()})
         kernels.append(entry)
     print(f"{RG_ARCH} path seconds: init {rg['init_s']:.3f}, prefill "
           f"{rg['prefill_s']:.3f}, decode {rg['decode_s']:.3f}; peak "

@@ -4,12 +4,27 @@ a, u: (B, S, D) -> h: (B, S, D) float32, with an optional initial state
 h0 (B, D) (zeros when absent). ``rglru_scan`` runs the hand-written CUDA
 kernel ``csrc/rglru_scan.cu`` on CUDA tensors and ``rglru_scan_plain`` on
 CPU tensors; on any other device it raises.
+
+The kernel gives each warp a strip of STRIP channels of one batch row and
+streams the strip's a and u through a ring of ``stages`` tiles of
+``steps`` time steps in shared memory. ``tiles`` plans the ring from the
+warps an SM holds; ``is_aligned`` says whether the 16-byte copies that fill
+it can serve a call (else the kernel loads element by element).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import _build
+
+STRIP = 32               # csrc/rglru_scan.cu kStrip: channels a warp owns
+MAX_STAGES = 8           # csrc/rglru_scan.cu kMaxStages: ring tiles
+IN_FLIGHT = 32 * 1024    # a and u bytes the plan keeps in flight on an SM
+STAGES = 3               # ring tiles: two in flight while one is read
+MIN_TILE = 2 * 1024      # a and u bytes of a tile, at least
+MAX_TILE = 16 * 1024     # ... and at most
 
 # kernel launches since the last ops.reset_launch_counts()
 launches = 0
@@ -51,6 +66,56 @@ def _check(a, u, h0):
                              f"{(b, d)}, got {h0.dtype} {tuple(h0.shape)}")
 
 
+def tiles(b: int, s: int, d: int, elt: int, sms: int):
+    """(steps, stages): the ring of each warp, ``stages`` tiles of
+    ``steps`` time steps of its strip's a and u, for (B, S, D) inputs of
+    ``elt`` bytes an element on ``sms`` SMs.
+
+    The B * ceil(D / STRIP) warps put ``resident`` warps on an SM; each
+    keeps two tiles in flight while it reads a third, and the tiles are
+    sized so that an SM has about IN_FLIGHT bytes in flight: 4 KB tiles
+    at RecurrentGemma's B = 4 (16 steps in f32), 16 KB at B = 1. More in
+    flight measured slower at B = 4, and shorter tiles slower at B = 1
+    (chip_smoke.py's ring sweep). A tile is MIN_TILE to MAX_TILE bytes,
+    a power of two of steps, never longer than S."""
+    resident = -(-b * -(-d // STRIP) // sms)
+    row = 2 * STRIP * elt                 # a and u of one time step
+    tile = min(max(IN_FLIGHT // (2 * resident), MIN_TILE), MAX_TILE)
+    steps = min(1 << ((tile // row).bit_length() - 1), s)
+    return steps, min(STAGES, -(-s // steps) + 1)
+
+
+def is_aligned(a, u) -> bool:
+    """Whether the kernel's 16-byte copies can serve (a, u): both base
+    pointers, both (batch, time) strides and D * elt on 16 bytes."""
+    elt = a.element_size()
+    return a.shape[2] * elt % 16 == 0 and all(
+        t.data_ptr() % 16 == 0 and t.stride(0) * elt % 16 == 0
+        and t.stride(1) * elt % 16 == 0 for t in (a, u))
+
+
+def run_entry(a, u, h0=None, steps: Optional[int] = None,
+              stages: Optional[int] = None, aligned: Optional[bool] = None):
+    """Check CUDA tensors and run the kernel on them with the planned ring
+    (``tiles``, ``is_aligned``) or, for measuring, a forced ``steps``,
+    ``stages`` or path (``aligned`` False: per-element loads; True on
+    inputs the copies cannot serve is refused). Counts nothing:
+    ``rglru_scan`` is the counted launch."""
+    _check(a, u, h0)
+    b, s, d = a.shape
+    plan = tiles(b, s, d, a.element_size(), _build.sm_count(a.device))
+    steps = plan[0] if steps is None else steps
+    stages = plan[1] if stages is None else stages
+    ring = is_aligned(a, u) if aligned is None else aligned
+    h = torch.empty(b, s, d, dtype=torch.float32, device=a.device)
+    _build.check(_build.library().repro_rglru_scan(
+        a.data_ptr(), u.data_ptr(), 0 if h0 is None else h0.data_ptr(),
+        h.data_ptr(), _build.DTYPE_CODES[a.dtype], b, s, d,
+        a.stride(0), a.stride(1), u.stride(0), u.stride(1), steps, stages,
+        int(ring), _build.stream_ptr(a)), "rglru_scan")
+    return h
+
+
 def rglru_scan(a, u, h0=None):
     """h (B, S, D) float32; CUDA kernel on CUDA tensors, plain on CPU."""
     global launches
@@ -58,14 +123,6 @@ def rglru_scan(a, u, h0=None):
         return rglru_scan_plain(a, u, h0)
     if a.device.type != "cuda":
         raise ValueError(f"rglru_scan: no kernel for device {a.device}")
-    _check(a, u, h0)
-    b, s, d = a.shape
-    h = torch.empty(b, s, d, dtype=torch.float32, device=a.device)
-    lib = _build.library()
-    _build.check(lib.repro_rglru_scan(
-        a.data_ptr(), u.data_ptr(), 0 if h0 is None else h0.data_ptr(),
-        h.data_ptr(), _build.DTYPE_CODES[a.dtype], b, s, d,
-        a.stride(0), a.stride(1), u.stride(0), u.stride(1),
-        _build.stream_ptr(a)), "rglru_scan")
+    h = run_entry(a, u, h0)
     launches += 1
     return h

@@ -13,6 +13,7 @@ from repro_torch.configs import get_config
 from repro_torch.configs.cascade_tiers import BATCH_LADDER
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import rglru_scan as _rglru
 from repro_torch.kernels.bvsb import bvsb_plain, chunks
 from repro_torch.kernels.decode_attention import decode_attention_plain
 from repro_torch.kernels.flash_attention import flash_attention_plain
@@ -349,22 +350,80 @@ def test_decode_kernel_strided_query_and_masked_slots(dev):
         out[1], decode_attention_plain(q, k, v, lens)[1], atol=1e-4, rtol=0)
 
 
-@pytest.mark.parametrize("b,s,d", [(1, 1, 256), (3, 129, 300), (2, 3000, 512)])
-@pytest.mark.parametrize("with_h0", [False, True])
-def test_rglru_kernel_matches_plain(dev, b, s, d, with_h0):
-    """Both round the product and the sum apart: equal bit for bit."""
+def _rglru_inputs(dev, b, s, d, view, dtype, with_h0):
+    """a, u (B, S, D) in ``dtype``, cut to ``view`` after the cast: None
+    (contiguous), "offset" ([:, :, 1:], the base 4 or 2 bytes off 16) or
+    "time" ([:, ::2], strided in time); h0 (B, D') f32 or None."""
     gen = torch.Generator(device=dev).manual_seed(s * d)
     a = torch.rand(b, s, d, generator=gen, device=dev) * 0.5 + 0.499
-    u = torch.randn(b, s, d, generator=gen, device=dev)
-    h0 = torch.randn(b, d, generator=gen, device=dev) if with_h0 else None
+    a = a.to(dtype)
+    u = torch.randn(b, s, d, generator=gen, device=dev).to(dtype)
+    if view == "offset":
+        a, u = a[:, :, 1:], u[:, :, 1:]
+    elif view == "time":
+        a, u = a[:, ::2], u[:, ::2]
+    h0 = torch.randn(b, a.shape[2], generator=gen, device=dev) \
+        if with_h0 else None
+    return a, u, h0
+
+
+@pytest.mark.parametrize("b,s,d,view,ring", [
+    (1, 1, 256, None, (True, True)),        # S under one tile
+    (1, 7, 256, None, (True, True)),
+    (3, 129, 300, None, (True, False)),     # D off a strip; bf16 off 16 B
+    (2, 3000, 512, None, (True, True)),     # ragged last tile
+    (2, 3000, 4100, None, (True, False)),
+    (2, 300, 513, "offset", (False, False)),
+    (2, 600, 512, "time", (True, True))])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_rglru_kernel_matches_plain(dev, b, s, d, view, ring, dtype, with_h0):
+    """Both round the product and the sum apart: equal bit for bit, on the
+    ring and on the per-element path (``ring``: which one each dtype
+    takes)."""
+    a, u, h0 = _rglru_inputs(dev, b, s, d, view, dtype, with_h0)
+    assert _rglru.is_aligned(a, u) == ring[dtype == torch.bfloat16]
     ops.reset_launch_counts()
     h = ops.rglru_scan(a, u, h0)
     torch.cuda.synchronize()
     assert ops.launch_counts()["rglru_scan"] == 1
     assert h.dtype == torch.float32 and h.shape == a.shape
     assert torch.equal(h, rglru_scan_plain(a, u, h0))
-    hb = ops.rglru_scan(a.bfloat16(), u.bfloat16(), h0)
-    assert torch.equal(hb, rglru_scan_plain(a.bfloat16(), u.bfloat16(), h0))
+
+
+def _scan_plans(elt):
+    """Every (steps, stages) the plan gives at S = 3000, over batches,
+    widths and SM counts."""
+    return sorted({_rglru.tiles(b, 3000, d, elt, sms) for b in range(1, 257)
+                   for d in (512, 4096) for sms in (132, 114, 8)})
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_rglru_forced_plans_match_plain(dev, dtype):
+    """Every ring the plan can give (3 tiles of 2 to 16 KB), four it
+    cannot (7 and 24 steps a tile, no power of two; rings of 5 and 8
+    tiles), and the per-element path, forced through ``run_entry`` at
+    (2, 3000, 512): each bitwise equal to the plain loop, none counted.
+    The ring is refused where its copies would be misaligned."""
+    a, u, h0 = _rglru_inputs(dev, 2, 3000, 512, None, dtype, True)
+    refs = {True: rglru_scan_plain(a, u, h0), False: rglru_scan_plain(a, u)}
+    ref = refs[True]
+    plans = _scan_plans(a.element_size())
+    row = 2 * _rglru.STRIP * a.element_size()      # a and u bytes a step
+    assert {(steps * row, stages) for steps, stages in plans} == {
+        (2048, 3), (4096, 3), (8192, 3), (16384, 3)}
+    ops.reset_launch_counts()
+    for steps, stages in plans + [(7, 3), (24, 2), (8, 8), (16, 5)]:
+        for with_h0 in (True, False):
+            h = _rglru.run_entry(a, u, h0 if with_h0 else None, steps, stages)
+            assert torch.equal(h, refs[with_h0]), (steps, stages, with_h0)
+    assert torch.equal(_rglru.run_entry(a, u, h0, aligned=False), ref)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["rglru_scan"] == 0
+    with pytest.raises(RuntimeError, match="rglru_scan"):
+        _rglru.run_entry(a[:, :, 1:], u[:, :, 1:], aligned=True)
 
 
 def test_reduced_recurrentgemma_steps_on_the_card_match_the_cpu(dev):

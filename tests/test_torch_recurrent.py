@@ -26,6 +26,7 @@ from repro.models.common import KeyGen
 from repro.models.model import build_model as jbuild_model
 from repro_torch.configs import get_config
 from repro_torch.kernels import ops
+from repro_torch.kernels import rglru_scan as _scan
 from repro_torch.kernels.rglru_scan import rglru_scan_plain
 from repro_torch.models import recurrent
 from repro_torch.models.model import init_params, params_from_jax
@@ -92,6 +93,175 @@ def test_rglru_scan_cpu_takes_the_plain_loop():
     hb = ops.rglru_scan(torch.from_numpy(a).bfloat16(),
                         torch.from_numpy(u).bfloat16())
     assert hb.dtype == torch.float32
+
+
+# ---------------------------------------------------------------------------
+# the CUDA scan's plan (kernels/rglru_scan.py tiles, is_aligned) and its
+# ring's index arithmetic (csrc/rglru_scan.cu rglru_ring_kernel) on the CPU
+# ---------------------------------------------------------------------------
+PLAN_SHAPES = [(4, 3000, 4096), (1, 3000, 4096), (64, 3000, 4096),
+               (2, 3000, 512), (1, 1, 256), (3, 7, 300), (2, 3000, 4100),
+               (65535, 2, 32)]
+PLAN_SMS = [132, 114, 8]
+DTYPES = [torch.float32, torch.bfloat16]
+# an H100 SM: shared memory, the most one block may use, what the card
+# keeps per resident block, resident blocks at most
+SM_SMEM, BLOCK_SMEM, BLOCK_RESERVE, MAX_BLOCKS = 228 * 1024, 227 * 1024, \
+    1024, 32
+
+
+@pytest.mark.parametrize("sms", PLAN_SMS)
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,s,d", PLAN_SHAPES)
+def test_rglru_tiles_fit_the_sm(b, s, d, dtype, sms):
+    """At least one step a tile and two tiles a ring; one warp's ring fits
+    the 227 KB a block may use, and the warps a wave puts on an SM (one
+    block each, with the card's 1 KB per block) fit its 228 KB."""
+    elt = torch.tensor([], dtype=dtype).element_size()
+    steps, stages = _scan.tiles(b, s, d, elt, sms)
+    assert 1 <= steps <= s and 2 <= stages <= _scan.MAX_STAGES
+    ring = stages * steps * 2 * _scan.STRIP * elt
+    assert ring <= BLOCK_SMEM
+    warps = b * -(-d // _scan.STRIP)
+    wave = min(-(-warps // sms), MAX_BLOCKS)
+    assert wave * (ring + BLOCK_RESERVE) <= SM_SMEM
+    # no tile more than S needs; whole powers of two of steps below S
+    assert stages <= -(-s // steps) + 1
+    assert steps == s or steps & (steps - 1) == 0
+
+
+def _ring_scan(a, u, h0, steps, stages):
+    """rglru_ring_kernel's index arithmetic in PyTorch on the CPU, all
+    warps at once: warp (block) w owns strip w % strips of row w //
+    strips, copies tile k of its strip into ring slot k mod stages (the
+    slot read at iteration k - 1) in 16-byte chunks, chunk c = lane + 32 j
+    at row c // cpr, zero-filling chunks past D and copying no row past S,
+    then steps through the tile's rows in order. A slot is poisoned with
+    NaN once read, so a read of a row no copy wrote shows in h. Returns h,
+    and how many times each element of a was copied and each element of h
+    written."""
+    b, s, d = a.shape
+    e = 16 // a.element_size()
+    cpr = _scan.STRIP // e
+    strips = -(-d // _scan.STRIP)
+    n_tiles = -(-s // steps)
+    h = torch.full((b, s, d), float("nan"))
+    copied = torch.zeros(b, s, d, dtype=torch.int64)
+    written = torch.zeros(b, s, d, dtype=torch.int64)
+    a32, u32 = a.float(), u.float()
+    w = torch.arange(b * strips)
+    bi, d0 = w // strips, (w % strips) * _scan.STRIP          # (W,)
+    ring = torch.full((len(w), stages, 2, steps, _scan.STRIP), float("nan"))
+    lanes = d0[:, None] + torch.arange(_scan.STRIP)            # (W, 32)
+    live = lanes < d
+    hv = torch.zeros(len(w), _scan.STRIP)
+    if h0 is not None:
+        hv[live] = h0[bi[:, None].expand_as(lanes)[live], lanes[live]]
+
+    def issue(k, slot):
+        if k >= n_tiles:
+            return
+        t0 = k * steps
+        c = torch.arange(min(steps, s - t0) * cpr)
+        r, col = c // cpr, (c % cpr) * e                       # (n,)
+        cols = col[:, None] + torch.arange(e)                  # (n, e)
+        rows = r[:, None].expand_as(cols)
+        src = d0[:, None, None] + cols                         # (W, n, e)
+        inside = (d0[:, None] + col < d)[:, :, None].expand_as(src)
+        assert (src[inside] < d).all()                  # whole chunks in D
+        tb = bi[:, None, None].expand_as(src)
+        tt = (t0 + rows).expand_as(src)
+        for arr, half in ((a32, 0), (u32, 1)):
+            vals = arr[tb, tt, src.clamp(max=d - 1)]
+            ring[:, slot, half, rows, cols] = torch.where(inside, vals, 0.0)
+        copied.index_put_((tb[inside], tt[inside], src[inside]),
+                          torch.ones(int(inside.sum()), dtype=torch.int64),
+                          accumulate=True)
+
+    for k in range(stages - 1):
+        issue(k, k)
+    slot = 0
+    for k in range(n_tiles):
+        issue(k + stages - 1, stages - 1 if slot == 0 else slot - 1)
+        for r in range(min(steps, s - k * steps)):
+            hv = ring[:, slot, 0, r] * hv + ring[:, slot, 1, r]
+            t = k * steps + r
+            h[bi[:, None].expand_as(lanes)[live], t, lanes[live]] = hv[live]
+            written[bi[:, None].expand_as(lanes)[live], t, lanes[live]] += 1
+        ring[:, slot] = float("nan")
+        slot = 0 if slot + 1 == stages else slot + 1
+    return h, copied, written
+
+
+RING_SHAPES = [(2, 700, 64), (3, 129, 296), (1, 7, 40), (1, 1, 8)]
+
+
+@pytest.mark.parametrize("sms", PLAN_SMS)
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,s,d", RING_SHAPES)
+def test_rglru_ring_plan_covers_every_channel_once(b, s, d, dtype, sms):
+    """Under the plan, every (b, t, channel) of a and u is copied once and
+    every element of h written once, and the ring's h is bitwise the
+    plain loop's, with and without h0."""
+    a, u, h0 = _au(b, s, d, s * d, True)
+    at, ut = (torch.from_numpy(x).to(dtype) for x in (a, u))
+    assert _scan.is_aligned(at, ut)
+    steps, stages = _scan.tiles(b, s, d, at.element_size(), sms)
+    for h0t in (None, torch.from_numpy(h0)):
+        h, copied, written = _ring_scan(at, ut, h0t, steps, stages)
+        assert (copied == 1).all() and (written == 1).all()
+        assert torch.equal(h, rglru_scan_plain(at, ut, h0t))
+
+
+@pytest.mark.parametrize("steps,stages", [(1, 2), (3, 2), (3, 3), (5, 8),
+                                          (64, 2)])
+def test_rglru_ring_forced_plans_wrap_the_ring(steps, stages):
+    """Forced rings (run_entry's steps and stages) that wrap many times,
+    on a ragged last tile and a strip past D."""
+    a, u, h0 = _au(2, 101, 40, steps * stages, True)
+    at, ut, h0t = (torch.from_numpy(x) for x in (a, u, h0))
+    h, copied, written = _ring_scan(at, ut, h0t, steps, stages)
+    assert (copied == 1).all() and (written == 1).all()
+    assert torch.equal(h, rglru_scan_plain(at, ut, h0t))
+
+
+def _aligned_cases():
+    """(name, a, u, aligned): what the 16-byte copies can serve."""
+    x = torch.zeros(2, 64, 520)
+    xb = x.bfloat16()
+    return [
+        ("f32 contiguous", x[:, :, :512], x[:, :, :512], True),
+        ("f32 D 300", x[:, :, :300], x[:, :, :300], True),
+        ("f32 D 301", x[:, :, :301], x[:, :, :301], False),
+        ("f32 [:, :, 1:]", x[:, :, 1:], x[:, :, 1:], False),
+        ("f32 [:, :, 4:] (16 bytes in)", x[:, :, 4:], x[:, :, 4:], True),
+        ("f32 time-strided", x[:, ::2, :512], x[:, ::2, :512], True),
+        ("f32 u off", x[:, :, :512], x[:, :, 1:513], False),
+        ("f32 odd row stride", torch.zeros(2, 64, 301)[:, :, :300],
+         torch.zeros(2, 64, 301)[:, :, :300], False),
+        ("f32 batch stride off", torch.zeros(2, 64 * 512 + 1)[:, :-1]
+         .reshape(2, 64, 512), torch.zeros(2, 64, 512), False),
+        ("bf16 D 300", xb[:, :, :300], xb[:, :, :300], False),
+        ("bf16 D 4100", torch.zeros(1, 4, 4100).bfloat16(),
+         torch.zeros(1, 4, 4100).bfloat16(), False),
+        ("bf16 D 296", xb[:, :, :296], xb[:, :, :296], True),
+        ("bf16 [:, :, 8:]", xb[:, :, 8:], xb[:, :, 8:], True),
+        ("bf16 [:, :, 1:]", xb[:, :, 1:], xb[:, :, 1:], False),
+    ]
+
+
+@pytest.mark.parametrize("name,a,u,want", _aligned_cases(),
+                         ids=[c[0] for c in _aligned_cases()])
+def test_rglru_is_aligned_exactly_when_every_pointer_and_stride_is(
+        name, a, u, want):
+    elt = a.element_size()
+    assert all(t.data_ptr() % 16 == 0 for t in (a, u)) or not want
+    assert _scan.is_aligned(a, u) == want
+    # the predicate is the conjunction of the stated conditions
+    conds = [a.shape[2] * elt % 16 == 0] + [
+        v % 16 == 0 for t in (a, u)
+        for v in (t.data_ptr(), t.stride(0) * elt, t.stride(1) * elt)]
+    assert all(conds) == want
 
 
 # ---------------------------------------------------------------------------
