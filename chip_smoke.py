@@ -14,7 +14,8 @@ then exits non-zero without the final result line:
    tolerances (flash on both sides of the tensor-core threshold, and
    both flash kernels forced at shapes around it; BvSB and decode
    attention called twice, bitwise equal, and decode with NaN in every
-   slot past the length; the RG-LRU scan bit for bit, in f32 and bf16,
+   slot past the length, in f32, bf16 and f32 q over a bf16 cache; the
+   RG-LRU scan bit for bit, in f32 and bf16,
    on its ring and its per-element path); kernel, plain, library and
    bound times at the two paths' shapes and at B = 64 (CUDA events,
    after warm-up), the scan also in bf16 and at B = 1, flash's bound at
@@ -38,17 +39,33 @@ then exits non-zero without the final result line:
    RG-LRU scan, 384 decode-attention and 33 BvSB launches; the ring
    caches must hold positions 952..2999 at slot pos % 2048. Then the
    card against the CPU at full width and one super-block of depth;
-6. the kernels line: one JSON object describing every ported kernel;
-7. the result line: {"ok": true, "device": {...}}.
+6. simulator path: calibration from light-model logits on the card (the
+   BvSB kernel) against the CPU, then the paper's simulator through
+   ``jaxsim.run_sweep`` on the card at the paper's scale: (a) the
+   heterogeneous fleet of 100 devices x 5,000 samples, 3 schedulers x 3
+   seeds; (b) the same fleet under churn and MMPP arrivals with model
+   switching over three servers, one lane per scheduler. The first three
+   lanes of each also run on the CPU in worker processes started at the
+   phase's start, and must equal the card's lanes (counts, per-device
+   fields, thresholds, the traces' server index and forwarded counts;
+   the float sums over devices within 1e-5 relative). Then (a)'s fleet
+   at 600 samples for B in {1, 9, 64, 256}, and a profiled rerun for the
+   device's busy time. The launch counters around the path must read one
+   BvSB launch (the calibration) and nothing else;
+7. the kernels line: one JSON object describing every ported kernel;
+8. the result line: {"ok": true, "device": {...}}.
 
 ``throughput`` of the cascade is a virtual-clock figure from the paper's
 latency profiles, not a measurement of the card.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
+import functools
 import io
 import json
+import multiprocessing
 import pathlib
 import re
 import subprocess
@@ -66,6 +83,11 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.cascade_tiers import (BATCH_LADDER,  # noqa: E402
                                                DEVICE_PROFILES,
                                                SERVER_PROFILES)
+from repro_torch.configs import scenarios  # noqa: E402
+from repro_torch.configs.scenarios import (ArrivalSpec,  # noqa: E402
+                                           ChurnSpec, ScenarioSpec)
+from repro_torch.core import calibration  # noqa: E402
+from repro_torch.core.switching import DEFAULT_C_UPPER  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import bvsb as _bvsb  # noqa: E402
 from repro_torch.kernels import decode_attention as _decode  # noqa: E402
@@ -86,6 +108,7 @@ from repro_torch.serving.cascade import run_cascade  # noqa: E402
 from repro_torch.serving.client import DeviceClient  # noqa: E402
 from repro_torch.serving.engine import ServedModel, ServerEngine  # noqa: E402
 from repro_torch.serving.executables import classify_fn  # noqa: E402
+from repro_torch.sim import jaxsim, synthetic  # noqa: E402
 from repro_torch.sim.events import make_scheduler  # noqa: E402
 
 N_DEVICES, SAMPLES, SEQ, VOCAB = 16, 128, 16, 2048
@@ -419,11 +442,26 @@ def decode_cases():
                     (3, 100, 2, 4, 48, [1, 100, 37])]
 
 
-def decode_inputs(dev, b, w, kv, g, hd, lengths, dtype=torch.float32):
+# (query dtype, cache dtype) of decode attention: f32, bf16, and an f32
+# model over a bf16 cache (the JAX package's default cache), which
+# computes in f32 and is held to the f32 tolerance
+DECODE_DTYPES = ((torch.float32, torch.float32),
+                 (torch.bfloat16, torch.bfloat16),
+                 (torch.float32, torch.bfloat16))
+
+
+def dtype_name(qd, cd=None):
+    names = {torch.float32: "f32", torch.bfloat16: "bf16"}
+    cd = qd if cd is None else cd
+    return names[qd] if cd == qd else f"{names[qd]} q over {names[cd]} cache"
+
+
+def decode_inputs(dev, b, w, kv, g, hd, lengths, dtype=torch.float32,
+                  cache_dtype=None):
     gen = torch.Generator(device=dev).manual_seed(b * w + hd)
     q = torch.randn(b, kv * g, hd, generator=gen, device=dev).to(dtype)
-    k, v = (torch.randn(b, w, kv, hd, generator=gen, device=dev).to(dtype)
-            for _ in range(2))
+    k, v = (torch.randn(b, w, kv, hd, generator=gen, device=dev)
+            .to(cache_dtype or dtype) for _ in range(2))
     return q, k, v, torch.tensor(lengths, dtype=torch.int32, device=dev)
 
 
@@ -432,8 +470,9 @@ def check_decode(dev):
     with NaN in every slot at or past the length (slots the kernel must
     never read), each bitwise equal to the first."""
     for b, w, kv, g, hd, lengths in decode_cases():
-        for dt in (torch.float32, torch.bfloat16):
-            q, k, v, lens = decode_inputs(dev, b, w, kv, g, hd, lengths, dt)
+        for dt, cdt in DECODE_DTYPES:
+            q, k, v, lens = decode_inputs(dev, b, w, kv, g, hd, lengths, dt,
+                                          cdt)
             out = ops.decode_attention(q, k, v, lens)
             torch.cuda.synchronize()
             ref = decode_attention_plain(q, k, v, lens)
@@ -444,13 +483,24 @@ def check_decode(dev):
             poisoned = ops.decode_attention(q, k, v, lens)
             same = torch.equal(again, out) and torch.equal(poisoned, out)
             print(f"decode_attention (B,W,KV,G,hd)=({b},{w},{kv},{g},{hd}) "
-                  f"lengths {sorted(set(lengths))} {str(dt)[6:]}: max|err| "
-                  f"{err:.3g} (atol {atol:g}); again and with NaN past the "
-                  f"length: {'bitwise equal' if same else 'DIFFER'}")
+                  f"lengths {sorted(set(lengths))} {dtype_name(dt, cdt)}: "
+                  f"max|err| {err:.3g} (atol {atol:g}); again and with NaN "
+                  f"past the length: {'bitwise equal' if same else 'DIFFER'}")
             if not (err <= atol and out.dtype == dt and same):
                 raise AssertionError("decode_attention kernel disagrees with "
                                      f"its plain version at {(b, w, kv, g, hd)}"
-                                     f" lengths {sorted(set(lengths))} {dt}")
+                                     f" lengths {sorted(set(lengths))} "
+                                     f"{dtype_name(dt, cdt)}")
+    q, k, v, lens = decode_inputs(dev, 2, 64, 1, 16, 64, [64, 5])
+    for qd, cd in ((torch.bfloat16, torch.float32),
+                   (torch.float16, torch.float16)):
+        try:
+            ops.decode_attention(q.to(qd), k.to(cd), v.to(cd), lens)
+        except TypeError:
+            continue
+        raise AssertionError(f"decode_attention took {qd} q over a {cd} "
+                             "cache")
+    print("decode_attention refuses bf16 q over an f32 cache and f16")
 
 
 def rglru_inputs(dev, b, s, d, with_h0, seed=0):
@@ -540,13 +590,14 @@ def flash_bounds_ms(q, k, bw, flops, tc, window=None):
 
 
 def decode_bound_ms(q, k, lengths, bw, flops):
-    """Each valid cache slot read once (K and V), q read and out written
-    once; a q.k and a p.v FMA per (query head, valid slot, head dim)."""
+    """Each valid cache slot read once (K and V, in the cache's type), q
+    read and out written once (in q's type); a q.k and a p.v FMA per
+    (query head, valid slot, head dim)."""
     b, h, hd = q.shape
     kv = k.shape[2]
     slots = int(lengths.clamp(max=k.shape[1]).sum())
-    elt = q.element_size()
-    moved = (2 * q.numel() + 2 * slots * kv * hd) * elt + lengths.numel() * 4
+    moved = (2 * q.numel() * q.element_size()
+             + 2 * slots * kv * hd * k.element_size() + lengths.numel() * 4)
     ops_ = 4 * hd * slots * h
     return _bound(moved, ops_, bw, flops)
 
@@ -721,13 +772,19 @@ class Timer:
         row["fma_ms"] = f_ms
         return row
 
-    def decode_rg(self, b=RG_B, w=2048):
+    def decode_rg(self, b=RG_B, w=2048, dt=torch.float32, cache_dt=None):
         """Every ring full (length W), as on every decode step of the
-        path: its prompts of 3,000 tokens fill the 2048-slot rings."""
-        key = ("decode_attention", f"{RG_ARCH} B={b}")
-        q, k, v, lens = decode_inputs(self.dev, b, w, 1, 16, 256, [w] * b)
+        path: its prompts of 3,000 tokens fill the 2048-slot rings. The
+        SDPA yardstick takes the cache in q's type (SDPA takes one type
+        for all three)."""
+        cache_dt = cache_dt or dt
+        tag = "" if (dt, cache_dt) == (torch.float32,) * 2 else \
+            " " + dtype_name(dt, cache_dt)
+        key = ("decode_attention", f"{RG_ARCH} B={b}{tag}")
+        q, k, v, lens = decode_inputs(self.dev, b, w, 1, 16, 256, [w] * b,
+                                      dt, cache_dt)
         qt = q[:, :, None, :]
-        kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+        kt, vt = (c.transpose(1, 2).to(dt) for c in (k, v))
         mask = (torch.arange(w, device=self.dev)[None, :]
                 < lens[:, None])[:, None, None, :]
         err = max_err(ops.decode_attention(q, k, v, lens),
@@ -738,7 +795,7 @@ class Timer:
             lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                                    enable_gqa=True),
             decode_bound_ms(q, k, lens, self.bw, self.flops), err,
-            DECODE_ATOL[torch.float32], (b, w, 1, 16, 256))
+            DECODE_ATOL[dt], (b, w, 1, 16, 256), dt=dtype_name(dt, cache_dt))
 
     def rglru_rg(self, b=RG_B, s=RG_S, d=4096, dt=torch.float32):
         name = "f32" if dt == torch.float32 else "bf16"
@@ -1183,6 +1240,312 @@ def rg_check_cpu(model, dev):
         raise AssertionError(f"{RG_ARCH} on the card disagrees with the CPU")
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the paper's simulator (calibration, then the lane-aligned sweep)
+# ---------------------------------------------------------------------------
+# (a) the heterogeneous fleet of benchmarks/fig11_heterogeneous.py at the
+# paper's scale: 100 devices, tiers low/mid/high round-robin, SLO 0.15 s,
+# server efficientnetb3, 5,000 samples a device, 3 schedulers x 3 seeds
+SIM_N, SIM_S, SIM_SLO, SIM_SEEDS = 100, 5000, 0.15, (0, 1, 2)
+SIM_SCHEDULERS = ("multitasc++", "multitasc", "static")
+SIM_TIERS = ("low", "mid", "high")
+SIM_SERVER = "efficientnetb3"
+# (b) the changing environment: the same fleet under churn and MMPP
+# arrivals, switching over three server models, one lane per scheduler
+SIM_ENV = ScenarioSpec("churn+mmpp",
+                       churn=ChurnSpec(join_frac=0.3, leave_frac=0.3),
+                       arrivals=ArrivalSpec(kind="mmpp"))
+SIM_ENV_SERVERS = ("inceptionv3", "efficientnetb3", "deit-base")
+# cut from the paper's 5,000: under arrivals the devices' completions no
+# longer coincide, so (b) takes about N events a sample (94 a sample at
+# N = 100), and its CPU check runs one trip per event
+SIM_ENV_S = 200
+# the width sweep over (a)'s fleet, and the profiled rerun's size
+# (the profiler's processing costs ~0.15 ms a kernel, hence the short rerun)
+SIM_WIDTHS, SIM_WIDTH_S, SIM_PROFILE_S = (1, 9, 64, 256), 600, 30
+SIM_CPU_LANES = 3        # lanes of (a) and of (b) also run on the CPU
+# card against CPU: these equal, the float sums over devices within
+# tests/test_torch_sim.py's AGG_RTOL
+SIM_EXACT = ("completed", "forwarded_frac", "queue_left", "queue_peak",
+             "n_events", "per_device_sr", "per_device_acc", "final_thresh")
+SIM_EXACT_TRACES = ("server_idx", "fwd", "active")
+SIM_AGG = ("sr", "accuracy", "throughput")
+SIM_AGG_TRACES = ("thresh", "sr", "acc")
+SIM_AGG_RTOL = 1e-5
+
+
+def sim_fleet():
+    profs = [DEVICE_PROFILES[SIM_TIERS[i % 3]] for i in range(SIM_N)]
+    return (np.arange(SIM_N, dtype=np.int32) % 3,
+            np.array([p.latency for p in profs], np.float32),
+            np.array([p.accuracy for p in profs]))
+
+
+@functools.lru_cache(maxsize=None)
+def sim_static_threshold(server):
+    """fig11's static threshold: the paper's calibration protocol on each
+    tier's calibration split against the server, averaged over tiers."""
+    return float(np.mean([calibration.calibrate_static_threshold(
+        cal.confidence, cal.correct_light, cal.correct_heavy[:, 0])[0]
+        for cal in (synthetic.calibration_set(DEVICE_PROFILES[t].accuracy,
+                                              server.accuracy)
+                    for t in SIM_TIERS)]))
+
+
+@functools.lru_cache(maxsize=4)
+def sim_inputs(kind, lanes, samples):
+    """run_sweep's arguments for lanes ``lanes`` (a range) of fleet (a)
+    "hetero" or (b) "env": lane i runs scheduler i % 3 on seed i // 3. A
+    lane's inputs depend only on its index, so any subset of lanes is the
+    same points. Cached: the width sweep and the profiled rerun call each
+    twice or more (the streams are host set-up, not the card's work)."""
+    tier, lat, accs = sim_fleet()
+    seeds = [i // 3 for i in lanes]
+    uniq = sorted(set(seeds))
+    rows = [uniq.index(x) for x in seeds]
+    if kind == "hetero":
+        servers = (SERVER_PROFILES[SIM_SERVER],)
+        kw = dict(tier_ids=tier)
+        spec_kw = dict(static_threshold=sim_static_threshold(servers[0]))
+    else:
+        servers = tuple(SERVER_PROFILES[n] for n in SIM_ENV_SERVERS)
+        r = scenarios.realize(SIM_ENV, uniq, SIM_N, samples, lat)
+        kw = dict(tier_ids=tier, c_upper=[DEFAULT_C_UPPER[t]
+                                          for t in SIM_TIERS],
+                  join_t=r["join_t"][rows], leave_t=r["leave_t"][rows])
+        spec_kw = dict(model_switching=True,
+                       static_threshold=sim_static_threshold(servers[0]))
+    streams = synthetic.batched_device_streams(
+        uniq, SIM_N, samples, accs, [p.accuracy for p in servers])
+    streams = {k: v[rows] for k, v in streams.items()}
+    if kind == "env":
+        streams["arrive"] = r["arrive"][rows]
+    specs = [jaxsim.JaxSimSpec(SIM_SCHEDULERS[i % 3], SIM_N, samples,
+                               **spec_kw) for i in lanes]
+    return (specs, streams, lat, np.full(SIM_N, SIM_SLO, np.float32),
+            servers), kw
+
+
+def sim_cpu_lanes(kind, samples):
+    """The first SIM_CPU_LANES lanes through the port on the CPU (run in a
+    worker process beside the card's runs); returns (metrics, wall s)."""
+    torch.set_num_threads(1)
+    args, kw = sim_inputs(kind, range(SIM_CPU_LANES), samples)
+    t0 = time.perf_counter()
+    out = jaxsim.run_sweep(*args, device="cpu", **kw)
+    return out, time.perf_counter() - t0
+
+
+def sim_run(dev, kind, lanes, samples):
+    """One card run: (metrics, wall s, loop trips)."""
+    args, kw = sim_inputs(kind, lanes, samples)
+    trips = jaxsim.stats.trips
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = jaxsim.run_sweep(*args, device=dev, **kw)
+    wall = time.perf_counter() - t0
+    return out, wall, jaxsim.stats.trips - trips
+
+
+def sim_line(name, out, wall, trips, where="on the card"):
+    events = int(out["n_events"].sum())
+    return (f"{name}: B={len(out['sr'])}, wall {wall:.3f} s {where}, "
+            f"{trips} loop trips ({wall / trips * 1e6:.2f} us a trip), "
+            f"{events} lane-events ({events / wall:.0f} lane-events/s), "
+            f"n_events per lane {out['n_events'].min()}-"
+            f"{out['n_events'].max()}")
+
+
+def sim_compare(name, card, cpu):
+    """Lanes 0..k-1 of the card's run against the CPU's k lanes."""
+    k = len(cpu["sr"])
+    bad = [key for key in SIM_EXACT
+           if not np.array_equal(card[key][:k], cpu[key])]
+    bad += [f"traces.{key}" for key in SIM_EXACT_TRACES
+            if not np.array_equal(card["traces"][key][:k],
+                                  cpu["traces"][key], equal_nan=True)]
+    worst = 0.0
+    for key in SIM_AGG + tuple(f"traces.{t}" for t in SIM_AGG_TRACES):
+        a = card["traces"][key[7:]] if key.startswith("traces.") else card[key]
+        b = cpu["traces"][key[7:]] if key.startswith("traces.") else cpu[key]
+        a, b = np.asarray(a[:k], np.float64), np.asarray(b, np.float64)
+        if not np.array_equal(np.isnan(a), np.isnan(b)):
+            bad.append(key)
+            continue
+        m = ~np.isnan(a)
+        rel = np.abs(a[m] - b[m]) / np.maximum(np.abs(b[m]), 1e-30)
+        err = float(rel.max()) if rel.size else 0.0
+        worst = max(worst, err)
+        if err > SIM_AGG_RTOL:
+            bad.append(f"{key} (rel {err:.3g})")
+    print(f"{name}: card lanes 0-{k - 1} against the CPU: "
+          f"{', '.join(SIM_EXACT + SIM_EXACT_TRACES)} "
+          f"{'equal' if not bad else 'DIFFER'}; {', '.join(SIM_AGG)} and "
+          f"the traces' {', '.join(SIM_AGG_TRACES)} within max rel "
+          f"{worst:.3g} (rtol {SIM_AGG_RTOL:g})")
+    if bad:
+        raise AssertionError(f"{name}: the card's lanes differ from the "
+                             f"CPU's in {bad}")
+
+
+def sim_check_result(name, out, samples, lanes, churn=False):
+    """Finite metrics in range and no sample counted twice; without churn
+    the MultiTASC++ lanes (i % 3 == 0) must finish every sample and drain
+    their queue, which the paper's point is that it keeps up with (a
+    congested MultiTASC or Static lane can reach its window budget with
+    samples still queued, as in the JAX package)."""
+    n = SIM_N * samples
+    pp = np.array([i % 3 == 0 for i in lanes])
+    checks = {
+        "finite metrics": all(np.isfinite(out[k]).all()
+                              for k in ("sr", "accuracy", "throughput")),
+        "completed + queued <= samples":
+            ((out["completed"] + out["queue_left"] <= n)
+             & (out["completed"] > 0)).all(),
+        "sr in [0, 100]": ((out["sr"] >= 0) & (out["sr"] <= 100)).all(),
+        "some forwarded, some local":
+            ((out["forwarded_frac"] > 0) & (out["forwarded_frac"] < 1)).all(),
+    }
+    if not churn:
+        checks["MultiTASC++ lanes complete every sample and drain"] = (
+            (out["completed"][pp] == n) & (out["queue_left"][pp] == 0)).all()
+    failed = [k for k, ok in checks.items() if not ok]
+    print(f"{name}: sr {np.round(out['sr'], 3).tolist()}, accuracy "
+          f"{np.round(out['accuracy'], 4).tolist()}, forwarded_frac "
+          f"{np.round(out['forwarded_frac'], 4).tolist()}, completed "
+          f"{out['completed'].tolist()}, queue_left "
+          f"{out['queue_left'].tolist()}, queue_peak "
+          f"{out['queue_peak'].tolist()}")
+    if failed:
+        raise AssertionError(f"{name} checks failed: {failed}")
+
+
+def sim_calibration_inputs(dev):
+    """Light-model logits on the card, and labels: the light model right
+    more often where its BvSB is high (about 74% in all, near the paper's
+    light models), the heavy model at 85%."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    logits = torch.randn(10_000, 1000, generator=gen, device=dev) * 10
+    pconf, _ = calibration.score_logits(logits.cpu())
+    rng = np.random.default_rng(4)
+    correct_l = (rng.random(10_000) < 0.3 + 0.7 * pconf).astype(np.int8)
+    correct_h = (rng.random(10_000) < 0.85).astype(np.int8)
+    return logits, correct_l, correct_h
+
+
+def sim_check_scoring(logits):
+    """BvSB of the calibration logits, card against CPU (not counted)."""
+    conf, _ = calibration.score_logits(logits)
+    pconf, _ = calibration.score_logits(logits.cpu())
+    err = float(np.abs(conf - pconf).max())
+    print(f"calibration scoring of (10000, 1000) logits, card vs CPU: BvSB "
+          f"max|err| {err:.3g} (atol {BVSB_ATOL[torch.float32]:g})")
+    if not err <= BVSB_ATOL[torch.float32]:
+        raise AssertionError("calibration scoring on the card disagrees "
+                             "with the CPU")
+
+
+def sim_calibration(logits, correct_l, correct_h):
+    """The paper's calibration protocol over the logits scored on the card
+    (one BvSB launch) against the same on the CPU: the same threshold."""
+    t, info = calibration.calibrate_from_logits(logits, correct_l, correct_h)
+    pt, pinfo = calibration.calibrate_from_logits(logits.cpu(), correct_l,
+                                                  correct_h)
+    print(f"calibration from (10000, 1000) logits: card threshold {t:.6f}, "
+          f"CPU {pt:.6f}, forward fraction {info['forward_fraction']:.4f}")
+    if not (t == pt and info == pinfo):
+        raise AssertionError("calibration on the card disagrees with the CPU")
+
+
+def simulator_path(dev):
+    """Calibration and both fleets on the card, launch counters around
+    them; the first lanes of each also on the CPU in worker processes
+    started first, held to the card's; then the width sweep and a
+    profiled rerun."""
+    spawn = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(2, mp_context=spawn) as pool:
+        cpu = {"hetero": pool.submit(sim_cpu_lanes, "hetero", SIM_S),
+               "env": pool.submit(sim_cpu_lanes, "env", SIM_ENV_S)}
+        cal = sim_calibration_inputs(dev)
+        sim_check_scoring(cal[0])
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        sim_calibration(*cal)
+        hetero, h_wall, h_trips = sim_run(dev, "hetero",
+                                          range(3 * len(SIM_SEEDS)), SIM_S)
+        env, e_wall, e_trips = sim_run(dev, "env", range(3), SIM_ENV_S)
+        counts = ops.launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        print(sim_line(f"simulator (a) hetero fleet N={SIM_N} S={SIM_S}",
+                       hetero, h_wall, h_trips))
+        sim_check_result("simulator (a)", hetero, SIM_S,
+                         range(3 * len(SIM_SEEDS)))
+        print(sim_line(f"simulator (b) churn + MMPP + switching N={SIM_N} "
+                       f"S={SIM_ENV_S}", env, e_wall, e_trips))
+        sim_check_result("simulator (b)", env, SIM_ENV_S, range(3),
+                         churn=True)
+        switched = np.nanmax(env["traces"]["server_idx"], axis=1)
+        print(f"simulator (b): highest server index reached per lane "
+              f"{switched.tolist()}; peak device memory {peak_gb:.3f} GB; "
+              f"launches {counts}; {jaxsim.GRAPH_TRIPS} trips a graph")
+        if counts != {"bvsb": 1, "flash_attention": 0,
+                      "decode_attention": 0, "rglru_scan": 0}:
+            raise AssertionError(f"simulator path launches {counts}")
+        t0 = time.perf_counter()
+        sim_widths(dev)
+        t1 = time.perf_counter()
+        sim_profile(dev)
+        t2 = time.perf_counter()
+        for name, card, kind, samples in (("simulator (a)", hetero, "hetero",
+                                           SIM_S),
+                                          ("simulator (b)", env, "env",
+                                           SIM_ENV_S)):
+            out, wall = cpu[kind].result()
+            print(f"{name}: the port on the CPU, not the card ({SIM_CPU_LANES}"
+                  f" lanes, one thread in a worker process): wall "
+                  f"{wall:.3f} s for {int(out['n_events'].sum())} "
+                  f"lane-events")
+            sim_compare(name, card, out)
+        print(f"simulator phase seconds: width sweep {t1 - t0:.1f}, profiled "
+              f"rerun {t2 - t1:.1f}, waiting for the CPU lanes "
+              f"{time.perf_counter() - t2:.1f}")
+    return counts, dict(hetero_wall=h_wall, env_wall=e_wall, peak_gb=peak_gb)
+
+
+def sim_widths(dev):
+    """(a)'s fleet at SIM_WIDTH_S samples for each B, one call each: its
+    wall includes building the buffers, the eager warm-up trips and the
+    graph's capture, as a user's first call of a structure does."""
+    for b in SIM_WIDTHS:
+        out, wall, trips = sim_run(dev, "hetero", range(b), SIM_WIDTH_S)
+        print(sim_line(f"simulator width B={b} S={SIM_WIDTH_S}", out, wall,
+                       trips))
+
+
+def sim_profile(dev):
+    """Device busy time of a warm rerun of (a)'s B=9 at SIM_PROFILE_S under
+    torch.profiler (CUDA activity), against its unprofiled wall."""
+    from torch.profiler import ProfilerActivity, profile
+    lanes = range(3 * len(SIM_SEEDS))
+    sim_run(dev, "hetero", lanes, SIM_PROFILE_S)
+    _, wall, trips = sim_run(dev, "hetero", lanes, SIM_PROFILE_S)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sim_run(dev, "hetero", lanes, SIM_PROFILE_S)
+    busy, launches, top = _top_kernels(prof, 8)
+    if busy <= 0:
+        raise AssertionError("the profiled simulator rerun traced no device "
+                             "time")
+    print(f"simulator device time (profiled warm rerun of (a) B=9 "
+          f"S={SIM_PROFILE_S}): {busy:.4f} s busy over {wall:.3f} s of "
+          f"unprofiled wall, idle share {1 - busy / wall:.4f}; {launches} "
+          f"kernel launches over {trips} trips ({launches / trips:.1f} a "
+          f"trip, the loads and reads of the run included)")
+    for e in top:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  "
+              f"{e.key[:90]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1229,6 +1592,9 @@ def main() -> int:
                "rglru_scan": timer.rglru_rg()}
     b64_rows = {"bvsb": timer.bvsb_rows(64, 256_000),
                 "decode_attention": timer.decode_rg(b=64)}
+    decode_rows = {"bf16": timer.decode_rg(dt=torch.bfloat16),
+                   "f32_over_bf16_cache": timer.decode_rg(
+                       cache_dt=torch.bfloat16)}
     scan_rows = {"bf16": timer.rglru_rg(dt=torch.bfloat16),
                  "b1": timer.rglru_rg(b=1)}
     timer.bvsb_chunks()
@@ -1240,9 +1606,13 @@ def main() -> int:
     counts, engine = main_path(dev)
     t3 = time.perf_counter()
     rg_counts, rg = recurrentgemma_path(dev)
+    t4 = time.perf_counter()
+    sim_counts, sim = simulator_path(dev)
     print(f"phase seconds: build {t1 - t0:.1f}, kernels {t2 - t1:.1f}, "
           f"cascade path with its profiled rerun {t3 - t2:.1f}, "
-          f"{RG_ARCH} path with its CPU check {time.perf_counter() - t3:.1f}")
+          f"{RG_ARCH} path with its CPU check {t4 - t3:.1f}, simulator "
+          f"with its CPU check, width sweep and profiled rerun "
+          f"{time.perf_counter() - t4:.1f}")
 
     # the kernels line times each kernel at the RecurrentGemma path's shape;
     # BvSB and flash also at the cascade's most frequent server batch (the
@@ -1262,7 +1632,8 @@ def main() -> int:
              "src/repro/kernels/decode_attention.py:59"),
             ("rglru_scan", "rglru_scan.cu",
              "src/repro/kernels/rglru_scan.py:44")):
-        by_path = {"cascade": counts[name], RG_ARCH: rg_counts[name]}
+        by_path = {"cascade": counts[name], RG_ARCH: rg_counts[name],
+                   "simulator": sim_counts[name]}
         entry = {"name": name, "route": "cuda",
                  "source": f"src/repro_torch/kernels/csrc/{source}",
                  "replaces": replaces, "launches": sum(by_path.values()),
@@ -1274,13 +1645,15 @@ def main() -> int:
         if name in b64_rows:
             entry["b64"] = {k: b64_rows[name][k] for k in keys
                             if k in b64_rows[name]}
-        if name == "rglru_scan":
-            entry.update({tag: {k: row[k] for k in keys if k in row}
-                          for tag, row in scan_rows.items()})
+        extra = {"rglru_scan": scan_rows,
+                 "decode_attention": decode_rows}.get(name, {})
+        entry.update({tag: {k: row[k] for k in keys if k in row}
+                      for tag, row in extra.items()})
         kernels.append(entry)
     print(f"{RG_ARCH} path seconds: init {rg['init_s']:.3f}, prefill "
           f"{rg['prefill_s']:.3f}, decode {rg['decode_s']:.3f}; peak "
-          f"{rg['peak_gb']:.3f} GB")
+          f"{rg['peak_gb']:.3f} GB; simulator (a) {sim['hetero_wall']:.3f} "
+          f"s, (b) {sim['env_wall']:.3f} s, peak {sim['peak_gb']:.3f} GB")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.cascade_tiers import BATCH_LADDER
+from repro_torch.core.multitascpp import lane_values
 
 _F32 = torch.float32
 
@@ -43,20 +44,23 @@ def init_state(n_devices: int, init_threshold=0.5):
 def update(state, observed_batch, b_opt, cfg: MultiTASCConfig, active=None):
     """Discrete step update from the batch-size deviation signal.
 
-    observed_batch: scalar — recent running batch size at the server.
-    All (active) devices get the same step.
+    state: {"thresh": (N,) or (B, N)} float32. observed_batch and b_opt:
+    scalars, or (B,) per lane in the (B, N) form, as is ``cfg.step``. All
+    (active) devices of a fleet get the same step. Runs on thresh's device.
     """
     thresh = state["thresh"]
-    observed_batch = torch.as_tensor(observed_batch)
+    dev = thresh.device
+    observed_batch = lane_values(observed_batch, thresh, torch.int32)
+    b_opt = lane_values(b_opt, thresh, torch.int32)
     over = observed_batch > b_opt + cfg.deadband
     under = observed_batch < b_opt - cfg.deadband
-    step = torch.tensor(cfg.step, dtype=_F32)
-    zero = torch.tensor(0.0, dtype=_F32)
+    step = lane_values(cfg.step, thresh)
+    zero = torch.zeros((), dtype=_F32, device=dev)
     delta = torch.where(over, -step, torch.where(under, step, zero))
-    new = torch.clamp(thresh + delta, zero, torch.tensor(1.0, dtype=_F32))
+    new = torch.clamp(thresh + delta, 0.0, 1.0)
     if active is not None:
-        new = torch.where(torch.as_tensor(active, dtype=torch.bool), new,
-                          thresh)
+        new = torch.where(torch.as_tensor(active, dtype=torch.bool,
+                                          device=dev), new, thresh)
     return {"thresh": new}
 
 

@@ -11,10 +11,13 @@ m grows by (1 + 0.1/n) (n = active devices); any non-increase resets
 m to 1. Thresholds are continuous in [0, 1]; SR values are in [0, 100].
 
 ``update`` is float32 torch over device vectors, in the operation order
-of the JAX package's jitted update, so both give the same bits. The host
-wrapper runs it on
-CPU tensors once per report: a control update over N floats, not model
-work.
+of the JAX package's jitted update, so both give the same bits, on the
+device of its inputs. It takes one fleet, (N,), or a batch of lanes,
+(B, N), whose per-lane gains (``a``, ``sr_target``, ``mult_growth``,
+``n_active``) arrive as (B,) tensors, the form the lane-aligned simulator
+(``repro_torch.sim.jaxsim``) calls once per window boundary. The host
+wrapper runs it on CPU tensors once per report: a control update over N
+floats, not model work.
 """
 from __future__ import annotations
 
@@ -46,26 +49,43 @@ def init_state(n_devices: int, init_threshold=0.5):
             "mult": torch.ones((n_devices,), dtype=_F32)}
 
 
+def lane_values(x, like, dtype=_F32):
+    """``x`` as a ``dtype`` tensor on ``like``'s device that broadcasts
+    over ``like``: a scalar stays 0-d, a per-lane (B,) vector against
+    (B, N) becomes (B, 1), a per-device vector of ``like``'s own rank
+    stays."""
+    x = torch.as_tensor(x, dtype=dtype, device=like.device)
+    if 0 < x.dim() < like.dim():
+        x = x.reshape(x.shape + (1,) * (like.dim() - x.dim()))
+    return x
+
+
 def update(state, sr_update, cfg: MultiTASCPPConfig, *, sr_target=None,
            n_active=None, active=None):
     """One scheduler step for all devices (vectorized Eq. 4 + Alg. 1).
 
-    state: {"thresh": (N,), "mult": (N,)} float32 tensors
-    sr_update: (N,) SR values in [0, 100] reported this window
-    sr_target: scalar or (N,) — per-device targets (a MultiTASC++ feature)
-    active: optional (N,) bool — inactive devices are left untouched
+    state: {"thresh": (N,) or (B, N), "mult": same} float32 tensors
+    sr_update: SR values in [0, 100] reported this window, like thresh
+    sr_target: scalar, (N,) per device, or in the (B, N) form (B,) per
+      lane or (B, N) — per-device targets (a MultiTASC++ feature)
+    cfg: its ``a`` / ``sr_target`` / ``mult_growth`` may be scalars or, in
+      the (B, N) form, (B,) tensors (one gain per lane)
+    n_active: scalar, or (B,) in the (B, N) form
+    active: optional bool like thresh — inactive devices are left untouched
     """
-    sr_target = cfg.sr_target if sr_target is None else sr_target
-    sr_target = torch.as_tensor(sr_target, dtype=_F32)
-    sr_update = torch.as_tensor(sr_update, dtype=_F32)
     thresh, mult = state["thresh"], state["mult"]
+    sr_target = lane_values(cfg.sr_target if sr_target is None
+                            else sr_target, thresh)
+    sr_update = torch.as_tensor(sr_update, dtype=_F32, device=thresh.device)
     if active is not None:
-        active = torch.as_tensor(active, dtype=torch.bool)
+        active = torch.as_tensor(active, dtype=torch.bool,
+                                 device=thresh.device)
     if n_active is None:
-        n_active = active.sum() if active is not None else thresh.shape[0]
-    n_active = torch.clamp(torch.as_tensor(n_active, dtype=_F32), min=1.0)
-    a = torch.tensor(cfg.a, dtype=_F32)
-    growth = torch.tensor(cfg.mult_growth, dtype=_F32)
+        n_active = (active.sum(-1) if active is not None
+                    else thresh.shape[-1])
+    n_active = torch.clamp(lane_values(n_active, thresh), min=1.0)
+    a = lane_values(cfg.a, thresh)
+    growth = lane_values(cfg.mult_growth, thresh)
 
     # Eq. 4 (continuous, proportional). XLA compiles thresh + (-a * diff)
     # into one fused multiply-add on FMA hardware, so the JAX package's
@@ -77,12 +97,10 @@ def update(state, sr_update, cfg: MultiTASCPPConfig, *, sr_target=None,
     # Alg. 1 (threshold scaling)
     raising = sr_update > sr_target
     thresh_final = torch.where(raising, mult * thresh_updated, thresh_updated)
-    mult_new = torch.where(raising, mult * (1.0 + growth / n_active),
-                           torch.tensor(1.0, dtype=_F32))
+    one = torch.ones((), dtype=_F32, device=thresh.device)
+    mult_new = torch.where(raising, mult * (1.0 + growth / n_active), one)
 
-    thresh_final = torch.clamp(thresh_final,
-                               torch.tensor(cfg.thresh_min, dtype=_F32),
-                               torch.tensor(cfg.thresh_max, dtype=_F32))
+    thresh_final = torch.clamp(thresh_final, cfg.thresh_min, cfg.thresh_max)
     if active is not None:
         thresh_final = torch.where(active, thresh_final, thresh)
         mult_new = torch.where(active, mult_new, mult)

@@ -46,7 +46,7 @@ _SIGNATURES = {
     "repro_flash_uses_tensor_cores": [_c_int, _c_int],
     "repro_rglru_scan": [_c_ptr] * 4 + [_c_int] * 4 + [_c_ll] * 4
     + [_c_int] * 3 + [_c_ptr],
-    "repro_decode_attention": [_c_ptr] * 6 + [_c_int] * 8 + [_c_ll] * 10
+    "repro_decode_attention": [_c_ptr] * 6 + [_c_int] * 9 + [_c_ll] * 10
     + [ctypes.c_float, _c_ptr],
 }
 

@@ -46,6 +46,12 @@
 //   hi, hi.hi + hi.lo + lo.hi): one TF32 product misses the f32 gate of
 //   1e-4 (tests/test_torch_flash_precision.py emulates both). bf16 inputs
 //   take bf16 products with P as two bf16 terms.
+// * f32 queries over a bf16 cache (the JAX package's default cache under an
+//   f32 model): the ring holds the bf16 tiles as they are in device memory
+//   (half the bytes of an f32 cache) and each fragment load widens them.
+//   A bf16 value is exact in TF32 (8 of its 10 mantissa bits), so K and V
+//   have no low part and each product takes two mma (x_hi.y + x_lo.y)
+//   where 3xTF32 takes three; the output is f32, as JAX computes it.
 // * Merge. A second kernel combines the splits of each (request, KV head)
 //   by their maxima, in split order with a fixed sum per output element,
 //   so the result is bitwise repeatable; a split with no valid slot
@@ -94,13 +100,15 @@ __host__ __device__ constexpr size_t smem_bytes() {
   return sizeof(T) * kStages * slot_elems<T, HD>() + sizeof(float) * kRedFloats;
 }
 
-// Per type: a warp's Q fragments over its HD / 4 columns, its partial
-// scores against a K tile, and P.V over a V tile into its columns. A's k
-// index c holds column 2c of a k step and c + 4 holds 2c + 1 (and B's
-// alike), which leaves every dot unchanged and makes the loads pairs.
-template <typename T, int HD> struct Mma;
+// Per (query type, cache type): a warp's Q fragments over its HD / 4
+// columns, its partial scores against a K tile, and P.V over a V tile into
+// its columns. A's k index c holds column 2c of a k step and c + 4 holds
+// 2c + 1 (and B's alike), which leaves every dot unchanged and makes the
+// loads pairs.
+template <typename TQ, typename TC, int HD> struct Mma;
 
-template <int HD> struct Mma<float, HD> {
+template <int HD> struct Mma<float, float, HD> {
+  static constexpr bool kStageQ = true;  // Q staged in shared memory
   static constexpr int kCols = HD / kWarps;
   static constexpr int kSteps = kCols / 8;
   static constexpr int ldk = ld_k<float, HD>(), ldv = ld_v<float, HD>();
@@ -174,8 +182,9 @@ template <int HD> struct Mma<float, HD> {
   }
 };
 
-template <int HD> struct Mma<__nv_bfloat16, HD> {
+template <int HD> struct Mma<__nv_bfloat16, __nv_bfloat16, HD> {
   using T = __nv_bfloat16;
+  static constexpr bool kStageQ = true;
   static constexpr int kCols = HD / kWarps;
   static constexpr int kSteps = kCols / 16;
   static constexpr int ldk = ld_k<T, HD>(), ldv = ld_v<T, HD>();
@@ -237,6 +246,84 @@ template <int HD> struct Mma<__nv_bfloat16, HD> {
   }
 };
 
+// the bits of a bf16 value as a TF32 operand: exact, no rounding
+__device__ __forceinline__ uint32_t bf16_tf32(__nv_bfloat16 x) {
+  return uint32_t(__bfloat16_as_ushort(x)) << 16;
+}
+
+// f32 queries over a bf16 cache: Q splits into hi + lo as in 3xTF32, K and
+// V are exact TF32 operands, so each product is x_hi.y + x_lo.y. Q's
+// fragments come straight from device memory (the ring's slots are bf16).
+template <int HD> struct Mma<float, __nv_bfloat16, HD> {
+  using T = __nv_bfloat16;
+  static constexpr bool kStageQ = false;
+  static constexpr int kCols = HD / kWarps;
+  static constexpr int kSteps = kCols / 8;
+  static constexpr int ldk = ld_k<T, HD>(), ldv = ld_v<T, HD>();
+  uint32_t hi[kSteps][4], lo[kSteps][4];
+
+  // rows >= G and columns >= hd are zero
+  __device__ __forceinline__ void load_q_global(const float* qb, long long qsh,
+                                                int G, int hd, int warp,
+                                                int g, int c) {
+    auto x = [&](int r, int d) {
+      return r < G && d < hd ? qb[r * qsh + d] : 0.f;
+    };
+#pragma unroll
+    for (int ks = 0; ks < kSteps; ++ks) {
+      const int d = warp * kCols + ks * 8 + 2 * c;
+      split_tf32(x(g, d), hi[ks][0], lo[ks][0]);
+      split_tf32(x(g + 8, d), hi[ks][1], lo[ks][1]);
+      split_tf32(x(g, d + 1), hi[ks][2], lo[ks][2]);
+      split_tf32(x(g + 8, d + 1), hi[ks][3], lo[ks][3]);
+    }
+  }
+
+  __device__ __forceinline__ void scores(float (&sc)[kNT][4], const T* k_s,
+                                         int warp, int g, int c) const {
+    float small[kNT][4];
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sc[nt][i] = small[nt][i] = 0.f;
+    const T* k0 = k_s + g * ldk + warp * kCols + 2 * c;
+#pragma unroll
+    for (int ks = 0; ks < kSteps; ++ks)
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) {
+        const uint32_t y = ld_u32(k0 + nt * 8 * ldk + ks * 8);
+        const uint32_t b[2] = {y << 16, y & 0xffff0000u};
+        mma_tf32(small[nt], lo[ks], b);
+        mma_tf32(sc[nt], hi[ks], b);
+      }
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sc[nt][i] += small[nt][i];
+  }
+
+  static __device__ __forceinline__ void accumulate(
+      float (&acc)[kCols / 8][4], const float (&p)[kNT][4], const T* v_s,
+      int warp, int g, int c) {
+#pragma unroll
+    for (int kk = 0; kk < kNT; ++kk) {
+      uint32_t ah[4], al[4];
+      split_tf32(p[kk][0], ah[0], al[0]);
+      split_tf32(p[kk][2], ah[1], al[1]);
+      split_tf32(p[kk][1], ah[2], al[2]);
+      split_tf32(p[kk][3], ah[3], al[3]);
+      const T* v0 = v_s + (kk * 8 + 2 * c) * ldv + warp * kCols + g;
+#pragma unroll
+      for (int nt = 0; nt < kCols / 8; ++nt) {
+        const uint32_t b[2] = {bf16_tf32(v0[nt * 8]),
+                               bf16_tf32(v0[ldv + nt * 8])};
+        mma_tf32(acc[nt], al, b);
+        mma_tf32(acc[nt], ah, b);
+      }
+    }
+  }
+};
+
 // K and V rows [kt, kt + kTile) into one ring slot, as one cp.async group;
 // rows at or past k1 are zero-filled and not read. cp.async in 16-byte
 // chunks when `aligned` (the host's test: hd == HD and every row start
@@ -276,15 +363,15 @@ __device__ __forceinline__ void load_tile(T* slot, const T* kb, const T* vb,
 // One block per (split, KV head, request): the partial softmax state of
 // the group's G query heads over keys [split * chunk, min(.. + chunk,
 // length)), written to m_part / l_part (rows of G) and acc_part (G x hd).
-template <typename T, int HD>
+template <typename TQ, typename T, int HD>
 __global__ void __launch_bounds__(kThreads, 2)
-decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
+decode_partial_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const int* __restrict__ lengths,
                       float* __restrict__ m_part, float* __restrict__ l_part,
                       float* __restrict__ acc_part, int W, int G, int hd,
                       int chunk, long long qsb, long long qsh, CacheStrides ks,
                       CacheStrides vs, float scale, int aligned) {
-  using M = Mma<T, HD>;
+  using M = Mma<TQ, T, HD>;
   constexpr int ldk = ld_k<T, HD>(), ldv = ld_v<T, HD>();
   constexpr int kSlot = slot_elems<T, HD>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -330,17 +417,21 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
       slot[(r % kTile) * ldk + d] = from_f32<T>(0.f);
       slot[kTile * ldk + (r % kTile) * ldv + d] = from_f32<T>(0.f);
     }
-  // the query group, staged in the last slot's K tile (free until the
-  // first iteration refills it): rows >= G and columns >= hd are zero
-  T* q_s = ring + (kStages - 1) * kSlot;
-  const T* qb = q + b * qsb + static_cast<long long>(kvh) * G * qsh;
-  for (int e = tid; e < kRows * HD; e += kThreads) {
-    const int r = e / HD, d = e % HD;
-    q_s[r * ldk + d] = r < G && d < hd ? qb[r * qsh + d] : from_f32<T>(0.f);
-  }
-  __syncthreads();  // q_s written
+  const TQ* qb = q + b * qsb + static_cast<long long>(kvh) * G * qsh;
   M mma;
-  mma.load_q(q_s, warp, g, c);
+  if constexpr (M::kStageQ) {
+    // the query group, staged in the last slot's K tile (free until the
+    // first iteration refills it): rows >= G and columns >= hd are zero
+    T* q_s = ring + (kStages - 1) * kSlot;
+    for (int e = tid; e < kRows * HD; e += kThreads) {
+      const int r = e / HD, d = e % HD;
+      q_s[r * ldk + d] = r < G && d < hd ? qb[r * qsh + d] : from_f32<T>(0.f);
+    }
+    __syncthreads();  // q_s written
+    mma.load_q(q_s, warp, g, c);
+  } else {
+    mma.load_q_global(qb, qsh, G, hd, warp, g, c);
+  }
 
   float acc[M::kCols / 8][4];
 #pragma unroll
@@ -483,7 +574,7 @@ decode_merge_kernel(const float* __restrict__ m_part,
       from_f32<T>(acc * (1.f / fmaxf(l, 1e-30f)));
 }
 
-template <typename T, int HD>
+template <typename TQ, typename T, int HD>
 cudaError_t launch_hd(const void* q, const void* k, const void* v,
                       const int* lengths, float* scratch, void* o, int B,
                       int W, int H, int KV, int hd, int NS, int chunk,
@@ -494,7 +585,7 @@ cudaError_t launch_hd(const void* q, const void* k, const void* v,
   static bool raised = false;  // the dynamic limit, once per instantiation
   if (!raised) {
     const cudaError_t err = cudaFuncSetAttribute(
-        decode_partial_kernel<T, HD>,
+        decode_partial_kernel<TQ, T, HD>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
     raised = true;
@@ -504,22 +595,23 @@ cudaError_t launch_hd(const void* q, const void* k, const void* v,
   float* m_part = scratch;
   float* l_part = scratch + rows;
   float* acc_part = scratch + 2 * rows;
-  decode_partial_kernel<T, HD><<<dim3(NS, KV, B), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
+  decode_partial_kernel<TQ, T, HD>
+      <<<dim3(NS, KV, B), kThreads, smem, stream>>>(
+      static_cast<const TQ*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), lengths, m_part, l_part, acc_part, W, G, hd,
       chunk, qsb, qsh, ks, vs, scale, aligned);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const dim3 merge_grid((G * hd + kMergeThreads - 1) / kMergeThreads, KV, B);
-  return launch_dependent(decode_merge_kernel<T>, merge_grid,
+  return launch_dependent(decode_merge_kernel<TQ>, merge_grid,
                           dim3(kMergeThreads), stream,
                           static_cast<const float*>(m_part),
                           static_cast<const float*>(l_part),
                           static_cast<const float*>(acc_part),
-                          static_cast<T*>(o), NS, G, hd, osb, osh);
+                          static_cast<TQ*>(o), NS, G, hd, osb, osh);
 }
 
-template <typename T>
+template <typename TQ, typename T>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const int* lengths, float* scratch, void* o, int B, int W,
                    int H, int KV, int hd, int NS, int chunk, long long qsb,
@@ -535,16 +627,16 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   const int HDs = hd <= 64 ? 64 : hd <= 128 ? 128 : 256;
   const int aligned = hd == HDs && al(k, ks) && al(v, vs);
   if (hd <= 64)
-    return launch_hd<T, 64>(q, k, v, lengths, scratch, o, B, W, H, KV, hd, NS,
-                            chunk, qsb, qsh, ks, vs, osb, osh, scale, aligned,
-                            stream);
+    return launch_hd<TQ, T, 64>(q, k, v, lengths, scratch, o, B, W, H, KV, hd,
+                                NS, chunk, qsb, qsh, ks, vs, osb, osh, scale,
+                                aligned, stream);
   if (hd <= 128)
-    return launch_hd<T, 128>(q, k, v, lengths, scratch, o, B, W, H, KV, hd,
-                             NS, chunk, qsb, qsh, ks, vs, osb, osh, scale,
-                             aligned, stream);
-  return launch_hd<T, 256>(q, k, v, lengths, scratch, o, B, W, H, KV, hd, NS,
-                           chunk, qsb, qsh, ks, vs, osb, osh, scale, aligned,
-                           stream);
+    return launch_hd<TQ, T, 128>(q, k, v, lengths, scratch, o, B, W, H, KV,
+                                 hd, NS, chunk, qsb, qsh, ks, vs, osb, osh,
+                                 scale, aligned, stream);
+  return launch_hd<TQ, T, 256>(q, k, v, lengths, scratch, o, B, W, H, KV, hd,
+                               NS, chunk, qsb, qsh, ks, vs, osb, osh, scale,
+                               aligned, stream);
 }
 
 }  // namespace
@@ -553,14 +645,16 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 // q: (B, H, hd) with (batch, head) element strides; k/v: (B, W, KV, hd)
 // with (batch, slot, head) element strides; every head dim contiguous.
 // lengths: (B,) int32. scratch: B * KV * NS * G * (2 + hd) floats. out:
-// (B, H, hd) with (batch, head) strides. hd <= 256, H / KV <= 16,
-// NS <= 256 splits of chunk keys (a multiple of 16), NS * chunk >= W.
+// (B, H, hd) with (batch, head) strides, in q's type. q_dtype / c_dtype:
+// the query's and the caches' type codes, both f32, both bf16, or f32
+// over bf16. hd <= 256, H / KV <= 16, NS <= 256 splits of chunk keys (a
+// multiple of 16), NS * chunk >= W.
 // Returns the launches' cudaError_t.
 extern "C" int repro_decode_attention(
     const void* q, const void* k, const void* v, const void* lengths,
-    void* scratch, void* o, int dtype, int B, int W, int H, int KV, int hd,
-    int NS, int chunk, long long qsb, long long qsh, long long ksb,
-    long long ksw, long long ksh, long long vsb, long long vsw,
+    void* scratch, void* o, int q_dtype, int c_dtype, int B, int W, int H,
+    int KV, int hd, int NS, int chunk, long long qsb, long long qsh,
+    long long ksb, long long ksw, long long ksh, long long vsb, long long vsw,
     long long vsh, long long osb, long long osh, float scale, void* stream) {
   using namespace repro;
   if (hd > kMaxHD || hd <= 0 || KV <= 0 || H % KV != 0 || H / KV > kMaxG ||
@@ -572,14 +666,16 @@ extern "C" int repro_decode_attention(
   const int* len = static_cast<const int*>(lengths);
   float* sc = static_cast<float*>(scratch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kF32:
-      return launch<float>(q, k, v, len, sc, o, B, W, H, KV, hd, NS, chunk,
-                           qsb, qsh, ks, vs, osb, osh, scale, s);
-    case kBF16:
-      return launch<__nv_bfloat16>(q, k, v, len, sc, o, B, W, H, KV, hd, NS,
-                                   chunk, qsb, qsh, ks, vs, osb, osh, scale, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (q_dtype == kF32 && c_dtype == kF32)
+    return launch<float, float>(q, k, v, len, sc, o, B, W, H, KV, hd, NS,
+                                chunk, qsb, qsh, ks, vs, osb, osh, scale, s);
+  if (q_dtype == kBF16 && c_dtype == kBF16)
+    return launch<__nv_bfloat16, __nv_bfloat16>(
+        q, k, v, len, sc, o, B, W, H, KV, hd, NS, chunk, qsb, qsh, ks, vs, osb,
+        osh, scale, s);
+  if (q_dtype == kF32 && c_dtype == kBF16)
+    return launch<float, __nv_bfloat16>(q, k, v, len, sc, o, B, W, H, KV, hd,
+                                        NS, chunk, qsb, qsh, ks, vs, osb, osh,
+                                        scale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -3,9 +3,12 @@
 q: (B, H, hd); k/v caches: (B, W, KV, hd); lengths: (B,) int, the number
 of valid slots: slots [0, length) of each request are attended, the rest
 are masked. Returns (B, H, hd) in q's dtype; the KV head of query head h
-is h // (H // KV). ``decode_attention`` runs the hand-written CUDA kernel
-``csrc/decode_attention.cu`` on CUDA tensors and
-``decode_attention_plain`` on CPU tensors; on any other device it raises.
+is h // (H // KV). The dtypes are all float32, all bfloat16, or a float32
+q over bfloat16 caches (the JAX package's default cache under a float32
+model), which computes in float32 as JAX does. ``decode_attention`` runs
+the hand-written CUDA kernel ``csrc/decode_attention.cu`` on CUDA tensors
+and ``decode_attention_plain`` on CPU tensors; on any other device it
+raises.
 """
 from __future__ import annotations
 
@@ -25,6 +28,11 @@ BLOCKS_PER_SM = 1    # partial-kernel blocks the plan gives each SM
 
 # kernel launches since the last ops.reset_launch_counts()
 launches = 0
+
+# (q dtype, cache dtype) pairs the kernel takes
+DTYPE_PAIRS = ((torch.float32, torch.float32),
+               (torch.bfloat16, torch.bfloat16),
+               (torch.float32, torch.bfloat16))
 
 
 def decode_attention_plain(q, k_cache, v_cache, lengths):
@@ -64,8 +72,7 @@ def _check(q, k, v, lengths):
     if b == 0 or w == 0 or b > 65535 or kvh > 65535 or w >= 2 ** 31:
         raise ValueError(f"decode_attention: unsupported shape "
                          f"{tuple(k.shape)}")
-    if q.dtype not in _build.DTYPE_CODES or k.dtype != q.dtype \
-            or v.dtype != q.dtype:
+    if (q.dtype, k.dtype) not in DTYPE_PAIRS or v.dtype != k.dtype:
         raise TypeError(f"decode_attention: dtypes {q.dtype}, {k.dtype}, "
                         f"{v.dtype}")
     if lengths.dtype not in (torch.int32, torch.int64):
@@ -112,7 +119,8 @@ def run_entry(q, k_cache, v_cache, lengths, n_splits: Optional[int] = None):
     _build.check(_build.library().repro_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         lengths.data_ptr(), scratch.data_ptr(), out.data_ptr(),
-        _build.DTYPE_CODES[q.dtype], b, w, h, kvh, hd, ns, chunk,
+        _build.DTYPE_CODES[q.dtype], _build.DTYPE_CODES[k_cache.dtype],
+        b, w, h, kvh, hd, ns, chunk,
         q.stride(0), q.stride(1), *k_cache.stride()[:3],
         *v_cache.stride()[:3], out.stride(0), out.stride(1),
         float(np.float32(1.0 / np.sqrt(hd))), _build.stream_ptr(q)),

@@ -133,11 +133,14 @@ class Model(nn.Module):
             caches.append(c)
         return self._out(x, return_hidden), caches if collect_cache else None
 
-    def init_cache(self, batch, cache_len, dtype=None):
-        """An empty cache: rings of min(cache_len, window) slots, zero
-        recurrent states."""
+    def init_cache(self, batch, cache_len, dtype=torch.bfloat16):
+        """An empty cache: rings of min(cache_len, window) slots and conv
+        tails in ``dtype``, zero float32 recurrent states. bfloat16 by
+        default, as the JAX package's ``init_cache``: an f32 model
+        decodes over it in f32 (the decode-attention kernel widens the
+        rings as it loads them; the first step's conv tail comes back
+        f32, as JAX's does)."""
         cfg, dev = self.cfg, self.device
-        dtype = dtype or self.embed.table.dtype
         return [recurrent.rglru_init_state(batch, cfg.d_model, dtype, dev)
                 if layer.kind == "rglru" else
                 attn.init_kv_cache(batch, _cache_len_for(cfg, layer.kind,

@@ -320,6 +320,43 @@ def test_decode_kernel_plain_load_path(dev, hd, offset, dtype):
     assert torch.equal(ops.decode_attention(q, k, v, lens), out)
 
 
+@pytest.mark.parametrize("b,w,kvh,g,hd,lengths",
+                         DECODE_CASES + [(3, 100, 2, 4, 48, [1, 100, 37])])
+def test_decode_kernel_f32_query_over_bf16_cache(dev, b, w, kvh, g, hd,
+                                                 lengths):
+    """An f32 model over the JAX package's default bf16 cache: f32 out,
+    held to the plain version (f32 math over the widened cache) at the
+    f32 gate; the bf16 cache is read as it is, with no f32 copy."""
+    gen = torch.Generator(device=dev).manual_seed(b * w + hd + 1)
+    q = torch.randn(b, kvh * g, hd, generator=gen, device=dev)
+    k, v = (torch.randn(b, w, kvh, hd, generator=gen, device=dev)
+            .to(torch.bfloat16) for _ in range(2))
+    lens = torch.tensor(lengths, device=dev) if lengths else \
+        torch.randint(1, w + 1, (b,), generator=gen, device=dev)
+    ops.reset_launch_counts()
+    out = ops.decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["decode_attention"] == 1
+    assert out.dtype == torch.float32 and out.shape == q.shape
+    torch.testing.assert_close(out, decode_attention_plain(q, k, v, lens),
+                               atol=DECODE_ATOL[torch.float32], rtol=0)
+    assert torch.equal(ops.decode_attention(q, k, v, lens), out)
+    past = torch.arange(w, device=dev)[None, :] >= lens[:, None]
+    k[past], v[past] = float("nan"), float("nan")
+    assert torch.equal(ops.decode_attention(q, k, v, lens), out)
+
+
+def test_decode_kernel_refuses_other_dtype_mixes(dev):
+    q = torch.randn(2, 16, 64, device=dev)
+    kv = torch.randn(2, 32, 1, 64, device=dev)
+    lens = torch.tensor([32, 5], device=dev)
+    for qd, kd, vd in ((torch.bfloat16, torch.float32, torch.float32),
+                       (torch.float32, torch.bfloat16, torch.float32),
+                       (torch.float16, torch.float16, torch.float16)):
+        with pytest.raises(TypeError):
+            ops.decode_attention(q.to(qd), kv.to(kd), kv.to(vd), lens)
+
+
 def test_kernel_wrappers_read_the_sm_count_once(dev, monkeypatch):
     """The grid plans of decode attention and BvSB read the SM count from
     a per-device cache, not from a property query on every call."""

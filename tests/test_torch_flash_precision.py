@@ -13,7 +13,9 @@ runs in torch on numpy inputs and is held to the JAX package's
 ``tests/test_torch_cuda_kernels.py``); one TF32 product per operand pair
 (1xTF32) misses that gate by more than ten times. The decode kernel's
 split-K form (partial softmax states over 32-key splits, merged by their
-maxima) is held to ``decode_attention_plain`` the same way.
+maxima) is held to ``decode_attention_plain`` the same way, and so is
+its f32-query form over a bf16 cache, where K and V are exact TF32
+operands and each product takes two terms (x_hi.y + x_lo.y).
 """
 import numpy as np
 import pytest
@@ -47,6 +49,13 @@ def mm_3xtf32(a, b):
     """a @ b as the kernel's mma chain forms it: small terms, then hi.hi."""
     (ah, al), (bh, bl) = split(a), split(b)
     return (al @ bh + ah @ bl) + ah @ bh
+
+
+def mm_2xtf32_exact_b(a, b):
+    """a @ b with b exact in TF32 (a bf16 cache): no lo part of b."""
+    ah, al = split(a)
+    assert torch.equal(tf32_truncate(b), b)
+    return al @ b + ah @ b
 
 
 def mm_1xtf32(a, b):
@@ -202,3 +211,23 @@ def test_1xtf32_decode_misses_the_f32_gate(case):
     errs = _decode_errors(case)
     assert errs["1xtf32"] > F32_GATE, errs
     assert errs["1xtf32"] > 10 * errs["3xtf32"], errs
+
+
+@pytest.mark.parametrize("case", DECODE_CASES, ids=str)
+def test_2xtf32_decode_over_a_bf16_cache_within_the_f32_gate(case):
+    """f32 q over bf16 K/V: two products per pair are as close to the f32
+    plain version (over the same bf16 cache, widened) as 3xTF32 is for an
+    f32 cache, because a bf16 value carries no bits below TF32's."""
+    b, h, kv, hd, w, lengths = case
+    rng = np.random.default_rng(w + h + 1)
+    q = torch.from_numpy(rng.standard_normal((b, h, hd)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((b, w, kv, hd))
+                             .astype(np.float32)).bfloat16()
+            for _ in range(2))
+    lens = torch.tensor(lengths)
+    ref = decode_attention_plain(q, k, v, lens)
+    assert ref.dtype == torch.float32
+    # scores take q (split) against K, P.V takes P (split) against V
+    err = float((decode(q, k.float(), v.float(), lens, mm_2xtf32_exact_b)
+                 - ref).abs().max())
+    assert err <= F32_GATE / 10, err

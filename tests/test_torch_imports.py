@@ -30,7 +30,10 @@ def test_every_module_imports_without_jax_or_repro():
     assert {"repro_torch.kernels.decode_attention",
             "repro_torch.kernels.rglru_scan", "repro_torch.models.recurrent",
             "repro_torch.launch.distributed",
-            "repro_torch.configs.recurrentgemma_9b"} <= set(mods)
+            "repro_torch.configs.recurrentgemma_9b",
+            "repro_torch.sim.jaxsim", "repro_torch.sim.synthetic",
+            "repro_torch.sim.events", "repro_torch.configs.scenarios",
+            "repro_torch.core.calibration"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -277,6 +277,30 @@ def test_other_devices_raise_instead_of_falling_back():
         ops.rglru_scan(q[0], q[0])
 
 
+def test_decode_wrapper_takes_exactly_three_dtype_mixes():
+    """The CUDA wrapper's check (run here on CPU tensors): all f32, all
+    bf16, or f32 q over bf16 caches; anything else raises."""
+    from repro_torch.kernels import decode_attention as _decode
+    lens = torch.tensor([8, 3])
+    for qd, kd, vd, ok in (
+            (torch.float32, torch.float32, torch.float32, True),
+            (torch.bfloat16, torch.bfloat16, torch.bfloat16, True),
+            (torch.float32, torch.bfloat16, torch.bfloat16, True),
+            (torch.bfloat16, torch.float32, torch.float32, False),
+            (torch.float32, torch.bfloat16, torch.float32, False),
+            (torch.float32, torch.float32, torch.bfloat16, False),
+            (torch.float16, torch.float16, torch.float16, False),
+            (torch.float32, torch.float16, torch.float16, False)):
+        args = (torch.zeros(2, 4, 16, dtype=qd),
+                torch.zeros(2, 8, 1, 16, dtype=kd),
+                torch.zeros(2, 8, 1, 16, dtype=vd), lens)
+        if ok:
+            _decode._check(*args)
+        else:
+            with pytest.raises(TypeError):
+                _decode._check(*args)
+
+
 def test_cache_token_separates_devices():
     assert ops.cache_token("cpu") != ops.cache_token("cuda")
     assert ops.cache_token(torch.device("cuda", 0)) == ops.cache_token("cuda")

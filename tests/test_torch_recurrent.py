@@ -449,7 +449,7 @@ def test_reduced_decode_past_the_window_matches_jax(reduced):
     jcache = jm.init_cache(tree, b, s, jnp.float32)
     with torch.inference_mode():
         full, _ = model(torch.from_numpy(toks))
-        cache = model.init_cache(b, s)
+        cache = model.init_cache(b, s, torch.float32)
         assert cache[2]["k"].shape == (b, 16, 1, 64)
         for t in range(s):
             pos = np.full((b,), t, np.int32)
@@ -460,6 +460,46 @@ def test_reduced_decode_past_the_window_matches_jax(reduced):
                                        atol=DECODE_ATOL)
             np.testing.assert_allclose(lg.numpy()[:, 0], full.numpy()[:, t],
                                        atol=DECODE_ATOL)
+
+
+def test_reduced_decode_over_the_default_bf16_cache_matches_jax(reduced):
+    """Both sides' default caches (bf16 rings and conv tails, f32 h) under
+    the f32 model, 40 steps past a window of 16: each step's logits
+    against JAX's decode step at the decode gate. The rings stay bf16 on
+    both sides; the conv tails come back f32 after the first step on
+    both sides."""
+    jm0, tree, _, cfg = reduced
+    cfg2 = cfg.with_(local_attn_window=16)
+    jm = jbuild_model(jget_config("recurrentgemma-9b").reduced().with_(
+        local_attn_window=16))
+    model = params_from_jax(tree, cfg2, device="cpu")
+    b, s = 2, 40
+    toks = np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (b, s)).astype(np.int32)
+    jdec = jax.jit(jm.decode_step)
+    jcache = jm.init_cache(tree, b, s)
+    assert jcache["blocks"][2]["k"].dtype == jnp.bfloat16
+    with torch.inference_mode():
+        cache = model.init_cache(b, s)
+        assert cache[2]["k"].dtype == torch.bfloat16
+        assert cache[0]["conv_tail"].dtype == torch.bfloat16
+        assert cache[0]["h"].dtype == torch.float32
+        for t in range(s):
+            pos = np.full((b,), t, np.int32)
+            lg, cache = model.decode_step(torch.from_numpy(toks[:, t:t + 1]),
+                                          cache, torch.from_numpy(pos).long())
+            jlg, jcache = jdec(tree, toks[:, t:t + 1], jcache, pos)
+            assert lg.dtype == torch.float32
+            np.testing.assert_allclose(lg.numpy(), np.asarray(jlg),
+                                       atol=DECODE_ATOL)
+        for i, (entry, jentry) in enumerate(zip(cache, jcache["blocks"])):
+            for key, value in entry.items():
+                jv = np.asarray(jentry[key])[0]
+                assert str(value.dtype).split(".")[1] == str(jv.dtype), \
+                    (i, key)
+                np.testing.assert_allclose(value.float().numpy(),
+                                           jv.astype(np.float32),
+                                           atol=DECODE_ATOL)
 
 
 def test_init_params_rglru_leaves():

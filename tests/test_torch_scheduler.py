@@ -189,3 +189,86 @@ def test_switching_decide_random_fleets_match():
                                          up, active=act))
         assert int(switching.decide(th, tiers, n_tiers, np.float32(0.05), up,
                                     active=act)) == want
+
+
+# ---------------------------------------------------------------------------
+# the (B, N) lane forms the lane-aligned simulator calls once per boundary:
+# each lane bitwise equal to the JAX package's jitted (N,) update with that
+# lane's gains, as jaxsim computes it per lane
+# ---------------------------------------------------------------------------
+def _lanes(b=6, n=33, seed=5):
+    rng = np.random.default_rng(seed)
+    return dict(
+        thresh=rng.uniform(0.0, 1.0, (b, n)).astype(np.float32),
+        mult=rng.uniform(1.0, 3.0, (b, n)).astype(np.float32),
+        sr=rng.choice([100.0, 95.0, 0.0], (b, n)).astype(np.float32)
+        * (rng.random((b, n)) < 0.3)
+        + rng.uniform(0.0, 100.0, (b, n)).astype(np.float32)
+        * (rng.random((b, n)) >= 0.3),
+        active=rng.random((b, n)) < 0.7,
+        a=rng.uniform(0.001, 0.02, b).astype(np.float32),
+        sr_target=rng.uniform(80.0, 99.0, b).astype(np.float32),
+        growth=rng.uniform(0.0, 0.3, b).astype(np.float32),
+        step=rng.uniform(0.01, 0.1, b).astype(np.float32),
+        batch=rng.choice([1, 2, 4, 8, 16, 32, 64], b).astype(np.int32),
+        b_opt=rng.choice([4, 8, 16], b).astype(np.int32))
+
+
+def test_multitascpp_update_lanes_bitwise():
+    x = _lanes()
+    n_active = x["active"].sum(1).astype(np.int32)
+    t = mtpp.update(
+        {"thresh": torch.from_numpy(x["thresh"]),
+         "mult": torch.from_numpy(x["mult"])}, torch.from_numpy(x["sr"]),
+        mtpp.MultiTASCPPConfig(a=torch.from_numpy(x["a"]),
+                               sr_target=torch.from_numpy(x["sr_target"]),
+                               mult_growth=torch.from_numpy(x["growth"])),
+        n_active=torch.from_numpy(n_active),
+        active=torch.from_numpy(x["active"]))
+    for i in range(len(x["a"])):
+        jcfg = jmtpp.MultiTASCPPConfig(a=float(x["a"][i]),
+                                       sr_target=float(x["sr_target"][i]),
+                                       mult_growth=float(x["growth"][i]))
+        j = jmtpp._update_jit({"thresh": jnp.asarray(x["thresh"][i]),
+                               "mult": jnp.asarray(x["mult"][i])},
+                              jnp.asarray(x["sr"][i]), jcfg,
+                              n_active=np.float32(n_active[i]),
+                              active=jnp.asarray(x["active"][i]))
+        for key in ("thresh", "mult"):
+            _assert_bitwise(t[key][i].numpy(), j[key])
+
+
+def test_multitasc_update_lanes_bitwise():
+    x = _lanes(seed=6)
+    t = mt.update({"thresh": torch.from_numpy(x["thresh"])},
+                  torch.from_numpy(x["batch"]), torch.from_numpy(x["b_opt"]),
+                  mt.MultiTASCConfig(step=torch.from_numpy(x["step"])),
+                  active=torch.from_numpy(x["active"]))
+    for i in range(len(x["step"])):
+        j = jmt.update({"thresh": jnp.asarray(x["thresh"][i])},
+                       int(x["batch"][i]), int(x["b_opt"][i]),
+                       jmt.MultiTASCConfig(step=float(x["step"][i])),
+                       active=jnp.asarray(x["active"][i]))
+        _assert_bitwise(t["thresh"][i].numpy(), j["thresh"])
+
+
+def test_switching_decide_lanes_match():
+    rng = np.random.default_rng(7)
+    b, n, n_tiers = 40, 9, 4
+    th = np.choose(rng.integers(0, 3, (b, n)),
+                   [rng.uniform(0, 1, (b, n)), rng.uniform(0, 0.06, (b, n)),
+                    rng.uniform(0.79, 1.0, (b, n))]).astype(np.float32)
+    tiers = rng.integers(0, 3, (b, n)).astype(np.int32)
+    up = rng.uniform(0.7, 0.9, (b, n_tiers)).astype(np.float32)
+    low = rng.choice([0.05, 0.02], b).astype(np.float32)
+    act = rng.random((b, n)) < 0.8
+    act[0] = False
+    th[1], act[1] = 0.95, True          # every device above c_upper: +1
+    got = switching.decide(torch.from_numpy(th), torch.from_numpy(tiers),
+                           n_tiers, torch.from_numpy(low),
+                           torch.from_numpy(up), active=torch.from_numpy(act))
+    assert got.shape == (b,) and got.dtype == torch.int32
+    want = [int(jswitching.decide_jit(th[i], tiers[i], n_tiers, low[i],
+                                      up[i], active=act[i]))
+            for i in range(b)]
+    assert got.tolist() == want and set(want) == {-1, 0, 1}
