@@ -52,8 +52,24 @@ then exits non-zero without the final result line:
    at 600 samples for B in {1, 9, 64, 256}, and a profiled rerun for the
    device's busy time. The launch counters around the path must read one
    BvSB launch (the calibration) and nothing else;
-7. the kernels line: one JSON object describing every ported kernel;
-8. the result line: {"ok": true, "device": {...}}.
+7. transport, replay and segmented frontier: (a) phase 4's fleet
+   through the async transport ``run_transport`` at 1 and 2 in-flight
+   slots, each ``CascadeResult`` field and the launch counts equal to
+   ``run_cascade``'s at the same slots (at 1 slot phase 4's own run), the
+   walls printed, and the idle share of a profiled 2-slot rerun; (b)
+   ``serving_vs_sim`` on steady / churn / churn_drift x the three
+   schedulers (10 devices x 80 samples), the simulator half on the card:
+   every delta within ``SERVING_TOL``, the card's simulator outputs equal
+   to the CPU's under phase 6's rules; (c) 10,000 devices (three tiers,
+   per-device jittered latencies, MultiTASC++ with switching over three
+   servers, 3 seeds) through ``jaxsim.run_sweep`` on the card with the
+   automatic segmented frontier (G = 128) and with the flat one: equal
+   bit for bit but in ``n_events``, the first lane equal to the CPU's
+   (a worker process started at the phase's start) under phase 6's
+   rules; trips, us a trip and the kernels of one graph replay of each.
+   The launch counters around (b) and (c) must read zero;
+8. the kernels line: one JSON object describing every ported kernel;
+9. the result line: {"ok": true, "device": {...}}.
 
 ``throughput`` of the cascade is a virtual-clock figure from the paper's
 latency profiles, not a measurement of the card.
@@ -62,6 +78,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import dataclasses
 import functools
 import io
 import json
@@ -82,7 +99,8 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.cascade_tiers import (BATCH_LADDER,  # noqa: E402
                                                DEVICE_PROFILES,
-                                               SERVER_PROFILES)
+                                               SERVER_PROFILES,
+                                               ServerProfile)
 from repro_torch.configs import scenarios  # noqa: E402
 from repro_torch.configs.scenarios import (ArrivalSpec,  # noqa: E402
                                            ChurnSpec, ScenarioSpec)
@@ -108,6 +126,9 @@ from repro_torch.serving.cascade import run_cascade  # noqa: E402
 from repro_torch.serving.client import DeviceClient  # noqa: E402
 from repro_torch.serving.engine import ServedModel, ServerEngine  # noqa: E402
 from repro_torch.serving.executables import classify_fn  # noqa: E402
+from repro_torch.serving.replay import (SERVING_TOL,  # noqa: E402
+                                        serving_vs_sim)
+from repro_torch.serving.transport import run_transport  # noqa: E402
 from repro_torch.sim import jaxsim, synthetic  # noqa: E402
 from repro_torch.sim.events import make_scheduler  # noqa: E402
 
@@ -924,7 +945,7 @@ class RecordingEngine(ServerEngine):
         return record
 
 
-def fleet(models):
+def fleet(models, max_in_flight=1):
     """A fresh cascade: clients, engine, scheduler and data, all seeded."""
     clients = [RecordingClient(i, models["tier-low"], DEVICE_PROFILES["low"],
                                SLO, WINDOW, THRESHOLD)
@@ -933,7 +954,8 @@ def fleet(models):
         ServedModel("tier-server-fast", models["tier-server-fast"],
                     SERVER_PROFILES["inceptionv3"]),
         ServedModel("tier-server-heavy", models["tier-server-heavy"],
-                    SERVER_PROFILES["efficientnetb3"])])
+                    SERVER_PROFILES["efficientnetb3"])],
+        max_in_flight=max_in_flight)
     sched = make_scheduler("multitasc++", N_DEVICES,
                            server_profile=SERVER_PROFILES["inceptionv3"],
                            slo=SLO, init_threshold=THRESHOLD)
@@ -943,10 +965,10 @@ def fleet(models):
     return clients, engine, sched, data
 
 
-def cascade(models):
-    clients, engine, sched, data = fleet(models)
-    res = run_cascade(clients, engine, sched, data, window=WINDOW,
-                      model_switching=True)
+def cascade(models, run=run_cascade, max_in_flight=1):
+    clients, engine, sched, data = fleet(models, max_in_flight)
+    res = run(clients, engine, sched, data, window=WINDOW,
+              model_switching=True)
     if torch.cuda.is_available():
         torch.cuda.synchronize()
     return clients, engine, res
@@ -960,7 +982,7 @@ def _top_kernels(prof, n=6):
     return busy, sum(e.count for e in kernels), top
 
 
-def profile_main_path(models, wall):
+def profile_main_path(models, wall, name="main path", **kw):
     """Device time of a second, identical run under torch.profiler; the
     idle share compares it with the unprofiled run's wall time. Only CUDA
     activity is traced: the host-side operator records cost most of the
@@ -968,11 +990,11 @@ def profile_main_path(models, wall):
     from torch.profiler import ProfilerActivity, profile
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        cascade(models)
+        cascade(models, **kw)
     busy, launches, top = _top_kernels(prof, 8)
     if busy <= 0:
         raise AssertionError("the profiled rerun traced no device time")
-    print(f"main path device time (profiled rerun, "
+    print(f"{name} device time (profiled rerun, "
           f"{time.perf_counter() - t0:.1f} s with the profiler): "
           f"{busy:.4f} s busy over {wall:.3f} s of unprofiled wall, "
           f"idle share {1 - busy / wall:.4f}; {launches} kernel launches")
@@ -1060,7 +1082,7 @@ def main_path(dev):
     if not (err <= CLASSIFY_CONF_ATOL and same):
         raise AssertionError("tier-server-heavy on the card disagrees with "
                              "the CPU")
-    return counts, engine
+    return counts, engine, dict(models=models, res=res, wall=wall)
 
 
 # ---------------------------------------------------------------------------
@@ -1546,6 +1568,258 @@ def sim_profile(dev):
               f"{e.key[:90]}")
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the async transport, the replay and the segmented frontier
+# ---------------------------------------------------------------------------
+TRANSPORT_SLOTS = (1, 2)
+# (b) tests/test_serving_differential.py's scenarios and sizes
+REPLAY_N, REPLAY_S, REPLAY_SEED, REPLAY_SLO = 10, 80, 11, 0.16
+REPLAY_SERVERS = (ServerProfile("sdiff-fast", "synthetic", 0.90, 0.045, 16),
+                  ServerProfile("sdiff-heavy", "synthetic", 0.94, 0.070, 16))
+REPLAY_SCENARIOS = ("steady", "churn", "churn_drift")
+# (c) 10,000 devices: n_pad 10,112, the automatic segment width 128. The
+# three tiers round-robin, each device's latency its tier's times a
+# jitter in [0.9, 1.1] (benchmarks/fig_scale.py's steady state: few
+# simultaneous completions, so the two frontiers take nearly the same
+# trips), MultiTASC++ with switching over phase 6's three servers, three
+# seeds. S = 3: about one trip a device completion, ~30,000 trips a run,
+# and the CPU's lane takes about a minute in its worker
+SEG_N, SEG_S, SEG_SEEDS = 10_000, 3, (0, 1, 2)
+
+
+def same_result(a, b):
+    """Every CascadeResult field equal (NaN equal to NaN)."""
+    bad = []
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if f.name == "timeline":
+            if x.keys() != y.keys() or any(
+                    not np.array_equal(np.asarray(x[k], np.float64),
+                                       np.asarray(y[k], np.float64),
+                                       equal_nan=True)
+                    for k in x if k != "model") or x["model"] != y["model"]:
+                bad.append(f.name)
+        elif not np.array_equal(np.asarray(x), np.asarray(y),
+                                equal_nan=True):
+            bad.append(f.name)
+    return bad
+
+
+def transport_path(dev, ref_run, ref_counts):
+    """(a): run_transport at each slot count against run_cascade at the
+    same slots, launch counts around each run; the walls; a profiled
+    2-slot rerun. Returns the transport runs' launch counts, summed."""
+    models = ref_run["models"]
+    refs = {1: (ref_run["res"], ref_counts, ref_run["wall"])}
+    total = dict.fromkeys(ref_counts, 0)
+    walls = {}
+    for slots in TRANSPORT_SLOTS:
+        if slots not in refs:
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            _, _, res = cascade(models, max_in_flight=slots)
+            refs[slots] = (res, ops.launch_counts(),
+                           time.perf_counter() - t0)
+        ref, want, ref_wall = refs[slots]
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        _, engine, res = cascade(models, run_transport, slots)
+        walls[slots] = time.perf_counter() - t0
+        got = ops.launch_counts()
+        total = {k: total[k] + got[k] for k in total}
+        bad = same_result(res, ref)
+        print(f"transport (a) {slots} slot(s): run_transport wall "
+              f"{walls[slots]:.3f} s against run_cascade {ref_wall:.3f} s "
+              f"on the card; completed {res.completed}, sr {res.sr:.4f}, "
+              f"switches {res.switches}, server batches "
+              f"{len(engine.records)}; every CascadeResult field "
+              f"{'equal' if not bad else 'DIFFERS in ' + str(bad)}; "
+              f"launches {got} ({'equal' if got == want else 'DIFFER from'}"
+              f" run_cascade's {want})")
+        if bad or got != want:
+            raise AssertionError(f"run_transport at {slots} slot(s) differs "
+                                 f"from run_cascade")
+    profile_main_path(models, walls[2], "transport (a) 2 slots",
+                      run=run_transport, max_in_flight=2)
+    return total
+
+
+def replay_scenario(name):
+    rng = np.random.default_rng(2)
+    lat = (0.06 * rng.uniform(0.9, 1.1, REPLAY_N)).astype(np.float32)
+    streams = synthetic.device_streams(REPLAY_N, REPLAY_S, 0.70,
+                                       [0.90, 0.94], REPLAY_SEED)
+    r = scenarios.realize(scenarios.SCENARIOS[name], [REPLAY_SEED],
+                          REPLAY_N, REPLAY_S, lat)
+    if r["arrive"] is not None:
+        streams["arrive"] = r["arrive"][0]
+    return streams, lat, r["join_t"][0], r["leave_t"][0]
+
+
+def as_lane(out):
+    """A ``jaxsim.run`` dict with its batch axis back, for sim_compare."""
+    lane = {k: np.asarray(v)[None] for k, v in out.items() if k != "traces"}
+    lane["traces"] = {k: np.asarray(v)[None]
+                      for k, v in out["traces"].items()}
+    return lane
+
+
+def replay_path(dev):
+    """(b): serving_vs_sim with the simulator half on the card, its deltas
+    within SERVING_TOL, and the card's simulator held to the CPU's."""
+    t0 = time.perf_counter()
+    for scn in REPLAY_SCENARIOS:
+        streams, lat, join_t, leave_t = replay_scenario(scn)
+        for sched in SIM_SCHEDULERS:
+            args = (sched, streams, lat,
+                    np.full(REPLAY_N, REPLAY_SLO, np.float32),
+                    REPLAY_SERVERS)
+            kw = dict(join_t=join_t, leave_t=leave_t,
+                      model_switching=scn == "churn_drift")
+            live, sim, d = serving_vs_sim(*args, device=dev, **kw)
+            _, cpu, _ = serving_vs_sim(*args, device="cpu", **kw)
+            tol = SERVING_TOL[sched]
+            ok = (d["d_completed"] == 0 and d["d_sr"] <= tol["sr"]
+                  and d["d_thr_rel"] <= tol["thr_rel"]
+                  and d["d_fwd"] <= tol["fwd"] and live.completed > 0)
+            print(f"replay (b) {scn} {sched}: live sr {live.sr:.4f}, "
+                  f"completed {live.completed}; deltas "
+                  f"{ {k: round(v, 6) for k, v in d.items()} } "
+                  f"{'within' if ok else 'OUTSIDE'} SERVING_TOL {tol}")
+            if not ok:
+                raise AssertionError(f"replay {scn} {sched} outside "
+                                     f"SERVING_TOL")
+            sim_compare(f"replay (b) {scn} {sched}", as_lane(sim),
+                        as_lane(cpu))
+    print(f"replay (b): 9 scenarios, card and CPU simulator halves, "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def seg_inputs(n, samples, lanes):
+    """run_sweep's arguments for (c)'s fleet of ``n`` devices, its first
+    ``lanes`` seeds."""
+    tier = np.arange(n) % 3
+    profs = [DEVICE_PROFILES[SIM_TIERS[t]] for t in tier]
+    lat = (np.array([p.latency for p in profs], np.float32)
+           * np.random.default_rng(1).uniform(0.9, 1.1, n)
+           ).astype(np.float32)
+    servers = tuple(SERVER_PROFILES[x] for x in SIM_ENV_SERVERS)
+    streams = synthetic.batched_device_streams(
+        SEG_SEEDS[:lanes], n, samples, [p.accuracy for p in profs],
+        [p.accuracy for p in servers])
+    specs = [jaxsim.JaxSimSpec("multitasc++", n, samples,
+                               model_switching=True)] * lanes
+    kw = dict(tier_ids=tier, c_upper=[DEFAULT_C_UPPER[t] for t in SIM_TIERS])
+    return (specs, streams, lat, np.full(n, SIM_SLO, np.float32),
+            servers), kw
+
+
+def seg_cpu_lane(n, samples):
+    """The first lane of (c), segmented, through the port on the CPU (in a
+    worker process); returns (metrics, wall s)."""
+    torch.set_num_threads(1)
+    args, kw = seg_inputs(n, samples, 1)
+    t0 = time.perf_counter()
+    out = jaxsim.run_sweep(*args, device="cpu", **kw)
+    return out, time.perf_counter() - t0
+
+
+def graph_replay_cost(args, kw, frontier_seg):
+    """Kernels and device us of one replay of the engine's captured graph
+    (GRAPH_TRIPS trips; finished lanes still run every kernel), under
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    static, _, _, _, b, _ = jaxsim._prepare(
+        *args, kw["tier_ids"], kw["c_upper"], None, None,
+        frontier_seg=frontier_seg)
+    eng = jaxsim._engine(static, b, "cuda")
+    eng.graph.replay()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        eng.graph.replay()
+        torch.cuda.synchronize()
+    busy, launches, _ = _top_kernels(prof)
+    return launches / jaxsim.GRAPH_TRIPS, busy / jaxsim.GRAPH_TRIPS * 1e6
+
+
+def seg_path(dev, cpu_lane):
+    """(c): the 10,000-device fleet segmented and flat on the card, equal
+    but in n_events; lane 0 against the CPU."""
+    args, kw = seg_inputs(SEG_N, SEG_S, len(SEG_SEEDS))
+    static = jaxsim._static_of(args[0][0], len(args[4]), 0.05, SEG_N)
+    print(f"segmented (c): {SEG_N} devices, n_pad {static.n_pad}, segment "
+          f"width {static.seg} ({static.n_pad // static.seg} segments), "
+          f"S={SEG_S}, B={len(SEG_SEEDS)}")
+    if not static.seg:
+        raise AssertionError("(c) did not take the segmented frontier")
+    runs = {}
+    for seg in (None, False):
+        trips = jaxsim.stats.trips
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = jaxsim.run_sweep(*args, device=dev, frontier_seg=seg, **kw)
+        wall = time.perf_counter() - t0
+        trips = jaxsim.stats.trips - trips
+        kernels, dev_us = graph_replay_cost(args, kw, seg)
+        runs[seg] = out
+        name = "segmented" if seg is None else "flat"
+        print(sim_line(f"segmented (c) {name} frontier", out, wall, trips)
+              + f"; one graph replay: {kernels:.1f} kernels a trip, "
+              f"{dev_us:.2f} device us a trip")
+    seg, flat = runs[None], runs[False]
+    checks = {
+        "finite metrics": all(np.isfinite(seg[k]).all()
+                              for k in ("sr", "accuracy", "throughput")),
+        "every sample completed, the queue drained":
+            ((seg["completed"] == SEG_N * SEG_S)
+             & (seg["queue_left"] == 0)).all(),
+        "some forwarded, some local":
+            ((seg["forwarded_frac"] > 0) & (seg["forwarded_frac"] < 1)).all(),
+    }
+    print(f"segmented (c): sr {np.round(seg['sr'], 3).tolist()}, accuracy "
+          f"{np.round(seg['accuracy'], 4).tolist()}, forwarded_frac "
+          f"{np.round(seg['forwarded_frac'], 4).tolist()}, completed "
+          f"{seg['completed'].tolist()}, queue_peak "
+          f"{seg['queue_peak'].tolist()}")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"segmented (c) checks failed: {failed}")
+    bad = [k for k in seg if k not in ("traces", "n_events")
+           and not np.array_equal(seg[k], flat[k])]
+    bad += [f"traces.{k}" for k in seg["traces"]
+            if not np.array_equal(seg["traces"][k], flat["traces"][k],
+                                  equal_nan=True)]
+    print(f"segmented (c): segmented against flat on the card, every output "
+          f"but n_events {'equal bit for bit' if not bad else bad}; "
+          f"n_events {seg['n_events'].tolist()} against "
+          f"{flat['n_events'].tolist()}; highest server index "
+          f"{np.nanmax(seg['traces']['server_idx'], axis=1).tolist()}")
+    if bad:
+        raise AssertionError(f"segmented frontier differs from the flat one "
+                             f"in {bad}")
+    out, wall = cpu_lane.result()
+    print(f"segmented (c): the port on the CPU, not the card (lane 0, one "
+          f"thread in a worker process): wall {wall:.3f} s for "
+          f"{int(out['n_events'].sum())} lane-events")
+    sim_compare("segmented (c)", seg, out)
+
+
+def transport_replay_seg_path(dev, ref_run, ref_counts):
+    """Phase 7; returns the transport runs' launch counts."""
+    spawn = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(1, mp_context=spawn) as pool:
+        cpu_lane = pool.submit(seg_cpu_lane, SEG_N, SEG_S)
+        counts = transport_path(dev, ref_run, ref_counts)
+        ops.reset_launch_counts()
+        replay_path(dev)
+        seg_path(dev, cpu_lane)
+        after = ops.launch_counts()
+    print(f"replay (b) and segmented (c) launches: {after}")
+    if any(after.values()):
+        raise AssertionError(f"replay / segmented phases launched {after}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1603,16 +1877,19 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t2 = time.perf_counter()
-    counts, engine = main_path(dev)
+    counts, engine, cascade_run = main_path(dev)
     t3 = time.perf_counter()
     rg_counts, rg = recurrentgemma_path(dev)
     t4 = time.perf_counter()
     sim_counts, sim = simulator_path(dev)
+    t5 = time.perf_counter()
+    transport_counts = transport_replay_seg_path(dev, cascade_run, counts)
     print(f"phase seconds: build {t1 - t0:.1f}, kernels {t2 - t1:.1f}, "
           f"cascade path with its profiled rerun {t3 - t2:.1f}, "
           f"{RG_ARCH} path with its CPU check {t4 - t3:.1f}, simulator "
           f"with its CPU check, width sweep and profiled rerun "
-          f"{time.perf_counter() - t4:.1f}")
+          f"{t5 - t4:.1f}, transport + replay + segmented frontier "
+          f"{time.perf_counter() - t5:.1f}")
 
     # the kernels line times each kernel at the RecurrentGemma path's shape;
     # BvSB and flash also at the cascade's most frequent server batch (the
@@ -1633,7 +1910,8 @@ def main() -> int:
             ("rglru_scan", "rglru_scan.cu",
              "src/repro/kernels/rglru_scan.py:44")):
         by_path = {"cascade": counts[name], RG_ARCH: rg_counts[name],
-                   "simulator": sim_counts[name]}
+                   "simulator": sim_counts[name],
+                   "transport": transport_counts[name]}
         entry = {"name": name, "route": "cuda",
                  "source": f"src/repro_torch/kernels/csrc/{source}",
                  "replaces": replaces, "launches": sum(by_path.values()),

@@ -9,6 +9,7 @@ the JAX package and ``chip_smoke.py`` holds the kernel to on the card.
 """
 from __future__ import annotations
 
+import threading
 from typing import Optional
 
 import torch
@@ -20,8 +21,10 @@ MIN_CHUNK = 4096    # columns a chunk block folds at least
 MIN_CHUNKS = 4      # rows too short for this many chunks stay one block
 VEC = 8             # chunk widths in 16-byte vectors of bf16 (2 of f32)
 
-# kernel launches since the last ops.reset_launch_counts()
+# kernel launches since the last ops.reset_launch_counts(); incremented
+# under the lock, since worker threads launch too
 launches = 0
+COUNT_LOCK = threading.Lock()
 
 
 def bvsb_plain(logits: torch.Tensor):
@@ -107,5 +110,6 @@ def bvsb(logits: torch.Tensor):
     if logits.device.type != "cuda":
         raise ValueError(f"bvsb: no kernel for device {logits.device}")
     out = run_entry(logits)
-    launches += 1
+    with COUNT_LOCK:
+        launches += 1
     return out

@@ -12,6 +12,7 @@ raises.
 """
 from __future__ import annotations
 
+import threading
 from typing import Optional
 
 import numpy as np
@@ -26,8 +27,10 @@ MAX_SPLITS = 256     # csrc/decode_attention.cu kMaxSplits
 TILE = 16            # csrc/decode_attention.cu kTile: keys per ring slot
 BLOCKS_PER_SM = 1    # partial-kernel blocks the plan gives each SM
 
-# kernel launches since the last ops.reset_launch_counts()
+# kernel launches since the last ops.reset_launch_counts(); incremented
+# under the lock, since worker threads launch too
 launches = 0
+COUNT_LOCK = threading.Lock()
 
 # (q dtype, cache dtype) pairs the kernel takes
 DTYPE_PAIRS = ((torch.float32, torch.float32),
@@ -138,5 +141,6 @@ def decode_attention(q, k_cache, v_cache, lengths):
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: no kernel for device {q.device}")
     out = run_entry(q, k_cache, v_cache, lengths)
-    launches += 1
+    with COUNT_LOCK:
+        launches += 1
     return out

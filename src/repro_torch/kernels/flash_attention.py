@@ -9,6 +9,7 @@ CPU tensors; on any other device it raises.
 """
 from __future__ import annotations
 
+import threading
 from typing import Optional
 
 import numpy as np
@@ -19,8 +20,10 @@ from repro_torch.kernels import _build
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256  # csrc/flash_attention.cu kMaxHD
 
-# kernel launches since the last ops.reset_launch_counts()
+# kernel launches since the last ops.reset_launch_counts(); incremented
+# under the lock, since worker threads launch too
 launches = 0
+COUNT_LOCK = threading.Lock()
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True,
@@ -111,5 +114,6 @@ def flash_attention(q, k, v, *, causal: bool = True,
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     out = run_entry(_build.library().repro_flash_attention, q, k, v,
                     causal=causal, window=window)
-    launches += 1
+    with COUNT_LOCK:
+        launches += 1
     return out

@@ -10,7 +10,9 @@ tensor's device, never a mode switch:
 
 So a card can never quietly run the plain path. Each kernel wrapper
 counts its launches (``launch_counts``), which is how a run shows that
-it really went through the kernels.
+it really went through the kernels. A count is incremented under its
+module's ``COUNT_LOCK``, so launches from the serving transport's worker
+threads are none of them lost.
 """
 from __future__ import annotations
 
@@ -34,12 +36,17 @@ _KERNELS = {"bvsb": _bvsb, "flash_attention": _flash,
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches per kernel since the last ``reset_launch_counts``."""
-    return {name: mod.launches for name, mod in _KERNELS.items()}
+    out = {}
+    for name, mod in _KERNELS.items():
+        with mod.COUNT_LOCK:
+            out[name] = mod.launches
+    return out
 
 
 def reset_launch_counts() -> None:
     for mod in _KERNELS.values():
-        mod.launches = 0
+        with mod.COUNT_LOCK:
+            mod.launches = 0
 
 
 def cache_token(device) -> tuple:

@@ -13,6 +13,7 @@ it can serve a call (else the kernel loads element by element).
 """
 from __future__ import annotations
 
+import threading
 from typing import Optional
 
 import torch
@@ -26,8 +27,10 @@ STAGES = 3               # ring tiles: two in flight while one is read
 MIN_TILE = 2 * 1024      # a and u bytes of a tile, at least
 MAX_TILE = 16 * 1024     # ... and at most
 
-# kernel launches since the last ops.reset_launch_counts()
+# kernel launches since the last ops.reset_launch_counts(); incremented
+# under the lock, since worker threads launch too
 launches = 0
+COUNT_LOCK = threading.Lock()
 
 
 def rglru_scan_plain(a, u, h0=None):
@@ -124,5 +127,6 @@ def rglru_scan(a, u, h0=None):
     if a.device.type != "cuda":
         raise ValueError(f"rglru_scan: no kernel for device {a.device}")
     h = run_entry(a, u, h0)
-    launches += 1
+    with COUNT_LOCK:
+        launches += 1
     return h

@@ -15,9 +15,12 @@ one architecture share it. PyTorch runs eagerly: an entry is a closure,
 not a compiled artifact, and the cache keeps the JAX package's
 hits/misses contract. ``kernels.ops.cache_token`` in the key keeps the
 card's entries (CUDA kernels) apart from the CPU's (plain versions).
+Lookups, inserts and the counters run under ``_LOCK``: the serving
+transport's worker threads call ``classify_fn`` concurrently.
 """
 from __future__ import annotations
 
+import threading
 from typing import Callable, Dict, Tuple
 
 import torch
@@ -28,6 +31,7 @@ from repro_torch.kernels import ops
 _CACHE: Dict[Tuple, Callable] = {}
 _HITS = 0
 _MISSES = 0
+_LOCK = threading.Lock()
 
 
 def _shape_key(model) -> Tuple:
@@ -41,29 +45,33 @@ def classify_fn(model, bucket: int, metric: str = "bvsb") -> Callable:
     global _HITS, _MISSES
     key = (repr(model.cfg), _shape_key(model), int(bucket), metric,
            ops.cache_token(model.device))
-    fn = _CACHE.get(key)
-    if fn is None:
-        _MISSES += 1
-        metric_fn = decision.METRICS[metric]
+    with _LOCK:
+        fn = _CACHE.get(key)
+        if fn is None:
+            _MISSES += 1
+            metric_fn = decision.METRICS[metric]
 
-        def fn(model, tokens):
-            with torch.inference_mode():
-                logits, _ = model(tokens)
-                return metric_fn(logits[:, -1, :])
+            def fn(model, tokens):
+                with torch.inference_mode():
+                    logits, _ = model(tokens)
+                    return metric_fn(logits[:, -1, :])
 
-        _CACHE[key] = fn
-    else:
-        _HITS += 1
+            _CACHE[key] = fn
+        else:
+            _HITS += 1
     return fn
 
 
 def cache_stats() -> Dict[str, int]:
-    return {"executables": len(_CACHE), "hits": _HITS, "misses": _MISSES}
+    with _LOCK:
+        return {"executables": len(_CACHE), "hits": _HITS,
+                "misses": _MISSES}
 
 
 def clear_cache() -> None:
     """Drop every cached function (tests that count from a cold cache)."""
     global _HITS, _MISSES
-    _CACHE.clear()
-    _HITS = 0
-    _MISSES = 0
+    with _LOCK:
+        _CACHE.clear()
+        _HITS = 0
+        _MISSES = 0

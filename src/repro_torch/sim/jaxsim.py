@@ -33,14 +33,24 @@ How the JAX core maps onto PyTorch:
   port forms those in float64 from exact products (``_fma32``), so both
   devices give the jitted bits.
 
+* The segmented frontier (``frontier_seg``; on by default from
+  ``n_pad >= SEG_AUTO_MIN``) keeps a (B, n_pad / G) tensor of per-segment
+  minimum completion times. An event takes each lane's lowest-index
+  segment at its frontier, gathers that segment's G-wide slices at a
+  per-lane base (``base[:, None] + arange(G)``, static shapes, so it
+  captures into the graph like the flat step), and scatters them back.
+  Ties across segments drain one segment a trip and the batch launch
+  waits for the last of them, so the trajectory is the flat engine's bit
+  for bit and only ``n_events`` counts the extra trips, as in the JAX
+  package.
+
 Semantics, inputs and outputs are those of the JAX ``run`` /
 ``run_sweep`` (same names, shapes and metric dict; arrays come back as
 numpy). Streams are made on the host with numpy and moved to the device
-once. Not ported yet (ROADMAP Queue A): the segmented frontier
-(``frontier_seg``, automatic at ``n_pad >= SEG_AUTO_MIN``), the sharded
-sweep (``run_sweep_sharded``), the device-sharded engine
-(``run_device_sharded``) and ``lane_stepper``: they raise
-``NotImplementedError``.
+once. ``lane_stepper`` hands out the engine's state and its real trip.
+Not ported yet (ROADMAP Queue A): the sharded sweep
+(``run_sweep_sharded``) and the device-sharded engine
+(``run_device_sharded``); they raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -60,8 +70,8 @@ MAX_POP = 64
 N_BUCKET = 128          # device axis pads up to a multiple of this
 MAX_TIERS = 4           # tier axis is padded to this fixed width
 DURATION_QUANTUM = 30.0  # simulated duration rounds up to this grid (s)
-SEG_AUTO_MIN = 2048      # n_pad from which the JAX package segments the
-#                          frontier (not ported: such a fleet raises)
+SEG_AUTO_MIN = 2048      # n_pad from which frontier_seg=None segments
+#                          the frontier (below it the flat engine runs)
 GRAPH_TRIPS = 32         # loop trips between two reads of any(active)
 
 SCHED_CODES = {"multitasc++": 0, "multitasc": 1, "static": 2}
@@ -78,7 +88,7 @@ BOUNDARY_FIELDS = ("thresh", "mult", "win_met", "win_total", "server_idx",
                    "w", "k", "active")
 
 _NOT_PORTED = ("not ported to repro_torch yet (ROADMAP.md Queue A: the "
-               "segmented frontier and the sharded sweeps)")
+               "sharded sweep and the device-sharded engine)")
 
 _F32, _I32 = torch.float32, torch.int32
 
@@ -117,7 +127,7 @@ class JaxSimStatic:
     max_events_per_window: int   # safety cap on events in one window
     cap: int
     has_arrive: bool = False
-    seg: int = 0                 # segmented frontier width (not ported)
+    seg: int = 0                 # segmented frontier width G (0: flat)
 
 
 @dataclasses.dataclass
@@ -138,17 +148,29 @@ def stats_snapshot() -> Dict[str, int]:
 
 
 def _seg_layout(n_pad: int, frontier_seg):
-    """The flat frontier is all the port has: ``None`` below
-    ``SEG_AUTO_MIN`` and ``False`` / ``0`` take it; anything that would
-    segment the frontier in the JAX package raises."""
-    flat = frontier_seg is False or (
-        frontier_seg is not None and not isinstance(frontier_seg, bool)
-        and int(frontier_seg) == 0)
-    if flat or (frontier_seg is None and n_pad < SEG_AUTO_MIN):
+    """Resolve ``(seg, n_pad)`` for the frontier structure, by the JAX
+    package's rules: ``None`` segments from ``n_pad >= SEG_AUTO_MIN``,
+    ``False`` / ``0`` keep the flat engine, ``True`` takes the automatic
+    width (G doubles from ``N_BUCKET`` until G * G covers ``n_pad``), and
+    a positive multiple of ``N_BUCKET`` forces that width. Segmented,
+    ``n_pad`` rounds up to whole segments."""
+    if frontier_seg is False or (frontier_seg is not None
+                                 and not isinstance(frontier_seg, bool)
+                                 and int(frontier_seg) == 0):
         return 0, n_pad
-    raise NotImplementedError(
-        f"the segmented frontier (n_pad {n_pad}, frontier_seg "
-        f"{frontier_seg!r}) is {_NOT_PORTED}")
+    if frontier_seg is None and n_pad < SEG_AUTO_MIN:
+        return 0, n_pad
+    if frontier_seg is None or isinstance(frontier_seg, bool):
+        g = N_BUCKET
+        while g * g < n_pad:
+            g *= 2
+    else:
+        g = int(frontier_seg)
+        if g <= 0 or g % N_BUCKET:
+            raise ValueError(
+                f"frontier_seg must be a positive multiple of {N_BUCKET},"
+                f" got {g}")
+    return g, -(-n_pad // g) * g
 
 
 def _static_of(spec: JaxSimSpec, n_servers: int, max_lat: float,
@@ -385,9 +407,35 @@ def run_device_sharded(*args, **kwargs):
     raise NotImplementedError(f"run_device_sharded is {_NOT_PORTED}")
 
 
-def lane_stepper(*args, **kwargs):
-    """The JAX package's single-trip debug hook: not ported yet."""
-    raise NotImplementedError(f"lane_stepper is {_NOT_PORTED}")
+def lane_stepper(specs, streams, dev_latency, slo,
+                 servers: Sequence[ServerProfile], *, tier_ids=None,
+                 c_upper=None, offline_start=None, offline_for=None,
+                 join_t=None, leave_t=None, device="cuda"):
+    """Debug and test hook: the engine's initial state and a one-trip
+    ``step``, the engine's own ``trip`` (not a mirror of it), on
+    ``device``. Not a performance path.
+
+    Arguments are ``run_sweep``'s. Returns ``(state, step, static)``:
+    ``state`` is a dict of (B, ...) tensors, the JAX package's carry
+    (``traces`` a dict of (B, n_windows) rows; the rings (B, cap); no
+    trash slots), ``step`` maps a state to the state one trip later
+    (leaving its argument as it was), and ``static`` is the structure key.
+    ``state["active"].any()`` is the loop's condition.
+    """
+    dev = _device(device)
+    static, params, srv, arrays, b, _ = _prepare(
+        specs, streams, dev_latency, slo, servers, tier_ids, c_upper,
+        offline_start, offline_for, join_t, leave_t)
+    eng = _Engine(static, b, dev)
+    eng.load(params, srv, arrays)
+
+    def step(state):
+        eng.set_state(state)
+        with torch.inference_mode():
+            eng.trip()
+        return eng.state()
+
+    return eng.state(), step, static
 
 
 def _ratio32(num, den):
@@ -398,6 +446,110 @@ def _fma32(x, y, z):
     """float32 x * y + z rounded once, as XLA's fused multiply-add on the
     CPU gives it: the float64 product of two float32 values is exact."""
     return (x.double() * y.double() + z.double()).float()
+
+
+def _seg_phases(static: JaxSimStatic, device: torch.device):
+    """The segment-event arithmetic of the JAX package's ``_seg_phases``,
+    on (B, ...) tensors. The segmented event step runs them in order; a
+    device-sharded engine would splice its exchange between them, so they
+    stay three functions:
+
+    * ``completion(dev, t, base, gbase, has_due)``: every device
+      completion at instant ``t`` (B,) of the G-wide segment starting at
+      ``base`` (B,) of the arrays in ``dev`` ((B, n) per-device state and
+      constants, (B, n * S) flat stream views); ``gbase`` is its global
+      device-id base. Returns ``(seg_upd, append, seg_min_new,
+      comp_any)``: (B, G) slices to write back at ``base``, the (B, G)
+      ring append (``fwd`` a mask), the segment's new minimum and whether
+      a completion stayed local. A lane without ``has_due`` computes its
+      slices unchanged and appends nothing.
+    * ``apply_append(q_start, q_dev, q_samp, tail, append)``: the ring
+      writes, in place. A row that does not forward aims at the spare
+      slot ``cap`` (rings are (B, cap + 1)), so no two real writes share
+      an index; the tail moves by the rows that forward.
+    * ``pop_calc(t, q_start, q_dev, q_samp, head, server_idx, srv, qlen,
+      can_pop)``: the ladder batch assembled from the ring's head; returns
+      the (B, MAX_POP) ``take`` mask, device ids and samples, the batch
+      size ``b`` and the (B,) ``finish`` and (B, MAX_POP) ``latency``.
+    """
+    G, s, cap = static.seg, static.samples_per_device, static.cap
+    seg_ix = torch.arange(G, device=device)
+    pop_ix = torch.arange(MAX_POP, device=device)
+    ladder = torch.tensor(BATCH_LADDER, device=device)
+    one = torch.ones((), dtype=_F32, device=device)
+    inf = torch.full((), float("inf"), dtype=_F32, device=device)
+
+    def completion(dev, t, base, gbase, has_due):
+        idx = base[:, None] + seg_ix
+
+        def dsl(a):
+            return torch.gather(a, 1, idx)
+
+        dn, cur, th = dsl(dev["dev_next"]), dsl(dev["cursor"]), \
+            dsl(dev["thresh"])
+        lat, slo = dsl(dev["dev_latency"]), dsl(dev["slo"])
+        offs, offf = dsl(dev["off_start"]), dsl(dev["off_for"])
+        due = (dn <= t[:, None]) & (cur < s) & has_due[:, None]
+        departs = due & (dn >= dsl(dev["leave_t"]))
+        done = due & ~departs
+        cj = cur.clamp(0, s - 1)
+        flat_ix = idx * s + cj
+        local = torch.gather(dev["conf_flat"], 1, flat_ix) >= th  # Eq. 3
+        comp_local = done & local
+        met = comp_local & (lat <= slo)
+        fwd_mask = done & ~local
+        cursor2 = torch.where(departs, s, cur + done)
+        if static.has_arrive:
+            arrive_next = torch.gather(dev["arrive_flat"], 1,
+                                       idx * s + cursor2.clamp(0, s - 1))
+            start_next = torch.maximum(dn, arrive_next)
+        else:
+            start_next = dn
+        off_end = offs + offf
+        t_c = start_next + lat
+        t_c = torch.where((t_c >= offs) & (t_c < off_end), off_end, t_c)
+        dn2 = torch.where(departs, inf, torch.where(done, t_c, dn))
+        seg_upd = {
+            "dev_next": dn2, "cursor": cursor2,
+            "win_met": dsl(dev["win_met"]) + met,
+            "win_total": dsl(dev["win_total"]) + comp_local,
+            "tot_met": dsl(dev["tot_met"]) + met,
+            "tot": dsl(dev["tot"]) + comp_local,
+            "correct": dsl(dev["correct"])
+                       + comp_local * torch.gather(dev["cl_flat"], 1, flat_ix),
+            "fwd": dsl(dev["fwd"]) + fwd_mask,
+        }
+        append = {"start": dn - lat, "dev": gbase[:, None] + seg_ix,
+                  "samp": cj, "fwd": fwd_mask}
+        seg_min_new = torch.where(cursor2 < s, dn2, inf).amin(1)
+        return seg_upd, append, seg_min_new, comp_local.any(1)
+
+    def apply_append(q_start, q_dev, q_samp, tail, append):
+        fwd = append["fwd"]
+        pos = tail[:, None] + torch.cumsum(fwd, 1) - 1
+        posm = torch.where(fwd, torch.remainder(pos, cap), cap)
+        q_start.scatter_(1, posm, append["start"])
+        q_dev.scatter_(1, posm, append["dev"])
+        q_samp.scatter_(1, posm, append["samp"])
+        tail.add_(fwd.sum(1, dtype=_I32))
+
+    def pop_calc(t, q_start, q_dev, q_samp, head, server_idx, srv, qlen,
+                 can_pop):
+        braw = torch.minimum(qlen, srv["max_batch"][server_idx])
+        b = torch.where(ladder <= braw[:, None], ladder, 1).amax(1)
+        take = (pop_ix < b[:, None]) & can_pop[:, None]
+        qidx = torch.remainder(head[:, None] + pop_ix, cap)
+        starts = torch.gather(q_start, 1, qidx)
+        devs = torch.where(take, torch.gather(q_dev, 1, qidx), 0)
+        samps = torch.gather(q_samp, 1, qidx)
+        # finish = t + base * (1 + scaling * (b - 1)): XLA contracts both
+        # multiply-adds, so each rounds once
+        finish = _fma32(srv["base_lat"][server_idx],
+                        _fma32(srv["scaling"][server_idx], b - 1, one), t)
+        return {"take": take, "devs": devs, "samps": samps, "b": b,
+                "finish": finish, "latency": finish[:, None] - starts}
+
+    return completion, apply_append, pop_calc
 
 
 @functools.lru_cache(maxsize=8)
@@ -422,9 +574,8 @@ class _Engine:
         kw = dict(device=device)
         self.lane_ix = torch.arange(b, dtype=torch.int64, **kw)
         self.dev_ix = torch.arange(n, **kw)
-        self.pop_ix = torch.arange(MAX_POP, **kw)
-        self.ladder = torch.tensor(BATCH_LADDER, **kw)
-        self.one = torch.ones((), dtype=_F32, **kw)
+        self.completion, self.apply_append, self.pop_calc = _seg_phases(
+            static, device)
         z32 = functools.partial(torch.zeros, dtype=_I32, **kw)
         z64 = functools.partial(torch.zeros, dtype=torch.int64, **kw)
         zf = functools.partial(torch.zeros, dtype=_F32, **kw)
@@ -446,6 +597,10 @@ class _Engine:
             "k": z32(b), "frontier": zf(b),
             "active": torch.zeros(b, dtype=torch.bool, **kw),
         }
+        if static.seg:
+            # per-segment minimum of (cursor < S ? dev_next : inf), the
+            # invariant the segmented event step keeps
+            self.st["seg_min"] = zf(b, n // static.seg)
         self.traces = {key: zf(b, nw + 1) for key in TRACE_KEYS}
         self.c = None
 
@@ -471,6 +626,7 @@ class _Engine:
                 self.c[k].copy_(v)
         else:   # the first run, or heavy columns other than the last's
             self.c, self.graph = new, None
+        self.srv = {k: self.c[f"srv_{k}"] for k in srv}
         self._init()
 
     def _init(self):
@@ -486,6 +642,9 @@ class _Engine:
         first = (torch.maximum(c["join_t"], c["arrive"][:, :, 0])
                  if self.static.has_arrive else c["join_t"])
         st["dev_next"].copy_(self._defer_offline(first + c["dev_latency"]))
+        if self.static.seg:
+            st["seg_min"].copy_(self._pending(st).view(
+                self.b, -1, self.static.seg).amin(2))
         st["server_idx"].copy_(c["server_init"])
         st["frontier"].copy_(self._next_event_t(st))
         st["active"].copy_(~self._drained(st) & (self.static.n_windows > 0))
@@ -498,15 +657,27 @@ class _Engine:
         offline = (t_complete >= c["off_start"]) & (t_complete < c["off_end"])
         return torch.where(offline, c["off_end"], t_complete)
 
-    def _next_event_t(self, st):
-        # next device completion, or the server while a batch is in
-        # flight with samples waiting behind it
-        s = self.static.samples_per_device
+    def _pending(self, st):
+        # each device's next completion; finished devices sit at +inf
         inf = torch.full((), float("inf"), dtype=_F32, device=self.device)
-        t_dev = torch.where(st["cursor"] < s, st["dev_next"], inf).amin(1)
+        return torch.where(st["cursor"] < self.static.samples_per_device,
+                           st["dev_next"], inf)
+
+    def _next_event_t(self, st):
+        # next device completion (segmented: the minimum of the segment
+        # minima), or the server while a batch is in flight with samples
+        # waiting behind it. Segmented, a free server over a non-empty
+        # queue is also due at the current instant: a tie's segments
+        # drain one a trip before the launch
+        inf = torch.full((), float("inf"), dtype=_F32, device=self.device)
+        t_dev = (st["seg_min"] if self.static.seg
+                 else self._pending(st)).amin(1)
         qlen = st["tail"] - st["head"]
         t_srv = torch.where((st["busy_until"] > st["t"]) & (qlen > 0),
                             st["busy_until"], inf)
+        if self.static.seg:
+            t_srv = torch.where((st["busy_until"] <= st["t"]) & (qlen > 0),
+                                st["t"], t_srv)
         return torch.minimum(t_dev, t_srv)
 
     def _drained(self, st):
@@ -524,7 +695,7 @@ class _Engine:
         """Advance every lane with ``go`` to its frontier event, in place;
         a lane without ``go`` is left bitwise as it was."""
         st, c, sc = self.st, self.c, self.static
-        s, n, cap = sc.samples_per_device, sc.n_pad, sc.cap
+        s, n = sc.samples_per_device, sc.n_pad
         t = st["frontier"]
         dev_next, cursor = st["dev_next"], st["cursor"]
 
@@ -539,13 +710,10 @@ class _Engine:
         cl_j = torch.gather(c["cl"], 2, cj)[..., 0]
 
         fwd_mask = done & ~local
-        pos = st["tail"][:, None] + torch.cumsum(fwd_mask, 1) - 1
-        # rows that do not forward aim at the trash slot cap
-        posm = torch.where(fwd_mask, torch.remainder(pos, cap), cap)
-        st["q_start"].scatter_(1, posm, dev_next - c["dev_latency"])
-        st["q_dev"].scatter_(1, posm, self.dev_ix.expand(self.b, n))
-        st["q_samp"].scatter_(1, posm, cj[..., 0])
-        st["tail"].add_(fwd_mask.sum(1, dtype=_I32))
+        self.apply_append(st["q_start"], st["q_dev"], st["q_samp"],
+                          st["tail"], {"start": dev_next - c["dev_latency"],
+                                       "dev": self.dev_ix.expand(self.b, n),
+                                       "samp": cj[..., 0], "fwd": fwd_mask})
 
         # a departed device's stream counts as exhausted
         cursor2 = torch.where(departs, s, cursor + done)
@@ -569,39 +737,74 @@ class _Engine:
         last_done_t = torch.where(comp_local.any(1), t, st["last_done_t"])
 
         # --- server dynamic batching ---------------------------------------
-        head = st["head"]
-        qlen = st["tail"] - head
+        qlen = st["tail"] - st["head"]
         can_pop = (t >= st["busy_until"]) & (qlen > 0) & go
+        self._launch(t, go, qlen, can_pop, last_done_t)
+
+    def _event_seg(self, go):
+        """The segmented event step: every lane with ``go`` processes the
+        completions of its lowest-index segment whose minimum is the
+        frontier, and launches a batch only once no segment holds a
+        completion at that instant (``t_dev > t``), so a tie across
+        segments enqueues in device order before the ladder sizes the
+        batch. Lanes without ``go`` are left bitwise as they were."""
+        st, c, G = self.st, self.c, self.static.seg
+        t, seg_min = st["frontier"], st["seg_min"]
+        sidx = seg_min.argmin(1)        # the first segment at the minimum
+        m = torch.gather(seg_min, 1, sidx[:, None])[:, 0]
+        has_due = go & (m <= t)
+        base = sidx * G
+        dev = {k: st[k] for k in ("dev_next", "cursor", "thresh", "win_met",
+                                  "win_total", "tot_met", "tot", "correct",
+                                  "fwd")}
+        dev.update({k: c[k] for k in ("dev_latency", "slo", "leave_t",
+                                      "off_start", "off_for")})
+        dev.update(conf_flat=c["conf"].view(self.b, -1),
+                   cl_flat=c["cl"].view(self.b, -1),
+                   arrive_flat=c["arrive"].view(self.b, -1))
+        seg_upd, append, seg_min_new, comp_any = self.completion(
+            dev, t, base, base, has_due)
+        idx = base[:, None] + self.dev_ix[:G]
+        for key, upd in seg_upd.items():
+            st[key].scatter_(1, idx, upd)
+        seg_min.scatter_(1, sidx[:, None],
+                         torch.where(has_due, seg_min_new, m)[:, None])
+        t_dev = seg_min.amin(1)
+        self.apply_append(st["q_start"], st["q_dev"], st["q_samp"],
+                          st["tail"], append)
+        last_done_t = torch.where(comp_any, t, st["last_done_t"])
+        qlen = st["tail"] - st["head"]
+        can_pop = go & (t >= st["busy_until"]) & (qlen > 0) & (t_dev > t)
+        self._launch(t, go, qlen, can_pop, last_done_t)
+
+    def _launch(self, t, go, qlen, can_pop, last_done_t):
+        """The event's server half, shared by both event steps: pop the
+        ladder batch of every lane with ``can_pop`` and credit it at its
+        launch, then close the event of every lane with ``go``."""
+        st, c, sc = self.st, self.c, self.static
+        s, n = sc.samples_per_device, sc.n_pad
         sidx = st["server_idx"]
-        braw = torch.minimum(qlen, c["srv_max_batch"][sidx])
-        bsz = torch.where(self.ladder <= braw[:, None], self.ladder,
-                          1).amax(1)
-        take = (self.pop_ix < bsz[:, None]) & can_pop[:, None]
-        qidx = torch.remainder(head[:, None] + self.pop_ix, cap)
-        starts = torch.gather(st["q_start"], 1, qidx)
-        devs = torch.where(take, torch.gather(st["q_dev"], 1, qidx), 0)
-        samps = torch.gather(st["q_samp"], 1, qidx)
-        # finish = t + base * (1 + scaling * (b - 1)): XLA contracts both
-        # multiply-adds, so each rounds once
-        finish = _fma32(c["srv_base_lat"][sidx],
-                        _fma32(c["srv_scaling"][sidx], bsz - 1, self.one),
-                        t)
-        met_srv = ((finish[:, None] - starts
-                    <= torch.gather(c["slo"], 1, devs)) & take).to(_I32)
+        p = self.pop_calc(t, st["q_start"], st["q_dev"], st["q_samp"],
+                          st["head"], sidx, self.srv, qlen, can_pop)
+        devs, take = p["devs"], p["take"]
+        met_srv = ((p["latency"] <= torch.gather(c["slo"], 1, devs))
+                   & take).to(_I32)
         take_i = take.to(_I32)
         ch_j = c["ch"].view(-1)[
-            ((self.lane_ix[:, None] * n + devs) * s + samps) * self.n_prof
-            + sidx[:, None]]
+            ((self.lane_ix[:, None] * n + devs) * s + p["samps"])
+            * self.n_prof + sidx[:, None]]
         st["win_met"].scatter_add_(1, devs, met_srv)
         st["win_total"].scatter_add_(1, devs, take_i)
         st["tot_met"].scatter_add_(1, devs, met_srv)
         st["tot"].scatter_add_(1, devs, take_i)
         st["correct"].scatter_add_(1, devs, take_i * ch_j)
-        head.add_(torch.where(can_pop, bsz, 0))
-        st["busy_until"].copy_(torch.where(can_pop, finish,
+        st["head"].add_(torch.where(can_pop, p["b"], 0))
+        st["busy_until"].copy_(torch.where(can_pop, p["finish"],
                                            st["busy_until"]))
-        st["last_batch"].copy_(torch.where(can_pop, bsz, st["last_batch"]))
-        st["last_done_t"].copy_(torch.where(can_pop, finish, last_done_t))
+        st["last_batch"].copy_(torch.where(can_pop, p["b"],
+                                           st["last_batch"]))
+        st["last_done_t"].copy_(torch.where(can_pop, p["finish"],
+                                            last_done_t))
         st["max_qlen"].copy_(torch.where(
             go, torch.maximum(st["max_qlen"], qlen), st["max_qlen"]))
         st["t"].copy_(torch.where(go, t, st["t"]))
@@ -691,7 +894,8 @@ class _Engine:
     def trip(self):
         """One loop trip over all lanes: the event of every lane with one
         due in its window, then the boundary of every lane without."""
-        self._event(self._event_flags())
+        (self._event_seg if self.static.seg else self._event)(
+            self._event_flags())
         self._boundary(self.st["active"] & ~self._event_flags())
 
     # -- the loop --------------------------------------------------------
@@ -730,6 +934,31 @@ class _Engine:
             self._trips()
         self.graph = graph
         stats.graphs_captured += 1
+
+    # -- lane_stepper's view of the carry ----------------------------------
+    def _views(self):
+        cap, nw = self.static.cap, self.static.n_windows
+        out = {k: v[:, :cap] if k in ("q_start", "q_dev", "q_samp") else v
+               for k, v in self.st.items()}
+        out["traces"] = {k: v[:, :nw] for k, v in self.traces.items()}
+        return out
+
+    def state(self):
+        """A copy of the carry as the JAX package lays it out: the rings
+        without their spare slot, the traces without their trash column."""
+        views = self._views()
+        out = {k: v.clone() for k, v in views.items() if k != "traces"}
+        out["traces"] = {k: v.clone() for k, v in views["traces"].items()}
+        return out
+
+    def set_state(self, state):
+        """Load a carry laid out as ``state`` returns it."""
+        views = self._views()
+        for k, v in views.items():
+            if k != "traces":
+                v.copy_(state[k])
+        for k, v in views["traces"].items():
+            v.copy_(state["traces"][k])
 
     def metrics(self):
         st, c = self.st, self.c

@@ -33,7 +33,8 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.configs.recurrentgemma_9b",
             "repro_torch.sim.jaxsim", "repro_torch.sim.synthetic",
             "repro_torch.sim.events", "repro_torch.configs.scenarios",
-            "repro_torch.core.calibration"} <= set(mods)
+            "repro_torch.core.calibration", "repro_torch.serving.transport",
+            "repro_torch.serving.replay"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -18,8 +18,16 @@ The same seeded numpy inputs go through both packages. What must agree:
   over at most 128 devices taken in another order (both devices have
   given these bitwise so far; the tolerance states what is promised).
 
+The segmented frontier (``frontier_seg``) is held to the JAX package's
+segmented run with the same rules, ``n_events`` included (a tie across
+segments takes one trip a segment on both sides), and to the port's flat
+run bit for bit in every field but ``n_events``. ``lane_stepper``'s
+state after k trips equals the JAX package's ``lane_stepper`` state:
+every field exactly, the traces' float means within ``AGG_RTOL``.
+
 Sizes stay small (N <= 12, S <= 80, few static structures, since each
-costs a JAX compile).
+costs a JAX compile; the segmented cases take N 150-200 and one fleet of
+``SEG_AUTO_MIN`` devices at S = 3).
 """
 import dataclasses
 
@@ -29,6 +37,7 @@ import torch
 
 from lane_utils import assert_lane_bitwise, pack_lanes
 from repro.configs import scenarios as jscenarios
+from repro.configs.cascade_tiers import SERVER_PROFILES as J_SERVER_PROFILES
 from repro.configs.cascade_tiers import DeviceProfile as JDeviceProfile
 from repro.configs.cascade_tiers import ServerProfile as JServerProfile
 from repro.sim import events as jevents
@@ -437,16 +446,8 @@ def _tiny():
 
 def test_unported_paths_raise():
     spec, streams, lat, slo, srv = _tiny()
-    for seg in (True, 128):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            jaxsim.run(spec, streams, lat, slo, srv, frontier_seg=seg,
-                       device="cpu")
-    big = jaxsim.JaxSimSpec("static", jaxsim.SEG_AUTO_MIN, 1)
-    with pytest.raises(NotImplementedError, match="segmented"):
-        jaxsim._static_of(big, 1, 0.05)
-    for fn in (jaxsim.run_sweep_sharded, jaxsim.run_device_sharded,
-               jaxsim.lane_stepper):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for fn in (jaxsim.run_sweep_sharded, jaxsim.run_device_sharded):
+        with pytest.raises(NotImplementedError, match="ROADMAP.*sharded"):
             fn(spec, streams, lat, slo, srv)
     out = jaxsim.run(spec, streams, lat, slo, srv, frontier_seg=False,
                      device="cpu")
@@ -476,3 +477,218 @@ def test_stats_snapshot_counts_points_events_and_trips():
     assert after["trips"] - before["trips"] >= int(out["n_events"].max())
     assert (after["trips"] - before["trips"]) % jaxsim.GRAPH_TRIPS == 0
     assert after["graphs_captured"] == before["graphs_captured"]
+
+
+# ---------------------------------------------------------------------------
+# the segmented frontier and lane_stepper
+# ---------------------------------------------------------------------------
+SEG_SERVERS = (J_SERVER_PROFILES["inceptionv3"],
+               J_SERVER_PROFILES["efficientnetb3"])
+
+
+def _seg_sweep(mod, seeds, n, s, scheduler, frontier_seg, lat, **kw):
+    """One batched run of ``mod`` over seeded lanes of the fleet-scale
+    tests' point (tests/test_scale.py ``_point``): SLO twice the latency,
+    model switching over inceptionv3 / efficientnetb3."""
+    servers = SEG_SERVERS if mod is J else tuple(
+        ServerProfile(**dataclasses.asdict(p)) for p in SEG_SERVERS)
+    streams = jsynthetic.batched_device_streams(
+        seeds, n, s, 0.72, [p.accuracy for p in SEG_SERVERS])
+    spec = mod.JaxSimSpec(scheduler=scheduler, n_devices=n,
+                          samples_per_device=s, model_switching=True)
+    call = dict(device="cpu") if mod is jaxsim else {}
+    return mod.run_sweep(spec, streams, lat, (lat * 2.0).astype(np.float32),
+                         servers, frontier_seg=frontier_seg, **kw, **call)
+
+
+def _assert_bitwise(a, b, skip=()):
+    assert a.keys() == b.keys()
+    for k in a:
+        if k in skip:
+            continue
+        if k == "traces":
+            for t in a[k]:
+                np.testing.assert_array_equal(a[k][t], b[k][t], err_msg=t)
+        else:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+def _seg_against_both(seeds, n, s, scheduler, frontier_seg, lat, ties=False,
+                      **kw):
+    ours = _seg_sweep(jaxsim, seeds, n, s, scheduler, frontier_seg, lat, **kw)
+    ref = _seg_sweep(J, seeds, n, s, scheduler, frontier_seg, lat, **kw)
+    assert_port_matches(ref, ours)
+    flat = _seg_sweep(jaxsim, seeds, n, s, scheduler, False, lat, **kw)
+    _assert_bitwise(ours, flat, skip=("n_events",) if ties else ())
+    assert (ours["n_events"] >= flat["n_events"]).all()
+    return ours, flat
+
+
+@pytest.mark.parametrize("scheduler", ["multitasc++", "multitasc", "static"])
+def test_seg_frontier_heterogeneous_equals_the_reference(scheduler):
+    """Three seeds as lanes, raw-uniform latencies per lane (no ties):
+    equal to JAX's segmented run and to the port's flat run, even in
+    ``n_events``."""
+    seeds, n, s = (0, 1, 2), 200, 10
+    lat = np.stack([np.random.default_rng(x).uniform(0.04, 0.2, n)
+                    for x in seeds]).astype(np.float32)
+    ours, flat = _seg_against_both(seeds, n, s, scheduler, True, lat)
+    np.testing.assert_array_equal(ours["n_events"], flat["n_events"])
+
+
+@pytest.mark.parametrize("scheduler", ["multitasc++", "static"])
+def test_seg_frontier_tie_storm_equals_the_reference(scheduler):
+    """Every device completes at the same instants: the tie drains one
+    segment a trip before the launch, so only ``n_events`` grows, by the
+    JAX package's count."""
+    n, s = 200, 25
+    ours, flat = _seg_against_both((0,), n, s, scheduler, True,
+                                   np.full(n, 0.125, np.float32), ties=True)
+    assert (ours["n_events"] > flat["n_events"]).all()
+
+
+@pytest.mark.parametrize("width", [128, 256])
+def test_seg_frontier_explicit_widths_equal_the_reference(width):
+    n, s = 200, 10
+    lat = np.random.default_rng(7).uniform(0.05, 0.18, n).astype(np.float32)
+    ours, _ = _seg_against_both((7,), n, s, "multitasc++", width, lat)
+    assert ours["completed"][0] == n * s
+
+
+def test_seg_frontier_scenarios_equal_the_reference():
+    """Churn, offline windows and tiered switching through the segment
+    slices: join / leave and the offline deferral survive the per-lane
+    base offset."""
+    n, s = 150, 12
+    rng = np.random.default_rng(11)
+    lat = rng.uniform(0.05, 0.2, n).astype(np.float32)
+    total_t = float(lat.max()) * s
+    kw = dict(
+        tier_ids=rng.integers(0, 3, n).astype(np.int32),
+        c_upper=np.asarray([0.85, 0.8, 0.75], np.float32),
+        offline_start=np.where(rng.random(n) < 0.3,
+                               rng.uniform(0.2, 0.6, n) * total_t,
+                               np.inf).astype(np.float32),
+        offline_for=rng.uniform(1.0, 3.0, n).astype(np.float32),
+        join_t=np.where(rng.random(n) < 0.3,
+                        rng.uniform(0.1, 0.4, n) * total_t,
+                        0.0).astype(np.float32),
+        leave_t=np.where(rng.random(n) < 0.3,
+                         rng.uniform(0.5, 0.9, n) * total_t,
+                         np.inf).astype(np.float32))
+    ours, _ = _seg_against_both((11,), n, s, "multitasc++", True, lat, **kw)
+    assert 0 < ours["completed"][0] < n * s
+
+
+def test_seg_frontier_with_arrivals_equals_the_reference():
+    """An arrival tensor (churn + drift) through the segmented gather of
+    each device's next arrival."""
+    n, s = 150, 8
+    lat = np.linspace(0.04, 0.09, n).astype(np.float32)
+    r = jscenarios.realize(jscenarios.SCENARIOS["churn_drift"], (3,), n, s,
+                           lat)
+    streams = jsynthetic.batched_device_streams(
+        (3,), n, s, 0.72, [p.accuracy for p in SEG_SERVERS])
+    outs = []
+    for mod in (J, jaxsim, jaxsim):
+        servers = SEG_SERVERS if mod is J else tuple(
+            ServerProfile(**dataclasses.asdict(p)) for p in SEG_SERVERS)
+        seg = False if len(outs) == 2 else True
+        call = dict(device="cpu") if mod is jaxsim else {}
+        outs.append(mod.run_sweep(
+            mod.JaxSimSpec("multitasc++", n, s, model_switching=True),
+            dict(streams, arrive=r["arrive"]), lat, lat * 2.5, servers,
+            join_t=r["join_t"], leave_t=r["leave_t"], frontier_seg=seg,
+            **call))
+    ref, ours, flat = outs
+    assert_port_matches(ref, ours)
+    _assert_bitwise(ours, flat, skip=("n_events",))
+
+
+def test_seg_frontier_is_automatic_from_seg_auto_min():
+    """``frontier_seg=None`` at n = SEG_AUTO_MIN segments on both sides
+    (G = 128, 16 segments): JAX's automatic run, n_events included."""
+    n, s = jaxsim.SEG_AUTO_MIN, 3
+    assert jaxsim._static_of(jaxsim.JaxSimSpec("static", n, s), 1,
+                             0.1).seg == J._static_of(
+        J.JaxSimSpec("static", n, s), 1, 0.1).seg == 128
+    lat = np.full(n, 0.1, np.float32)
+    ours = _seg_sweep(jaxsim, (5,), n, s, "multitasc++", None, lat)
+    ref = _seg_sweep(J, (5,), n, s, "multitasc++", None, lat)
+    assert_port_matches(ref, ours)
+    assert ours["completed"][0] == n * s
+
+
+@pytest.mark.parametrize("n_pad,frontier_seg", [
+    (1024, None), (2048, None), (10112, None), (256, True), (10112, True),
+    (256, 128), (256, 256), (384, 256), (640, False), (640, 0),
+    (4096, False)])
+def test_seg_layout_equals_the_reference(n_pad, frontier_seg):
+    got = jaxsim._seg_layout(n_pad, frontier_seg)
+    assert got == J._seg_layout(n_pad, frontier_seg)
+    seg, padded = got
+    assert padded >= n_pad and (seg == 0 or padded % seg == 0)
+
+
+@pytest.mark.parametrize("frontier_seg", [100, 129, -128, 64])
+def test_seg_layout_rejects_widths_off_the_bucket(frontier_seg):
+    with pytest.raises(ValueError, match="multiple of 128"):
+        jaxsim._seg_layout(256, frontier_seg)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        J._seg_layout(256, frontier_seg)
+
+
+def _state_np(state):
+    out = {k: np.asarray(v) for k, v in state.items() if k != "traces"}
+    out["traces"] = {k: np.asarray(v) for k, v in state["traces"].items()}
+    return out
+
+
+def _assert_state_matches(ours, ref):
+    assert ours.keys() == ref.keys()
+    for k in ref:
+        if k == "traces":
+            for t, v in ref[k].items():
+                if t in EXACT_TRACES:
+                    np.testing.assert_array_equal(ours[k][t], v, err_msg=t)
+                else:
+                    np.testing.assert_allclose(ours[k][t], v, rtol=AGG_RTOL,
+                                               atol=0, equal_nan=True,
+                                               err_msg=t)
+        else:
+            assert ours[k].shape == ref[k].shape, k
+            np.testing.assert_array_equal(ours[k], ref[k], err_msg=k)
+
+
+@pytest.mark.parametrize("n,s,steps", [(9, 30, 120), (jaxsim.SEG_AUTO_MIN, 2,
+                                                      60)],
+                         ids=["flat", "segmented"])
+def test_lane_stepper_equals_the_reference(n, s, steps):
+    """Two lanes (MultiTASC++ and Static) from their initial carry through
+    ``steps`` single trips of each package's stepper, held after every
+    tenth; the port's ``step`` leaves its argument as it was."""
+    rng = np.random.default_rng(3)
+    lat = rng.uniform(0.05, 0.12, (2, n)).astype(np.float32)
+    streams = jsynthetic.batched_device_streams(
+        (0, 1), n, s, 0.72, [p.accuracy for p in SEG_SERVERS])
+    sides = []
+    for mod in (J, jaxsim):
+        servers = SEG_SERVERS if mod is J else tuple(
+            ServerProfile(**dataclasses.asdict(p)) for p in SEG_SERVERS)
+        specs = [mod.JaxSimSpec(x, n, s, model_switching=True)
+                 for x in ("multitasc++", "static")]
+        call = dict(device="cpu") if mod is jaxsim else {}
+        sides.append(mod.lane_stepper(specs, streams, lat, lat * 2.0,
+                                      servers, **call))
+    (jst, jstep, jstatic), (st, step, static) = sides
+    assert dataclasses.asdict(static) == dataclasses.asdict(jstatic)
+    assert ("seg_min" in st) == (n >= jaxsim.SEG_AUTO_MIN)
+    _assert_state_matches(_state_np(st), _state_np(jst))
+    for i in range(1, steps + 1):
+        before = st["dev_next"].clone()
+        nxt = step(st)
+        assert torch.equal(st["dev_next"], before)
+        st, jst = nxt, jstep(jst)
+        if i % 10 == 0:
+            _assert_state_matches(_state_np(st), _state_np(jst))
+    assert int(st["n_events"].min()) > 0
