@@ -68,8 +68,21 @@ then exits non-zero without the final result line:
    (a worker process started at the phase's start) under phase 6's
    rules; trips, us a trip and the kernels of one graph replay of each.
    The launch counters around (b) and (c) must read zero;
-8. the kernels line: one JSON object describing every ported kernel;
-9. the result line: {"ok": true, "device": {...}}.
+8. sharded sweeps: four ranks spawned on the card (``torch.multiprocessing``,
+   a ``gloo`` world group rendezvoused through a file under build/; NCCL
+   refuses two ranks on one GPU), each building ``make_sweep_mesh((4,))``:
+   (a) phase 6(a)'s sweep through ``run_sweep_sharded`` (B = 9 padded to
+   12), every field on every rank equal to phase 6(a)'s ``run_sweep`` bit
+   for bit and 9 points counted as sharded; (b) phase 7c's first lane,
+   its fleet cut to ``SHARD_N`` devices, through ``run_device_sharded``,
+   held on every rank to the same lane through the local segmented engine
+   under tests/test_scale.py's rules (dynamics and ``n_events`` exact,
+   the float sums over ranks within 1e-6 / 1e-5 relative). Walls against
+   the local runs', trips or events, us an event, and for (b) the
+   collectives an event and their share of the wall. A rank's failure
+   raises here;
+9. the kernels line: one JSON object describing every ported kernel;
+10. the result line: {"ok": true, "device": {...}}.
 
 ``throughput`` of the cascade is a virtual-clock figure from the paper's
 latency profiles, not a measurement of the card.
@@ -79,18 +92,24 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import dataclasses
+import datetime
 import functools
 import io
 import json
 import multiprocessing
 import pathlib
+import pickle
 import re
+import shutil
 import subprocess
 import sys
 import time
+import traceback
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as torch_mp
 import torch.nn.functional as F
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -120,6 +139,7 @@ from repro_torch.kernels.rglru_scan import rglru_scan_plain  # noqa: E402
 from repro_torch.launch.distributed import (head_bvsb,  # noqa: E402
                                             make_prefill_step,
                                             make_serve_step)
+from repro_torch.launch.mesh import make_sweep_mesh  # noqa: E402
 from repro_torch.models import attention, common  # noqa: E402
 from repro_torch.models.model import build_model, init_params  # noqa: E402
 from repro_torch.serving.cascade import run_cascade  # noqa: E402
@@ -1532,7 +1552,8 @@ def simulator_path(dev):
         print(f"simulator phase seconds: width sweep {t1 - t0:.1f}, profiled "
               f"rerun {t2 - t1:.1f}, waiting for the CPU lanes "
               f"{time.perf_counter() - t2:.1f}")
-    return counts, dict(hetero_wall=h_wall, env_wall=e_wall, peak_gb=peak_gb)
+    return counts, dict(hetero=hetero, hetero_wall=h_wall, env_wall=e_wall,
+                        peak_gb=peak_gb)
 
 
 def sim_widths(dev):
@@ -1820,6 +1841,231 @@ def transport_replay_seg_path(dev, ref_run, ref_counts):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the sharded sweeps over torch.distributed, SHARD_RANKS ranks on
+# the one card (a gloo world group: NCCL refuses two ranks on one GPU, and
+# gloo carries CUDA tensors through the host)
+# ---------------------------------------------------------------------------
+SHARD_RANKS = 4
+SHARD_GROUP_TIMEOUT_S = 300      # a collective nobody answers fails here
+SHARD_JOIN_TIMEOUT_S = 900       # the parent's deadline for all ranks
+# (b) runs phase 7c's first lane (S 3, seed 0) with its fleet cut from
+# 10,000 devices to 2,000 (n_pad 2,048): four ranks sharing one card spend
+# 6-21 ms an event in the exchange through the host (PERF.md), so
+# the full fleet's 30,085 events took 244-624 s, over the phase's 3 minutes
+SHARD_N = 2000
+# tests/test_scale.py's rules for the device-sharded engine against the
+# local segmented one: dynamics exact, the float sums over the ranks'
+# partial sums within these relative tolerances
+SHARD_EXACT = ("completed", "queue_left", "queue_peak", "sr", "throughput",
+               "forwarded_frac", "per_device_sr", "per_device_acc",
+               "final_thresh", "n_events")
+SHARD_EXACT_TRACES = ("active", "server_idx", "fwd")
+SHARD_ULP = {"accuracy": (1e-6, 0.0)}
+SHARD_ULP_TRACES = {"thresh": (1e-5, 1e-5), "sr": (1e-5, 1e-5),
+                    "acc": (1e-5, 1e-5)}
+
+
+def shard_timed(dev_type, fn):
+    """``fn()`` on every rank from a barrier: (result, wall s, the
+    change in jaxsim.stats_snapshot())."""
+    if dev_type == "cuda":
+        torch.cuda.synchronize()
+    dist.barrier()
+    before = jaxsim.stats_snapshot()
+    t0 = time.perf_counter()
+    out = fn()
+    wall = time.perf_counter() - t0
+    after = jaxsim.stats_snapshot()
+    return out, wall, {k: after[k] - before[k] for k in after}
+
+
+def shard_rank(rank, rendezvous, out_dir, dev_type, work, args):
+    """One rank: join the gloo world group through ``rendezvous``, build
+    the mesh, run ``work(mesh, device, *args)``, and pickle its result to
+    ``out_dir``, or the traceback and exit non-zero."""
+    try:
+        torch.set_num_threads(1)
+        if dev_type == "cuda":
+            torch.cuda.set_device(rank % torch.cuda.device_count())
+        dist.init_process_group(
+            "gloo", init_method=f"file://{rendezvous}",
+            world_size=SHARD_RANKS, rank=rank,
+            timeout=datetime.timedelta(seconds=SHARD_GROUP_TIMEOUT_S))
+        mesh = make_sweep_mesh((SHARD_RANKS,), device_type=dev_type)
+        result = work(mesh, torch.device(dev_type), *args)
+        dist.destroy_process_group()
+    except Exception:
+        result = {"error": traceback.format_exc()}
+    with open(pathlib.Path(out_dir) / f"rank{rank}.pkl", "wb") as f:
+        pickle.dump(result, f)
+    if "error" in result:
+        sys.exit(1)
+
+
+def phase8_work(mesh, dev, sweep_s, seg_n):
+    """A rank's share of phase 8: (a) phase 6(a)'s sweep through
+    run_sweep_sharded, (b) phase 7c's first lane (``seg_n`` devices)
+    through run_device_sharded."""
+    args, kw = sim_inputs("hetero", range(3 * len(SIM_SEEDS)), sweep_s)
+    sweep = shard_timed(dev.type, lambda: jaxsim.run_sweep_sharded(
+        *args, mesh=mesh, device=dev, **kw))
+    (specs, streams, lat, slo, servers), kw = seg_inputs(seg_n, SEG_S, 1)
+    fleet = shard_timed(dev.type, lambda: jaxsim.run_device_sharded(
+        specs[0], streams, lat, slo, servers, mesh=mesh, device=dev, **kw))
+    return {"sweep": sweep, "fleet": fleet}
+
+
+def shard_ranks(dev_type, work, *args):
+    """Spawn SHARD_RANKS ranks (torch.multiprocessing) running ``work``
+    (a module-level function), rendezvousing through a file under build/;
+    wait for them within SHARD_JOIN_TIMEOUT_S and return each rank's
+    result and the wall. Any rank's failure raises here, and the others
+    are stopped."""
+    out = ROOT / "build" / "sharded"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    ctx = torch_mp.get_context("spawn")
+    procs = [ctx.Process(target=shard_rank,
+                         args=(r, str(out / "rendezvous"), str(out),
+                               dev_type, work, args))
+             for r in range(SHARD_RANKS)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = t0 + SHARD_JOIN_TIMEOUT_S
+    try:
+        while any(p.is_alive() for p in procs) and time.perf_counter() < \
+                deadline:
+            if any(p.exitcode not in (None, 0) for p in procs):
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+            p.join(30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    results = []
+    for r, p in enumerate(procs):
+        path = out / f"rank{r}.pkl"
+        res = pickle.loads(path.read_bytes()) if path.exists() else {}
+        if p.exitcode != 0 or "error" in res:
+            raise AssertionError(
+                f"sharded rank {r} failed (exit code {p.exitcode}):\n"
+                f"{res.get('error', 'no result: stopped or timed out')}")
+        results.append(res)
+    return results, time.perf_counter() - t0
+
+
+def shard_compare(got, ref, exact, exact_traces, tol, tol_traces):
+    """``got`` against ``ref``: ``exact`` keys and traces bit for bit
+    (NaN equal to NaN), the others within (rtol, atol)."""
+    bad = [k for k in exact
+           if not np.array_equal(np.asarray(got[k]), np.asarray(ref[k]),
+                                 equal_nan=True)
+           or np.asarray(got[k]).dtype != np.asarray(ref[k]).dtype]
+    bad += [f"traces.{k}" for k in exact_traces
+            if not np.array_equal(got["traces"][k], ref["traces"][k],
+                                  equal_nan=True)]
+    worst = {}
+    for key, (rtol, atol) in list(tol.items()) + [
+            (f"traces.{k}", v) for k, v in tol_traces.items()]:
+        a = got["traces"][key[7:]] if key.startswith("traces.") else got[key]
+        b = ref["traces"][key[7:]] if key.startswith("traces.") else ref[key]
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        if not np.array_equal(np.isnan(a), np.isnan(b)):
+            bad.append(key)
+            continue
+        m = ~np.isnan(a)
+        worst[key] = float(np.max(np.abs(a[m] - b[m])
+                                  / np.maximum(np.abs(b[m]), 1e-30),
+                                  initial=0.0))
+        if not np.allclose(a[m], b[m], rtol=rtol, atol=atol):
+            bad.append(f"{key} (rel {worst[key]:.3g})")
+    return bad, worst
+
+
+def sharded_path(dev, sweep_ref, sweep_s=SIM_S, seg_n=SHARD_N):
+    """Phase 8: SHARD_RANKS ranks on the card. (a) run_sweep_sharded of
+    phase 6(a)'s sweep, every field on every rank equal to phase 6(a)'s
+    run_sweep bit for bit, 9 points counted as sharded; (b)
+    run_device_sharded of phase 7c's first lane cut to ``seg_n`` devices,
+    held to the same lane through the local segmented engine under
+    tests/test_scale.py's rules. ``sweep_ref`` is (phase 6(a)'s result,
+    its wall)."""
+    results, spawn_wall = shard_ranks(dev.type, phase8_work, sweep_s, seg_n)
+    hetero, h_wall = sweep_ref
+    b = len(hetero["sr"])
+    for r, res in enumerate(results):
+        out, _, st = res["sweep"]
+        bad, _ = shard_compare(out, hetero, tuple(k for k in hetero
+                                                      if k != "traces"),
+                               tuple(hetero["traces"]), {}, {})
+        if bad or st["sharded_points"] != b:
+            raise AssertionError(f"sharded (a) rank {r} differs from phase "
+                                 f"6(a) in {bad}, sharded_points "
+                                 f"{st['sharded_points']}")
+    walls = [res["sweep"][1] for res in results]
+    trips = [res["sweep"][2]["trips"] for res in results]
+    events = int(hetero["n_events"].sum())
+    print(f"sharded (a) run_sweep_sharded of phase 6(a)'s sweep (N={SIM_N} "
+          f"S={sweep_s}, B={b} padded to "
+          f"{-(-b // SHARD_RANKS) * SHARD_RANKS}, {SHARD_RANKS} gloo ranks "
+          f"on one card): every field on every rank equal bit for bit to "
+          f"phase 6(a)'s run_sweep, sharded_points {b}; wall "
+          f"{max(walls):.3f} s (ranks {', '.join(f'{w:.3f}' for w in walls)})"
+          f" against the local run's {h_wall:.3f} s; loop trips per rank "
+          f"{trips} ({max(walls) / max(trips) * 1e6:.2f} us a trip); "
+          f"{events} lane-events ({max(walls) / events * 1e6:.2f} us a "
+          f"lane-event)")
+
+    # (b)'s reference: the same lane through the local segmented engine
+    args, kw = seg_inputs(seg_n, SEG_S, 1)
+    trips = jaxsim.stats.trips
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    seg_out = jaxsim.run_sweep(*args, frontier_seg=True, device=dev, **kw)
+    seg_wall = time.perf_counter() - t0
+    seg_trips = jaxsim.stats.trips - trips
+    lane0 = {k: v[0] for k, v in seg_out.items() if k != "traces"}
+    lane0["traces"] = {k: v[0] for k, v in seg_out["traces"].items()}
+    worst = {}
+    for r, res in enumerate(results):
+        out, _, st = res["fleet"]
+        bad, worst = shard_compare(out, lane0, SHARD_EXACT,
+                                   SHARD_EXACT_TRACES, SHARD_ULP,
+                                   SHARD_ULP_TRACES)
+        if bad or st["device_sharded_points"] != 1:
+            raise AssertionError(f"sharded (b) rank {r} differs from the "
+                                 f"local segmented lane in {bad}")
+    out, _, st = results[0]["fleet"]
+    walls = [res["fleet"][1] for res in results]
+    coll_s = [res["fleet"][2]["collective_ns"] / 1e9 for res in results]
+    n_ev = int(out["n_events"])
+    print(f"sharded (b) run_device_sharded of phase 7c's lane 0 cut from "
+          f"{SEG_N} to {seg_n} devices (n_pad "
+          f"{-(-seg_n // (128 * SHARD_RANKS)) * 128 * SHARD_RANKS} over "
+          f"{SHARD_RANKS} ranks, S={SEG_S}, seed {SEG_SEEDS[0]}): "
+          f"{', '.join(SHARD_EXACT + SHARD_EXACT_TRACES)} equal bit for "
+          f"bit on every rank, n_events {n_ev}; "
+          f"{', '.join(f'{k} max rel {v:.3g}' for k, v in worst.items())}")
+    print(f"sharded (b): wall {max(walls):.3f} s (ranks "
+          f"{', '.join(f'{w:.3f}' for w in walls)}) against the local "
+          f"segmented run's {seg_wall:.3f} s ({seg_trips} trips); "
+          f"{st['trips']} loop trips, {n_ev} events, "
+          f"{max(walls) / n_ev * 1e6:.2f} us an event; {st['collectives']} "
+          f"collectives ({st['collectives'] / n_ev:.3f} an event), "
+          f"{max(coll_s):.3f} s inside them on the slowest rank "
+          f"({max(c / w for c, w in zip(coll_s, walls)):.4f} of the wall; "
+          f"ranks {', '.join(f'{c:.3f}' for c in coll_s)} s)")
+    print(f"sharded: {SHARD_RANKS} ranks spawned, run and joined in "
+          f"{spawn_wall:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1884,12 +2130,15 @@ def main() -> int:
     sim_counts, sim = simulator_path(dev)
     t5 = time.perf_counter()
     transport_counts = transport_replay_seg_path(dev, cascade_run, counts)
+    t6 = time.perf_counter()
+    torch.cuda.empty_cache()
+    sharded_path(dev, (sim["hetero"], sim["hetero_wall"]))
     print(f"phase seconds: build {t1 - t0:.1f}, kernels {t2 - t1:.1f}, "
           f"cascade path with its profiled rerun {t3 - t2:.1f}, "
           f"{RG_ARCH} path with its CPU check {t4 - t3:.1f}, simulator "
           f"with its CPU check, width sweep and profiled rerun "
           f"{t5 - t4:.1f}, transport + replay + segmented frontier "
-          f"{time.perf_counter() - t5:.1f}")
+          f"{t6 - t5:.1f}, sharded sweeps {time.perf_counter() - t6:.1f}")
 
     # the kernels line times each kernel at the RecurrentGemma path's shape;
     # BvSB and flash also at the cascade's most frequent server batch (the

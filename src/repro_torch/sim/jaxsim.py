@@ -44,27 +44,42 @@ How the JAX core maps onto PyTorch:
   for bit and only ``n_events`` counts the extra trips, as in the JAX
   package.
 
+* Sharding follows PyTorch's multi-process idiom instead of one
+  controller over a ``jax.sharding`` mesh: every rank of a
+  ``torch.distributed`` group calls the entry point with the same full
+  host arrays and a mesh from ``launch.mesh.make_sweep_mesh``, runs its
+  slice on its own device, and returns the same full metric dict.
+  ``run_sweep_sharded`` gives each rank B / k lanes of the ordinary
+  engine (its CUDA graphs unchanged) and gathers once at the end.
+  ``run_device_sharded`` splits one fleet's device axis: ``_DeviceEngine``
+  exchanges what the JAX package's collectives carry between the
+  ``_seg_phases`` functions, in one ``all_reduce`` an event and two where
+  a window closes, each over one float64 buffer that packs its operands
+  (exact for the counts, ids and float32 values it carries).
+
 Semantics, inputs and outputs are those of the JAX ``run`` /
-``run_sweep`` (same names, shapes and metric dict; arrays come back as
-numpy). Streams are made on the host with numpy and moved to the device
-once. ``lane_stepper`` hands out the engine's state and its real trip.
-Not ported yet (ROADMAP Queue A): the sharded sweep
-(``run_sweep_sharded``) and the device-sharded engine
-(``run_device_sharded``); they raise ``NotImplementedError``.
+``run_sweep`` / ``run_sweep_sharded`` / ``run_device_sharded`` (same
+names, shapes and metric dict; arrays come back as numpy). Streams are
+made on the host with numpy and moved to the device once.
+``lane_stepper`` hands out the engine's state and its real trip.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import time
 from typing import Dict, Sequence, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.cascade_tiers import BATCH_LADDER, ServerProfile
 from repro_torch.core import multitasc as mt
 from repro_torch.core import multitascpp as mtpp
 from repro_torch.core import switching
+from repro_torch.launch.mesh import (device_axis_of, lane_position,
+                                     mesh_group, n_lanes)
 
 MAX_POP = 64
 N_BUCKET = 128          # device axis pads up to a multiple of this
@@ -86,9 +101,6 @@ TRACE_KEYS = ("thresh", "sr", "active", "server_idx", "fwd", "acc")
 # carry fields a window boundary touches (the rest only events move)
 BOUNDARY_FIELDS = ("thresh", "mult", "win_met", "win_total", "server_idx",
                    "w", "k", "active")
-
-_NOT_PORTED = ("not ported to repro_torch yet (ROADMAP.md Queue A: the "
-               "sharded sweep and the device-sharded engine)")
 
 _F32, _I32 = torch.float32, torch.int32
 
@@ -138,6 +150,10 @@ class SweepStats:
     points: int = 0            # sweep points simulated
     events: int = 0            # event-loop iterations across all points
     trips: int = 0             # loop trips, each over all lanes of a run
+    sharded_points: int = 0    # points run by run_sweep_sharded over > 1 lane
+    device_sharded_points: int = 0  # points run by run_device_sharded
+    collectives: int = 0       # all_reduce calls of the device-sharded engine
+    collective_ns: int = 0     # host time inside them (staging included)
 
 
 stats = SweepStats()
@@ -147,18 +163,23 @@ def stats_snapshot() -> Dict[str, int]:
     return dataclasses.asdict(stats)
 
 
-def _seg_layout(n_pad: int, frontier_seg):
+def _seg_layout(n_pad: int, frontier_seg, device_shards: int = 1):
     """Resolve ``(seg, n_pad)`` for the frontier structure, by the JAX
-    package's rules: ``None`` segments from ``n_pad >= SEG_AUTO_MIN``,
-    ``False`` / ``0`` keep the flat engine, ``True`` takes the automatic
-    width (G doubles from ``N_BUCKET`` until G * G covers ``n_pad``), and
-    a positive multiple of ``N_BUCKET`` forces that width. Segmented,
-    ``n_pad`` rounds up to whole segments."""
+    package's rules: ``None`` segments from ``n_pad >= SEG_AUTO_MIN`` (or
+    whenever the device axis is sharded), ``False`` / ``0`` keep the flat
+    engine (and raise when ``device_shards > 1``), ``True`` takes the
+    automatic width (G doubles from ``N_BUCKET`` until G * G covers
+    ``n_pad``), and a positive multiple of ``N_BUCKET`` forces that width.
+    Segmented, ``n_pad`` rounds up so every shard holds whole segments."""
     if frontier_seg is False or (frontier_seg is not None
                                  and not isinstance(frontier_seg, bool)
                                  and int(frontier_seg) == 0):
+        if device_shards > 1:
+            raise ValueError(
+                "device-axis sharding requires the segmented frontier "
+                "(frontier_seg must not be disabled)")
         return 0, n_pad
-    if frontier_seg is None and n_pad < SEG_AUTO_MIN:
+    if frontier_seg is None and device_shards <= 1 and n_pad < SEG_AUTO_MIN:
         return 0, n_pad
     if frontier_seg is None or isinstance(frontier_seg, bool):
         g = N_BUCKET
@@ -170,18 +191,20 @@ def _seg_layout(n_pad: int, frontier_seg):
             raise ValueError(
                 f"frontier_seg must be a positive multiple of {N_BUCKET},"
                 f" got {g}")
-    return g, -(-n_pad // g) * g
+    quantum = g * max(1, device_shards)
+    return g, -(-n_pad // quantum) * quantum
 
 
 def _static_of(spec: JaxSimSpec, n_servers: int, max_lat: float,
                n_stream: int | None = None, lead: float = 0.0,
-               has_arrive: bool = False, frontier_seg=None) -> JaxSimStatic:
+               has_arrive: bool = False, frontier_seg=None,
+               device_shards: int = 1) -> JaxSimStatic:
     # ``lead``: pooled worst-case head start before a device's last sample
     # can begin (max of join_t + arrive[-1]); zero when saturated
     duration = max_lat * spec.samples_per_device + lead + spec.extra_time
     duration = -(-duration // DURATION_QUANTUM) * DURATION_QUANTUM
     n_pad = -(-(n_stream or spec.n_devices) // N_BUCKET) * N_BUCKET
-    seg, n_pad = _seg_layout(n_pad, frontier_seg)
+    seg, n_pad = _seg_layout(n_pad, frontier_seg, device_shards)
     cap = n_pad * spec.samples_per_device + MAX_POP
     if spec.queue_cap is not None:
         if spec.queue_cap <= MAX_POP:
@@ -242,7 +265,7 @@ def run(spec: JaxSimSpec, streams, dev_latency, slo,
 
 def _prepare(specs, streams, dev_latency, slo, servers, tier_ids, c_upper,
              offline_start, offline_for, join_t=None, leave_t=None,
-             frontier_seg=None):
+             frontier_seg=None, device_shards=1):
     """Validate and stack a sweep's host-side inputs, as the JAX package's
     ``_prepare``: returns ``(static, params, srv, arrays, b, n)``, all
     numpy (``params`` (B,)-stacked per-point scalars, ``srv`` the server
@@ -316,7 +339,7 @@ def _prepare(specs, streams, dev_latency, slo, servers, tier_ids, c_upper,
     lead_max = float(lead[real_mask].max()) if np.any(real_mask) else 0.0
 
     statics = {_static_of(sp, len(servers), max_lat, n, lead_max,
-                          arrive is not None, frontier_seg)
+                          arrive is not None, frontier_seg, device_shards)
                for sp in specs}
     if len(statics) != 1:
         raise ValueError(
@@ -383,28 +406,148 @@ def run_sweep(specs: Union[JaxSimSpec, Sequence[JaxSimSpec]], streams,
         specs, streams, dev_latency, slo, servers, tier_ids, c_upper,
         offline_start, offline_for, join_t, leave_t,
         frontier_seg=frontier_seg)
+    return _finalize(_run_lanes(static, params, srv, arrays, b, dev), b, n)
+
+
+def _run_lanes(static, params, srv, arrays, b, dev):
     eng = _engine(static, b, str(dev))
     eng.load(params, srv, arrays)
     eng.run()
-    return _finalize(eng.metrics(), b, n)
+    return eng.metrics()
 
 
 def _finalize(out, b, n):
-    for k in ("per_device_sr", "per_device_acc", "final_thresh"):
+    for k in _DEVICE_OUT_SHARDED:
         out[k] = out[k][:, :n]
     stats.points += b
     stats.events += int(out["n_events"].sum())
     return out
 
 
-def run_sweep_sharded(*args, **kwargs):
-    """The B axis sharded over several cards: not ported yet."""
-    raise NotImplementedError(f"run_sweep_sharded is {_NOT_PORTED}")
+# the per-device outputs (the device axis split over ranks in
+# run_device_sharded); every other output is one value a point
+_DEVICE_OUT_SHARDED = ("per_device_sr", "per_device_acc", "final_thresh")
+# the per-device inputs (sliced to each rank's devices); c_upper is a
+# per-tier table, replicated
+_DEVICE_IN = ("conf", "cl", "ch", "arrive", "dev_latency", "slo", "tier_ids",
+              "off_start", "off_for", "join_t", "leave_t")
 
 
-def run_device_sharded(*args, **kwargs):
-    """One fleet's device axis sharded over several cards: not ported."""
-    raise NotImplementedError(f"run_device_sharded is {_NOT_PORTED}")
+def _mesh_device(mesh, device):
+    dev = _device(device)
+    if mesh.device_type != dev.type:
+        raise ValueError(f"a {mesh.device_type!r} mesh cannot run on "
+                         f"device {str(dev)!r}")
+    return dev
+
+
+def run_sweep_sharded(specs: Union[JaxSimSpec, Sequence[JaxSimSpec]],
+                      streams, dev_latency, slo,
+                      servers: Sequence[ServerProfile], *, mesh=None,
+                      tier_ids=None, c_upper=None, offline_start=None,
+                      offline_for=None, join_t=None, leave_t=None,
+                      frontier_seg=None, device="cuda"):
+    """``run_sweep`` with the B axis split over the ranks of ``mesh``
+    (``launch.mesh.make_sweep_mesh``).
+
+    Every rank of the mesh calls it with the same arguments and gets the
+    same result, ``run_sweep``'s bit for bit. ``mesh=None``, a one-lane
+    mesh or a single point runs the local path on ``device`` (a single
+    point padded to the lane count would only run the same point on every
+    rank). Otherwise B pads up to a multiple of the lane count k by
+    repeating point 0; each rank runs its B / k lanes through the ordinary
+    engine on its own ``device`` (on the card its current CUDA device),
+    with no collective per event, and the ranks gather the results once
+    at the end; the padded points are dropped.
+    """
+    lanes = n_lanes(mesh)
+    if lanes <= 1:
+        return run_sweep(specs, streams, dev_latency, slo, servers,
+                         tier_ids=tier_ids, c_upper=c_upper,
+                         offline_start=offline_start,
+                         offline_for=offline_for, join_t=join_t,
+                         leave_t=leave_t, frontier_seg=frontier_seg,
+                         device=device)
+    dev = _mesh_device(mesh, device)
+    static, params, srv, arrays, b, n = _prepare(
+        specs, streams, dev_latency, slo, servers, tier_ids, c_upper,
+        offline_start, offline_for, join_t, leave_t,
+        frontier_seg=frontier_seg)
+    if b == 1:
+        return _finalize(_run_lanes(static, params, srv, arrays, b, dev),
+                         b, n)
+    per = -(-b // lanes)
+    lo = lane_position(mesh) * per
+    rows = np.arange(lo, lo + per)
+    rows = np.where(rows < b, rows, 0)          # the pads repeat point 0
+    out = _run_lanes(static, {k: v[rows] for k, v in params.items()}, srv,
+                     {k: v[rows] for k, v in arrays.items()}, per, dev)
+    parts = [None] * dist.get_world_size(mesh_group(mesh))
+    dist.all_gather_object(parts, (lo, out), group=mesh_group(mesh))
+    parts = [o for _, o in sorted(parts, key=lambda p: p[0])]
+    out = {k: np.concatenate([o[k] for o in parts])[:b]
+           for k in out if k != "traces"}
+    out["traces"] = {k: np.concatenate([o["traces"][k] for o in parts])[:b]
+                     for k in parts[0]["traces"]}
+    stats.sharded_points += b
+    return _finalize(out, b, n)
+
+
+def run_device_sharded(spec: JaxSimSpec, streams, dev_latency, slo,
+                       servers: Sequence[ServerProfile], *, mesh=None,
+                       tier_ids=None, c_upper=None, offline_start=None,
+                       offline_for=None, join_t=None, leave_t=None,
+                       frontier_seg=None, device="cuda"):
+    """One sweep point with its DEVICE axis split over the ranks of a
+    one-axis ``mesh`` (``launch.mesh.make_sweep_mesh((k,))``).
+
+    Every rank calls it with the same arguments. Each holds ``n_pad / k``
+    devices' state, streams and segment minima on its own ``device``;
+    queue, server, time and window state are replicated, and every rank
+    applies the same update to them (``_DeviceEngine``). Requires the
+    segmented frontier (``frontier_seg=False`` raises ``ValueError``);
+    B = 1 only. ``mesh=None`` or a one-lane mesh runs the local segmented
+    ``run``.
+
+    Returns ``run``'s metric dict, the same on every rank. Fleet dynamics
+    and ``n_events`` equal the local segmented engine's bit for bit; the
+    aggregates that sum floats over the ranks' partial sums (``accuracy``
+    and the traces' ``thresh``, ``sr``, ``acc``) may differ in the last
+    ulp.
+    """
+    if not isinstance(spec, JaxSimSpec):
+        raise ValueError("run_device_sharded takes a single JaxSimSpec "
+                         "(B=1); use run_sweep_sharded for sweeps")
+    k = n_lanes(mesh)
+    if mesh is None or k <= 1:
+        return run(spec, streams, dev_latency, slo, servers,
+                   tier_ids=tier_ids, c_upper=c_upper,
+                   offline_start=offline_start, offline_for=offline_for,
+                   join_t=join_t, leave_t=leave_t,
+                   frontier_seg=True if frontier_seg is None
+                   else frontier_seg, device=device)
+    axis = device_axis_of(mesh)
+    static, params, srv, arrays, b, n = _prepare(
+        [spec], streams, dev_latency, slo, servers, tier_ids, c_upper,
+        offline_start, offline_for, join_t, leave_t,
+        frontier_seg=frontier_seg, device_shards=k)
+    if b != 1:
+        raise ValueError("run_device_sharded runs one sweep point (B=1); "
+                         f"got a stream batch of {b}")
+    dev = _mesh_device(mesh, device)
+    pos = lane_position(mesh)
+    eng = _DeviceEngine(static, k, pos, mesh.get_group(axis), dev)
+    sl = slice(eng.dev_base, eng.dev_base + eng.static.n_pad)
+    eng.load(params, srv, {key: v[:, sl] if key in _DEVICE_IN else v
+                           for key, v in arrays.items()})
+    eng.run()
+    out = eng.metrics()
+    for key in _DEVICE_OUT_SHARDED:
+        out[key] = out[key][:n]
+    stats.points += 1
+    stats.events += int(out["n_events"])
+    stats.device_sharded_points += 1
+    return out
 
 
 def lane_stepper(specs, streams, dev_latency, slo,
@@ -565,7 +708,11 @@ class _Engine:
     ``metrics`` for its ``lane_init`` / ``lane_event`` /
     ``lane_boundary`` / ``lane_metrics`` written over all lanes at once.
     Buffers are filled anew by ``load`` for each run, so a CUDA graph
-    captured over them serves every later run of the same structure."""
+    captured over them serves every later run of the same structure.
+    ``dev_base`` is the global id of the engine's first device (nonzero
+    only in a rank of the device-sharded engine)."""
+
+    dev_base = 0
 
     def __init__(self, static: JaxSimStatic, b: int, device: torch.device):
         self.static, self.b, self.device = static, b, device
@@ -617,7 +764,8 @@ class _Engine:
         # constants the loop reads every trip, formed once per run
         new["met_local"] = new["dev_latency"] <= new["slo"]
         new["off_end"] = new["off_start"] + new["off_for"]
-        new["valid"] = self.dev_ix[None, :] < new["n_real"][:, None]
+        new["valid"] = (self.dev_base + self.dev_ix)[None, :] \
+            < new["n_real"][:, None]
         new["n_real_f"] = new["n_real"].to(_F32)
         self.n_prof = new["ch"].shape[-1]
         if self.c is not None and all(new[k].shape == v.shape
@@ -983,8 +1131,402 @@ class _Engine:
             "n_events": st["n_events"],
             "final_thresh": st["thresh"],
         }
-        out = {k: v.cpu().numpy() for k, v in out.items()}
+        # copies: on the CPU .numpy() would alias the engine's buffers,
+        # which the next run of the same structure overwrites
+        out = {k: np.array(v.cpu()) for k, v in out.items()}
         nw = self.static.n_windows
-        out["traces"] = {k: v[:, :nw].cpu().numpy()
+        out["traces"] = {k: np.array(v[:, :nw].cpu())
+                         for k, v in self.traces.items()}
+        return out
+
+
+class _DeviceEngine(_Engine):
+    """One rank's slice of the device-sharded event loop (B = 1): the JAX
+    package's ``_device_engine`` and ``_run_core_device``.
+
+    The rank holds ``n_pad / k`` devices' state, streams and segment
+    minima (``static`` here is that slice's; ring capacity, window count
+    and event cap stay the fleet's). Queue, server, time and window state
+    are replicated, and every rank applies the same update to them. The
+    event's arithmetic is ``_seg_phases``, the local segmented engine's
+    own; the exchange between its phases carries what JAX's collectives
+    carry, in fewer rounds:
+
+    * JAX's ``pmin`` of the local best segment minimum, its ``pmin`` of
+      the owner candidate, its ``pmin`` of the new minimum and its
+      ``psum`` of the owner's append buffer become ONE all_reduce MIN per
+      event: every rank fills its own slot of k with its segment minimum
+      and, if it owns the event's segment, the append rows and whether a
+      completion stayed local; the other ranks fill +inf, so the minimum
+      is every rank's minimum and the owner's rows exactly. The k minima
+      give the new frontier minimum, and also the next event's owner: the
+      first rank at the minimum, at its own first segment there, which is
+      the lowest global segment, as the local ``argmin`` over the
+      concatenated minima (no trip changes the minima between two
+      events).
+    * JAX's ``psum`` of the popped entries' SLO and heavy correctness is
+      not needed: only the rank that holds a popped device moves its
+      counters, and it reads both locally.
+    * The boundary's two rounds of partial sums (the active count, SR,
+      forwarded, accuracy and undrained devices; then
+      ``switching.decide_partials`` and the threshold sum, which
+      ``decide_from_partials`` turns into S(C)) are two all_reduce SUMs,
+      issued only on the trips where the window closes. Whether it closes
+      is replicated state, the same on every rank, so every rank issues
+      the same collectives in the same order.
+    * At the end, the metrics' sums in one all_reduce SUM, and the
+      per-device outputs gathered.
+
+    Each all_reduce packs its operands in one float64 buffer: exact for
+    the counts, ids and float32 values it carries. Everything fed back
+    into state is an integer sum, a minimum or an owner's value, so the
+    dynamics equal the local engine's bit for bit; only the reported
+    float sums over ranks (``accuracy``, the traces' ``thresh``, ``sr``,
+    ``acc``) take the reduction's order.
+
+    A collective of a backend that stages through the host cannot sit
+    inside a CUDA graph, so on the card the event runs as two captured
+    pieces around its all_reduce (``_event_pre``, ``_event_post``; what
+    crosses lives in fixed buffers), and the rare boundary eagerly.
+    """
+
+    def __init__(self, static: JaxSimStatic, k: int, pos: int, group,
+                 device: torch.device):
+        n_loc = static.n_pad // k
+        super().__init__(dataclasses.replace(static, n_pad=n_loc), 1, device)
+        self.k, self.pos, self.group = k, pos, group
+        self.dev_base = pos * n_loc
+        self.rank_ix = torch.arange(k, device=device)
+        G = static.seg
+        # what crosses a collective lives in fixed buffers, so the pieces
+        # between collectives can be captured as CUDA graphs: the packed
+        # exchange (k minima, the owner's start / dev / samp / fwd rows and
+        # whether a completion stayed local), the gathered minima, and
+        # whether the window closes
+        self.xsplit = [k, G, G, G, G, 1]
+        self.xbuf = torch.zeros(sum(self.xsplit), dtype=torch.float64,
+                                device=device)
+        self.best = torch.zeros(k, dtype=_F32, device=device)
+        self.go_b = torch.zeros(1, dtype=torch.bool, device=device)
+        self.pieces = None
+        stats.engines_built += 1
+
+    # -- collectives -------------------------------------------------------
+    def _all_reduce(self, buf, op):
+        t0 = time.perf_counter_ns()
+        dist.all_reduce(buf, op=op, group=self.group)
+        stats.collective_ns += time.perf_counter_ns() - t0
+        stats.collectives += 1
+
+    def _psum(self, *parts):
+        """One all_reduce SUM over the ranks of ``parts``, packed in one
+        float64 buffer; returns them summed, in their own dtypes."""
+        flat = torch.cat([p.reshape(-1).double() for p in parts])
+        self._all_reduce(flat, dist.ReduceOp.SUM)
+        return [o.view(p.shape).to(p.dtype) for o, p in
+                zip(flat.split([p.numel() for p in parts]), parts)]
+
+    def _pack(self, mine, start, dev, samp, fwd, comp_any):
+        """Fill ``xbuf`` for the event's all_reduce MIN: this rank's
+        segment minimum in its own slot of k (+inf in the others), and the
+        owned rows where ``mine`` holds (+inf on every other rank)."""
+        inf = torch.full((), float("inf"), dtype=torch.float64,
+                         device=self.device)
+        own = self.rank_ix == self.pos
+        parts = [torch.where(own, self.st["seg_min"].amin(1).double(), inf)]
+        parts += [torch.where(mine, x.double(), inf).reshape(-1)
+                  for x in (start, dev, samp, fwd, comp_any)]
+        torch.cat(parts, out=self.xbuf)
+
+    def _unpack(self):
+        """The reduced ``xbuf``: sets ``best`` (every rank's segment
+        minimum) and returns the owner's rows in their dtypes."""
+        best, start, dev, samp, fwd, comp_any = self.xbuf.split(self.xsplit)
+        self.best.copy_(best)
+        return (start.float()[None], dev.long()[None], samp.long()[None],
+                fwd.bool()[None], comp_any.bool())
+
+    def _undrained(self, st):
+        s = self.static.samples_per_device
+        return (~((st["cursor"] >= s) | ~self.c["valid"]).all(1)).to(_I32)
+
+    # -- engine pieces -----------------------------------------------------
+    def _init(self):
+        st, c = self.st, self.c
+        for v in st.values():
+            v.zero_()
+        for v in self.traces.values():
+            v.fill_(float("nan"))
+        init = torch.where(c["scheduler"] == SCHED_CODES["static"],
+                           c["static_threshold"], c["init_threshold"])
+        st["thresh"].copy_(init[:, None].expand_as(st["thresh"]))
+        st["mult"].fill_(1.0)
+        first = (torch.maximum(c["join_t"], c["arrive"][:, :, 0])
+                 if self.static.has_arrive else c["join_t"])
+        st["dev_next"].copy_(self._defer_offline(first + c["dev_latency"]))
+        st["seg_min"].copy_(self._pending(st).view(
+            1, -1, self.static.seg).amin(2))
+        st["server_idx"].copy_(c["server_init"])
+        # the queue is empty at t = 0: the frontier is the fleet's minimum
+        G = self.static.seg
+        none = torch.zeros((), dtype=torch.bool, device=self.device)
+        self._pack(none, *(torch.zeros(1, G, device=self.device),) * 4,
+                   none[None])
+        self._all_reduce(self.xbuf, dist.ReduceOp.MIN)
+        self._unpack()
+        st["frontier"].fill_(0.0).add_(self.best.amin())
+        (undrained,) = self._psum(self._undrained(st))
+        st["active"].copy_((undrained > 0) & (self.static.n_windows > 0))
+
+    def _event_pre(self):
+        """The event up to its exchange: the owner's segment completions,
+        its segment minimum, and the packed exchange buffer."""
+        st, c, G = self.st, self.c, self.static.seg
+        go = self._event_flags()
+        t, seg_min = st["frontier"], st["seg_min"]
+        # the owner: the first rank at the fleet's minimum, at its first
+        # segment there
+        t_dev0 = self.best.amin()
+        mine = self.best.argmin() == self.pos
+        has_due = go & (t_dev0 <= t) & mine
+        widx = torch.where(mine, seg_min.argmin(1), 0)
+        base = widx * G
+        dev = {k: st[k] for k in ("dev_next", "cursor", "thresh", "win_met",
+                                  "win_total", "tot_met", "tot", "correct",
+                                  "fwd")}
+        dev.update({k: c[k] for k in ("dev_latency", "slo", "leave_t",
+                                      "off_start", "off_for")})
+        dev.update(conf_flat=c["conf"].view(1, -1),
+                   cl_flat=c["cl"].view(1, -1),
+                   arrive_flat=c["arrive"].view(1, -1))
+        seg_upd, append, seg_min_new, comp_any = self.completion(
+            dev, t, base, self.dev_base + base, has_due)
+        idx = base[:, None] + self.dev_ix[:G]
+        for key, upd in seg_upd.items():
+            st[key].scatter_(1, idx, upd)
+        m = torch.gather(seg_min, 1, widx[:, None])[:, 0]
+        seg_min.scatter_(1, widx[:, None],
+                         torch.where(has_due, seg_min_new, m)[:, None])
+        fwd = append["fwd"]
+        self._pack(mine, torch.where(fwd, append["start"], 0.0),
+                   append["dev"], append["samp"], fwd, comp_any)
+
+    def _event_post(self):
+        """The event after its exchange: the owner's append on every
+        rank's ring, the launch, the new frontier; then whether the
+        window closes (``go_b``)."""
+        st = self.st
+        go = self._event_flags()
+        t = st["frontier"]
+        start, devs, samp, fwd, comp_any = self._unpack()
+        t_dev = self.best.amin()
+        self.apply_append(st["q_start"], st["q_dev"], st["q_samp"],
+                          st["tail"], {"start": start, "dev": devs,
+                                       "samp": samp, "fwd": fwd})
+        last_done_t = torch.where(comp_any, t, st["last_done_t"])
+        qlen = st["tail"] - st["head"]
+        can_pop = go & (t >= st["busy_until"]) & (qlen > 0) & (t_dev > t)
+        self._launch_dev(t, go, qlen, can_pop, last_done_t, t_dev)
+        self.go_b.copy_(st["active"] & ~self._event_flags())
+
+    def _launch_dev(self, t, go, qlen, can_pop, last_done_t, t_dev):
+        """``_launch`` for a slice of the fleet: a popped device's SLO,
+        heavy correctness and counters live on the rank that holds it."""
+        st, c, sc = self.st, self.c, self.static
+        s, n_loc = sc.samples_per_device, sc.n_pad
+        sidx = st["server_idx"]
+        p = self.pop_calc(t, st["q_start"], st["q_dev"], st["q_samp"],
+                          st["head"], sidx, self.srv, qlen, can_pop)
+        ldev = p["devs"] - self.dev_base
+        mine = (ldev >= 0) & (ldev < n_loc) & p["take"]
+        lclip = ldev.clamp(0, n_loc - 1)
+        met_i = ((p["latency"] <= torch.gather(c["slo"], 1, lclip))
+                 & mine).to(_I32)
+        take_i = mine.to(_I32)
+        ch_j = c["ch"].view(-1)[(lclip * s + p["samps"]) * self.n_prof
+                                + sidx[:, None]]
+        st["win_met"].scatter_add_(1, lclip, met_i)
+        st["win_total"].scatter_add_(1, lclip, take_i)
+        st["tot_met"].scatter_add_(1, lclip, met_i)
+        st["tot"].scatter_add_(1, lclip, take_i)
+        st["correct"].scatter_add_(1, lclip, take_i * ch_j)
+        st["head"].add_(torch.where(can_pop, p["b"], 0))
+        st["busy_until"].copy_(torch.where(can_pop, p["finish"],
+                                           st["busy_until"]))
+        st["last_batch"].copy_(torch.where(can_pop, p["b"],
+                                           st["last_batch"]))
+        st["last_done_t"].copy_(torch.where(can_pop, p["finish"],
+                                            last_done_t))
+        st["max_qlen"].copy_(torch.where(
+            go, torch.maximum(st["max_qlen"], qlen), st["max_qlen"]))
+        st["t"].copy_(torch.where(go, t, st["t"]))
+        st["n_events"].add_(go)
+        st["k"].add_(go)
+        qlen2 = st["tail"] - st["head"]
+        busy = st["busy_until"]
+        t_srv = torch.where(qlen2 > 0, torch.where(busy > t, busy, t),
+                            float("inf"))
+        st["frontier"].copy_(torch.where(go, torch.minimum(t_dev, t_srv), t))
+
+    def _boundary_dev(self, go):
+        """Close the window (``go``, replicated) of a slice of the fleet,
+        with its two rounds of partial sums: the active count feeds the
+        threshold update, whose thresholds feed the switching counts."""
+        st, c, sc = self.st, self.c, self.static
+        valid = c["valid"]
+        t_end = ((st["w"] + 1).to(_F32) * sc.window)[:, None]
+        member = (t_end >= c["join_t"]) & (t_end < c["leave_t"])
+        active = (~((t_end >= c["off_start"]) & (t_end < c["off_end"]))
+                  & member & valid)
+        win_met, win_total = st["win_met"], st["win_total"]
+        hundred = torch.full((), 100.0, dtype=_F32, device=self.device)
+        sr = torch.where(win_total > 0,
+                         100.0 * _ratio32(win_met, win_total.clamp(min=1)),
+                         hundred)
+        tot = st["tot"]
+        one = torch.ones((), dtype=_F32, device=self.device)
+        acc_run = torch.where(tot > 0, _ratio32(st["correct"],
+                                                tot.clamp(min=1)), one)
+        zero = torch.zeros((), dtype=_F32, device=self.device)
+        n_active, sr_sum, fwd_sum, acc_sum, undrained = self._psum(
+            active.sum(1, dtype=_I32), torch.where(valid, sr, zero).sum(1),
+            torch.where(valid, st["fwd"], 0).sum(1, dtype=_I32),
+            torch.where(valid, acc_run, zero).sum(1), self._undrained(st))
+
+        thresh, mult = st["thresh"], st["mult"]
+        pp = mtpp.update({"thresh": thresh, "mult": mult}, sr,
+                         mtpp.MultiTASCPPConfig(
+                             a=c["a"], sr_target=c["sr_target"],
+                             mult_growth=c["mult_growth"]),
+                         n_active=n_active, active=active)
+        mtu = mt.update({"thresh": thresh}, st["last_batch"], c["b_opt"],
+                        mt.MultiTASCConfig(step=c["multitasc_step"]),
+                        active=active)
+        code = c["scheduler"][:, None]
+        thresh2 = torch.where(code == SCHED_CODES["multitasc++"], pp["thresh"],
+                              torch.where(code == SCHED_CODES["multitasc"],
+                                          mtu["thresh"], thresh))
+        mult2 = torch.where(code == SCHED_CODES["multitasc++"], pp["mult"],
+                            mult)
+        part = switching.decide_partials(thresh2, c["tier_ids"], MAX_TIERS,
+                                         c["c_lower"], c["c_upper"],
+                                         active=active)
+        *summed, thresh_sum = self._psum(
+            *part.values(), torch.where(active, thresh2, zero).sum(1))
+        sw = switching.decide_from_partials(dict(zip(part, summed)))
+        server_idx = (st["server_idx"]
+                      + torch.where(c["model_switching"] != 0, sw, 0)
+                      ).clamp(0, sc.n_servers - 1)
+
+        n_real_f, n_act_f = c["n_real_f"], n_active.to(_F32)
+        nan = torch.full((), float("nan"), dtype=_F32, device=self.device)
+        row = {
+            "thresh": torch.where(n_active > 0,
+                                  thresh_sum / n_act_f.clamp(min=1.0), nan),
+            "sr": sr_sum / n_real_f,
+            "active": n_act_f / n_real_f,
+            "server_idx": server_idx.to(_F32),
+            "fwd": fwd_sum.to(_F32),
+            "acc": acc_sum / n_real_f,
+        }
+        wj = torch.where(go, st["w"], sc.n_windows).long()[:, None]
+        for key in TRACE_KEYS:
+            self.traces[key].scatter_(1, wj, row[key][:, None])
+
+        g2 = go[:, None]
+        w2 = st["w"] + go.to(_I32)
+        drained = (st["tail"] == st["head"]) & (undrained == 0)
+        thresh.copy_(torch.where(g2, thresh2, thresh))
+        mult.copy_(torch.where(g2, mult2, mult))
+        win_met.copy_(torch.where(g2 & active, 0, win_met))
+        win_total.copy_(torch.where(g2 & active, 0, win_total))
+        st["server_idx"].copy_(torch.where(go, server_idx, st["server_idx"]))
+        st["k"].copy_(torch.where(go, 0, st["k"]))
+        st["active"].copy_(torch.where(go, (w2 < sc.n_windows) & ~drained,
+                                       st["active"]))
+        st["w"].copy_(w2)
+
+    def trip(self):
+        """One trip: the event (its two pieces captured once on the card)
+        around its all_reduce, then, if the window closes, the boundary,
+        eagerly. ``go_b`` is replicated, so every rank takes the same
+        branch and issues the same collectives."""
+        if self.pieces:
+            self.pieces[0].replay()
+        else:
+            self._event_pre()
+        self._all_reduce(self.xbuf, dist.ReduceOp.MIN)
+        if self.pieces:
+            self.pieces[1].replay()
+        else:
+            self._event_post()
+        if bool(self.go_b):
+            self._boundary_dev(self.go_b)
+
+    def run(self):
+        """Trips until the fleet is inactive, ``GRAPH_TRIPS`` between two
+        reads of the replicated ``active``. On the card (with ``CAPTURE``)
+        the first ``GRAPH_TRIPS`` trips run eagerly and the event's two
+        pieces are then captured as CUDA graphs, on every rank at the same
+        trip; the CPU runs every trip eagerly."""
+        capture = self.CAPTURE and self.device.type == "cuda"
+        with torch.inference_mode():
+            while True:
+                self._trips()
+                stats.trips += GRAPH_TRIPS
+                if capture and self.pieces is None:
+                    self.pieces = (self._capture(self._event_pre),
+                                   self._capture(self._event_post))
+                    stats.graphs_captured += 2
+                if not bool(self.st["active"].any()):
+                    break
+
+    # timing tools may set this False to run the card's trips eagerly
+    CAPTURE = True
+
+    @staticmethod
+    def _capture(fn):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fn()
+        return graph
+
+    def metrics(self):
+        """``run``'s metric dict for the whole fleet, on every rank: sums
+        over the ranks, the per-device outputs gathered in device order."""
+        st, c = self.st, self.c
+        per_acc = _ratio32(st["correct"], st["tot"].clamp(min=1))
+        zero = torch.zeros((), dtype=_F32, device=self.device)
+        tot, tot_met, fwd, acc = self._psum(
+            st["tot"].sum(1, dtype=_I32), st["tot_met"].sum(1, dtype=_I32),
+            st["fwd"].sum(1, dtype=_I32),
+            torch.where(c["valid"], per_acc, zero).sum(1))
+        local = {
+            "per_device_sr": 100.0 * _ratio32(st["tot_met"],
+                                              st["tot"].clamp(min=1)),
+            "per_device_acc": per_acc,
+            "final_thresh": st["thresh"],
+        }
+        parts = [None] * self.k
+        dist.all_gather_object(
+            parts, (self.pos, {k: v[0].cpu().numpy()
+                               for k, v in local.items()}),
+            group=self.group)
+        parts = [o for _, o in sorted(parts, key=lambda p: p[0])]
+        out = {
+            "sr": 100.0 * _ratio32(tot_met, tot.clamp(min=1)),
+            "accuracy": acc / c["n_real_f"],
+            "throughput": tot.to(_F32) / st["last_done_t"].clamp(min=1e-9),
+            "forwarded_frac": _ratio32(fwd, tot.clamp(min=1)),
+            "completed": tot,
+            "queue_left": st["tail"] - st["head"],
+            "queue_peak": st["max_qlen"],
+            "n_events": st["n_events"],
+        }
+        out = {k: v.cpu().numpy()[0] for k, v in out.items()}
+        out.update({k: np.concatenate([o[k] for o in parts])
+                    for k in local})
+        nw = self.static.n_windows
+        out["traces"] = {k: np.array(v[0, :nw].cpu())
                          for k, v in self.traces.items()}
         return out

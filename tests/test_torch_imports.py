@@ -34,7 +34,8 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.sim.jaxsim", "repro_torch.sim.synthetic",
             "repro_torch.sim.events", "repro_torch.configs.scenarios",
             "repro_torch.core.calibration", "repro_torch.serving.transport",
-            "repro_torch.serving.replay"} <= set(mods)
+            "repro_torch.serving.replay",
+            "repro_torch.launch.mesh"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

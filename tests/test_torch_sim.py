@@ -30,6 +30,7 @@ costs a JAX compile; the segmented cases take N 150-200 and one fleet of
 ``SEG_AUTO_MIN`` devices at S = 3).
 """
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -445,13 +446,38 @@ def _tiny():
 
 
 def test_unported_paths_raise():
+    """The device-sharded engine needs the segmented frontier: a call over
+    four lanes with ``frontier_seg=False`` raises before any collective
+    (the mesh is a stand-in with a DeviceMesh's axis names and shape;
+    tests/test_torch_sharded.py makes the same call over four real ranks).
+    The flat frontier itself still runs."""
     spec, streams, lat, slo, srv = _tiny()
-    for fn in (jaxsim.run_sweep_sharded, jaxsim.run_device_sharded):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*sharded"):
-            fn(spec, streams, lat, slo, srv)
+    four = types.SimpleNamespace(mesh_dim_names=("data",), shape=(4,))
+    with pytest.raises(ValueError, match="segmented frontier"):
+        jaxsim.run_device_sharded(spec, streams, lat, slo, srv, mesh=four,
+                                  frontier_seg=False, device="cpu")
+    with pytest.raises(ValueError, match="segmented frontier"):
+        jaxsim._seg_layout(128, False, device_shards=4)
+    assert jaxsim._seg_layout(128, False) == (0, 128)
     out = jaxsim.run(spec, streams, lat, slo, srv, frontier_seg=False,
                      device="cpu")
     assert int(out["completed"]) == 30
+
+
+def test_run_sweep_results_survive_the_next_run():
+    """The metric arrays are the caller's: a later run of the same
+    structure reuses the engine's buffers and must not write into them."""
+    spec, streams, lat, slo, srv = _tiny()
+    first = jaxsim.run_sweep([spec], streams, lat, slo, srv, device="cpu")
+    kept = {k: np.copy(v) for k, v in first.items() if k != "traces"}
+    kept_traces = {k: np.copy(v) for k, v in first["traces"].items()}
+    other = dataclasses.replace(spec, scheduler="multitasc",
+                                static_threshold=0.9)
+    second = jaxsim.run_sweep([other], synthetic.device_streams(
+        3, 10, 0.72, 0.8, 5), np.array([0.05, 0.07, 0.11]), slo, srv,
+        device="cpu")
+    assert not np.array_equal(second["n_events"], kept["n_events"])
+    _assert_bitwise(first, dict(kept, traces=kept_traces))
 
 
 def test_run_sweep_defaults_to_the_card():
@@ -628,6 +654,21 @@ def test_seg_layout_equals_the_reference(n_pad, frontier_seg):
     assert got == J._seg_layout(n_pad, frontier_seg)
     seg, padded = got
     assert padded >= n_pad and (seg == 0 or padded % seg == 0)
+
+
+@pytest.mark.parametrize("shards", [2, 4, 3])
+@pytest.mark.parametrize("n_pad,frontier_seg", [
+    (384, None), (1024, None), (10112, None), (256, True), (384, 128),
+    (10112, 256)])
+def test_seg_layout_with_device_shards_equals_the_reference(n_pad,
+                                                            frontier_seg,
+                                                            shards):
+    """Sharded, the frontier is segmented even below SEG_AUTO_MIN, and
+    n_pad rounds up to whole segments on every shard."""
+    got = jaxsim._seg_layout(n_pad, frontier_seg, shards)
+    assert got == J._seg_layout(n_pad, frontier_seg, shards)
+    seg, padded = got
+    assert seg and padded >= n_pad and padded % (seg * shards) == 0
 
 
 @pytest.mark.parametrize("frontier_seg", [100, 129, -128, 64])
