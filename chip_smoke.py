@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port (src/repro_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root, one card
+    python3 chip_smoke.py zoo    # phases 1-3's zoo part and 9 alone
 
 Phases, each printing its own lines; any failure raises, and the script
 then exits non-zero without the final result line:
@@ -16,8 +17,10 @@ then exits non-zero without the final result line:
    attention called twice, bitwise equal, and decode with NaN in every
    slot past the length, in f32, bf16 and f32 q over a bf16 cache; the
    RG-LRU scan bit for bit, in f32 and bf16,
-   on its ring and its per-element path); kernel, plain, library and
-   bound times at the two paths' shapes and at B = 64 (CUDA events,
+   on its ring and its per-element path; flash and decode at the zoo's
+   shapes, head dim 160 among them); kernel, plain, library and bound
+   times at the paths' shapes (the zoo's four models too) and at B = 64
+   (CUDA events,
    after warm-up), the scan also in bf16 and at B = 1, flash's bound at
    the tensor-core rate beside its FP32 CUDA-core bound, the threshold
    sweep of the two flash kernels, and BvSB cut into chunks, decode
@@ -81,8 +84,31 @@ then exits non-zero without the final result line:
    the local runs', trips or events, us an event, and for (b) the
    collectives an event and their share of the wall. A rank's failure
    raises here;
-9. the kernels line: one JSON object describing every ported kernel;
-10. the result line: {"ok": true, "device": {...}}.
+9. the decoder zoo: granite-moe-1b-a400m at full width and depth,
+   deepseek-moe-16b (the dense layer 0 and 3 MoE layers), stablelm-12b
+   (hd 160) and qwen2-vl-7b (M-RoPE, 1,024 vision embeddings in front of
+   1,024 tokens) at full width and 4 layers, random weights drawn on the
+   card, each through ``make_prefill_step`` on 4 prompts of 2,048
+   positions and 16 (granite) or 8 ``make_serve_step`` decode steps
+   feeding back each top-1, the launch counters read around them and held
+   to one flash launch an attention layer, layers x steps decode launches
+   and 1 + steps BvSB launches; for MoE the assignments dropped at the
+   capacity per layer, from a second prefill bitwise equal to the first;
+   a profiled rerun; then the card against the CPU at full width and 2
+   layers (deepseek: the dense layer and one MoE layer) on 2 prompts of
+   64 positions and 4 steps: BvSB within 1e-5, top-1, and for MoE the
+   routing ids where the router's k-th and (k+1)-th probabilities are
+   more than 1e-6 apart, the MoE output within 1e-4 on the tokens routed
+   alike, two card calls bitwise equal;
+10. the kernels line: one JSON object describing every ported kernel;
+11. the result line: {"ok": true, "device": {...}}.
+
+``zoo`` runs phases 1 and 2, phase 3's BvSB, flash and decode checks
+and its zoo timing rows, the MoE dispatch's scan of its one-hot in two
+forms in turns (JAX's ``cumsum`` down the (N k, E) one-hot against
+``moe.dispatch`` along the transposed one-hot's contiguous dim, at
+granite's and deepseek's prefill: the same rows, device ms), then phase
+9, and prints no result line.
 
 ``throughput`` of the cascade is a virtual-clock figure from the paper's
 latency profiles, not a measurement of the card.
@@ -136,11 +162,12 @@ from repro_torch.kernels.decode_attention import \
 from repro_torch.kernels.flash_attention import \
     flash_attention_plain  # noqa: E402
 from repro_torch.kernels.rglru_scan import rglru_scan_plain  # noqa: E402
-from repro_torch.launch.distributed import (head_bvsb,  # noqa: E402
+from repro_torch.launch.distributed import (PAD_LOGIT,  # noqa: E402
+                                            head_bvsb,
                                             make_prefill_step,
                                             make_serve_step)
 from repro_torch.launch.mesh import make_sweep_mesh  # noqa: E402
-from repro_torch.models import attention, common  # noqa: E402
+from repro_torch.models import attention, common, moe  # noqa: E402
 from repro_torch.models.model import build_model, init_params  # noqa: E402
 from repro_torch.serving.cascade import run_cascade  # noqa: E402
 from repro_torch.serving.client import DeviceClient  # noqa: E402
@@ -169,6 +196,19 @@ RG_ARCH, RG_B, RG_S, RG_STEPS = "recurrentgemma-9b", 4, 3000, 32
 # and its card-vs-CPU check: one super-block, B prompts of S, STEPS steps
 RG_CHECK_LAYERS, RG_CHECK_B, RG_CHECK_S, RG_CHECK_STEPS = 3, 2, 300, 4
 RING_ATOL = 1e-4    # ring keys against a recomputation at another batch
+
+# the zoo path: (arch, layers on the card (None: all), decode steps); each
+# serves ZOO_B prompts of ZOO_S positions (Qwen2-VL: ZOO_VISION vision
+# embeddings, then the text), then its decode steps
+ZOO_MODELS = (("granite-moe-1b-a400m", None, 16), ("deepseek-moe-16b", 4, 8),
+              ("stablelm-12b", 4, 8), ("qwen2-vl-7b", 4, 8))
+ZOO_B, ZOO_S, ZOO_VISION = 4, 2048, 1024
+# and its card-vs-CPU check: 2 layers (DeepSeek: the dense prefix and one
+# MoE layer), B prompts of S positions (Qwen2-VL: S vision embeddings and
+# S text tokens), STEPS decode steps
+ZOO_CHECK_LAYERS, ZOO_CHECK_B, ZOO_CHECK_S, ZOO_CHECK_STEPS = 2, 2, 64, 4
+ROUTE_GAP = 1e-6    # router probabilities closer than this may swap experts
+MOE_ATOL = 1e-4
 
 
 def card_rates(name: str):
@@ -307,6 +347,15 @@ def bvsb_cases(dev):
         x[1, per:2 * per] = float("-inf")
         x[2, 255_990] = float("inf")
         cases.append((f"ties/-inf chunk/+inf last chunk({b},256000)", x))
+    # what the zoo path hands the kernel: head_bvsb's (B, padded vocab) f32
+    # logits, the columns past the vocab set to PAD_LOGIT
+    for arch, _, _ in ZOO_MODELS:
+        v = get_config(arch).vocab_size
+        pv = common.padded_vocab(v)
+        x = torch.randn(ZOO_B, pv, generator=gen, device=dev) * 4
+        x[:, v:] = PAD_LOGIT
+        pad = f", PAD_LOGIT past {v}" if pv > v else ""
+        cases.append((f"{arch} randn({ZOO_B},{pv}){pad}", x))
     x = torch.full((5, 2048), -1.0, device=dev)
     x[0, [7, 1999]] = 3.0            # tied maxima in different warps
     x[1, [0, 1]] = 2.5               # tied maxima in neighbouring threads
@@ -371,7 +420,14 @@ FLASH_CASES = [(1, 16, 4, 4, 32, None), (64, 16, 8, 8, 48, None),
                (1, 47, 16, 1, 128, None), (1, 1000, 16, 1, 128, 20),
                (2, RG_S, 8, 2, 128, 2000), (2, 79, 16, 1, 256, 20),
                (2, 80, 16, 1, 256, 20), (1, 1000, 8, 2, 256, 100),
-               (1, 999, 16, 1, 256, None)]
+               (1, 999, 16, 1, 256, None),
+               # the zoo's prefill attention (phase 9): granite, deepseek,
+               # stablelm (hd 160, padded in the hd-256 tile), qwen2-vl
+               (ZOO_B, ZOO_S, 16, 8, 64, None), (ZOO_B, ZOO_S, 16, 16, 128,
+                                                 None),
+               (ZOO_B, ZOO_S, 32, 8, 160, None), (ZOO_B, ZOO_S, 28, 4, 128,
+                                                  None),
+               (2, 333, 32, 8, 160, None), (2, 79, 32, 8, 160, None)]
 
 
 def serving_flash_cases():
@@ -468,7 +524,8 @@ def decode_cases():
     """(B, W, KV, G, hd, lengths): RecurrentGemma's decode shape at B in
     {1, 4, 64} with lengths 1, 777, W and mixed; lengths on both sides of
     the 16-key tiles and of the splits; two KV heads (a split's K rows
-    not contiguous) and groups of 8 and 4 at hd 256; small GQA rings."""
+    not contiguous) and groups of 8 and 4 at hd 256; small GQA rings; the
+    zoo's rings, stablelm-12b's at (4, 2048, 32, 8, 160) too."""
     cases = []
     for b in (1, RG_B, 64):
         for lengths in ([1] * b, [777] * b, [2048] * b,
@@ -478,9 +535,17 @@ def decode_cases():
     cases += [(5, 2048, 1, 16, 256, edges), (5, 2048, 2, 16, 256, edges),
               (5, 2048, 1, 8, 256, edges), (5, 2048, 2, 4, 256, edges)]
     # a small GQA ring; hd 48 (under the tile row of 64) takes plain loads
-    return cases + [(3, 100, 2, 4, 64, [1, 100, 37]),
-                    (3, 100, 2, 4, 128, [100, 1, 63]),
-                    (3, 100, 2, 4, 48, [1, 100, 37])]
+    cases += [(3, 100, 2, 4, 64, [1, 100, 37]),
+              (3, 100, 2, 4, 128, [100, 1, 63]),
+              (3, 100, 2, 4, 48, [1, 100, 37])]
+    # the zoo's decode (phase 9): rings of ZOO_S + 16 slots; stablelm's hd
+    # 160 takes the hd-256 tile with plain loads; groups of 2, 1, 4 and 7
+    cases.append((ZOO_B, ZOO_S, 8, 4, 160, [ZOO_S] * ZOO_B))
+    w = ZOO_S + 16
+    for kv, g, hd in ((8, 2, 64), (16, 1, 128), (8, 4, 160), (4, 7, 128)):
+        cases += [(ZOO_B, w, kv, g, hd, [ZOO_S + 1] * ZOO_B),
+                  (ZOO_B, w, kv, g, hd, [1, 777, w, ZOO_S + 9])]
+    return cases
 
 
 # (query dtype, cache dtype) of decode attention: f32, bf16, and an f32
@@ -815,14 +880,19 @@ class Timer:
 
     def decode_rg(self, b=RG_B, w=2048, dt=torch.float32, cache_dt=None):
         """Every ring full (length W), as on every decode step of the
-        path: its prompts of 3,000 tokens fill the 2048-slot rings. The
+        path: its prompts of 3,000 tokens fill the 2048-slot rings."""
+        return self.decode_at(RG_ARCH, b, w, 1, 16, 256, dt, cache_dt)
+
+    def decode_at(self, arch, b, w, kv, g, hd, dt=torch.float32,
+                  cache_dt=None):
+        """``arch``'s decode shape with every ring full (length W). The
         SDPA yardstick takes the cache in q's type (SDPA takes one type
         for all three)."""
         cache_dt = cache_dt or dt
         tag = "" if (dt, cache_dt) == (torch.float32,) * 2 else \
             " " + dtype_name(dt, cache_dt)
-        key = ("decode_attention", f"{RG_ARCH} B={b}{tag}")
-        q, k, v, lens = decode_inputs(self.dev, b, w, 1, 16, 256, [w] * b,
+        key = ("decode_attention", f"{arch} B={b}{tag}")
+        q, k, v, lens = decode_inputs(self.dev, b, w, kv, g, hd, [w] * b,
                                       dt, cache_dt)
         qt = q[:, :, None, :]
         kt, vt = (c.transpose(1, 2).to(dt) for c in (k, v))
@@ -836,7 +906,7 @@ class Timer:
             lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                                    enable_gqa=True),
             decode_bound_ms(q, k, lens, self.bw, self.flops), err,
-            DECODE_ATOL[dt], (b, w, 1, 16, 256), dt=dtype_name(dt, cache_dt))
+            DECODE_ATOL[dt], (b, w, kv, g, hd), dt=dtype_name(dt, cache_dt))
 
     def rglru_rg(self, b=RG_B, s=RG_S, d=4096, dt=torch.float32):
         name = "f32" if dt == torch.float32 else "bf16"
@@ -895,10 +965,12 @@ class Timer:
                   f"torch.add(a, u, out=h) over the same bytes "
                   f"{add_ms * 1e3:.2f} us ({moved / add_ms / 1e9:.3f} TB/s)")
 
-    def flash(self, tier, b, s=16):
-        if ("flash_attention", f"{tier} B={b}") in self.rows:
-            return self.rows[("flash_attention", f"{tier} B={b}")]
-        cfg = get_config(tier)
+    def flash(self, arch, b, s=16):
+        """Causal attention at ``arch``'s heads, B prompts of S tokens."""
+        key = ("flash_attention", f"{arch} B={b}")
+        if key in self.rows:
+            return self.rows[key]
+        cfg = get_config(arch)
         h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
         q, k, v = qkv(self.dev, b, s, h, kv, hd)
         qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
@@ -906,10 +978,10 @@ class Timer:
                       flash_attention_plain(q, k, v))
         bound, fp32 = flash_bounds_ms(q, k, self.bw, self.flops, self.tc)
         return self._row(
-            ("flash_attention", f"{tier} B={b}"),
-            lambda: ops.flash_attention(q, k, v),
+            key, lambda: ops.flash_attention(q, k, v),
             lambda: flash_attention_plain(q, k, v),
-            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                   enable_gqa=kv != h),
             bound, err, FLASH_ATOL[torch.float32], (b, s, h, kv, hd),
             bound_fp32=fp32)
 
@@ -1199,35 +1271,38 @@ def recurrentgemma_path(dev):
     if failed:
         raise AssertionError(f"{RG_ARCH} path checks failed: {failed}")
     del cache, keys, ring
-    profile_rg(prefill, serve, tokens, top1, prefill_s, decode_s)
+    profile_serving(RG_ARCH, prefill, serve, (tokens,), top1,
+                    torch.full((RG_B,), RG_S, device=dev), prefill_s,
+                    decode_s / RG_STEPS)
     rg_check_cpu(model, dev)
     return counts, dict(init_s=init_s, prefill_s=prefill_s,
                         decode_s=decode_s, peak_gb=peak_gb)
 
 
-def profile_rg(prefill, serve, tokens, top1, prefill_s, decode_s, steps=4):
-    """Device time by kernel of a second prefill and ``steps`` decode
-    steps under torch.profiler (CUDA activity only); busy time against the
-    unprofiled run's wall time gives the idle share."""
+def profile_serving(name, prefill, serve, args, top1, pos, prefill_s, step_s,
+                    steps=4):
+    """Device time by kernel of a second prefill (``prefill(*args)``) and
+    ``steps`` decode steps from ``pos`` under torch.profiler (CUDA activity
+    only); busy time against the unprofiled run's wall time gives the idle
+    share."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        _, _, cache = prefill(tokens)
+        _, _, cache = prefill(*args)
         torch.cuda.synchronize()
     busy, launches, top = _top_kernels(prof)
-    print(f"{RG_ARCH} prefill device time (profiled rerun): {busy:.4f} s busy"
+    print(f"{name} prefill device time (profiled rerun): {busy:.4f} s busy"
           f" over {prefill_s:.3f} s of unprofiled wall, idle share "
           f"{1 - busy / prefill_s:.4f}; {launches} kernel launches")
     for e in top:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  "
               f"{e.key[:90]}")
-    pos = torch.full((RG_B,), RG_S, device=tokens.device)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for i in range(steps):
             _, top1, cache = serve(top1[:, None], cache, pos + i)
         torch.cuda.synchronize()
     busy, launches, top = _top_kernels(prof)
-    wall = decode_s / RG_STEPS * steps
-    print(f"{RG_ARCH} decode device time (profiled rerun of {steps} steps): "
+    wall = step_s * steps
+    print(f"{name} decode device time (profiled rerun of {steps} steps): "
           f"{busy:.4f} s busy over {wall:.3f} s of unprofiled wall, idle "
           f"share {1 - busy / wall:.4f}; {launches} kernel launches")
     for e in top:
@@ -2066,7 +2141,329 @@ def sharded_path(dev, sweep_ref, sweep_s=SIM_S, seg_n=SHARD_N):
           f"{spawn_wall:.1f} s")
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# phase 9: the decoder zoo (MoE, dense GQA, Qwen2-VL's M-RoPE)
+# ---------------------------------------------------------------------------
+def zoo_expected_launches(cfg, steps):
+    """One flash launch an attention layer at the prefill, one decode
+    launch an attention layer a step, one BvSB launch a call."""
+    n = sum(kind in ("attn", "lattn") for kind in cfg.pattern)
+    return {"bvsb": 1 + steps, "flash_attention": n,
+            "decode_attention": n * steps, "rglru_scan": 0}
+
+
+def zoo_inputs(cfg, dev, b, n_text, n_vision, seed):
+    """(tokens (B, n_text), and for the VLM vision embeddings (B, n_vision,
+    d) from a generator on ``dev``, else None)."""
+    rng = np.random.default_rng(seed)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, n_text)),
+                             device=dev)
+    if cfg.family != "vlm":
+        return tokens, None
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return tokens, torch.randn(b, n_vision, cfg.d_model, generator=gen,
+                               device=dev)
+
+
+def moe_hooks(model, fn):
+    """Forward hooks on every MoE sublayer of ``model``: ``fn(module,
+    input)`` of each call, appended to a list per layer index. Returns
+    (that dict, the hooks' handles)."""
+    out = {}
+
+    def hook(i):
+        return lambda mod, args, _: out.setdefault(i, []).append(
+            fn(mod, args[0]))
+    handles = [layer.moe.register_forward_hook(hook(i))
+               for i, layer in enumerate(model.layers)
+               if hasattr(layer, "moe")]
+    return out, handles
+
+
+def moe_dropped(cfg):
+    """``fn`` for ``moe_hooks``: the call's assignments dropped at the
+    capacity, as a tensor on the call's device."""
+    def count(mod, x):
+        n = x.shape[0] * x.shape[1]
+        _, ids, _ = moe.route(x.reshape(n, -1), mod.router, cfg)
+        return (~moe.dispatch(ids, cfg.num_experts,
+                              moe.capacity(n, cfg))[2]).sum()
+    return count
+
+
+def zoo_model(dev, name, layers, steps):
+    """One zoo model through the serving entry points: random weights drawn
+    on the card, ``make_prefill_step`` on ZOO_B prompts of ZOO_S positions,
+    then ``steps`` ``make_serve_step`` decode steps feeding back each
+    top-1, the launch counters read around them; for MoE a second prefill,
+    bitwise equal to the first, counting the drops; a profiled rerun; the
+    card against the CPU. Returns (launch counts, walls)."""
+    cfg = get_config(name)
+    cfg = cfg if layers is None else cfg.with_(num_layers=layers)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights_gb = sum(p.numel() * p.element_size()
+                     for p in model.parameters()) / 1e9
+    cut = "" if layers is None else \
+        f" (depth cut from {get_config(name).num_layers})"
+    print(f"{name}: {cfg.num_layers} layers{cut}, {cfg.param_count()} "
+          f"parameters (param_count; {cfg.active_param_count()} active), "
+          f"{weights_gb:.3f} GB float32 with the padded vocab, drawn on the "
+          f"card in {init_s:.3f} s")
+    v = ZOO_VISION if cfg.family == "vlm" else 0
+    tokens, vision = zoo_inputs(cfg, dev, ZOO_B, ZOO_S - v, v, 4)
+    cache_len = ZOO_S + steps
+    prefill, serve = make_prefill_step(model), make_serve_step(model)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    conf, top1, cache = prefill(tokens, cache_len, vision)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    confs, tops = [conf], [top1]
+    pos = torch.full((ZOO_B,), ZOO_S, device=dev)
+    t0 = time.perf_counter()
+    for i in range(steps):
+        conf, top1, cache = serve(top1[:, None], cache, pos + i)
+        confs.append(conf)
+        tops.append(top1)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del cache
+    want = zoo_expected_launches(cfg, steps)
+    confs, tops = torch.stack(confs), torch.stack(tops)
+    what = f"{v} vision embeddings + {ZOO_S - v} tokens" if v else \
+        f"{ZOO_S} tokens"
+    print(f"{name} prefill of {ZOO_B} x ({what}), cache of {cache_len} "
+          f"slots: wall {prefill_s:.3f} s on the card")
+    print(f"{name} decode of {steps} steps at B={ZOO_B}: wall {decode_s:.3f} "
+          f"s on the card ({decode_s / steps * 1e3:.2f} ms per step)")
+    print(f"{name} path: peak device memory {peak_gb:.3f} GB; launches "
+          f"{counts} (expected {want}); conf range "
+          f"[{float(confs.min()):.3g}, {float(confs.max()):.3g}]")
+    checks = {
+        "launches": counts == want,
+        "finite confidences": bool(torch.isfinite(confs).all()),
+        "top-1 in the vocab": bool(((tops >= 0)
+                                    & (tops < cfg.vocab_size)).all()),
+        "shapes": confs.shape == tops.shape == (steps + 1, ZOO_B),
+    }
+    if cfg.is_moe:
+        drops, handles = moe_hooks(model, moe_dropped(cfg))
+        try:
+            conf2, top2, _ = prefill(tokens, cache_len, vision)
+        finally:
+            for h in handles:
+                h.remove()
+        same = torch.equal(conf2, confs[0]) and torch.equal(top2, tops[0])
+        checks["a second prefill bitwise equal"] = same
+        n = ZOO_B * ZOO_S
+        print(f"{name} prefill: assignments dropped at the capacity "
+              f"({moe.capacity(n, cfg)} rows an expert) per MoE layer, of "
+              f"{n * cfg.num_experts_per_tok}: "
+              f"{[int(d[0]) for _, d in sorted(drops.items())]}; a second "
+              f"prefill {'bitwise equal' if same else 'DIFFERS'}")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"{name} path checks failed: {failed}")
+    profile_serving(name, prefill, serve, (tokens, cache_len, vision),
+                    tops[0], pos, prefill_s, decode_s / steps)
+    zoo_check_cpu(model, dev)
+    return counts, dict(params=cfg.param_count(), init_s=init_s,
+                        prefill_s=prefill_s, step_ms=decode_s / steps * 1e3,
+                        peak_gb=peak_gb)
+
+
+def zoo_check_cpu(model, dev):
+    """ZOO_CHECK_LAYERS layers of the same weights at full width, card
+    against CPU: a prefill of ZOO_CHECK_B x ZOO_CHECK_S (Qwen2-VL: as many
+    vision embeddings, then the tokens) and ZOO_CHECK_STEPS decode steps,
+    each fed the card's top-1. BvSB within CLASSIFY_CONF_ATOL; top-1 equal
+    wherever the CPU's top-2 logit gap exceeds TOP2_GAP. MoE: on every
+    call, the card's routing of its own input equals the CPU's of its own
+    wherever the CPU's k-th and (k+1)-th router probabilities lie more than
+    ROUTE_GAP apart; a prompt with a token routed otherwise (a near tie,
+    counted) is left out of the BvSB and top-1 comparison. Each MoE layer
+    also runs on the CPU's prefill input on both sides: outputs within
+    MOE_ATOL on the tokens whose routing and kept assignments agree, and
+    two card calls bitwise equal."""
+    cfg = model.cfg.with_(num_layers=ZOO_CHECK_LAYERS)
+    card = build_model(cfg, device=dev)
+    card.load_state_dict(model.state_dict(), strict=False)
+    cpu = build_model(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    table, b, k, d = cpu.head_table, ZOO_CHECK_B, cfg.num_experts_per_tok, \
+        cfg.d_model
+    v = ZOO_CHECK_S if cfg.family == "vlm" else 0
+    tokens, vision = zoo_inputs(cfg, "cpu", b, ZOO_CHECK_S, v, 5)
+    n_pos = v + ZOO_CHECK_S
+    t0 = time.perf_counter()
+    (card_in, card_h), (cpu_in, cpu_h) = (
+        moe_hooks(m, lambda mod, x: x.detach().clone()) for m in (card, cpu))
+    steps = []
+    try:
+        prefill, serve = make_prefill_step(card), make_serve_step(card)
+        conf, top1, cache = prefill(
+            tokens.to(dev), n_pos + ZOO_CHECK_STEPS,
+            None if vision is None else vision.to(dev))
+        with torch.inference_mode():
+            hidden, ccache = cpu(tokens, vision_embeds=vision,
+                                 collect_cache=True,
+                                 cache_len=n_pos + ZOO_CHECK_STEPS,
+                                 return_hidden=True)
+        for i in range(ZOO_CHECK_STEPS + 1):
+            with torch.inference_mode():
+                cconf, ctop1 = head_bvsb(hidden[:, -1:], table,
+                                         cfg.vocab_size)
+                top2 = torch.topk(hidden[:, -1] @ table.T, 2, dim=-1).values
+            steps.append((conf.cpu(), cconf, top1.cpu(), ctop1,
+                          top2[:, 0] - top2[:, 1]))
+            if i == ZOO_CHECK_STEPS:
+                break
+            pos = torch.full((b,), n_pos + i)
+            tok = top1.cpu()[:, None]
+            conf, top1, cache = serve(tok.to(dev), cache, pos.to(dev))
+            with torch.inference_mode():
+                hidden, ccache = cpu.decode_step(tok, ccache, pos,
+                                                 return_hidden=True)
+    finally:
+        for h in card_h + cpu_h:
+            h.remove()
+    # routing, call by call, each side on its own inputs
+    unsure = torch.zeros(b, dtype=torch.bool)
+    near, routed = 0, True
+    for layer in sorted(cpu_in):
+        for xc, xk in zip(card_in[layer], cpu_in[layer]):
+            with torch.inference_mode():
+                ids_c = moe.route(xc.reshape(-1, d),
+                                  card.layers[layer].moe.router, cfg)[1].cpu()
+                _, ids_k, probs = moe.route(xk.reshape(-1, d),
+                                            cpu.layers[layer].moe.router, cfg)
+            srt = probs.sort(dim=-1, descending=True).values
+            clear = srt[:, k - 1] - srt[:, k] > ROUTE_GAP
+            near += int((~clear).sum())
+            routed &= bool((ids_c.sort(-1).values == ids_k.sort(-1).values)
+                           .all(-1)[clear].all())
+            unsure |= (ids_c != ids_k).any(-1).view(b, -1).any(-1)
+    # each MoE layer on the same input, card against CPU
+    moe_err, repeat, agreed, n = 0.0, True, 0, b * n_pos
+    for layer in sorted(cpu_in):
+        x = cpu_in[layer][0]
+        pk, pc = cpu.layers[layer].moe, card.layers[layer].moe
+        with torch.inference_mode():
+            y_cpu = moe.moe_apply(pk, x, cfg).reshape(n, d)
+            y_card = moe.moe_apply(pc, x.to(dev), cfg)
+            repeat &= torch.equal(y_card, moe.moe_apply(pc, x.to(dev), cfg))
+            ids = [moe.route(x.to(m_dev).reshape(n, d), m.router, cfg)[1]
+                   for m, m_dev in ((pk, "cpu"), (pc, dev))]
+            keeps = [moe.dispatch(i, cfg.num_experts, moe.capacity(n, cfg))
+                     [2].cpu().view(n, k) for i in ids]
+        agree = (ids[0] == ids[1].cpu()).all(-1) & (keeps[0] == keeps[1]) \
+            .all(-1)
+        agreed += int(agree.sum())
+        moe_err = max(moe_err, max_err(y_card.reshape(n, d).cpu()[agree],
+                                       y_cpu[agree]))
+    rows = ~unsure
+    errs, same, clear_rows = [], True, 0
+    for conf_c, cconf, top_c, ctop, gap in steps:
+        errs.append(max_err(conf_c[rows], cconf[rows]) if rows.any() else 0.0)
+        clear = (gap > TOP2_GAP) & rows
+        same &= torch.equal(top_c[clear], ctop[clear])
+        clear_rows += int(clear.sum())
+    name, n_moe = cfg.name, len(cpu_in)
+    print(f"{name} {ZOO_CHECK_LAYERS} layers at full width, prefill {b} x "
+          f"{n_pos} positions + {ZOO_CHECK_STEPS} decode steps, card vs CPU: "
+          f"max|conf err| {max(errs):.3g} (atol {CLASSIFY_CONF_ATOL:g}) on "
+          f"{int(rows.sum())}/{b} prompts, top-1 equal on {clear_rows}/"
+          f"{b * (ZOO_CHECK_STEPS + 1)} rows with top-2 gap > {TOP2_GAP:g}: "
+          f"{same} ({time.perf_counter() - t0:.1f} s)")
+    if n_moe:
+        print(f"{name} {n_moe} MoE layers, card vs CPU: routing ids equal "
+              f"where the k-th / (k+1)-th gap > {ROUTE_GAP:g}: {routed}; "
+              f"{near} near-tie token calls; same input: max|err| "
+              f"{moe_err:.3g} (atol {MOE_ATOL:g}) on {agreed}/{n * n_moe} "
+              f"tokens routed and kept alike; two card calls "
+              f"{'bitwise equal' if repeat else 'DIFFER'}")
+    if not (max(errs) <= CLASSIFY_CONF_ATOL and same and rows.any()
+            and routed and moe_err <= MOE_ATOL and repeat):
+        raise AssertionError(f"{name} on the card disagrees with the CPU")
+
+
+def zoo_path(dev):
+    """Phase 9: each of ZOO_MODELS in turn, freed before the next. Returns
+    (launch counts summed over the models, each model's walls)."""
+    total, walls = {}, {}
+    for name, layers, steps in ZOO_MODELS:
+        counts, walls[name] = zoo_model(dev, name, layers, steps)
+        for key, n in counts.items():
+            total[key] = total.get(key, 0) + n
+        torch.cuda.empty_cache()
+    return total, walls
+
+
+def dispatch_forms(dev):
+    """The MoE dispatch's scan in two forms, in turns, at granite's and
+    deepseek's prefill of ZOO_B x ZOO_S tokens: JAX's ``cumsum`` down the
+    (N k, E) one-hot ("column") and ``moe.dispatch`` ("row")."""
+    for name in ("granite-moe-1b-a400m", "deepseek-moe-16b"):
+        cfg = get_config(name)
+        e, k = cfg.num_experts, cfg.num_experts_per_tok
+        n = ZOO_B * ZOO_S
+        cap = moe.capacity(n, cfg)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        ids = torch.randint(0, e, (n, k), generator=gen, device=dev)
+        flat = ids.reshape(-1)
+
+        def column():
+            return torch.gather(F.one_hot(flat, e).cumsum(0) - 1, 1,
+                                flat[:, None])[:, 0]
+
+        def row():
+            return moe.dispatch(ids, e, cap)
+
+        _, rows, keep = row()
+        if not torch.equal(rows, torch.where(keep, column(), 0)):
+            raise AssertionError(f"{name}: the two scans give other rows")
+        times = [(form, time_ms(fn)[0])
+                 for form, fn in (("column", column), ("row", row),
+                                  ("row", row), ("column", column))]
+        print(f"{name} dispatch of {n} x {k} assignments over {e} experts, "
+              "device ms in turns (column: JAX's cumsum down the one-hot; "
+              "row: moe.dispatch): "
+              + "; ".join(f"{form} {ms:.4f}" for form, ms in times))
+
+
+def zoo_only(dev, timer):
+    """``chip_smoke.py zoo``: phase 3's attention and BvSB checks and its
+    zoo timing rows, the dispatch's two forms, then phase 9."""
+    t0 = time.perf_counter()
+    check_bvsb(dev)
+    check_flash(dev)
+    check_decode(dev)
+    for name, _, _ in ZOO_MODELS:
+        cfg = get_config(name)
+        kv = cfg.num_kv_heads
+        timer.flash(name, ZOO_B, ZOO_S)
+        timer.decode_at(name, ZOO_B, ZOO_S, kv, cfg.num_heads // kv,
+                        cfg.resolved_head_dim)
+    dispatch_forms(dev)
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    zoo_path(dev)
+    print(f"phase seconds: checks, timing rows and dispatch forms "
+          f"{t1 - t0:.1f}, zoo {time.perf_counter() - t1:.1f}")
+    return 0
+
+
+def main(argv) -> int:
+    if argv not in ([], ["zoo"]):
+        print("usage: chip_smoke.py [zoo]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -2092,6 +2489,8 @@ def main() -> int:
     _build.library()
     print(f"build: {time.perf_counter() - t0:.1f} s (set-up; "
           f"{len(_build.sources())} sources, key {_build.build_key()})")
+    if argv == ["zoo"]:
+        return zoo_only(dev, Timer(dev, bw, flops, tc))
 
     t1 = time.perf_counter()
     check_bvsb(dev)
@@ -2117,6 +2516,14 @@ def main() -> int:
                        cache_dt=torch.bfloat16)}
     scan_rows = {"bf16": timer.rglru_rg(dt=torch.bfloat16),
                  "b1": timer.rglru_rg(b=1)}
+    # the zoo's prefill and decode attention (phase 9), rings full
+    zoo_rows = {"flash_attention": {}, "decode_attention": {}}
+    for name, _, _ in ZOO_MODELS:
+        cfg = get_config(name)
+        kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+        zoo_rows["flash_attention"][name] = timer.flash(name, ZOO_B, ZOO_S)
+        zoo_rows["decode_attention"][name] = timer.decode_at(
+            name, ZOO_B, ZOO_S, kv, cfg.num_heads // kv, hd)
     timer.bvsb_chunks()
     timer.decode_splits()
     timer.rglru_tiles()
@@ -2133,12 +2540,15 @@ def main() -> int:
     t6 = time.perf_counter()
     torch.cuda.empty_cache()
     sharded_path(dev, (sim["hetero"], sim["hetero_wall"]))
+    t7 = time.perf_counter()
+    zoo_counts, zoo = zoo_path(dev)
     print(f"phase seconds: build {t1 - t0:.1f}, kernels {t2 - t1:.1f}, "
           f"cascade path with its profiled rerun {t3 - t2:.1f}, "
           f"{RG_ARCH} path with its CPU check {t4 - t3:.1f}, simulator "
           f"with its CPU check, width sweep and profiled rerun "
           f"{t5 - t4:.1f}, transport + replay + segmented frontier "
-          f"{t6 - t5:.1f}, sharded sweeps {time.perf_counter() - t6:.1f}")
+          f"{t6 - t5:.1f}, sharded sweeps {t7 - t6:.1f}, zoo with its "
+          f"profiled reruns and CPU checks {time.perf_counter() - t7:.1f}")
 
     # the kernels line times each kernel at the RecurrentGemma path's shape;
     # BvSB and flash also at the cascade's most frequent server batch (the
@@ -2160,7 +2570,8 @@ def main() -> int:
              "src/repro/kernels/rglru_scan.py:44")):
         by_path = {"cascade": counts[name], RG_ARCH: rg_counts[name],
                    "simulator": sim_counts[name],
-                   "transport": transport_counts[name]}
+                   "transport": transport_counts[name],
+                   "zoo": zoo_counts[name]}
         entry = {"name": name, "route": "cuda",
                  "source": f"src/repro_torch/kernels/csrc/{source}",
                  "replaces": replaces, "launches": sum(by_path.values()),
@@ -2176,11 +2587,18 @@ def main() -> int:
                  "decode_attention": decode_rows}.get(name, {})
         entry.update({tag: {k: row[k] for k in keys if k in row}
                       for tag, row in extra.items()})
+        if name in zoo_rows:
+            entry["zoo"] = {arch: {k: row[k] for k in keys if k in row}
+                            for arch, row in zoo_rows[name].items()}
         kernels.append(entry)
     print(f"{RG_ARCH} path seconds: init {rg['init_s']:.3f}, prefill "
           f"{rg['prefill_s']:.3f}, decode {rg['decode_s']:.3f}; peak "
           f"{rg['peak_gb']:.3f} GB; simulator (a) {sim['hetero_wall']:.3f} "
           f"s, (b) {sim['env_wall']:.3f} s, peak {sim['peak_gb']:.3f} GB")
+    for name, w in zoo.items():
+        print(f"{name} path: {w['params']} parameters, init "
+              f"{w['init_s']:.3f} s, prefill {w['prefill_s']:.3f} s, decode "
+              f"{w['step_ms']:.2f} ms a step, peak {w['peak_gb']:.3f} GB")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2189,4 +2607,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

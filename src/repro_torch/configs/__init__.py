@@ -1,20 +1,26 @@
 """Config registry: ``get_config(name)``.
 
-The port serves the five cascade tiers and RecurrentGemma-9B. The JAX
-package's other architectures are not ported yet and raise ``KeyError``.
+The port serves the five cascade tiers and every decoder-only
+architecture of the JAX package's zoo: RecurrentGemma-9B, the three MoE
+configs, the three dense GQA configs and Qwen2-VL-7B's language decoder.
+The encoder-decoder and xLSTM configs are not ported yet and raise
+``KeyError``.
 """
 from __future__ import annotations
 
-from repro_torch.configs import recurrentgemma_9b
+from repro_torch.configs import (deepseek_moe_16b, gemma_7b,
+                                 granite_moe_1b_a400m, moonshot_v1_16b_a3b,
+                                 qwen2_vl_7b, qwen3_32b, recurrentgemma_9b,
+                                 stablelm_12b)
 from repro_torch.configs.base import ArchConfig
 from repro_torch.configs.cascade_tiers import TIERS
 
-ARCHS = {"recurrentgemma-9b": recurrentgemma_9b.CONFIG}
+ARCHS = {m.CONFIG.name: m.CONFIG for m in (
+    qwen3_32b, granite_moe_1b_a400m, moonshot_v1_16b_a3b, gemma_7b,
+    recurrentgemma_9b, qwen2_vl_7b, deepseek_moe_16b, stablelm_12b)}
 
 # the JAX package's model zoo, still to port (ROADMAP.md Queue A)
-_UNPORTED = ("qwen3-32b", "granite-moe-1b-a400m", "moonshot-v1-16b-a3b",
-             "gemma-7b", "qwen2-vl-7b", "deepseek-moe-16b",
-             "seamless-m4t-medium", "xlstm-350m", "stablelm-12b")
+_UNPORTED = ("seamless-m4t-medium", "xlstm-350m")
 
 
 def get_config(name: str) -> ArchConfig:
@@ -29,4 +35,4 @@ def get_config(name: str) -> ArchConfig:
                    f"{sorted(TIERS) + sorted(ARCHS)}")
 
 
-__all__ = ["ArchConfig", "get_config"]
+__all__ = ["ARCHS", "ArchConfig", "get_config"]

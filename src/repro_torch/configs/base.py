@@ -86,6 +86,56 @@ class ArchConfig:
     def is_encoder_decoder(self) -> bool:
         return self.encoder_layers > 0
 
+    def param_count(self) -> int:
+        """Approximate parameter count (exact for our implementation)."""
+        hd = self.resolved_head_dim
+        d = self.d_model
+        attn = d * self.num_heads * hd + 2 * d * self.num_kv_heads * hd + self.num_heads * hd * d
+        if self.qk_norm:
+            attn += 2 * hd
+        dense_mlp = 3 * d * self.d_ff if self.d_ff else 0
+        n = 0
+        for kind in self.pattern:
+            if kind == "attn":
+                n += attn + dense_mlp + 2 * d
+            elif kind == "rglru":
+                # griffin recurrent block: in/out proj + conv + gates + mlp
+                dr = d  # recurrence width
+                n += 2 * d * dr + dr * self.rglru_d_conv + 2 * dr * dr + 2 * dr + dense_mlp + 2 * d
+            elif kind == "mlstm":
+                n += 4 * d * d + 3 * d * (d // 2) + dense_mlp + 2 * d
+            elif kind == "slstm":
+                n += 8 * d * d + dense_mlp + 2 * d
+        if self.is_moe:
+            n = 0
+            e_ff = self.moe_d_ff or self.d_ff
+            expert = 3 * d * e_ff
+            router = d * self.num_experts
+            for li, kind in enumerate(self.pattern):
+                mlp = dense_mlp if li < self.first_dense_layers else (
+                    self.num_experts * expert + self.num_shared_experts * expert + router)
+                n += attn + mlp + 2 * d
+        n += self.vocab_size * d  # embed
+        if not self.tie_embeddings:
+            n += self.vocab_size * d  # lm head
+        if self.is_encoder_decoder:
+            enc = self.encoder_layers * (attn + dense_mlp + 2 * d)
+            cross = len(self.pattern) * attn  # cross-attention per decoder layer
+            n += enc + cross
+        n += d  # final norm
+        return n
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: only routed top-k experts)."""
+        if not self.is_moe:
+            return self.param_count()
+        d = self.d_model
+        e_ff = self.moe_d_ff or self.d_ff
+        expert = 3 * d * e_ff
+        inactive_per_layer = (self.num_experts - self.num_experts_per_tok) * expert
+        n_moe_layers = self.num_layers - self.first_dense_layers
+        return self.param_count() - n_moe_layers * inactive_per_layer
+
     def with_(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
 

@@ -57,12 +57,22 @@ def attention_core(q, k, v, *, causal=True, window=None, soft_cap=None):
     return ops.flash_attention(q, k, v, causal=causal, window=window)
 
 
-def self_attention(p: Attention, x, positions, cfg, *, window=None):
-    """x: (B, S, d); positions: (B, S) int. Returns (out (B, S, d), (k, v)),
-    k already rotated, for the cache."""
+def _rotate(q, k, positions, pos3, cfg):
+    """RoPE at ``positions`` (B, S), or M-RoPE at ``pos3`` (3, B, S) where
+    the config has M-RoPE sections and the caller gives ``pos3``."""
+    if pos3 is not None and cfg.mrope_sections:
+        return (common.apply_mrope(t, pos3, cfg.rope_theta,
+                                   cfg.mrope_sections) for t in (q, k))
+    return (common.apply_rope(t, positions, cfg.rope_theta) for t in (q, k))
+
+
+def self_attention(p: Attention, x, positions, cfg, *, window=None,
+                   pos3=None):
+    """x: (B, S, d); positions: (B, S) int; pos3: (3, B, S) M-RoPE ids or
+    None. Returns (out (B, S, d), (k, v)), k already rotated, for the
+    cache."""
     q, k, v = _qkv(p, x, cfg)
-    q = common.apply_rope(q, positions, cfg.rope_theta)
-    k = common.apply_rope(k, positions, cfg.rope_theta)
+    q, k = _rotate(q, k, positions, pos3, cfg)
     out = attention_core(q, k, v, causal=True, window=window,
                          soft_cap=cfg.logit_soft_cap)
     b, s, _, _ = out.shape
@@ -110,10 +120,11 @@ def ring_lengths(pos, w):
     return torch.clamp(pos + 1, max=w)
 
 
-def attn_decode(p: Attention, x1, cache, pos, cfg):
+def attn_decode(p: Attention, x1, cache, pos, cfg, *, pos3=None):
     """One token per request. x1: (B, 1, d); cache: ring (B, W, KV, hd),
     updated in place (slot pos % W); pos: (B,) absolute position of the
-    new token. Returns (out (B, 1, d), cache)."""
+    new token; pos3: its (3, B, 1) M-RoPE ids or None. Returns (out (B,
+    1, d), cache)."""
     if cfg.logit_soft_cap is not None:
         raise NotImplementedError(
             "soft-capped attention has no kernel in repro_torch yet "
@@ -121,8 +132,7 @@ def attn_decode(p: Attention, x1, cache, pos, cfg):
     b = x1.shape[0]
     w = cache["k"].shape[1]
     q, k_new, v_new = _qkv(p, x1, cfg)
-    q = common.apply_rope(q, pos[:, None], cfg.rope_theta)
-    k_new = common.apply_rope(k_new, pos[:, None], cfg.rope_theta)
+    q, k_new = _rotate(q, k_new, pos[:, None], pos3, cfg)
     slot = pos % w
     rows = torch.arange(b, device=pos.device)
     cache["k"][rows, slot] = k_new[:, 0].to(cache["k"].dtype)

@@ -1,4 +1,5 @@
-"""Shared building blocks: init, RMSNorm, RoPE, gated MLP, embeddings.
+"""Shared building blocks: init, RMSNorm, RoPE and M-RoPE, gated MLP,
+embeddings.
 
 Plain functions on tensors, in the JAX package's layout: activations
 (B, S, d), heads (B, S, H, hd), weights applied as ``x @ W`` with W of
@@ -7,6 +8,8 @@ shape (d_in, d_out). The small modules here, in ``attention.py`` and in
 names them, and call these.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -99,12 +102,41 @@ def apply_rope(x, positions, theta: float):
     return out.to(x.dtype)
 
 
+def apply_mrope(x, positions3, theta: float, sections):
+    """Qwen2-VL multimodal RoPE [arXiv:2409.12191]. x: (B, S, H, hd);
+    positions3: (3, B, S) int (t, h, w) position ids; sections: the
+    per-axis frequency blocks, summing to hd / 2. Frequency block i takes
+    its angle from axis i; the halves rotate as in ``apply_rope``."""
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to "
+                         f"head_dim / 2 = {half}")
+    freqs = rope_freqs(x.shape[-1], theta, x.device)        # (hd/2,)
+    ang_axes = positions3.float()[..., None] * freqs        # (3, B, S, hd/2)
+    parts, off = [], 0
+    for ax, sec in enumerate(sections):
+        parts.append(ang_axes[ax, :, :, off:off + sec])
+        off += sec
+    ang = torch.cat(parts, dim=-1)                          # (B, S, hd/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def activation(act: str):
+    """The gated MLP's activation: SiLU, or tanh GELU (jax.nn.gelu's
+    default) for ``gelu``."""
+    if act == "silu":
+        return F.silu
+    return functools.partial(F.gelu, approximate="tanh")
+
+
 def mlp_apply(w_gate, w_up, w_down, x, act: str = "silu"):
     """Gated MLP: SwiGLU for ``silu``, GeGLU (tanh GELU, as jax.nn.gelu)
     for ``gelu``."""
-    g = x @ w_gate
-    g = F.silu(g) if act == "silu" else F.gelu(g, approximate="tanh")
-    return (g * (x @ w_up)) @ w_down
+    return (activation(act)(x @ w_gate) * (x @ w_up)) @ w_down
 
 
 def padded_vocab(vocab_size: int, multiple: int = 128) -> int:

@@ -4,6 +4,7 @@
     model = init_params(cfg, torch.Generator().manual_seed(0))   # on the card
     model = params_from_jax(jax.tree.map(np.asarray, params), cfg, device="cpu")
     logits, _ = model(tokens)                                    # (B, S, V_pad)
+    logits, _ = model(tokens, vision_embeds=v)   # VLM: (B, V + S, V_pad)
     hidden, cache = model(tokens, collect_cache=True, return_hidden=True)
     logits, cache = model.decode_step(tokens1, cache, pos)
 
@@ -34,12 +35,13 @@ def resolve_device(device) -> torch.device:
 
 def build_model(cfg, *, device="cuda", dtype=torch.float32) -> Model:
     """The decoder for ``cfg`` on ``device``, parameters allocated but not
-    yet filled (``init_params`` or ``params_from_jax`` fill them). Dense
-    and hybrid decoders of ``attn``, ``lattn`` and ``rglru`` layers are
-    ported; MoE, xLSTM, VLM and encoder-decoder configs raise."""
-    if cfg.family not in ("dense", "hybrid") or cfg.encoder_layers \
-            or cfg.num_experts or cfg.mrope_sections \
-            or not set(cfg.pattern) <= set(KINDS):
+    yet filled (``init_params`` or ``params_from_jax`` fill them). Dense,
+    MoE, hybrid and VLM decoders of ``attn``, ``lattn`` and ``rglru``
+    layers are ported; xLSTM layers and encoder-decoder configs raise.
+    The MoE router is float32 whatever ``dtype`` is, as in the JAX
+    package."""
+    if cfg.family not in ("dense", "hybrid", "moe", "vlm") \
+            or cfg.is_encoder_decoder or not set(cfg.pattern) <= set(KINDS):
         raise NotImplementedError(
             f"{cfg.name}: only decoders of {'/'.join(KINDS)} layers are "
             "ported to repro_torch (ROADMAP.md Queue A, the rest of the "
@@ -51,7 +53,8 @@ def init_params(cfg, generator: torch.Generator, device="cuda",
                 dtype=torch.float32) -> Model:
     """A model with weights drawn as the JAX package draws them: norm
     scales 1; the RG-LRU's ``lam`` 0.65 and its biases 0; every other
-    weight truncated normal in [-2, 2] times ``cfg.init_scale``.
+    weight truncated normal in [-2, 2] times ``cfg.init_scale``, drawn in
+    float32 and cast to ``dtype`` (the MoE router stays float32).
 
     The draws run on the generator's device: a CUDA generator fills a
     model on the card in place (seconds for RecurrentGemma-9B's 8.6 B

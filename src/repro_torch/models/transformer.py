@@ -1,17 +1,20 @@
-"""The decoder stack: ``attn``, ``lattn`` and ``rglru`` layers, a
-full-sequence forward that can fill the decode cache, and the cached
-one-token decode step.
+"""The decoder stack: ``attn``, ``lattn`` and ``rglru`` layers, each with a
+dense or MoE MLP sublayer, a full-sequence forward that can fill the
+decode cache (with Qwen2-VL's vision embeddings and M-RoPE positions in
+front of the text), and the cached one-token decode step.
 
 Counterpart of the JAX package's ``transformer.init_params`` (the
-parameter layout), ``forward``, ``init_cache`` and ``decode_step`` for
-dense and hybrid (RecurrentGemma) configs. The JAX package stacks its
-layers into super-blocks of the layer pattern for ``lax.scan``; here they
-are an ``nn.ModuleList`` run by a Python loop. Parameter names follow the
-JAX tree (``layers.{i}.attn.wq`` is ``blocks[k]["attn"]["wq"][sb]`` for
-layer i = sb * len(pattern) + k), so ``models.model.params_from_jax`` can
-map one onto the other. The cache is a list with one entry per layer: a
-ring KV cache for ``attn``/``lattn``, the (h, conv tail) state for
-``rglru``.
+parameter layout), ``forward``, ``vlm_positions``, ``init_cache`` and
+``decode_step`` for the dense, MoE, hybrid (RecurrentGemma) and VLM
+configs. The JAX package keeps ``first_dense_layers`` as an unrolled
+prefix, stacks the rest into super-blocks of the layer pattern for
+``lax.scan`` and unrolls a remainder as a tail; here every layer is an
+entry of one ``nn.ModuleList`` run by a Python loop. Parameter names
+follow the JAX tree (``layers.{i}.attn.wq`` is
+``blocks[k]["attn"]["wq"][sb]`` for layer i = prefix + sb * len(pattern)
++ k), so ``models.model.params_from_jax`` can map one onto the other. The
+cache is a list with one entry per layer: a ring KV cache for
+``attn``/``lattn``, the (h, conv tail) state for ``rglru``.
 """
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ import torch
 from torch import nn
 
 from repro_torch.models import attention as attn
-from repro_torch.models import common, recurrent
+from repro_torch.models import common, moe, recurrent
 
 KINDS = ("attn", "lattn", "rglru")
 
@@ -36,7 +39,10 @@ def _cache_len_for(cfg, kind, cache_len):
 
 
 class DecoderLayer(nn.Module):
-    def __init__(self, cfg, kind, *, device, dtype):
+    """Layer ``index`` of the stack: its mixer, then the MLP sublayer where
+    the config has one, MoE from layer ``cfg.first_dense_layers`` on."""
+
+    def __init__(self, cfg, kind, index, *, device, dtype):
         super().__init__()
         if kind not in KINDS:
             raise ValueError(kind)
@@ -47,16 +53,21 @@ class DecoderLayer(nn.Module):
             self.rglru = recurrent.RGLRU(cfg, **kw)
         else:
             self.attn = attn.Attention(cfg, **kw)
-        if cfg.d_ff:
+        if cfg.d_ff or cfg.is_moe:
             self.norm2 = common.RMSNorm(cfg.d_model, **kw)
-            self.mlp = common.MLP(cfg.d_model, cfg.d_ff, **kw)
+            if cfg.is_moe and index >= cfg.first_dense_layers:
+                self.moe = moe.MoE(cfg, **kw)
+            else:
+                self.mlp = common.MLP(cfg.d_model, cfg.d_ff, **kw)
 
     def _mlp(self, x, cfg):
-        if cfg.d_ff:
-            x = x + self.mlp(self.norm2(x, cfg.norm_eps), cfg.mlp_act)
+        if hasattr(self, "moe"):
+            return x + self.moe(self.norm2(x, cfg.norm_eps), cfg)
+        if hasattr(self, "mlp"):
+            return x + self.mlp(self.norm2(x, cfg.norm_eps), cfg.mlp_act)
         return x
 
-    def forward(self, x, positions, cfg, *, collect_cache=False,
+    def forward(self, x, positions, cfg, *, pos3=None, collect_cache=False,
                 cache_len=None):
         """Returns (x, cache entry or None)."""
         h = self.norm1(x, cfg.norm_eps)
@@ -68,7 +79,7 @@ class DecoderLayer(nn.Module):
         else:
             out, (k, v) = attn.self_attention(
                 self.attn, h, positions, cfg,
-                window=_window_for(cfg, self.kind))
+                window=_window_for(cfg, self.kind), pos3=pos3)
             if collect_cache:
                 w = _cache_len_for(cfg, self.kind, cache_len)
                 cache = attn.fill_kv_cache(
@@ -76,13 +87,14 @@ class DecoderLayer(nn.Module):
                     k, v)
         return self._mlp(x + out, cfg), cache
 
-    def decode(self, x1, cache, pos, cfg):
+    def decode(self, x1, cache, pos, cfg, *, pos3=None):
         """One token. Returns (x1, new cache entry)."""
         h = self.norm1(x1, cfg.norm_eps)
         if self.kind == "rglru":
             out, cache = recurrent.rglru_decode(self.rglru, h, cache)
         else:
-            out, cache = attn.attn_decode(self.attn, h, cache, pos, cfg)
+            out, cache = attn.attn_decode(self.attn, h, cache, pos, cfg,
+                                          pos3=pos3)
         return self._mlp(x1 + out, cfg), cache
 
 
@@ -96,7 +108,8 @@ class Model(nn.Module):
         self.embed = common.Embedding(cfg.vocab_size, cfg.d_model, **kw)
         self.final_norm = common.RMSNorm(cfg.d_model, **kw)
         self.layers = nn.ModuleList(
-            DecoderLayer(cfg, kind, **kw) for kind in cfg.pattern)
+            DecoderLayer(cfg, kind, i, **kw)
+            for i, kind in enumerate(cfg.pattern))
         if not cfg.tie_embeddings:
             self.lm_head = common.Embedding(cfg.vocab_size, cfg.d_model, **kw)
 
@@ -114,22 +127,30 @@ class Model(nn.Module):
             return x
         return common.lm_head_apply(self.head_table, x, self.cfg.vocab_size)
 
-    def forward(self, tokens, *, collect_cache=False, cache_len=None,
-                return_hidden=False):
-        """tokens: (B, S). Returns (logits (B, S, padded vocab), or the
+    def forward(self, tokens, *, vision_embeds=None, collect_cache=False,
+                cache_len=None, return_hidden=False):
+        """tokens: (B, S_text); vision_embeds: (B, V, d) or None, which
+        makes the sequence [vision | text] with M-RoPE positions
+        (``vlm_positions``). Returns (logits (B, S, padded vocab), or the
         final hidden states (B, S, d) with ``return_hidden``; the cache
-        for ``decode_step`` with ``collect_cache``, else None). The
-        attention caches hold min(cache_len, window) slots, cache_len
-        defaulting to S."""
+        for ``decode_step`` with ``collect_cache``, else None), S = V +
+        S_text. The attention caches hold min(cache_len, window) slots,
+        cache_len defaulting to S."""
         cfg = self.cfg
         x = common.embed_apply(self.embed.table, tokens)
-        b, s = tokens.shape
+        b = x.shape[0]
+        pos3 = None
+        if vision_embeds is not None:
+            x = torch.cat([vision_embeds.to(x.dtype), x], dim=1)
+            pos3 = vlm_positions(b, vision_embeds.shape[1], tokens.shape[1],
+                                 x.device)
+        s = x.shape[1]
         positions = torch.arange(s, device=x.device).expand(b, s)
         cache_len = cache_len or s
         caches = []
         for layer in self.layers:
-            x, c = layer(x, positions, cfg, collect_cache=collect_cache,
-                         cache_len=cache_len)
+            x, c = layer(x, positions, cfg, pos3=pos3,
+                         collect_cache=collect_cache, cache_len=cache_len)
             caches.append(c)
         return self._out(x, return_hidden), caches if collect_cache else None
 
@@ -155,8 +176,25 @@ class Model(nn.Module):
         updated in place."""
         cfg = self.cfg
         x = common.embed_apply(self.embed.table, tokens1)
+        # M-RoPE decodes at the absolute position on all three axes, as the
+        # JAX package does (its prefill starts the text at the grid size)
+        pos3 = pos[None, :, None].expand(3, -1, 1) if cfg.mrope_sections \
+            else None
         new = []
         for layer, c in zip(self.layers, cache):
-            x, c = layer.decode(x, c, pos, cfg)
+            x, c = layer.decode(x, c, pos, cfg, pos3=pos3)
             new.append(c)
         return self._out(x, return_hidden), new
+
+
+def vlm_positions(b, v, s_text, device=None):
+    """M-RoPE position ids (3, B, V + S_text): the V vision embeddings on
+    a g x g grid (g = max(int(sqrt(V)), 1); t 0, h = i // g, w = i % g),
+    then the text at g, g + 1, ... on all three axes."""
+    g = max(int(v ** 0.5), 1)
+    idx = torch.arange(v, device=device)
+    tix = g + torch.arange(s_text, device=device)
+    pos = torch.stack([torch.cat([torch.zeros_like(idx), tix]),
+                       torch.cat([idx // g, tix]),
+                       torch.cat([idx % g, tix])])
+    return pos[:, None, :].expand(3, b, v + s_text)

@@ -19,6 +19,7 @@ from repro_torch.kernels.decode_attention import decode_attention_plain
 from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.kernels.rglru_scan import rglru_scan_plain
 from repro_torch.launch.distributed import make_prefill_step, make_serve_step
+from repro_torch.models import common, moe
 from repro_torch.models.model import init_params
 
 pytestmark = pytest.mark.cuda
@@ -29,6 +30,8 @@ F32_CONF_ATOL = 1e-5   # float32 sums taken in another order
 BF16_CONF_ATOL = 2e-3  # the repo's kernel gate (NUMERIC_ATOL)
 FLASH_ATOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 DECODE_ATOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+MOE_ATOL = 1e-4        # float32 expert products in another order
+ROUTE_GAP = 1e-6       # router probabilities closer than this may swap
 
 
 @pytest.fixture
@@ -518,3 +521,45 @@ def test_kernels_refuse_what_they_do_not_take(dev):
         ops.flash_attention(q.half(), q.half(), q.half())
     with pytest.raises(TypeError):
         ops.bvsb(torch.zeros(2, 8, dtype=torch.float16, device=dev))
+
+
+@pytest.mark.parametrize("pull", [0.0, 4.0])
+def test_moe_apply_on_the_card_matches_the_cpu(dev, pull):
+    """deepseek-moe-16b's routed and shared experts at a narrower width,
+    tokens pulled toward expert 0 (``pull`` 4: past its capacity, so
+    assignments drop). The routing ids equal the CPU's wherever the k-th
+    and (k+1)-th probabilities lie more than ROUTE_GAP apart, the output
+    is within MOE_ATOL on the tokens routed and kept alike, and two card
+    calls are bitwise equal."""
+    cfg = get_config("deepseek-moe-16b").with_(d_model=512, moe_d_ff=256,
+                                               num_experts=16)
+    p = moe.MoE(cfg, device="cpu", dtype=torch.float32)
+    gen = torch.Generator().manual_seed(0)
+    for t in p.parameters():
+        common.trunc_normal_(t, cfg.init_scale, gen)
+    toward = p.router[:, 0] / p.router[:, 0].norm()
+    x = torch.randn(4, 256, cfg.d_model, generator=gen) + pull * toward
+    pc = moe.MoE(cfg, device=dev, dtype=torch.float32)
+    pc.load_state_dict(p.state_dict())
+    with torch.inference_mode():
+        y_cpu = moe.moe_apply(p, x, cfg)
+        y = moe.moe_apply(pc, x.to(dev), cfg)
+        assert torch.equal(y, moe.moe_apply(pc, x.to(dev), cfg))
+        n, k, cap = x.shape[0] * x.shape[1], cfg.num_experts_per_tok, \
+            moe.capacity(x.shape[0] * x.shape[1], cfg)
+        _, ids, probs = moe.route(x.reshape(n, -1), p.router, cfg)
+        ids_c = moe.route(x.to(dev).reshape(n, -1), pc.router, cfg)[1].cpu()
+        keep = moe.dispatch(ids, cfg.num_experts, cap)[2].view(n, k)
+        keep_c = moe.dispatch(ids_c.to(dev), cfg.num_experts, cap)[2] \
+            .cpu().view(n, k)
+    if pull:
+        assert not keep.all()
+    srt = probs.sort(dim=-1, descending=True).values
+    clear = srt[:, k - 1] - srt[:, k] > ROUTE_GAP
+    assert torch.equal(ids_c.sort(-1).values[clear],
+                       ids.sort(-1).values[clear])
+    agree = (ids_c == ids).all(-1) & (keep_c == keep).all(-1)
+    assert agree.sum() >= n - 2 * int((~clear).sum())
+    torch.testing.assert_close(y.reshape(n, -1).cpu()[agree],
+                               y_cpu.reshape(n, -1)[agree], atol=MOE_ATOL,
+                               rtol=0)

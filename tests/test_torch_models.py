@@ -123,14 +123,18 @@ def test_init_params_distribution_and_seed():
 
 
 def test_unported_families_raise():
+    """What the port does not serve yet: xLSTM layers, the xLSTM and
+    encoder-decoder configs, unknown archs and soft-capped attention."""
     cfg = get_config("tier-low")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(cfg.with_(family="moe", num_experts=4), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(cfg.with_(layer_pattern=("attn", "mlstm")), device="cpu")
-    with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("qwen3-32b")
-    with pytest.raises(KeyError):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_model(cfg.with_(family="audio", encoder_layers=2),
+                    device="cpu")
+    for name in ("xlstm-350m", "seamless-m4t-medium"):
+        with pytest.raises(KeyError, match="ROADMAP"):
+            get_config(name)
+    with pytest.raises(KeyError, match="unknown arch"):
         get_config("no-such-arch")
     model = init_params(cfg.with_(logit_soft_cap=30.0),
                         torch.Generator().manual_seed(0), device="cpu")
