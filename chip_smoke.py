@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (src/repro_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root, one card
-    python3 chip_smoke.py zoo    # phases 1-3's zoo part and 9 alone
+    python3 chip_smoke.py zoo    # phases 1-3's zoo part, 9 and 10 alone
 
 Phases, each printing its own lines; any failure raises, and the script
 then exits non-zero without the final result line:
@@ -18,8 +18,12 @@ then exits non-zero without the final result line:
    slot past the length, in f32, bf16 and f32 q over a bf16 cache; the
    RG-LRU scan bit for bit, in f32 and bf16,
    on its ring and its per-element path; flash and decode at the zoo's
-   shapes, head dim 160 among them); kernel, plain, library and bound
-   times at the paths' shapes (the zoo's four models too) and at B = 64
+   shapes, head dim 160 among them; flash non-causal over T != S keys
+   at seamless's cross-attention, at edges with each kernel forced and
+   on a strided q, each repeated bitwise, and refusing causal over T !=
+   S; decode over seamless's cross K/V and self ring; BvSB at every zoo
+   model's padded head); kernel, plain, library and bound
+   times at the paths' shapes (the zoo's models too) and at B = 64
    (CUDA events,
    after warm-up), the scan also in bf16 and at B = 1, flash's bound at
    the tensor-core rate beside its FP32 CUDA-core bound, the threshold
@@ -100,15 +104,31 @@ then exits non-zero without the final result line:
    routing ids where the router's k-th and (k+1)-th probabilities are
    more than 1e-6 apart, the MoE output within 1e-4 on the tokens routed
    alike, two card calls bitwise equal;
-10. the kernels line: one JSON object describing every ported kernel;
-11. the result line: {"ok": true, "device": {...}}.
+10. the rest of the zoo, at full width and depth with random weights
+   drawn on the card: xlstm-350m (12 mLSTM + 12 sLSTM layers) through
+   ``make_prefill_step`` on 4 prompts of 2,048 tokens and 16
+   ``make_serve_step`` decode steps, launches held to 17 BvSB and
+   nothing else; seamless-m4t-medium (12 encoder + 12 decoder layers)
+   over 4 x 1,024 seeded audio frame embeddings with prompts of 512
+   tokens into self rings of 520 slots and 8 decode steps, launches held
+   to 36 flash (12 encoder, 12 decoder self, 12 cross over T != S),
+   192 decode (self and cross) and 9 BvSB; prefill wall, ms a step, peak
+   memory, a profiled rerun (xLSTM's of a 128-token prefill) and
+   xLSTM's one-layer cell walls; then the card against the CPU at full
+   width: xLSTM's first mLSTM and sLSTM layer on 2 x 256 tokens,
+   seamless at 2 + 2 layers over 2 x 48 frames and prompts of 32
+   tokens, 4 steps each: BvSB within 1e-5, top-1, a second card prefill
+   bitwise equal, xLSTM's states after the prefill within 1e-4
+   relative;
+11. the kernels line: one JSON object describing every ported kernel;
+12. the result line: {"ok": true, "device": {...}}.
 
 ``zoo`` runs phases 1 and 2, phase 3's BvSB, flash and decode checks
 and its zoo timing rows, the MoE dispatch's scan of its one-hot in two
 forms in turns (JAX's ``cumsum`` down the (N k, E) one-hot against
 ``moe.dispatch`` along the transposed one-hot's contiguous dim, at
-granite's and deepseek's prefill: the same rows, device ms), then phase
-9, and prints no result line.
+granite's and deepseek's prefill: the same rows, device ms), then phases
+9 and 10, and prints no result line.
 
 ``throughput`` of the cascade is a virtual-clock figure from the paper's
 latency profiles, not a measurement of the card.
@@ -167,7 +187,7 @@ from repro_torch.launch.distributed import (PAD_LOGIT,  # noqa: E402
                                             make_prefill_step,
                                             make_serve_step)
 from repro_torch.launch.mesh import make_sweep_mesh  # noqa: E402
-from repro_torch.models import attention, common, moe  # noqa: E402
+from repro_torch.models import attention, common, moe, xlstm  # noqa: E402
 from repro_torch.models.model import build_model, init_params  # noqa: E402
 from repro_torch.serving.cascade import run_cascade  # noqa: E402
 from repro_torch.serving.client import DeviceClient  # noqa: E402
@@ -209,6 +229,27 @@ ZOO_B, ZOO_S, ZOO_VISION = 4, 2048, 1024
 ZOO_CHECK_LAYERS, ZOO_CHECK_B, ZOO_CHECK_S, ZOO_CHECK_STEPS = 2, 2, 64, 4
 ROUTE_GAP = 1e-6    # router probabilities closer than this may swap experts
 MOE_ATOL = 1e-4
+
+# phase 10, the rest of the zoo at full width and depth: xlstm-350m on B
+# prompts of S tokens, then STEPS decode steps; its profiled rerun is a
+# prefill of PROFILE_S tokens (the sLSTM's loop makes ~30 launches a
+# position a layer, and the profiler's processing costs ~0.15 ms a
+# launch)
+XLSTM_ARCH, XLSTM_B, XLSTM_S, XLSTM_STEPS = "xlstm-350m", 4, 2048, 16
+XLSTM_PROFILE_S = 128
+# seamless-m4t-medium: B x FRAMES seeded audio frame embeddings and B
+# prompts of S tokens, self rings of CACHE slots, STEPS decode steps
+SEAM_ARCH, SEAM_B, SEAM_FRAMES, SEAM_S, SEAM_CACHE, SEAM_STEPS = (
+    "seamless-m4t-medium", 4, 1024, 512, 520, 8)
+# and their card-vs-CPU checks at full width: xLSTM's first two layers
+# (one mLSTM, one sLSTM) on B prompts of S tokens (two mLSTM chunks);
+# seamless 2 + 2 layers over B x FRAMES frames, prompts of S tokens (T !=
+# S in the cross-attention); STEPS decode steps each
+XLSTM_CHECK_LAYERS, XLSTM_CHECK_B, XLSTM_CHECK_S = 2, 2, 256
+SEAM_CHECK_LAYERS, SEAM_CHECK_B, SEAM_CHECK_FRAMES, SEAM_CHECK_S = (
+    2, 2, 48, 32)
+ZOO10_CHECK_STEPS = 4
+STATE_RTOL = 1e-4   # xLSTM states, card vs CPU: |card - cpu| / max(|cpu|, 1)
 
 
 def card_rates(name: str):
@@ -349,7 +390,7 @@ def bvsb_cases(dev):
         cases.append((f"ties/-inf chunk/+inf last chunk({b},256000)", x))
     # what the zoo path hands the kernel: head_bvsb's (B, padded vocab) f32
     # logits, the columns past the vocab set to PAD_LOGIT
-    for arch, _, _ in ZOO_MODELS:
+    for arch in [a for a, _, _ in ZOO_MODELS] + [XLSTM_ARCH, SEAM_ARCH]:
         v = get_config(arch).vocab_size
         pv = common.padded_vocab(v)
         x = torch.randn(ZOO_B, pv, generator=gen, device=dev) * 4
@@ -443,10 +484,12 @@ def serving_flash_cases():
     return cases
 
 
-def qkv(dev, b, s, h, kv, hd, dtype=torch.float32, seed=0):
+def qkv(dev, b, s, h, kv, hd, dtype=torch.float32, seed=0, t=None):
+    """q (B, S, H, hd) and k/v (B, T, KV, hd), T = S by default."""
     gen = torch.Generator(device=dev).manual_seed(seed)
-    return tuple(torch.randn(b, s, n, hd, generator=gen, device=dev)
-                 .to(dtype) for n in (h, kv, kv))
+    return tuple(torch.randn(b, n_pos, n, hd, generator=gen, device=dev)
+                 .to(dtype) for n_pos, n in ((s, h), (t or s, kv),
+                                             (t or s, kv)))
 
 
 def flash_kernel(q, k, v, window, kernel, causal=True):
@@ -518,6 +561,67 @@ def check_flash(dev):
                 _check_flash_out(f"kernel {kernel} (B,S,H,KV,hd)=({b},{s},"
                                  f"{h},{kv},{hd}) window={window}", out, ref,
                                  dt)
+    check_flash_cross(dev)
+
+
+def _check_flash_twice(name, fn, ref, dt):
+    """``fn()`` against the plain version's ``ref``, and a second call
+    bitwise equal to the first."""
+    out = fn()
+    torch.cuda.synchronize()
+    same = torch.equal(fn(), out)
+    err, atol = max_err(out, ref), FLASH_ATOL[dt]
+    print(f"flash_attention {name} {str(dt)[6:]}: max|err| {err:.3g} (atol "
+          f"{atol:g}), second call {'bitwise equal' if same else 'DIFFERS'}")
+    if not (err <= atol and out.dtype == dt and same):
+        raise AssertionError("flash_attention kernel disagrees with its "
+                             f"plain version or itself at {name} {dt}")
+
+
+def check_flash_cross(dev):
+    """Seamless's attention (phase 10): its cross-attention, S = 512 text
+    positions over T = 1,024 frames, non-causal, and its encoder (T = S =
+    1,024, non-causal) and decoder (S = 512, causal) self-attention, on
+    the kernel the shape picks; edges S 77 over T 300 and S 300 over T 77
+    with each kernel forced; a strided q over T != S keys; each held to
+    the plain version and repeated bitwise. Causal attention over T != S
+    keys must raise."""
+    cfg = get_config(SEAM_ARCH)
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    for dt in (torch.float32, torch.bfloat16):
+        for s, t, causal in ((SEAM_S, SEAM_FRAMES, False),
+                             (SEAM_FRAMES, SEAM_FRAMES, False),
+                             (SEAM_S, SEAM_S, True)):
+            q, k, v = qkv(dev, SEAM_B, s, h, kv, hd, dt, t=t)
+            _check_flash_twice(
+                f"(B,S,T,H,KV,hd)=({SEAM_B},{s},{t},{h},{kv},{hd}) "
+                f"causal={causal}",
+                lambda: ops.flash_attention(q, k, v, causal=causal),
+                flash_attention_plain(q, k, v, causal=causal), dt)
+        for s, t in ((77, 300), (300, 77)):
+            q, k, v = qkv(dev, 2, s, 8, 2, 64, dt, t=t)
+            ref = flash_attention_plain(q, k, v, causal=False)
+            for kernel in (1, 2):
+                _check_flash_twice(
+                    f"kernel {kernel} (B,S,T,H,KV,hd)=(2,{s},{t},8,2,64) "
+                    "causal=False",
+                    lambda: flash_kernel(q, k, v, None, kernel, causal=False),
+                    ref, dt)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        packed = torch.randn(SEAM_B, SEAM_S, 2, h, hd, generator=gen,
+                             device=dev).to(dt)
+        q = packed[:, :, 1]
+        _, k, v = qkv(dev, SEAM_B, 1, h, kv, hd, dt, t=SEAM_FRAMES)
+        _check_flash_twice(
+            f"strided q (B,S,2,H,hd)[:, :, 1] over T={SEAM_FRAMES} "
+            "causal=False", lambda: ops.flash_attention(q, k, v, causal=False),
+            flash_attention_plain(q, k, v, causal=False), dt)
+    try:
+        ops.flash_attention(q, k, v, causal=True)
+    except ValueError:
+        print("flash_attention refuses causal attention over T != S keys")
+    else:
+        raise AssertionError("flash_attention took causal=True with T != S")
 
 
 def decode_cases():
@@ -545,6 +649,10 @@ def decode_cases():
     for kv, g, hd in ((8, 2, 64), (16, 1, 128), (8, 4, 160), (4, 7, 128)):
         cases += [(ZOO_B, w, kv, g, hd, [ZOO_S + 1] * ZOO_B),
                   (ZOO_B, w, kv, g, hd, [1, 777, w, ZOO_S + 9])]
+    # seamless's decode (phase 10): the cross-attention, one query over
+    # the T = 1,024 cached frames, every length T; the self ring of 520
+    cases += [(SEAM_B, SEAM_FRAMES, 16, 1, 64, [SEAM_FRAMES] * SEAM_B),
+              (SEAM_B, SEAM_CACHE, 16, 1, 64, [SEAM_S + 1] * SEAM_B)]
     return cases
 
 
@@ -676,20 +784,26 @@ def _bound(moved, ops_, bw, flops):
         "bytes" if moved / bw >= ops_ / flops else "operations"
 
 
-def flash_bounds_ms(q, k, bw, flops, tc, window=None):
+def flash_bounds_ms(q, k, bw, flops, tc, window=None, causal=True):
     """The bound at the rate of the kernel the shape picks (on tensor
     cores f32 is 3xTF32, three TF32 products per FMA pair, and bf16 one
     product) and, under its own key, the bound at the FP32 CUDA-core
-    rate."""
+    rate. Non-causal (no window): every (query, key) pair, S x T."""
     b, s, h, hd = q.shape
+    t = k.shape[1]
     # (query, key) pairs causal attention keeps: min(i + 1, window) keys
     # for query i
     w = window or s
-    pairs = w * (w + 1) // 2 + (s - w) * w if s > w else s * (s + 1) // 2
+    if not causal:
+        pairs = s * t
+    elif s > w:
+        pairs = w * (w + 1) // 2 + (s - w) * w
+    else:
+        pairs = s * (s + 1) // 2
     moved = (2 * q.numel() + 2 * k.numel()) * q.element_size()
     ops_ = 4 * hd * pairs * b * h            # q.k and p.v, 2 FLOP per FMA
     fp32 = _bound(moved, ops_, bw, flops)
-    if not _flash.uses_tensor_cores(s, hd):
+    if not _flash.uses_tensor_cores(s, hd, t):
         return fp32, fp32
     products = 3 if q.dtype == torch.float32 else 1
     return _bound(moved, products * ops_, bw, tc[q.dtype]), fp32
@@ -772,9 +886,9 @@ class Timer:
             bvsb_bound_ms(b, v, 4, self.bw, self.flops),
             max_err(conf, pconf), BVSB_ATOL[torch.float32], (b, v))
 
-    def bvsb_rows(self, b, v):
+    def bvsb_rows(self, b, v, arch=RG_ARCH):
         """Contiguous (B, V) rows, as the serving head hands them over."""
-        key = ("bvsb", f"{RG_ARCH} B={b}")
+        key = ("bvsb", f"{arch} B={b}")
         x = torch.randn(b, v, device=self.dev) * 4
         (conf, top1), (pconf, ptop1) = ops.bvsb(x), bvsb_plain(x)
         if not torch.equal(top1, ptop1):
@@ -965,24 +1079,29 @@ class Timer:
                   f"torch.add(a, u, out=h) over the same bytes "
                   f"{add_ms * 1e3:.2f} us ({moved / add_ms / 1e9:.3f} TB/s)")
 
-    def flash(self, arch, b, s=16):
-        """Causal attention at ``arch``'s heads, B prompts of S tokens."""
-        key = ("flash_attention", f"{arch} B={b}")
+    def flash(self, arch, b, s=16, t=None, causal=True, form=""):
+        """Attention at ``arch``'s heads, B prompts of S positions over T
+        keys (T = S unless given; T != S is non-causal), causal unless
+        said; ``form`` names a row beside the arch's causal one. The
+        library is SDPA on the same inputs."""
+        key = ("flash_attention", f"{arch}{form} B={b}")
         if key in self.rows:
             return self.rows[key]
         cfg = get_config(arch)
         h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-        q, k, v = qkv(self.dev, b, s, h, kv, hd)
+        q, k, v = qkv(self.dev, b, s, h, kv, hd, t=t)
         qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
-        err = max_err(ops.flash_attention(q, k, v),
-                      flash_attention_plain(q, k, v))
-        bound, fp32 = flash_bounds_ms(q, k, self.bw, self.flops, self.tc)
+        err = max_err(ops.flash_attention(q, k, v, causal=causal),
+                      flash_attention_plain(q, k, v, causal=causal))
+        bound, fp32 = flash_bounds_ms(q, k, self.bw, self.flops, self.tc,
+                                      causal=causal)
         return self._row(
-            key, lambda: ops.flash_attention(q, k, v),
-            lambda: flash_attention_plain(q, k, v),
-            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                   enable_gqa=kv != h),
-            bound, err, FLASH_ATOL[torch.float32], (b, s, h, kv, hd),
+            key, lambda: ops.flash_attention(q, k, v, causal=causal),
+            lambda: flash_attention_plain(q, k, v, causal=causal),
+            lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=kv != h),
+            bound, err, FLASH_ATOL[torch.float32],
+            (b, s, h, kv, hd) if t is None else (b, s, t, h, kv, hd),
             bound_fp32=fp32)
 
     def flash_threshold(self, seqs=(16, 32, 40, 48, 64, 80, 96, 128, 256)):
@@ -2152,16 +2271,17 @@ def zoo_expected_launches(cfg, steps):
             "decode_attention": n * steps, "rglru_scan": 0}
 
 
-def zoo_inputs(cfg, dev, b, n_text, n_vision, seed):
-    """(tokens (B, n_text), and for the VLM vision embeddings (B, n_vision,
-    d) from a generator on ``dev``, else None)."""
+def zoo_inputs(cfg, dev, b, n_text, n_embeds, seed):
+    """(tokens (B, n_text), and for the VLM vision embeddings, for the
+    encoder-decoder audio frame embeddings, (B, n_embeds, d) from a
+    generator on ``dev``, else None)."""
     rng = np.random.default_rng(seed)
     tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, n_text)),
                              device=dev)
-    if cfg.family != "vlm":
+    if cfg.family != "vlm" and not cfg.is_encoder_decoder:
         return tokens, None
     gen = torch.Generator(device=dev).manual_seed(seed)
-    return tokens, torch.randn(b, n_vision, cfg.d_model, generator=gen,
+    return tokens, torch.randn(b, n_embeds, cfg.d_model, generator=gen,
                                device=dev)
 
 
@@ -2438,9 +2558,285 @@ def dispatch_forms(dev):
               + "; ".join(f"{form} {ms:.4f}" for form, ms in times))
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the rest of the zoo (xLSTM-350M, SeamlessM4T-medium)
+# ---------------------------------------------------------------------------
+def zoo10_expected_launches(cfg, steps):
+    """xLSTM: one BvSB launch a call and nothing else (its cells are plain
+    PyTorch, as the JAX package runs them through XLA). The
+    encoder-decoder: one flash launch an encoder layer and two a decoder
+    layer (self and cross) at the prefill, two decode launches a decoder
+    layer a step (self and cross), one BvSB launch a call."""
+    want = {"bvsb": 1 + steps, "flash_attention": 0, "decode_attention": 0,
+            "rglru_scan": 0}
+    if cfg.is_encoder_decoder:
+        want.update(flash_attention=cfg.encoder_layers + 2 * cfg.num_layers,
+                    decode_attention=2 * cfg.num_layers * steps)
+    return want
+
+
+def cell_loop_walls(model, dev, b, s):
+    """Wall seconds of one mLSTM and one sLSTM layer of ``model`` over (B,
+    S) positions on the card: the chunk loop against the sequential
+    position loop."""
+    cfg = model.cfg
+    x = torch.randn(b, s, cfg.d_model, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(9))
+    walls = {}
+    with torch.inference_mode():
+        for layer in model.layers[:2]:
+            block = xlstm.mlstm_block if layer.kind == "mlstm" \
+                else xlstm.slstm_block
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            block(getattr(layer, layer.kind), x, cfg)
+            torch.cuda.synchronize()
+            walls[layer.kind] = time.perf_counter() - t0
+    return walls
+
+
+def zoo10_model(dev, name):
+    """One model at full width and depth through the serving entry points:
+    random weights drawn on the card, ``make_prefill_step`` (seamless over
+    its audio frames), ``make_serve_step`` decode steps feeding back each
+    top-1, the launch counters read around them; a profiled rerun; the
+    card against the CPU. Returns (launch counts, walls)."""
+    cfg = get_config(name)
+    seam = cfg.is_encoder_decoder
+    b, s, steps = (SEAM_B, SEAM_S, SEAM_STEPS) if seam else \
+        (XLSTM_B, XLSTM_S, XLSTM_STEPS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    weights_gb = sum(p.numel() * p.element_size()
+                     for p in model.parameters()) / 1e9
+    layout = f"{cfg.encoder_layers} encoder + {cfg.num_layers} decoder" \
+        if seam else f"{cfg.num_layers} ({'/'.join(cfg.layer_pattern)})"
+    print(f"{name}: {layout} layers, full width and depth, {n_params} "
+          f"parameters with the padded vocab ({cfg.param_count()} by "
+          f"param_count), {weights_gb:.3f} GB float32, drawn on the card in "
+          f"{init_s:.3f} s")
+    tokens, audio = zoo_inputs(cfg, dev, b, s, SEAM_FRAMES, 6)
+    cache_len = SEAM_CACHE if seam else None
+    prefill, serve = make_prefill_step(model), make_serve_step(model)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    conf, top1, cache = prefill(tokens, cache_len, audio_embeds=audio)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    confs, tops = [conf], [top1]
+    pos = torch.full((b,), s, device=dev)
+    t0 = time.perf_counter()
+    for i in range(steps):
+        conf, top1, cache = serve(top1[:, None], cache, pos + i)
+        confs.append(conf)
+        tops.append(top1)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = zoo10_expected_launches(cfg, steps)
+    confs, tops = torch.stack(confs), torch.stack(tops)
+    if seam:
+        kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+        cache_ok = all(
+            c["cross"][0].shape == (b, SEAM_FRAMES, kv, hd)
+            and c["cross"][0].dtype == torch.float32
+            and c["self"]["k"].shape == (b, SEAM_CACHE, kv, hd)
+            for c in cache)
+        what = f"{SEAM_FRAMES} audio frames + {s} tokens, self rings of " \
+            f"{SEAM_CACHE} slots"
+    else:
+        cache_ok = all(t.dtype == torch.float32 and bool(torch.isfinite(t)
+                                                         .all())
+                       for c in cache for t in c.values())
+        what = f"{s} tokens"
+    del cache
+    print(f"{name} prefill of {b} x ({what}): wall {prefill_s:.3f} s on the "
+          "card")
+    print(f"{name} decode of {steps} steps at B={b}: wall {decode_s:.3f} s "
+          f"on the card ({decode_s / steps * 1e3:.2f} ms per step)")
+    print(f"{name} path: peak device memory {peak_gb:.3f} GB; launches "
+          f"{counts} (expected {want}); conf range "
+          f"[{float(confs.min()):.3g}, {float(confs.max()):.3g}]")
+    checks = {
+        "launches": counts == want,
+        "finite confidences": bool(torch.isfinite(confs).all()),
+        "top-1 in the vocab": bool(((tops >= 0)
+                                    & (tops < cfg.vocab_size)).all()),
+        "shapes": confs.shape == tops.shape == (steps + 1, b),
+        "cache": cache_ok,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"{name} path checks failed: {failed}")
+    if seam:
+        profile_serving(name, prefill, serve, (tokens, cache_len, None,
+                                               audio),
+                        tops[0], pos, prefill_s, decode_s / steps)
+    else:
+        walls = cell_loop_walls(model, dev, b, s)
+        print(f"{name} cells over {b} x {s} positions, one layer each: "
+              f"mLSTM (chunks of {xlstm.CHUNK}) {walls['mlstm']:.4f} s, "
+              f"sLSTM (one step a position) {walls['slstm']:.4f} s, "
+              f"{walls['slstm'] / s * 1e6:.1f} us a position")
+        short = tokens[:, :XLSTM_PROFILE_S]
+        t0 = time.perf_counter()
+        _, top_short, _ = prefill(short)
+        torch.cuda.synchronize()
+        profile_serving(f"{name} (prefill of {XLSTM_PROFILE_S} tokens)",
+                        prefill, serve, (short,), top_short,
+                        torch.full((b,), XLSTM_PROFILE_S, device=dev),
+                        time.perf_counter() - t0, decode_s / steps)
+    zoo10_check_cpu(model, dev)
+    return counts, dict(params=cfg.param_count(), init_s=init_s,
+                        prefill_s=prefill_s,
+                        step_ms=decode_s / steps * 1e3, peak_gb=peak_gb)
+
+
+def _rel_err(a, b):
+    a, b = a.float().cpu(), b.float().cpu()
+    return float(((a - b).abs() / b.abs().clamp(min=1.0)).max())
+
+
+def zoo10_check_cpu(model, dev):
+    """The same weights at full width, cut in depth, card against CPU: a
+    prefill (xLSTM: XLSTM_CHECK_B x XLSTM_CHECK_S tokens, its first mLSTM
+    and sLSTM layer; seamless: 2 + 2 layers over SEAM_CHECK_FRAMES frames,
+    prompts of SEAM_CHECK_S tokens) and ZOO10_CHECK_STEPS decode steps,
+    each fed the card's top-1. BvSB within CLASSIFY_CONF_ATOL; top-1 equal
+    wherever the CPU's top-2 logit gap exceeds TOP2_GAP; a second card
+    prefill bitwise equal to the first (confidences, top-1 and the whole
+    cache); for xLSTM the states after the prefill (mLSTM C, n; sLSTM h,
+    c, n, m) within STATE_RTOL of the CPU's."""
+    cfg = model.cfg
+    seam = cfg.is_encoder_decoder
+    if seam:
+        cut = cfg.with_(num_layers=SEAM_CHECK_LAYERS,
+                        encoder_layers=SEAM_CHECK_LAYERS)
+        b, s, frames = SEAM_CHECK_B, SEAM_CHECK_S, SEAM_CHECK_FRAMES
+    else:
+        cut = cfg.with_(num_layers=XLSTM_CHECK_LAYERS)
+        b, s, frames = XLSTM_CHECK_B, XLSTM_CHECK_S, 0
+    steps = ZOO10_CHECK_STEPS
+    card = build_model(cut, device=dev)
+    keys = set(card.state_dict())
+    card.load_state_dict({k: v for k, v in model.state_dict().items()
+                          if k in keys})
+    cpu = build_model(cut, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    tokens, audio = zoo_inputs(cut, "cpu", b, s, frames, 7)
+    extra = {} if audio is None else {"audio_embeds": audio}
+    cache_len = s + steps if seam else None
+    t0 = time.perf_counter()
+    prefill, serve = make_prefill_step(card), make_serve_step(card)
+
+    def card_prefill():
+        return prefill(tokens.to(dev), cache_len, audio_embeds=None
+                       if audio is None else audio.to(dev))
+
+    def leaves(cache):
+        return [t for c in cache for t in (
+            [*c["self"].values(), *c["cross"]] if seam else c.values())]
+    conf, top1, cache = card_prefill()
+    conf2, top1_2, cache2 = card_prefill()
+    repeat = torch.equal(bits(conf), bits(conf2)) and \
+        torch.equal(top1, top1_2) and all(
+            torch.equal(x, y) for x, y in zip(leaves(cache), leaves(cache2)))
+    del cache2
+    with torch.inference_mode():
+        hidden, ccache = cpu(tokens, collect_cache=True, cache_len=cache_len,
+                             return_hidden=True, **extra)
+    state_err = 0.0 if seam else max(
+        _rel_err(c[k], cc[k]) for c, cc in zip(cache, ccache) for k in c)
+    table = cpu.head_table
+    errs, same, clear_rows = [], True, 0
+    for i in range(steps + 1):
+        with torch.inference_mode():
+            cconf, ctop1 = head_bvsb(hidden[:, -1:], table, cfg.vocab_size)
+            top2 = torch.topk(hidden[:, -1] @ table.T, 2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > TOP2_GAP
+        errs.append(max_err(conf.cpu(), cconf))
+        same &= torch.equal(top1.cpu()[clear], ctop1[clear])
+        clear_rows += int(clear.sum())
+        if i == steps:
+            break
+        pos = torch.full((b,), s + i)
+        tok = top1.cpu()[:, None]
+        conf, top1, cache = serve(tok.to(dev), cache, pos.to(dev))
+        with torch.inference_mode():
+            hidden, ccache = cpu.decode_step(tok, ccache, pos,
+                                             return_hidden=True)
+    what = f"{SEAM_CHECK_LAYERS} + {SEAM_CHECK_LAYERS} layers, {b} x " \
+        f"{frames} frames and {s} tokens" if seam else \
+        f"{XLSTM_CHECK_LAYERS} layers ({'/'.join(cut.pattern)}), {b} x {s} " \
+        "tokens"
+    states = "" if seam else f", states after the prefill max rel err " \
+        f"{state_err:.3g} (rtol {STATE_RTOL:g})"
+    print(f"{cfg.name} {what} at full width + {steps} decode steps, card vs "
+          f"CPU: max|conf err| {max(errs):.3g} (atol {CLASSIFY_CONF_ATOL:g}),"
+          f" top-1 equal on {clear_rows}/{b * (steps + 1)} rows with top-2 "
+          f"gap > {TOP2_GAP:g}: {same}{states}; a second card prefill "
+          f"{'bitwise equal' if repeat else 'DIFFERS'} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    if not (max(errs) <= CLASSIFY_CONF_ATOL and same and repeat
+            and state_err <= STATE_RTOL):
+        raise AssertionError(f"{cfg.name} on the card disagrees with the "
+                             "CPU")
+
+
+def zoo10_path(dev):
+    """Phase 10: xlstm-350m, then seamless-m4t-medium, each freed before
+    the next. Returns (launch counts summed over both, each one's
+    walls)."""
+    total, walls = {}, {}
+    for name in (XLSTM_ARCH, SEAM_ARCH):
+        counts, walls[name] = zoo10_model(dev, name)
+        for key, n in counts.items():
+            total[key] = total.get(key, 0) + n
+        torch.cuda.empty_cache()
+    return total, walls
+
+
+def zoo10_rows(timer):
+    """Phase 3's timing rows at phase 10's shapes: seamless's flash forms
+    (encoder T = S non-causal, decoder self causal, cross S over T
+    non-causal), its decode (self ring, and the cross K/V in f32 and in
+    bf16 under an f32 query) and both models' BvSB heads."""
+    cfg = get_config(SEAM_ARCH)
+    kv, g, hd = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, \
+        cfg.resolved_head_dim
+    return {
+        "flash_attention": {
+            "encoder": timer.flash(SEAM_ARCH, SEAM_B, SEAM_FRAMES,
+                                   causal=False, form=" encoder"),
+            "decoder self": timer.flash(SEAM_ARCH, SEAM_B, SEAM_S,
+                                        form=" decoder self"),
+            "cross (T != S)": timer.flash(SEAM_ARCH, SEAM_B, SEAM_S,
+                                          t=SEAM_FRAMES, causal=False,
+                                          form=" cross")},
+        "decode_attention": {
+            "self": timer.decode_at(f"{SEAM_ARCH} self", SEAM_B, SEAM_CACHE,
+                                    kv, g, hd),
+            "cross": timer.decode_at(f"{SEAM_ARCH} cross", SEAM_B,
+                                     SEAM_FRAMES, kv, g, hd),
+            "cross f32 q over bf16": timer.decode_at(
+                f"{SEAM_ARCH} cross", SEAM_B, SEAM_FRAMES, kv, g, hd,
+                cache_dt=torch.bfloat16)},
+        "bvsb": {arch: timer.bvsb_rows(
+            n, common.padded_vocab(get_config(arch).vocab_size), arch)
+            for arch, n in ((XLSTM_ARCH, XLSTM_B), (SEAM_ARCH, SEAM_B))},
+    }
+
+
 def zoo_only(dev, timer):
     """``chip_smoke.py zoo``: phase 3's attention and BvSB checks and its
-    zoo timing rows, the dispatch's two forms, then phase 9."""
+    zoo timing rows (phases 9 and 10), the dispatch's two forms, then
+    phases 9 and 10."""
     t0 = time.perf_counter()
     check_bvsb(dev)
     check_flash(dev)
@@ -2451,12 +2847,16 @@ def zoo_only(dev, timer):
         timer.flash(name, ZOO_B, ZOO_S)
         timer.decode_at(name, ZOO_B, ZOO_S, kv, cfg.num_heads // kv,
                         cfg.resolved_head_dim)
+    zoo10_rows(timer)
     dispatch_forms(dev)
     torch.cuda.empty_cache()
     t1 = time.perf_counter()
     zoo_path(dev)
+    t2 = time.perf_counter()
+    zoo10_path(dev)
     print(f"phase seconds: checks, timing rows and dispatch forms "
-          f"{t1 - t0:.1f}, zoo {time.perf_counter() - t1:.1f}")
+          f"{t1 - t0:.1f}, zoo {t2 - t1:.1f}, rest of the zoo "
+          f"{time.perf_counter() - t2:.1f}")
     return 0
 
 
@@ -2524,6 +2924,7 @@ def main(argv) -> int:
         zoo_rows["flash_attention"][name] = timer.flash(name, ZOO_B, ZOO_S)
         zoo_rows["decode_attention"][name] = timer.decode_at(
             name, ZOO_B, ZOO_S, kv, cfg.num_heads // kv, hd)
+    zoo10_timing = zoo10_rows(timer)
     timer.bvsb_chunks()
     timer.decode_splits()
     timer.rglru_tiles()
@@ -2542,13 +2943,17 @@ def main(argv) -> int:
     sharded_path(dev, (sim["hetero"], sim["hetero_wall"]))
     t7 = time.perf_counter()
     zoo_counts, zoo = zoo_path(dev)
+    t8 = time.perf_counter()
+    zoo10_counts, zoo10 = zoo10_path(dev)
     print(f"phase seconds: build {t1 - t0:.1f}, kernels {t2 - t1:.1f}, "
           f"cascade path with its profiled rerun {t3 - t2:.1f}, "
           f"{RG_ARCH} path with its CPU check {t4 - t3:.1f}, simulator "
           f"with its CPU check, width sweep and profiled rerun "
           f"{t5 - t4:.1f}, transport + replay + segmented frontier "
           f"{t6 - t5:.1f}, sharded sweeps {t7 - t6:.1f}, zoo with its "
-          f"profiled reruns and CPU checks {time.perf_counter() - t7:.1f}")
+          f"profiled reruns and CPU checks {t8 - t7:.1f}, rest of the zoo "
+          f"with its profiled reruns and CPU checks "
+          f"{time.perf_counter() - t8:.1f}")
 
     # the kernels line times each kernel at the RecurrentGemma path's shape;
     # BvSB and flash also at the cascade's most frequent server batch (the
@@ -2571,7 +2976,8 @@ def main(argv) -> int:
         by_path = {"cascade": counts[name], RG_ARCH: rg_counts[name],
                    "simulator": sim_counts[name],
                    "transport": transport_counts[name],
-                   "zoo": zoo_counts[name]}
+                   "zoo": zoo_counts[name],
+                   "rest of the zoo": zoo10_counts[name]}
         entry = {"name": name, "route": "cuda",
                  "source": f"src/repro_torch/kernels/csrc/{source}",
                  "replaces": replaces, "launches": sum(by_path.values()),
@@ -2590,12 +2996,20 @@ def main(argv) -> int:
         if name in zoo_rows:
             entry["zoo"] = {arch: {k: row[k] for k in keys if k in row}
                             for arch, row in zoo_rows[name].items()}
+        if name in zoo10_timing:
+            entry["rest of the zoo"] = {
+                form: {k: row[k] for k in keys if k in row}
+                for form, row in zoo10_timing[name].items()}
+        if name == "flash_attention":
+            entry["forms"] = ["causal or windowed, T = S",
+                              "non-causal, T = S",
+                              "non-causal over T != S keys (cross-attention)"]
         kernels.append(entry)
     print(f"{RG_ARCH} path seconds: init {rg['init_s']:.3f}, prefill "
           f"{rg['prefill_s']:.3f}, decode {rg['decode_s']:.3f}; peak "
           f"{rg['peak_gb']:.3f} GB; simulator (a) {sim['hetero_wall']:.3f} "
           f"s, (b) {sim['env_wall']:.3f} s, peak {sim['peak_gb']:.3f} GB")
-    for name, w in zoo.items():
+    for name, w in {**zoo, **zoo10}.items():
         print(f"{name} path: {w['params']} parameters, init "
               f"{w['init_s']:.3f} s, prefill {w['prefill_s']:.3f} s, decode "
               f"{w['step_ms']:.2f} ms a step, peak {w['peak_gb']:.3f} GB")

@@ -39,11 +39,11 @@ _c_ptr = ctypes.c_void_p
 _SIGNATURES = {
     "repro_bvsb": [_c_ptr, _c_int, _c_ll, _c_ll, _c_int, _c_int, _c_int,
                    _c_ptr, _c_ptr, _c_ptr, _c_ptr],
-    "repro_flash_attention": [_c_ptr] * 4 + [_c_int] * 6 + [_c_ll] * 12
+    "repro_flash_attention": [_c_ptr] * 4 + [_c_int] * 7 + [_c_ll] * 12
     + [_c_int, _c_int, ctypes.c_float, _c_ptr],
-    "repro_flash_attention_kernel": [_c_ptr] * 4 + [_c_int] * 6 + [_c_ll] * 12
+    "repro_flash_attention_kernel": [_c_ptr] * 4 + [_c_int] * 7 + [_c_ll] * 12
     + [_c_int, _c_int, ctypes.c_float, _c_ptr, _c_int],
-    "repro_flash_uses_tensor_cores": [_c_int, _c_int],
+    "repro_flash_uses_tensor_cores": [_c_int] * 3,
     "repro_rglru_scan": [_c_ptr] * 4 + [_c_int] * 4 + [_c_ll] * 4
     + [_c_int] * 3 + [_c_ptr],
     "repro_decode_attention": [_c_ptr] * 6 + [_c_int] * 9 + [_c_ll] * 10

@@ -1,14 +1,25 @@
-// Causal / sliding-window prefill attention with GQA, f32 online softmax.
+// Causal / sliding-window prefill attention with GQA, f32 online softmax,
+// and non-causal attention of S queries over T keys (cross-attention).
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py::
-// flash_attention (body _flash_kernel): q (B, S, H, hd), k/v (B, S, KV, hd)
+// flash_attention (body _flash_kernel): q (B, S, H, hd), k/v (B, T, KV, hd)
 // -> out (B, S, H, hd) in q's type, the KV head of query head h being
 // h / (H / KV). Scores are scaled after the dot, masked to -1e30, and the
-// output is acc / max(l, 1e-30), as in the TPU kernel. Any S (the ragged
-// edge is masked in the kernel), any (batch, seq, head) strides with a
-// contiguous head dim, f32 and bf16, hd <= 256.
+// output is acc / max(l, 1e-30), as in the TPU kernel. Any S and T (the
+// ragged edges are masked in the kernel), any (batch, seq, head) strides
+// with a contiguous head dim, f32 and bf16, hd <= 256. The TPU kernel takes
+// T = S only; T != S is the non-causal form the JAX package computes with
+// XLA for an encoder-decoder's cross-attention (models/attention.py
+// attention_core, causal=False), so causal attention needs T = S here too.
+// Query tiles run over S; the key loop, and the masking of the last
+// partial key tile, run over T (Tk in the templates, whose T is the element
+// type).
 //
-// Two kernels; the C entry point picks one from the shape alone:
+// Two kernels; the C entry point picks one from the shape alone. It takes
+// the shorter of S and T for "the sequence length" below: the query length
+// fills the tensor-core kernel's 128-row tile, the key length amortises its
+// per-tile loads, so it needs both long (at T = S this is the rule the
+// threshold sweep set):
 //
 // * Long sequences (S >= 48 at hd <= 128, S >= 80 above): tensor cores, from
 //   the S at which they first beat the FMA kernel in chip_smoke.py's
@@ -86,13 +97,14 @@ struct Strides {
   long long b, s, h;  // elements; the head dim is contiguous
 };
 
-bool use_tensor_cores(int S, int hd) {
-  return S >= (hd <= 128 ? kTensorCoreMinSeq : kTensorCoreMinSeqWide);
+bool use_tensor_cores(int S, int T, int hd) {
+  const int n = S < T ? S : T;
+  return n >= (hd <= 128 ? kTensorCoreMinSeq : kTensorCoreMinSeqWide);
 }
 
-__device__ __forceinline__ bool key_ok(int kj, int qi, int S, int causal,
+__device__ __forceinline__ bool key_ok(int kj, int qi, int T, int causal,
                                        int window) {
-  return kj < S && (!causal || kj <= qi) && (window <= 0 || qi - kj < window);
+  return kj < T && (!causal || kj <= qi) && (window <= 0 || qi - kj < window);
 }
 
 // ---------------------------------------------------------------------------
@@ -132,9 +144,9 @@ __host__ __device__ constexpr bool tiles_static() {
 template <typename T, int HD>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int S, int group,
-                 int hd, Strides qs, Strides ks, Strides vs, Strides os,
-                 int causal, int window, float scale) {
+                 const T* __restrict__ v, T* __restrict__ o, int S, int Tk,
+                 int group, int hd, Strides qs, Strides ks, Strides vs,
+                 Strides os, int causal, int window, float scale) {
   constexpr int kDPerLane = HD / 32;
   constexpr int kld = HD + 1;  // padded: lanes read distinct banks
   // q_s[kBQ][HD], k_s[kBK][HD + 1], v_s[kBK][HD], all f32
@@ -173,14 +185,14 @@ flash_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // tile-level skip: keys above the block's last query row (causal) and
   // keys left of its first row's window are never loaded
   const int q_last = min(q_start + kBQ, S) - 1;
-  const int k_hi = causal ? q_last : S - 1;
+  const int k_hi = causal ? q_last : Tk - 1;
   const int k_lo = (causal && window > 0) ? max(0, q_start - window + 1) : 0;
 
   for (int kt = (k_lo / kBK) * kBK; kt <= k_hi; kt += kBK) {
     __syncthreads();  // the previous tile's readers are done
     for (int e = tid; e < kBK * hd; e += kWarps * 32) {
       const int j = e / hd, d = e % hd, s = kt + j;
-      const bool in = s < S;
+      const bool in = s < Tk;
       k_s[j * kld + d] = in ? to_f32(kb[s * ks.s + d]) : 0.f;
       v_s[j * HD + d] = in ? to_f32(vb[s * vs.s + d]) : 0.f;
     }
@@ -196,7 +208,7 @@ flash_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float* kr = k_s + lane * kld;
       for (int d = 0; d < hd; ++d) sc = fmaf(qr[d], kr[d], sc);
       sc *= scale;
-      sc = key_ok(kj, qi, S, causal, window) ? sc : kNegInf;
+      sc = key_ok(kj, qi, Tk, causal, window) ? sc : kNegInf;
 
       const float m_new = fmaxf(m[t], warp_max(sc));
       const float corr = expf(m[t] - m_new);
@@ -232,7 +244,7 @@ flash_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int HD>
 cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o,
-                      int B, int S, int H, int KV, int hd, Strides qs,
+                      int B, int S, int Tk, int H, int KV, int hd, Strides qs,
                       Strides ks, Strides vs, Strides os, int causal,
                       int window, float scale, cudaStream_t stream) {
   size_t smem = 0;
@@ -250,20 +262,20 @@ cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
   flash_fma_kernel<T, HD><<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, H / KV, hd, qs, ks,
-      vs, os, causal, window, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), S, Tk, H / KV, hd, qs,
+      ks, vs, os, causal, window, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int S, int H, int KV, int hd, Strides qs,
+                   int B, int S, int Tk, int H, int KV, int hd, Strides qs,
                    Strides ks, Strides vs, Strides os, int causal,
                    int window, float scale, cudaStream_t stream) {
   if (hd <= 128)
-    return launch_hd<T, 128>(q, k, v, o, B, S, H, KV, hd, qs, ks, vs, os,
+    return launch_hd<T, 128>(q, k, v, o, B, S, Tk, H, KV, hd, qs, ks, vs, os,
                              causal, window, scale, stream);
-  return launch_hd<T, 256>(q, k, v, o, B, S, H, KV, hd, qs, ks, vs, os,
+  return launch_hd<T, 256>(q, k, v, o, B, S, Tk, H, KV, hd, qs, ks, vs, os,
                            causal, window, scale, stream);
 }
 
@@ -457,9 +469,10 @@ __device__ __forceinline__ void accumulate(float (&acc)[HD / 8][4],
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, T* __restrict__ o, int S, int group,
-                int hd, Strides qs, Strides ks, Strides vs, Strides os,
-                int causal, int window, float scale, int aligned) {
+                const T* __restrict__ v, T* __restrict__ o, int S, int Tk,
+                int group, int hd, Strides qs, Strides ks, Strides vs,
+                Strides os, int causal, int window, float scale,
+                int aligned) {
   constexpr int ldqk = ld_qk<T, HD>(), ldv = ld_v<T, HD>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* q_s = reinterpret_cast<T*>(smem_raw);   // [kRows][ldqk]
@@ -498,13 +511,13 @@ flash_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // tile-level skip: keys above the last position (causal) and keys left
   // of the first position's window are never loaded
-  const int k_hi = causal ? p_hi : S - 1;
+  const int k_hi = causal ? p_hi : Tk - 1;
   const int k_lo = (causal && window > 0) ? max(0, p_lo - window + 1) : 0;
   const int kt0 = (k_lo / kKeys) * kKeys;
 
   auto key_rows = [&](const T* base, long long stride, int kt) {
     return [=](int r) -> const T* {
-      return kt + r < S ? base + (kt + r) * stride : nullptr;
+      return kt + r < Tk ? base + (kt + r) * stride : nullptr;
     };
   };
   load_tile(k_s, ldqk, kKeys, hd, aligned, kb, key_rows(kb, ks.s, kt0));
@@ -525,7 +538,7 @@ flash_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (live) {
       scores<HD>(sc, q_s + warp * 16 * ldqk, k_s, hd, g, c);
       // every (row, key) of the tile valid for every row of the block?
-      const bool full = kt + kKeys <= S &&
+      const bool full = kt + kKeys <= Tk &&
                         (!causal || kt + kKeys - 1 <= p_lo) &&
                         (window <= 0 || p_hi - kt < window);
       float mx[2] = {kNegInf, kNegInf};
@@ -534,8 +547,8 @@ flash_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           float s = sc[nt][i] * scale;
-          if (!full && !key_ok(kt + nt * 8 + 2 * c + (i & 1), pos[i >> 1], S,
-                               causal, window))
+          if (!full && !key_ok(kt + nt * 8 + 2 * c + (i & 1), pos[i >> 1],
+                               Tk, causal, window))
             s = kNegInf;
           sc[nt][i] = s;
           mx[i >> 1] = fmaxf(mx[i >> 1], s);
@@ -596,7 +609,7 @@ flash_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int HD>
 cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o,
-                      int B, int S, int H, int KV, int hd, Strides qs,
+                      int B, int S, int Tk, int H, int KV, int hd, Strides qs,
                       Strides ks, Strides vs, Strides os, int causal,
                       int window, float scale, int aligned,
                       cudaStream_t stream) {
@@ -614,14 +627,14 @@ cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o,
   const dim3 grid(static_cast<unsigned>((rows + kRows - 1) / kRows), KV, B);
   flash_tc_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, group, hd, qs, ks, vs,
-      os, causal, window, scale, aligned);
+      static_cast<const T*>(v), static_cast<T*>(o), S, Tk, group, hd, qs, ks,
+      vs, os, causal, window, scale, aligned);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int S, int H, int KV, int hd, Strides qs,
+                   int B, int S, int Tk, int H, int KV, int hd, Strides qs,
                    Strides ks, Strides vs, Strides os, int causal,
                    int window, float scale, cudaStream_t stream) {
   // cp.async needs every row start 16-byte aligned and whole chunks
@@ -632,12 +645,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   };
   const int aligned = hd % e == 0 && al(q, qs) && al(k, ks) && al(v, vs);
   if (hd <= 64)
-    return launch_hd<T, 64>(q, k, v, o, B, S, H, KV, hd, qs, ks, vs, os,
+    return launch_hd<T, 64>(q, k, v, o, B, S, Tk, H, KV, hd, qs, ks, vs, os,
                             causal, window, scale, aligned, stream);
   if (hd <= 128)
-    return launch_hd<T, 128>(q, k, v, o, B, S, H, KV, hd, qs, ks, vs, os,
+    return launch_hd<T, 128>(q, k, v, o, B, S, Tk, H, KV, hd, qs, ks, vs, os,
                              causal, window, scale, aligned, stream);
-  return launch_hd<T, 256>(q, k, v, o, B, S, H, KV, hd, qs, ks, vs, os,
+  return launch_hd<T, 256>(q, k, v, o, B, S, Tk, H, KV, hd, qs, ks, vs, os,
                            causal, window, scale, aligned, stream);
 }
 
@@ -646,68 +659,69 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 // kernel: 0 picks from the shape, 1 the FMA kernel, 2 the tensor-core one
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
-                     int B, int S, int H, int KV, int hd, Strides qs,
+                     int B, int S, int Tk, int H, int KV, int hd, Strides qs,
                      Strides ks, Strides vs, Strides os, int causal,
                      int window, float scale, cudaStream_t stream,
                      int kernel) {
-  if (kernel == 0) kernel = use_tensor_cores(S, hd) ? 2 : 1;
+  if (kernel == 0) kernel = use_tensor_cores(S, Tk, hd) ? 2 : 1;
   if (kernel == 2)
-    return tensor::launch<T>(q, k, v, o, B, S, H, KV, hd, qs, ks, vs, os,
+    return tensor::launch<T>(q, k, v, o, B, S, Tk, H, KV, hd, qs, ks, vs, os,
                              causal, window, scale, stream);
-  return simt::launch<T>(q, k, v, o, B, S, H, KV, hd, qs, ks, vs, os, causal,
-                        window, scale, stream);
+  return simt::launch<T>(q, k, v, o, B, S, Tk, H, KV, hd, qs, ks, vs, os,
+                         causal, window, scale, stream);
 }
 
 }  // namespace
 }  // namespace repro
 
-// q/o: (B, S, H, hd), k/v: (B, S, KV, hd), each with a contiguous head dim
-// and the given (batch, seq, head) element strides; hd <= 256, H % KV == 0.
-// window <= 0 means no window. kernel: 0 picks the kernel from the shape
-// (tensor cores from S = kTensorCoreMinSeq up, kTensorCoreMinSeqWide at
-// hd > 128), 1 forces the FMA kernel, 2 the tensor-core kernel (for
-// measuring both at one shape). Returns the launch's cudaError_t.
+// q/o: (B, S, H, hd), k/v: (B, T, KV, hd), each with a contiguous head dim
+// and the given (batch, seq, head) element strides; hd <= 256, H % KV == 0;
+// causal needs T == S. window <= 0 means no window. kernel: 0 picks the
+// kernel from the shape (tensor cores from min(S, T) = kTensorCoreMinSeq
+// up, kTensorCoreMinSeqWide at hd > 128), 1 forces the FMA kernel, 2 the
+// tensor-core kernel (for measuring both at one shape). Returns the
+// launch's cudaError_t.
 extern "C" int repro_flash_attention_kernel(
     const void* q, const void* k, const void* v, void* o, int dtype, int B,
-    int S, int H, int KV, int hd, long long qsb, long long qss,
+    int S, int T, int H, int KV, int hd, long long qsb, long long qss,
     long long qsh, long long ksb, long long kss, long long ksh,
     long long vsb, long long vss, long long vsh, long long osb,
     long long oss, long long osh, int causal, int window, float scale,
     void* stream, int kernel) {
   using namespace repro;
-  if (hd > kMaxHD || hd <= 0 || KV <= 0 || H % KV != 0 || kernel < 0 ||
-      kernel > 2)
+  if (hd > kMaxHD || hd <= 0 || KV <= 0 || H % KV != 0 || S <= 0 || T <= 0 ||
+      (causal && T != S) || kernel < 0 || kernel > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh},
       os{osb, oss, osh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kF32:
-      return dispatch<float>(q, k, v, o, B, S, H, KV, hd, qs, ks, vs, os,
+      return dispatch<float>(q, k, v, o, B, S, T, H, KV, hd, qs, ks, vs, os,
                              causal, window, scale, s, kernel);
     case kBF16:
-      return dispatch<__nv_bfloat16>(q, k, v, o, B, S, H, KV, hd, qs, ks, vs,
-                                     os, causal, window, scale, s, kernel);
+      return dispatch<__nv_bfloat16>(q, k, v, o, B, S, T, H, KV, hd, qs, ks,
+                                     vs, os, causal, window, scale, s, kernel);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// 1 when repro_flash_attention runs the tensor-core kernel at (S, hd).
-extern "C" int repro_flash_uses_tensor_cores(int S, int hd) {
-  return repro::use_tensor_cores(S, hd) ? 1 : 0;
+// 1 when repro_flash_attention runs the tensor-core kernel at (S, T, hd).
+extern "C" int repro_flash_uses_tensor_cores(int S, int T, int hd) {
+  return repro::use_tensor_cores(S, T, hd) ? 1 : 0;
 }
 
 // The kernel picked from the shape: what the wrapper calls.
 extern "C" int repro_flash_attention(
     const void* q, const void* k, const void* v, void* o, int dtype, int B,
-    int S, int H, int KV, int hd, long long qsb, long long qss,
+    int S, int T, int H, int KV, int hd, long long qsb, long long qss,
     long long qsh, long long ksb, long long kss, long long ksh,
     long long vsb, long long vss, long long vsh, long long osb,
     long long oss, long long osh, int causal, int window, float scale,
     void* stream) {
-  return repro_flash_attention_kernel(q, k, v, o, dtype, B, S, H, KV, hd, qsb,
-                                      qss, qsh, ksb, kss, ksh, vsb, vss, vsh,
-                                      osb, oss, osh, causal, window, scale,
-                                      stream, 0);
+  return repro_flash_attention_kernel(q, k, v, o, dtype, B, S, T, H, KV, hd,
+                                      qsb, qss, qsh, ksb, kss, ksh, vsb, vss,
+                                      vsh, osb, oss, osh, causal, window,
+                                      scale, stream, 0);
 }

@@ -17,6 +17,10 @@ the head's product for the last position only goes to ``torch.matmul``
     serve = make_serve_step(model)
     conf, top1, cache = prefill(tokens, cache_len)       # tokens (B, S)
     conf, top1, cache = serve(top1[:, None], cache, pos)  # pos (B,)
+
+An encoder-decoder model's prefill also takes the audio frame
+embeddings (``prefill(tokens, audio_embeds=a)``, a (B, F, d)), as the JAX
+step takes ``batch["audio_embeds"]``; its serve step is the same call.
 """
 from __future__ import annotations
 
@@ -39,19 +43,24 @@ def head_bvsb(hidden, table, vocab_size: int):
 
 
 def make_prefill_step(model):
-    """``prefill_step(tokens (B, S), cache_len=None, vision_embeds=None)
-    -> (conf, top1, cache)``. ``vision_embeds`` (B, V, d) go in front of
-    the text (the JAX step's ``batch["vision_embeds"]``); the attention
-    caches hold min(cache_len or V + S, window) slots, so a caller that
-    decodes n tokens past a full-attention prompt passes cache_len >= V +
-    S + n."""
+    """``prefill_step(tokens (B, S), cache_len=None, vision_embeds=None,
+    audio_embeds=None) -> (conf, top1, cache)``. ``vision_embeds`` (B, V,
+    d) go in front of the text (the JAX step's
+    ``batch["vision_embeds"]``); ``audio_embeds`` (B, F, d) are an
+    encoder-decoder's encoder input (``batch["audio_embeds"]``). The
+    attention caches hold min(cache_len or V + S, window) slots, so a
+    caller that decodes n tokens past a full-attention prompt passes
+    cache_len >= V + S + n."""
     cfg = model.cfg
 
-    def prefill_step(tokens, cache_len=None, vision_embeds=None):
+    def prefill_step(tokens, cache_len=None, vision_embeds=None,
+                     audio_embeds=None):
+        inputs = {"vision_embeds": vision_embeds} if audio_embeds is None \
+            else {"audio_embeds": audio_embeds}
         with torch.inference_mode():
-            hidden, cache = model(tokens, vision_embeds=vision_embeds,
-                                  collect_cache=True, cache_len=cache_len,
-                                  return_hidden=True)
+            hidden, cache = model(tokens, collect_cache=True,
+                                  cache_len=cache_len, return_hidden=True,
+                                  **inputs)
             conf, top1 = head_bvsb(hidden[:, -1:, :], model.head_table,
                                    cfg.vocab_size)
         return conf, top1, cache

@@ -1,11 +1,14 @@
-"""Causal GQA self-attention and cached single-token decode.
+"""Causal GQA self-attention, cross-attention, and cached single-token
+decode of both.
 
-Every full-sequence self-attention goes through
+Every full-sequence attention (self, or an encoder-decoder's
+cross-attention of S text positions over T encoder frames) goes through
 ``kernels.ops.flash_attention`` and every decode step through
 ``kernels.ops.decode_attention``: the hand-written CUDA kernels on the
 card, their plain versions on the CPU. The JAX package reaches the same
 functions through XLA (``repro.models.attention.attention_core`` and the
-dense softmax of ``attn_decode``); the tests hold this port to both.
+dense softmax of ``attn_decode`` / ``cross_attn_decode``); the tests hold
+this port to both.
 
 Decode keeps a ring-buffer KV cache of W = min(cache_len, window) slots
 per request: the key of absolute position p lives in slot p % W.
@@ -21,9 +24,10 @@ from repro_torch.models import common
 
 class Attention(nn.Module):
     """Attention parameters, named and shaped as the JAX ``attn_init``
-    makes them: wq (d, H hd), wk/wv (d, KV hd), wo (H hd, d)."""
+    makes them: wq (d, H hd), wk/wv (d, KV hd), wo (H hd, d); the QK norms
+    where the config has them, but never for cross-attention."""
 
-    def __init__(self, cfg, *, device, dtype):
+    def __init__(self, cfg, *, device, dtype, cross=False):
         super().__init__()
         d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
         kw = dict(device=device, dtype=dtype)
@@ -31,7 +35,7 @@ class Attention(nn.Module):
         self.wk = common.param(d, kv * hd, **kw)
         self.wv = common.param(d, kv * hd, **kw)
         self.wo = common.param(h * hd, d, **kw)
-        if cfg.qk_norm:
+        if cfg.qk_norm and not cross:
             self.q_norm = common.RMSNorm(hd, **kw)
             self.k_norm = common.RMSNorm(hd, **kw)
 
@@ -49,7 +53,8 @@ def _qkv(p: Attention, x, cfg):
 
 
 def attention_core(q, k, v, *, causal=True, window=None, soft_cap=None):
-    """q: (B, S, H, hd), k/v: (B, S, KV, hd) -> (B, S, H, hd)."""
+    """q: (B, S, H, hd), k/v: (B, T, KV, hd) -> (B, S, H, hd); causal
+    needs T = S."""
     if soft_cap is not None:
         raise NotImplementedError(
             "soft-capped attention has no kernel in repro_torch yet "
@@ -67,16 +72,48 @@ def _rotate(q, k, positions, pos3, cfg):
 
 
 def self_attention(p: Attention, x, positions, cfg, *, window=None,
-                   pos3=None):
+                   pos3=None, causal=True):
     """x: (B, S, d); positions: (B, S) int; pos3: (3, B, S) M-RoPE ids or
-    None. Returns (out (B, S, d), (k, v)), k already rotated, for the
-    cache."""
+    None; ``causal`` False for an encoder's bidirectional attention.
+    Returns (out (B, S, d), (k, v)), k already rotated, for the cache."""
     q, k, v = _qkv(p, x, cfg)
     q, k = _rotate(q, k, positions, pos3, cfg)
-    out = attention_core(q, k, v, causal=True, window=window,
+    out = attention_core(q, k, v, causal=causal, window=window,
                          soft_cap=cfg.logit_soft_cap)
     b, s, _, _ = out.shape
     return out.reshape(b, s, -1) @ p.wo, (k, v)
+
+
+def cross_attention(p: Attention, x, enc_kv, cfg):
+    """Decoder cross-attention, non-causal, no RoPE. x: (B, S, d); enc_kv:
+    (k, v) each (B, T, KV, hd) from ``encode_kv``. The JAX package also
+    projects x to k and v here and drops them; only q is computed."""
+    b, s, _ = x.shape
+    q = (x @ p.wq).view(b, s, cfg.num_heads, cfg.resolved_head_dim)
+    out = attention_core(q, *enc_kv, causal=False)
+    return out.reshape(b, s, -1) @ p.wo
+
+
+def encode_kv(p: Attention, enc_out, cfg):
+    """Cross-attention K/V (B, T, KV, hd) each, from the encoder output
+    (B, T, d)."""
+    b, t, _ = enc_out.shape
+    kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    return ((enc_out @ p.wk).view(b, t, kv, hd),
+            (enc_out @ p.wv).view(b, t, kv, hd))
+
+
+def cross_attn_decode(p: Attention, x1, enc_kv, cfg):
+    """One query a request over its T encoder frames: x1 (B, 1, d); enc_kv
+    (k, v) each (B, T, KV, hd) in x1's dtype or bf16, all T slots valid
+    (the decode kernel's ring, every length T). Returns (B, 1, d)."""
+    b = x1.shape[0]
+    k, v = enc_kv
+    q = (x1[:, 0] @ p.wq).view(b, cfg.num_heads, cfg.resolved_head_dim)
+    lengths = torch.full((b,), k.shape[1], dtype=torch.int32,
+                         device=x1.device)
+    out = ops.decode_attention(q, k, v, lengths)
+    return out.reshape(b, 1, -1) @ p.wo
 
 
 # ---------------------------------------------------------------------------

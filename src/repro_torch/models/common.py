@@ -1,5 +1,5 @@
-"""Shared building blocks: init, RMSNorm, RoPE and M-RoPE, gated MLP,
-embeddings.
+"""Shared building blocks: init, RMSNorm, group norm, RoPE and M-RoPE,
+gated MLP, embeddings.
 
 Plain functions on tensors, in the JAX package's layout: activations
 (B, S, d), heads (B, S, H, hd), weights applied as ``x @ W`` with W of
@@ -81,6 +81,16 @@ def rmsnorm(scale, x, eps=1e-6):
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
     return (y * scale.float()).to(dt)
+
+
+def groupnorm(x, eps=1e-6):
+    """Headwise group norm of the xLSTM cells, x: (..., H, hd): each head
+    normalised over hd in float32, with the population variance (JAX's
+    ``jnp.var``), no scale; out in x's dtype."""
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, correction=0)
+    return ((x32 - mu) * torch.rsqrt(var + eps)).to(x.dtype)
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:

@@ -1,20 +1,22 @@
 """The decoder stack: ``attn``, ``lattn`` and ``rglru`` layers, each with a
-dense or MoE MLP sublayer, a full-sequence forward that can fill the
-decode cache (with Qwen2-VL's vision embeddings and M-RoPE positions in
-front of the text), and the cached one-token decode step.
+dense or MoE MLP sublayer, and the self-contained xLSTM ``mlstm`` and
+``slstm`` layers; a full-sequence forward that can fill the decode cache
+(with Qwen2-VL's vision embeddings and M-RoPE positions in front of the
+text), and the cached one-token decode step.
 
 Counterpart of the JAX package's ``transformer.init_params`` (the
 parameter layout), ``forward``, ``vlm_positions``, ``init_cache`` and
-``decode_step`` for the dense, MoE, hybrid (RecurrentGemma) and VLM
-configs. The JAX package keeps ``first_dense_layers`` as an unrolled
-prefix, stacks the rest into super-blocks of the layer pattern for
-``lax.scan`` and unrolls a remainder as a tail; here every layer is an
-entry of one ``nn.ModuleList`` run by a Python loop. Parameter names
+``decode_step`` for the dense, MoE, hybrid (RecurrentGemma), SSM (xLSTM)
+and VLM configs. The JAX package keeps ``first_dense_layers`` as an
+unrolled prefix, stacks the rest into super-blocks of the layer pattern
+for ``lax.scan`` and unrolls a remainder as a tail; here every layer is
+an entry of one ``nn.ModuleList`` run by a Python loop. Parameter names
 follow the JAX tree (``layers.{i}.attn.wq`` is
 ``blocks[k]["attn"]["wq"][sb]`` for layer i = prefix + sb * len(pattern)
 + k), so ``models.model.params_from_jax`` can map one onto the other. The
 cache is a list with one entry per layer: a ring KV cache for
-``attn``/``lattn``, the (h, conv tail) state for ``rglru``.
+``attn``/``lattn``, the (h, conv tail) state for ``rglru``, the float32
+cell states for ``mlstm`` / ``slstm``.
 """
 from __future__ import annotations
 
@@ -22,9 +24,12 @@ import torch
 from torch import nn
 
 from repro_torch.models import attention as attn
-from repro_torch.models import common, moe, recurrent
+from repro_torch.models import common, moe, recurrent, xlstm
 
-KINDS = ("attn", "lattn", "rglru")
+KINDS = ("attn", "lattn", "rglru", "mlstm", "slstm")
+# the self-contained xLSTM layers (no MLP sublayer): (prefill, decode)
+XLSTM_BLOCKS = {"mlstm": (xlstm.mlstm_block, xlstm.mlstm_block_decode),
+                "slstm": (xlstm.slstm_block, xlstm.slstm_block_decode)}
 
 
 def _window_for(cfg, kind):
@@ -40,7 +45,8 @@ def _cache_len_for(cfg, kind, cache_len):
 
 class DecoderLayer(nn.Module):
     """Layer ``index`` of the stack: its mixer, then the MLP sublayer where
-    the config has one, MoE from layer ``cfg.first_dense_layers`` on."""
+    the config has one, MoE from layer ``cfg.first_dense_layers`` on (an
+    xLSTM layer has none)."""
 
     def __init__(self, cfg, kind, index, *, device, dtype):
         super().__init__()
@@ -51,9 +57,13 @@ class DecoderLayer(nn.Module):
         self.norm1 = common.RMSNorm(cfg.d_model, **kw)
         if kind == "rglru":
             self.rglru = recurrent.RGLRU(cfg, **kw)
+        elif kind == "mlstm":
+            self.mlstm = xlstm.MLSTM(cfg, **kw)
+        elif kind == "slstm":
+            self.slstm = xlstm.SLSTM(cfg, **kw)
         else:
             self.attn = attn.Attention(cfg, **kw)
-        if cfg.d_ff or cfg.is_moe:
+        if (cfg.d_ff or cfg.is_moe) and kind not in XLSTM_BLOCKS:
             self.norm2 = common.RMSNorm(cfg.d_model, **kw)
             if cfg.is_moe and index >= cfg.first_dense_layers:
                 self.moe = moe.MoE(cfg, **kw)
@@ -76,6 +86,11 @@ class DecoderLayer(nn.Module):
             out, state = recurrent.rglru_block(self.rglru, h)
             if collect_cache:
                 cache = state
+        elif self.kind in XLSTM_BLOCKS:
+            out, state = XLSTM_BLOCKS[self.kind][0](
+                getattr(self, self.kind), h, cfg)
+            if collect_cache:
+                cache = state
         else:
             out, (k, v) = attn.self_attention(
                 self.attn, h, positions, cfg,
@@ -92,6 +107,9 @@ class DecoderLayer(nn.Module):
         h = self.norm1(x1, cfg.norm_eps)
         if self.kind == "rglru":
             out, cache = recurrent.rglru_decode(self.rglru, h, cache)
+        elif self.kind in XLSTM_BLOCKS:
+            out, cache = XLSTM_BLOCKS[self.kind][1](
+                getattr(self, self.kind), h, cfg, cache)
         else:
             out, cache = attn.attn_decode(self.attn, h, cache, pos, cfg,
                                           pos3=pos3)
@@ -156,18 +174,27 @@ class Model(nn.Module):
 
     def init_cache(self, batch, cache_len, dtype=torch.bfloat16):
         """An empty cache: rings of min(cache_len, window) slots and conv
-        tails in ``dtype``, zero float32 recurrent states. bfloat16 by
-        default, as the JAX package's ``init_cache``: an f32 model
-        decodes over it in f32 (the decode-attention kernel widens the
-        rings as it loads them; the first step's conv tail comes back
-        f32, as JAX's does)."""
+        tails in ``dtype``, zero float32 recurrent states (the xLSTM
+        cells' float32 whatever ``dtype`` is, the sLSTM's m at
+        -GATE_CLAMP). bfloat16 by default, as the JAX package's
+        ``init_cache``: an f32 model decodes over it in f32 (the
+        decode-attention kernel widens the rings as it loads them; the
+        first step's conv tail comes back f32, as JAX's does)."""
         cfg, dev = self.cfg, self.device
-        return [recurrent.rglru_init_state(batch, cfg.d_model, dtype, dev)
-                if layer.kind == "rglru" else
-                attn.init_kv_cache(batch, _cache_len_for(cfg, layer.kind,
-                                                         cache_len),
-                                   cfg, dtype, dev)
-                for layer in self.layers]
+        d = cfg.d_model
+
+        def entry(kind):
+            if kind == "rglru":
+                return recurrent.rglru_init_state(batch, d, dtype, dev)
+            if kind == "mlstm":
+                return xlstm.mlstm_init_state(batch, cfg.num_heads,
+                                              d // cfg.num_heads, dev)
+            if kind == "slstm":
+                return xlstm.slstm_init_state(batch, d, cfg.slstm_num_heads,
+                                              dev)
+            return attn.init_kv_cache(
+                batch, _cache_len_for(cfg, kind, cache_len), cfg, dtype, dev)
+        return [entry(layer.kind) for layer in self.layers]
 
     def decode_step(self, tokens1, cache, pos, *, return_hidden=False):
         """tokens1: (B, 1); pos: (B,) absolute position of the new token.

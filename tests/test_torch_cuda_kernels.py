@@ -243,6 +243,96 @@ def test_flash_both_kernels_match_plain(dev, b, s, h, kv, hd, window, kernel,
                                atol=FLASH_ATOL[dtype], rtol=0)
 
 
+# (B, S, T, H, KV, hd): non-causal attention of S queries over T keys:
+# seamless-m4t-medium's cross-attention (512 text positions over 1,024
+# frames), both sides of the tensor-core threshold, edges off the tiles
+CROSS_CASES = [(4, 512, 1024, 16, 16, 64), (2, 77, 300, 8, 2, 64),
+               (2, 300, 77, 8, 2, 64), (1, 16, 40, 4, 4, 32),
+               (1, 40, 16, 4, 1, 128), (2, 100, 333, 16, 1, 256)]
+
+
+@pytest.mark.parametrize("b,s,t,h,kv,hd", CROSS_CASES)
+@pytest.mark.parametrize("kernel", [0, 1, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_over_other_key_lengths(dev, b, s, t, h, kv, hd, kernel,
+                                             dtype):
+    """k/v of T != S keys, non-causal: through ``ops`` (kernel 0, the
+    shape's pick, one counted launch) and with each kernel forced, against
+    the plain version, and a second call bitwise equal."""
+    gen = torch.Generator(device=dev).manual_seed(s * 1000 + t)
+    q = torch.randn(b, s, h, hd, generator=gen, device=dev).to(dtype)
+    k = torch.randn(b, t, kv, hd, generator=gen, device=dev).to(dtype)
+    v = torch.randn(b, t, kv, hd, generator=gen, device=dev).to(dtype)
+
+    def run():
+        if kernel == 0:
+            return ops.flash_attention(q, k, v, causal=False)
+        return _flash.run_entry(_build.library().repro_flash_attention_kernel,
+                                q, k, v, causal=False, extra=(kernel,))
+    ops.reset_launch_counts()
+    out = run()
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == int(kernel == 0)
+    assert out.dtype == dtype and out.shape == q.shape
+    ref = flash_attention_plain(q, k, v, causal=False)
+    torch.testing.assert_close(out.float(), ref.float(),
+                               atol=FLASH_ATOL[dtype], rtol=0)
+    assert torch.equal(run(), out)
+
+
+def test_flash_kernel_refuses_causal_over_other_key_lengths(dev):
+    q = torch.randn(1, 64, 4, 64, device=dev)
+    k = torch.randn(1, 100, 4, 64, device=dev)
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match="causal"):
+        ops.flash_attention(q, k, k)
+    assert ops.launch_counts()["flash_attention"] == 0
+    assert not _flash.uses_tensor_cores(40, 64, 1000)
+    assert _flash.uses_tensor_cores(512, 64, 1024)
+    assert _flash.uses_tensor_cores(64, 64) == _flash.uses_tensor_cores(
+        64, 64, 64)
+
+
+@pytest.mark.parametrize("arch,inputs", [("xlstm-350m", 0),
+                                         ("seamless-m4t-medium", 48)])
+def test_reduced_xlstm_and_encdec_steps_on_the_card_match_the_cpu(dev, arch,
+                                                                  inputs):
+    """Prefill of 2 x 32 tokens (seamless over 48 audio frames) and 4
+    decode steps: the card's kernels against the CPU's plain versions on
+    the same weights, BvSB within 1e-5; and the launches: BvSB only for
+    xLSTM; flash over frames, decoder self and cross for seamless, and
+    decode for self and cross."""
+    cfg = get_config(arch).reduced()
+    cpu = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card = init_params(cfg, torch.Generator().manual_seed(0), device=dev)
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 32), generator=gen)
+    audio = torch.randn(2, inputs, cfg.d_model, generator=gen) \
+        if inputs else None
+    runs = []
+    for model in (card, cpu):
+        ops.reset_launch_counts()
+        conf, top1, cache = make_prefill_step(model)(
+            tokens.to(model.device), audio_embeds=None if audio is None
+            else audio.to(model.device))
+        serve, confs = make_serve_step(model), [conf.cpu()]
+        for i in range(4):
+            pos = torch.full((2,), 32 + i, device=model.device)
+            conf, top1, cache = serve(top1[:, None], cache, pos)
+            confs.append(conf.cpu())
+        runs.append((torch.stack(confs), ops.launch_counts()))
+    torch.testing.assert_close(runs[0][0], runs[1][0], atol=F32_CONF_ATOL,
+                               rtol=0)
+    n = cfg.num_layers
+    want = {"bvsb": 5, "flash_attention": 0, "decode_attention": 0,
+            "rglru_scan": 0}
+    if inputs:
+        want.update(flash_attention=cfg.encoder_layers + 2 * n,
+                    decode_attention=2 * n * 4)
+    assert runs[0][1] == want
+    assert runs[1][1] == dict.fromkeys(runs[1][1], 0)
+
+
 # (B, W, KV, G, hd, lengths): RecurrentGemma's decode (W 2048, one KV head
 # of 256 for 16 query heads) and a small GQA ring
 DECODE_CASES = [

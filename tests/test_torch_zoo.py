@@ -29,7 +29,8 @@ from repro.models import moe as jmoe
 from repro.models import transformer as jtransformer
 from repro.models.common import LOCAL, KeyGen
 from repro.models.model import build_model as jbuild_model
-from repro_torch.configs import ARCHS, get_config
+from repro.configs.base import INPUT_SHAPES as JAX_INPUT_SHAPES
+from repro_torch.configs import ARCHS, INPUT_SHAPES, InputShape, get_config
 from repro_torch.configs.base import ArchConfig
 from repro_torch.configs.cascade_tiers import TIERS
 from repro_torch.launch.distributed import make_prefill_step, make_serve_step
@@ -111,8 +112,7 @@ def _as_port(jcfg):
 
 
 def test_zoo_configs_are_the_jax_packages():
-    assert set(ARCHS) == set(list_archs()) - {"seamless-m4t-medium",
-                                              "xlstm-350m"}
+    assert set(ARCHS) == set(list_archs())
     for name in ARCHS:
         assert dataclasses.asdict(get_config(name)) == \
             dataclasses.asdict(jget_config(name)), name
@@ -120,10 +120,17 @@ def test_zoo_configs_are_the_jax_packages():
             dataclasses.asdict(jget_config(name).reduced()), name
 
 
+def test_input_shapes_are_the_jax_packages():
+    assert INPUT_SHAPES == {k: InputShape(**dataclasses.asdict(v))
+                            for k, v in JAX_INPUT_SHAPES.items()}
+    assert INPUT_SHAPES["long_500k"] == InputShape("long_500k", 524_288, 1,
+                                                   "decode")
+
+
 @pytest.mark.parametrize("name", list_archs() + sorted(jtiers.TIERS))
 def test_param_counts_equal_jax(name):
-    """Every arch of the JAX package (the unported two through a copy of
-    their config) and every tier, full size and reduced."""
+    """Every arch of the JAX package and every tier, full size and reduced
+    (through a copy of the JAX config, and the port's own)."""
     jcfg = jget_config(name)
     for j in (jcfg, jcfg.reduced()):
         cfg = _as_port(j)
