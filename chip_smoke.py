@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py        # from the repository root, one card
     python3 chip_smoke.py zoo    # phases 1-3's zoo part, 9 and 10 alone
+    python3 chip_smoke.py train  # phases 1-3's training part and 11 alone
 
 Phases, each printing its own lines; any failure raises, and the script
 then exits non-zero without the final result line:
@@ -29,7 +30,18 @@ then exits non-zero without the final result line:
    the tensor-core rate beside its FP32 CUDA-core bound, the threshold
    sweep of the two flash kernels, and BvSB cut into chunks, decode
    attention into splits and the scan's ring into (steps, stages),
-   forced, around the plans' choices;
+   forced, around the plans' choices. The training part: flash under
+   autograd (FlashAttentionFn) at each training path's attention and at
+   deepseek's and seamless's forms, f32 and bf16: the forward's row
+   log-sum-exp against the plain one, dq / dk / dv against
+   ``flash_attention_bwd_plain`` on the same inputs (max |err| over max
+   |ref|: 1e-4 f32, 2e-2 bf16), a second backward bitwise equal; the
+   scan's backward (RGLRUScanFn) bit for bit against its plain reverse
+   loop, f32 and bf16, with and without h0; BvSB and decode attention
+   under grad raising; the backward kernels' times beside their bounds
+   (flash: 2.5 times the forward's products at the tensor-core and the
+   FP32 rates; the scan: 5 B S D 4 bytes), plain versions and SDPA's
+   backward through autograd;
 4. cascade path: the live cascade — 16 device clients on tier-low, a
    server engine hosting tier-server-fast and tier-server-heavy with
    model switching, the MultiTASC++ scheduler — through ``run_cascade``,
@@ -120,15 +132,35 @@ then exits non-zero without the final result line:
    tokens, 4 steps each: BvSB within 1e-5, top-1, a second card prefill
    bitwise equal, xLSTM's states after the prefill within 1e-4
    relative;
-11. the kernels line: one JSON object describing every ported kernel;
-12. the result line: {"ok": true, "device": {...}}.
+11. training, with the launch counters read around each path: (a) the
+   cascade pair of examples/serve_cascade.py, tier-server-fast trained
+   60 steps through ``trainer.train`` on the classification stream
+   (batch 64, the label at the last position), then tier-low distilled
+   from it 60 steps (``make_distill_step``): the loss and kd fall; (b)
+   granite-moe-1b-a400m at full width and depth (1.33 B parameters)
+   through ``launch.distributed.make_train_step`` with remat, 4 steps of
+   4 x 2,048 SyntheticLM tokens: finite losses, the first CE within 0.25
+   of what random weights give (ln V + var(logit) / 2), 48 flash forward
+   (with the recompute) and 24 backward launches a step; (c)
+   recurrentgemma-9b at full width over one super-block (rglru, rglru,
+   lattn; 1.64 B), 3 steps of 2 x 3,000 tokens (the 2,048 window masks):
+   4 scan forward, 2 scan backward, 2 flash forward and 1 backward a
+   step; each at most 70 GB peak, step ms, tokens/s and a profiled
+   step's idle share; then each of (b) at 2 layers and (c) at its
+   super-block on 1 x 256 tokens against the CPU on the same weights:
+   the loss within 1e-5 relative, each parameter's gradient within 1e-4
+   of its max |g|, the grad norm within 1e-4 relative, and on the card
+   remat on and off bitwise equal;
+12. the kernels line: one JSON object describing every ported kernel;
+13. the result line: {"ok": true, "device": {...}}.
 
 ``zoo`` runs phases 1 and 2, phase 3's BvSB, flash and decode checks
 and its zoo timing rows, the MoE dispatch's scan of its one-hot in two
 forms in turns (JAX's ``cumsum`` down the (N k, E) one-hot against
 ``moe.dispatch`` along the transposed one-hot's contiguous dim, at
 granite's and deepseek's prefill: the same rows, device ms), then phases
-9 and 10, and prints no result line.
+9 and 10, and prints no result line. ``train`` runs phases 1 and 2,
+phase 3's training part, then phase 11, and prints no result line.
 
 ``throughput`` of the cascade is a virtual-clock figure from the paper's
 latency profiles, not a measurement of the card.
@@ -179,13 +211,15 @@ from repro_torch.kernels import rglru_scan as _rglru  # noqa: E402
 from repro_torch.kernels.bvsb import bvsb_plain  # noqa: E402
 from repro_torch.kernels.decode_attention import \
     decode_attention_plain  # noqa: E402
-from repro_torch.kernels.flash_attention import \
-    flash_attention_plain  # noqa: E402
-from repro_torch.kernels.rglru_scan import rglru_scan_plain  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    attention_lse_plain, flash_attention_bwd_plain, flash_attention_plain)
+from repro_torch.kernels.rglru_scan import (  # noqa: E402
+    rglru_scan_bwd_plain, rglru_scan_plain)
 from repro_torch.launch.distributed import (PAD_LOGIT,  # noqa: E402
-                                            head_bvsb,
+                                            head_bvsb, make_loss_fn,
                                             make_prefill_step,
-                                            make_serve_step)
+                                            make_serve_step,
+                                            make_train_step)
 from repro_torch.launch.mesh import make_sweep_mesh  # noqa: E402
 from repro_torch.models import attention, common, moe, xlstm  # noqa: E402
 from repro_torch.models.model import build_model, init_params  # noqa: E402
@@ -198,6 +232,14 @@ from repro_torch.serving.replay import (SERVING_TOL,  # noqa: E402
 from repro_torch.serving.transport import run_transport  # noqa: E402
 from repro_torch.sim import jaxsim, synthetic  # noqa: E402
 from repro_torch.sim.events import make_scheduler  # noqa: E402
+from repro_torch.training import optimizer as opt  # noqa: E402
+from repro_torch.training.data import (DataConfig,  # noqa: E402
+                                       SyntheticLM, classification_stream)
+from repro_torch.training.distill import (DistillConfig,  # noqa: E402
+                                          make_distill_step)
+from repro_torch.training.trainer import (TrainConfig,  # noqa: E402
+                                          grads_of, init_model, to_device,
+                                          train, trainable)
 
 N_DEVICES, SAMPLES, SEQ, VOCAB = 16, 128, 16, 2048
 SLO, WINDOW, THRESHOLD = 0.15, 0.25, 0.5
@@ -250,6 +292,37 @@ SEAM_CHECK_LAYERS, SEAM_CHECK_B, SEAM_CHECK_FRAMES, SEAM_CHECK_S = (
     2, 2, 48, 32)
 ZOO10_CHECK_STEPS = 4
 STATE_RTOL = 1e-4   # xLSTM states, card vs CPU: |card - cpu| / max(|cpu|, 1)
+
+# phase 11, training. (a) the cascade pair of examples/serve_cascade.py:
+# tier-server-fast trained, then tier-low distilled from it, PAIR_STEPS
+# steps each on batches of PAIR_BS from classification_stream(PAIR_N, SEQ,
+# PAIR_VOCAB, PAIR_CLASSES, 0), the label at the last position
+PAIR_STEPS, PAIR_BS, PAIR_N, PAIR_VOCAB, PAIR_CLASSES = 60, 64, 2048, 256, 8
+# (b) granite-moe-1b-a400m at full width and depth through
+# launch.distributed.make_train_step (remat), B x S SyntheticLM tokens
+GRANITE_ARCH, GRANITE_B, GRANITE_S, GRANITE_STEPS = (
+    "granite-moe-1b-a400m", 4, 2048, 4)
+# (c) RecurrentGemma-9B at full width over one super-block (its full depth
+# with AdamW would need ~137 GB)
+RGT_LAYERS, RGT_B, RGT_S, RGT_STEPS = 3, 2, 3000, 3
+TRAIN_PEAK_GB = 70       # a training path's peak device memory, at most
+# the first step's CE of random weights: ln V + var(logit) / 2, a logit
+# being a unit-RMS hidden state (the final norm) against a head row of
+# d weights drawn from N(0, 1) cut at +-2 (variance TRUNC_VAR) times the
+# init scale; held within FIRST_CE_ATOL
+TRUNC_VAR = 0.7737413
+FIRST_CE_ATOL = 0.25
+# the card against the CPU at full width, cut depth, B x S tokens
+TRAIN_CHECK_LAYERS = {GRANITE_ARCH: 2, RG_ARCH: 3}
+TRAIN_CHECK_B, TRAIN_CHECK_S = 1, 256
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_TOL = 1e-4    # a leaf's max |card - cpu| over its max |cpu|
+TRAIN_GNORM_RTOL = 1e-4
+# the backward kernels against their plain versions: max |err| over max
+# |ref| (f32 sums in another order; bf16 outputs rounded once each), and
+# the forward's row log-sum-exp
+FLASH_BWD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+LSE_ATOL = 1e-4
 
 
 def card_rates(name: str):
@@ -322,7 +395,9 @@ def time_ms(fn, iters=25, warmup=10, spin=True):
 
 
 PTXAS_KERNELS = ("flash_tc", "flash_fma", "decode_partial", "decode_merge",
-                 "bvsb_chunk", "bvsb_merge", "rglru_ring", "rglru_elem")
+                 "bvsb_chunk", "bvsb_merge", "rglru_ring", "rglru_elem",
+                 "flash_bwd_prep", "flash_bwd_dkdv", "flash_bwd_dq",
+                 "rglru_bwd")
 
 
 def print_ptxas(log: str):
@@ -772,6 +847,150 @@ def check_rglru(dev):
                                          f"h0={with_h0}")
 
 
+def _rel(got, ref) -> float:
+    """max |got - ref| over max |ref|."""
+    return max_err(got, ref) / float(ref.float().abs().max())
+
+
+def flash_bwd_cases():
+    """(name, B, S, T or None, H, KV, hd, causal, window): the training
+    paths' attention (the cascade pair at S = 16 on the CUDA-core forward,
+    granite-moe-1b-a400m, RecurrentGemma's window), deepseek-moe-16b's (G
+    = 1, hd 128) and seamless-m4t-medium's encoder (non-causal T = S) and
+    cross-attention (T != S)."""
+    def heads(name):
+        cfg = get_config(name)
+        return cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    rg = get_config(RG_ARCH)
+    return [("tier-server-fast", PAIR_BS, SEQ, None,
+             *heads("tier-server-fast"), True, None),
+            ("tier-low", PAIR_BS, SEQ, None, *heads("tier-low"), True, None),
+            (GRANITE_ARCH, GRANITE_B, GRANITE_S, None, *heads(GRANITE_ARCH),
+             True, None),
+            (RG_ARCH, RGT_B, RGT_S, None, *heads(RG_ARCH), True,
+             rg.local_attn_window),
+            ("deepseek-moe-16b", ZOO_B, ZOO_S, None,
+             *heads("deepseek-moe-16b"), True, None),
+            (f"{SEAM_ARCH} encoder", SEAM_B, SEAM_FRAMES, None,
+             *heads(SEAM_ARCH), False, None),
+            (f"{SEAM_ARCH} cross", SEAM_B, SEAM_S, SEAM_FRAMES,
+             *heads(SEAM_ARCH), False, None)]
+
+
+def flash_bwd_inputs(dev, b, s, t, h, kv, hd, dt, seed=0):
+    """q, k, v as ``qkv`` makes them and an output gradient dO (B, S, H,
+    hd), in ``dt``."""
+    q, k, v = qkv(dev, b, s, h, kv, hd, dt, seed=seed, t=t)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    return q, k, v, torch.randn(b, s, h, hd, generator=gen,
+                                device=dev).to(dt)
+
+
+def check_flash_bwd(dev):
+    """Flash attention under autograd at each case, f32 and bf16: one
+    forward (FlashAttentionFn) and two backward launches, the forward's
+    lse against the plain log-sum-exp, dq / dk / dv against
+    ``flash_attention_bwd_plain`` on the same (q, k, v, o, lse, dO), the
+    second backward bitwise equal to the first."""
+    for name, b, s, t, h, kv, hd, causal, window in flash_bwd_cases():
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v, do = flash_bwd_inputs(dev, b, s, t, h, kv, hd, dt)
+            for x in (q, k, v):
+                x.requires_grad_()
+            ops.reset_launch_counts()
+            out = ops.flash_attention(q, k, v, causal=causal, window=window)
+            grads = torch.autograd.grad(out, (q, k, v), do,
+                                        retain_graph=True)
+            again = torch.autograd.grad(out, (q, k, v), do)
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            with torch.no_grad():
+                _, lse = _flash.run_entry(
+                    _build.library().repro_flash_attention, q, k, v,
+                    causal=causal, window=window, with_lse=True)
+                lse_err = max_err(lse, attention_lse_plain(
+                    q, k, causal=causal, window=window))
+                ref = flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                                causal=causal, window=window)
+            errs = [_rel(g, r) for g, r in zip(grads, ref)]
+            same = all(torch.equal(a, g) for a, g in zip(again, grads))
+            shape = (b, s, h, kv, hd) if t is None else (b, s, t, h, kv, hd)
+            print(f"flash_attention_bwd {name} {shape} causal={causal} "
+                  f"window={window} {str(dt)[6:]}: max|err|/max|ref| dq "
+                  f"{errs[0]:.3g} dk {errs[1]:.3g} dv {errs[2]:.3g} (tol "
+                  f"{FLASH_BWD_RTOL[dt]:g}), lse max|err| {lse_err:.3g} "
+                  f"(atol {LSE_ATOL:g}), second backward "
+                  f"{'bitwise equal' if same else 'DIFFERS'}, launches "
+                  f"forward {counts['flash_attention']} backward "
+                  f"{counts['flash_attention_bwd']}")
+            if not (max(errs) <= FLASH_BWD_RTOL[dt] and lse_err <= LSE_ATOL
+                    and same and counts["flash_attention"] == 1
+                    and counts["flash_attention_bwd"] == 2
+                    and all(g.dtype == dt for g in grads)):
+                raise AssertionError(f"flash_attention backward kernel "
+                                     f"disagrees at {name} {dt}")
+            del q, k, v, do, out, grads, again, ref, lse
+            torch.cuda.empty_cache()
+
+
+def check_rglru_bwd(dev):
+    """The scan under autograd (RGLRUScanFn): one forward and one backward
+    launch, da / du / dh0 bit for bit the plain reverse loop, in f32 and
+    bf16, with and without h0, at RecurrentGemma's training shape and
+    ragged ones."""
+    for dt in (torch.float32, torch.bfloat16):
+        for with_h0 in (False, True):
+            for b, s, d in ((RGT_B, RGT_S, 4096), (3, 129, 300), (1, 1, 32)):
+                a, u, h0 = rglru_inputs(dev, b, s, d, with_h0, seed=s + d)
+                a, u = a.to(dt).requires_grad_(), u.to(dt).requires_grad_()
+                ins = (a, u) + ((h0.requires_grad_(),) if with_h0 else ())
+                dh = torch.randn(b, s, d, device=dev)
+                ops.reset_launch_counts()
+                h = ops.rglru_scan(a, u, h0)
+                grads = torch.autograd.grad(h, ins, dh)
+                torch.cuda.synchronize()
+                counts = ops.launch_counts()
+                with torch.no_grad():
+                    da, du, dh0 = rglru_scan_bwd_plain(a, h, dh, h0)
+                same = torch.equal(grads[0], da.to(dt)) and torch.equal(
+                    grads[1], du.to(dt)) and (
+                        not with_h0 or torch.equal(grads[2], dh0))
+                print(f"rglru_scan_bwd ({b},{s},{d}) {str(dt)[6:]} "
+                      f"h0={with_h0}: {'bitwise equal' if same else 'DIFFERS'}"
+                      f", launches forward {counts['rglru_scan']} backward "
+                      f"{counts['rglru_scan_bwd']}")
+                if not (same and counts["rglru_scan"] == 1
+                        and counts["rglru_scan_bwd"] == 1):
+                    raise AssertionError(f"rglru_scan backward kernel differs "
+                                         f"from its plain loop at ({b},{s},"
+                                         f"{d}) {dt} h0={with_h0}")
+
+
+def check_grad_guard(dev):
+    """BvSB and decode attention have no backward: a CUDA call that
+    autograd would record raises, and launches nothing."""
+    x = torch.randn(4, 2048, device=dev, requires_grad=True)
+    q = torch.randn(2, 8, 64, device=dev, requires_grad=True)
+    kc = torch.randn(2, 64, 2, 64, device=dev)
+    lengths = torch.tensor([64, 10], dtype=torch.int32, device=dev)
+    ops.reset_launch_counts()
+    for name, call in (("bvsb", lambda: ops.bvsb(x)),
+                       ("decode_attention",
+                        lambda: ops.decode_attention(q, kc, kc, lengths))):
+        try:
+            call()
+        except RuntimeError as err:
+            if "no backward" not in str(err):
+                raise
+        else:
+            raise AssertionError(f"{name} under grad returned a detached "
+                                 "output")
+    if any(ops.launch_counts().values()):
+        raise AssertionError("a refused call launched a kernel")
+    print("grad guard: bvsb and decode_attention under grad raise, nothing "
+          "launched")
+
+
 def bvsb_bound_ms(b, v, elt, bw, flops):
     moved = b * v * elt + b * 8              # logits in, conf + top1 out
     ops_ = 4 * b * v                         # compare, subtract, exp, add
@@ -784,6 +1003,39 @@ def _bound(moved, ops_, bw, flops):
         "bytes" if moved / bw >= ops_ / flops else "operations"
 
 
+def flash_pairs(s, t, causal=True, window=None):
+    """(query, key) pairs attention keeps: min(i + 1, window) keys for
+    query i when causal, every one of S x T otherwise."""
+    w = window or s
+    if not causal:
+        return s * t
+    if s > w:
+        return w * (w + 1) // 2 + (s - w) * w
+    return s * (s + 1) // 2
+
+
+def flash_bwd_bounds_ms(q, k, bw, flops, tc, window=None, causal=True):
+    """(the bound at the tensor-core rate of the inputs' type: TF32 for
+    f32, one product per FMA pair; the bound at the FP32 CUDA-core rate)
+    of the backward: 2.5 times the forward's products (the recomputed
+    q.k, dO.v, and the three products of dV, dK and dQ, against the
+    forward's two), over q, k, v, o, dO and lse read and dq, dk, dv
+    written once."""
+    b, s, h, hd = q.shape
+    pairs = flash_pairs(s, k.shape[1], causal, window)
+    moved = (4 * q.numel() + 4 * k.numel()) * q.element_size() + b * h * s * 4
+    ops_ = 2.5 * 4 * hd * pairs * b * h
+    return (_bound(moved, ops_, bw, tc[q.dtype]),
+            _bound(moved, ops_, bw, flops))
+
+
+def rglru_bwd_bound_ms(a, bw, flops):
+    """a read in its type; h and dh read, da and du written in f32 (5 B S D
+    4 bytes in f32); a multiply, an add and a multiply per element."""
+    return _bound(a.numel() * (a.element_size() + 16), 3 * a.numel(), bw,
+                  flops)
+
+
 def flash_bounds_ms(q, k, bw, flops, tc, window=None, causal=True):
     """The bound at the rate of the kernel the shape picks (on tensor
     cores f32 is 3xTF32, three TF32 products per FMA pair, and bf16 one
@@ -791,15 +1043,7 @@ def flash_bounds_ms(q, k, bw, flops, tc, window=None, causal=True):
     rate. Non-causal (no window): every (query, key) pair, S x T."""
     b, s, h, hd = q.shape
     t = k.shape[1]
-    # (query, key) pairs causal attention keeps: min(i + 1, window) keys
-    # for query i
-    w = window or s
-    if not causal:
-        pairs = s * t
-    elif s > w:
-        pairs = w * (w + 1) // 2 + (s - w) * w
-    else:
-        pairs = s * (s + 1) // 2
+    pairs = flash_pairs(s, t, causal, window)
     moved = (2 * q.numel() + 2 * k.numel()) * q.element_size()
     ops_ = 4 * hd * pairs * b * h            # q.k and p.v, 2 FLOP per FMA
     fp32 = _bound(moved, ops_, bw, flops)
@@ -1104,6 +1348,72 @@ class Timer:
             (b, s, h, kv, hd) if t is None else (b, s, t, h, kv, hd),
             bound_fp32=fp32)
 
+    def flash_bwd(self, name, b, s, t, h, kv, hd, causal, window):
+        """The backward kernels (``run_bwd_entry``: D, dK/dV, dQ) at a
+        training path's shape, f32, on the forward kernel's output and lse;
+        the plain version the FA2 formulas in PyTorch; the library SDPA's
+        backward through autograd (its forward run once outside the
+        timing)."""
+        key = ("flash_attention_bwd", f"{name} B={b}")
+        if key in self.rows:
+            return self.rows[key]
+        q, k, v, do = flash_bwd_inputs(self.dev, b, s, t, h, kv, hd,
+                                       torch.float32)
+        out, lse = _flash.run_entry(_build.library().repro_flash_attention,
+                                    q, k, v, causal=causal, window=window,
+                                    with_lse=True)
+
+        def run():
+            return _flash.run_bwd_entry(q, k, v, out, lse, do, causal=causal,
+                                        window=window)
+
+        def plain():
+            return flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                             causal=causal, window=window)
+        err = max(_rel(g, r) for g, r in zip(run(), plain()))
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                      for x in (q, k, v))
+        if window is None:
+            o_t = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                 enable_gqa=kv != h)
+        else:
+            i = torch.arange(s, device=self.dev)
+            mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :]
+                                                 < window)
+            o_t = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                 enable_gqa=kv != h)
+        do_t = do.transpose(1, 2).contiguous()
+        bound, fp32 = flash_bwd_bounds_ms(q, k, self.bw, self.flops, self.tc,
+                                          window, causal)
+        return self._row(
+            key, run, plain,
+            lambda: torch.autograd.grad(o_t, (qt, kt, vt), do_t,
+                                        retain_graph=True),
+            bound, err, FLASH_BWD_RTOL[torch.float32],
+            (b, s, h, kv, hd) if t is None else (b, s, t, h, kv, hd),
+            bound_fp32=fp32)
+
+    def rglru_bwd(self, b=RGT_B, s=RGT_S, d=4096, dt=torch.float32):
+        """The scan's backward at RecurrentGemma's training shape, bit for
+        bit against the plain reverse loop; no PyTorch call computes it."""
+        name = "f32" if dt == torch.float32 else "bf16"
+        key = ("rglru_scan_bwd", f"{RG_ARCH} B={b}" + (" bf16" if name ==
+                                                       "bf16" else ""))
+        a, u, h0 = rglru_inputs(self.dev, b, s, d, True, seed=3)
+        a, u = a.to(dt), u.to(dt)
+        h = _rglru.run_entry(a, u, h0)
+        dh = torch.randn(b, s, d, device=self.dev)
+        got, ref = _rglru.run_bwd_entry(a, h, dh, h0), \
+            rglru_scan_bwd_plain(a, h, dh, h0)
+        if not all(torch.equal(x, y) for x, y in zip(got, ref)):
+            raise AssertionError(f"rglru_scan_bwd {key[1]}: differs from its "
+                                 "plain version")
+        return self._row(
+            key, lambda: _rglru.run_bwd_entry(a, h, dh, h0),
+            lambda: rglru_scan_bwd_plain(a, h, dh, h0), None,
+            rglru_bwd_bound_ms(a, self.bw, self.flops), 0.0, 0.0, (b, s, d),
+            plain_spin=False, dt=name)
+
     def flash_threshold(self, seqs=(16, 32, 40, 48, 64, 80, 96, 128, 256)):
         """Device us of both flash kernels, forced, over S at the tiers'
         shapes and RecurrentGemma's heads (f32): where the tensor-core
@@ -1256,8 +1566,9 @@ def main_path(dev):
                 for r in engine.records),
         "bvsb launches": counts["bvsb"] == n + len(engine.records),
         "flash_attention launches": counts["flash_attention"] == want_flash,
-        "no decode or scan launches":
-            counts["decode_attention"] == counts["rglru_scan"] == 0,
+        "no decode, scan or backward launches":
+            counts["decode_attention"] == counts["rglru_scan"] == 0
+            and counts["flash_attention_bwd"] == counts["rglru_scan_bwd"] == 0,
         "finite confidences": bool(np.isfinite(confs).all())
         and len(confs) == n + answered,
         "some samples kept local, some forwarded":
@@ -1303,7 +1614,8 @@ def rg_expected_launches(cfg, steps):
     kinds = cfg.pattern
     return {"bvsb": 1 + steps, "flash_attention": kinds.count("lattn"),
             "rglru_scan": kinds.count("rglru"),
-            "decode_attention": kinds.count("lattn") * steps}
+            "decode_attention": kinds.count("lattn") * steps,
+            "flash_attention_bwd": 0, "rglru_scan_bwd": 0}
 
 
 def ring_keys(model, tokens, layer):
@@ -1314,7 +1626,7 @@ def ring_keys(model, tokens, layer):
         x = common.embed_apply(model.embed.table, tokens[:1])
         positions = torch.arange(tokens.shape[1], device=x.device)[None]
         for below in model.layers[:layer]:
-            x, _ = below(x, positions, cfg)
+            x = below(x, positions, cfg)[0]
         lyr = model.layers[layer]
         _, k, _ = attention._qkv(lyr.attn, lyr.norm1(x, cfg.norm_eps), cfg)
         return common.apply_rope(k, positions, cfg.rope_theta)[0]
@@ -1726,7 +2038,8 @@ def simulator_path(dev):
               f"{switched.tolist()}; peak device memory {peak_gb:.3f} GB; "
               f"launches {counts}; {jaxsim.GRAPH_TRIPS} trips a graph")
         if counts != {"bvsb": 1, "flash_attention": 0,
-                      "decode_attention": 0, "rglru_scan": 0}:
+                      "decode_attention": 0, "rglru_scan": 0,
+                      "flash_attention_bwd": 0, "rglru_scan_bwd": 0}:
             raise AssertionError(f"simulator path launches {counts}")
         t0 = time.perf_counter()
         sim_widths(dev)
@@ -2268,7 +2581,8 @@ def zoo_expected_launches(cfg, steps):
     launch an attention layer a step, one BvSB launch a call."""
     n = sum(kind in ("attn", "lattn") for kind in cfg.pattern)
     return {"bvsb": 1 + steps, "flash_attention": n,
-            "decode_attention": n * steps, "rglru_scan": 0}
+            "decode_attention": n * steps, "rglru_scan": 0,
+            "flash_attention_bwd": 0, "rglru_scan_bwd": 0}
 
 
 def zoo_inputs(cfg, dev, b, n_text, n_embeds, seed):
@@ -2568,7 +2882,7 @@ def zoo10_expected_launches(cfg, steps):
     layer (self and cross) at the prefill, two decode launches a decoder
     layer a step (self and cross), one BvSB launch a call."""
     want = {"bvsb": 1 + steps, "flash_attention": 0, "decode_attention": 0,
-            "rglru_scan": 0}
+            "rglru_scan": 0, "flash_attention_bwd": 0, "rglru_scan_bwd": 0}
     if cfg.is_encoder_decoder:
         want.update(flash_attention=cfg.encoder_layers + 2 * cfg.num_layers,
                     decode_attention=2 * cfg.num_layers * steps)
@@ -2860,9 +3174,290 @@ def zoo_only(dev, timer):
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 11: training
+# ---------------------------------------------------------------------------
+class PairData:
+    """examples/serve_cascade.py's task: batches of PAIR_BS sequences from
+    the classification stream, the label at the last position (-100
+    elsewhere)."""
+
+    def __init__(self):
+        self.toks, self.labels = classification_stream(
+            PAIR_N, SEQ, PAIR_VOCAB, PAIR_CLASSES, 0)
+
+    def batch_at(self, step, bs=PAIR_BS):
+        i = (step * bs) % (len(self.toks) - bs)
+        lbl = np.full((bs, SEQ), -100, np.int32)
+        lbl[:, -1] = self.labels[i:i + bs]
+        return {"tokens": self.toks[i:i + bs], "labels": lbl}
+
+
+def _attn_layers(cfg):
+    return sum(kind in ("attn", "lattn") for kind in cfg.pattern)
+
+
+def train_expected_launches(cfg, steps, remat):
+    """A training step launches one flash forward an attention layer (two
+    with remat: the forward and its recompute) and one flash backward; an
+    RG-LRU layer one scan forward (two with remat) and one scan backward;
+    nothing else."""
+    n, r = _attn_layers(cfg), cfg.pattern.count("rglru")
+    fwd = 2 if remat else 1
+    return {"bvsb": 0, "decode_attention": 0,
+            "flash_attention": fwd * n * steps, "flash_attention_bwd": n * steps,
+            "rglru_scan": fwd * r * steps, "rglru_scan_bwd": r * steps}
+
+
+def _add_counts(total, counts):
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+def pair_path(dev):
+    """(a): tier-server-fast trained PAIR_STEPS steps through
+    ``trainer.train`` (remat off, as the example), then tier-low distilled
+    from it through ``make_distill_step``. The heavy model's loss falls,
+    the light model's kd falls, and the launches are the expected ones
+    (the teacher's forward under no_grad: the forward kernel alone)."""
+    heavy_cfg = get_config("tier-server-fast").with_(vocab_size=PAIR_VOCAB)
+    light_cfg = get_config("tier-low").with_(vocab_size=PAIR_VOCAB)
+    data = PairData()
+    heavy = init_model(heavy_cfg, 0, device=dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    _, _, hist = train(heavy, data, PAIR_STEPS, TrainConfig(
+        adamw=opt.AdamWConfig(lr=3e-3, total_steps=PAIR_STEPS,
+                              warmup_steps=10),
+        remat=False, log_every=20), verbose=False)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    heavy_counts = ops.launch_counts()
+
+    light = init_model(light_cfg, 7, device=dev)
+    step = make_distill_step(light, heavy, DistillConfig())
+    state = opt.init(trainable(light))
+    ops.reset_launch_counts()
+    kds = []
+    t0 = time.perf_counter()
+    for i in range(PAIR_STEPS):
+        state, m = step(state, data.batch_at(i))
+        kds.append(float(m["kd"]))
+    distill_s = time.perf_counter() - t0
+    distill_counts = ops.launch_counts()
+
+    with torch.no_grad():
+        batch = to_device(data.batch_at(0, bs=512), dev)
+        pred = heavy(batch["tokens"])[0][:, -1, :PAIR_VOCAB].argmax(-1)
+        acc = float((pred == batch["labels"][:, -1]).float().mean())
+    want_heavy = train_expected_launches(heavy_cfg, PAIR_STEPS, False)
+    want_distill = train_expected_launches(light_cfg, PAIR_STEPS, False)
+    want_distill["flash_attention"] += _attn_layers(heavy_cfg) * PAIR_STEPS
+    losses = [r["loss"] for r in hist]
+    trail = " -> ".join("%.4f" % x for x in losses)
+    print(f"training (a) tier-server-fast: {PAIR_STEPS} steps of "
+          f"{PAIR_BS} x {SEQ}, loss {trail}"
+          f", {train_s * 1e3 / PAIR_STEPS:.2f} ms a step, accuracy on 512 "
+          f"training samples {acc:.3f}; launches {heavy_counts}")
+    print(f"training (a) tier-low distilled: kd {kds[0]:.4f} -> "
+          f"{kds[-1]:.4f} (mean of the first / last 5: "
+          f"{np.mean(kds[:5]):.4f} / {np.mean(kds[-5:]):.4f}), "
+          f"{distill_s * 1e3 / PAIR_STEPS:.2f} ms a step; launches "
+          f"{distill_counts}")
+    checks = {
+        "heavy loss falls": losses[-1] < losses[0],
+        "light kd falls": np.mean(kds[-5:]) < np.mean(kds[:5]),
+        "finite": bool(np.isfinite(losses).all() and np.isfinite(kds).all()),
+        "heavy launches": heavy_counts == want_heavy,
+        "distill launches": distill_counts == want_distill,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"training (a) checks failed: {failed}")
+    return _add_counts(dict(heavy_counts), distill_counts), dict(
+        step_ms=train_s * 1e3 / PAIR_STEPS,
+        distill_ms=distill_s * 1e3 / PAIR_STEPS, loss=losses, kd=kds)
+
+
+def lm_train_path(dev, tag, cfg, b, s, steps, seed):
+    """``steps`` steps of ``launch.distributed.make_train_step`` (remat) on
+    ``cfg`` at full width, B x S tokens of ``SyntheticLM``, weights drawn
+    on the card: finite losses, the first near ln(vocab), the expected
+    launches, peak memory at most TRAIN_PEAK_GB; then a profiled step for
+    the device's idle share."""
+    t0 = time.perf_counter()
+    model = init_model(cfg, seed, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    t0 = time.perf_counter()
+    data = SyntheticLM(DataConfig(cfg.vocab_size, s, b, seed=seed),
+                       device=dev)
+    batches = [data.batch_at(i) for i in range(steps)]
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t0
+    step = make_train_step(model, remat=True, adamw=opt.AdamWConfig(
+        warmup_steps=2, total_steps=steps))
+    state = opt.init(trainable(model))
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    walls, rows = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        rows.append({k: float(v) for k, v in m.items()})
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = train_expected_launches(cfg, steps, True)
+    step_s = float(np.mean(walls[1:])) if steps > 1 else walls[0]
+    from torch.profiler import ProfilerActivity, profile
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(state, batches[0])
+        torch.cuda.synchronize()
+    prof_s = time.perf_counter() - t0
+    busy, launches, top = _top_kernels(prof)
+    ln_v = float(np.log(cfg.vocab_size))
+    first_ce = ln_v + cfg.init_scale ** 2 * TRUNC_VAR * cfg.d_model / 2
+    losses = ", ".join("%.4f" % r["loss"] for r in rows)
+    norms = ", ".join("%.4g" % r["grad_norm"] for r in rows)
+    ms = ", ".join("%.1f" % (w * 1e3) for w in walls)
+    print(f"training ({tag}) {cfg.name} ({cfg.num_layers} layers, {n_params} "
+          f"parameters): init {init_s:.3f} s, {steps} SyntheticLM batches of "
+          f"{b} x {s} in {data_s:.3f} s; losses {losses} (ce "
+          f"{rows[0]['ce']:.4f} first, ln V {ln_v:.4f}, random weights' "
+          f"{first_ce:.4f}; aux "
+          f"{rows[0]['aux']:.4g}); grad norms {norms}; steps {ms} ms, "
+          f"{b * s / step_s:.1f} tokens/s; peak {peak_gb:.3f} GB; launches "
+          f"{counts}")
+    print(f"training ({tag}) device time (profiled step): {busy:.4f} s busy "
+          f"over {step_s:.4f} s of unprofiled wall (a step's mean), idle "
+          f"share {1 - busy / step_s:.4f}; the profiled step's own wall "
+          f"{prof_s:.4f} s; {launches} kernel launches")
+    for e in top:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  "
+              f"{e.key[:90]}")
+    checks = {
+        "finite": all(np.isfinite(list(r.values())).all() for r in rows),
+        "profiled step traced device time": busy > 0,
+        "first ce as random weights give": abs(rows[0]["ce"] - first_ce)
+        <= FIRST_CE_ATOL,
+        "launches": counts == want,
+        "peak memory": peak_gb <= TRAIN_PEAK_GB,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"training ({tag}) checks failed: {failed} "
+                             f"(launches {counts}, expected {want})")
+    del model, state, step, batches, data
+    torch.cuda.empty_cache()
+    return counts, dict(params=n_params, init_s=init_s, step_ms=step_s * 1e3,
+                        tokens_per_s=b * s / step_s, peak_gb=peak_gb,
+                        idle=1 - busy / step_s, loss=[r["loss"] for r in rows])
+
+
+def train_check_cpu(dev, arch, layers):
+    """``arch`` at full width and ``layers`` layers, the same weights and
+    batch (TRAIN_CHECK_B x TRAIN_CHECK_S tokens) on the card and the CPU,
+    the gradients of the train step's loss (``make_loss_fn``): the loss
+    within 1e-5 relative, each leaf within 1e-4 of its max |g|, the
+    global norm within 1e-4 relative; on the card remat on and off give
+    bitwise-equal gradients, and the remat run launches the kernels."""
+    cfg = get_config(arch).with_(num_layers=layers)
+    card = init_model(cfg, 1, device=dev)
+    cpu = build_model(cfg, device="cpu")
+    cpu.load_state_dict(card.state_dict())
+    rng = np.random.default_rng(5)
+    tokens = rng.integers(0, cfg.vocab_size,
+                          (TRAIN_CHECK_B, TRAIN_CHECK_S)).astype(np.int32)
+    batch = {"tokens": tokens, "labels": np.concatenate(
+        [tokens[:, 1:], np.full((TRAIN_CHECK_B, 1), -100, np.int32)], 1)}
+
+    def grads(model, remat):
+        return grads_of(make_loss_fn(model, remat=remat), trainable(model),
+                        to_device(batch, model.device))
+
+    ops.reset_launch_counts()
+    loss_c, _, g_c = grads(card, True)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    _, _, g_off = grads(card, False)
+    loss_p, _, g_p = grads(cpu, True)
+    gn_c, gn_p = float(opt.global_norm(g_c)), float(opt.global_norm(g_p))
+    errs = {n: _rel(g_c[n].cpu(), g_p[n]) for n in g_p}
+    worst = max(errs, key=errs.get)
+    same = all(torch.equal(g_c[n], g_off[n]) for n in g_c)
+    loss_err = abs(float(loss_c) - float(loss_p)) / abs(float(loss_p))
+    want = train_expected_launches(cfg, 1, True)
+    print(f"training card vs CPU {arch} ({layers} layers, {TRAIN_CHECK_B} x "
+          f"{TRAIN_CHECK_S}): loss {float(loss_c):.6f} / {float(loss_p):.6f} "
+          f"(rel {loss_err:.3g}), grad norm {gn_c:.6g} / {gn_p:.6g} (rel "
+          f"{abs(gn_c - gn_p) / gn_p:.3g}), worst leaf {worst} "
+          f"{errs[worst]:.3g} of its max |g| (tol {TRAIN_GRAD_TOL:g}) over "
+          f"{len(errs)} leaves; remat on vs off on the card "
+          f"{'bitwise equal' if same else 'DIFFER'}; launches {counts}")
+    if not (loss_err <= TRAIN_LOSS_RTOL and errs[worst] <= TRAIN_GRAD_TOL
+            and abs(gn_c - gn_p) <= TRAIN_GNORM_RTOL * gn_p and same
+            and counts == want):
+        raise AssertionError(f"training card vs CPU {arch} disagrees")
+    return counts
+
+
+def training_path(dev):
+    """Phase 11: (a) the cascade pair, (b) granite-moe-1b-a400m at full
+    width and depth, (c) RecurrentGemma-9B at full width over one
+    super-block, then each of (b) and (c) at cut depth against the CPU.
+    Returns (launches of (a) - (c), the paths' figures)."""
+    counts, out = {}, {}
+    pc, out["pair"] = pair_path(dev)
+    _add_counts(counts, pc)
+    gc, out[GRANITE_ARCH] = lm_train_path(
+        dev, "b", get_config(GRANITE_ARCH), GRANITE_B, GRANITE_S,
+        GRANITE_STEPS, 0)
+    _add_counts(counts, gc)
+    rc, out[RG_ARCH] = lm_train_path(
+        dev, "c", get_config(RG_ARCH).with_(num_layers=RGT_LAYERS), RGT_B,
+        RGT_S, RGT_STEPS, 1)
+    _add_counts(counts, rc)
+    for arch, layers in TRAIN_CHECK_LAYERS.items():
+        train_check_cpu(dev, arch, layers)
+        torch.cuda.empty_cache()
+    return counts, out
+
+
+def train_rows(timer):
+    """Phase 3's timing rows of the backward kernels at the training
+    paths' shapes (and the forms of the zoo's other attention)."""
+    flash = {name: timer.flash_bwd(name, b, s, t, h, kv, hd, causal, window)
+             for name, b, s, t, h, kv, hd, causal, window in flash_bwd_cases()
+             if name != "tier-low"}
+    scan = {"f32": timer.rglru_bwd(), "bf16": timer.rglru_bwd(
+        dt=torch.bfloat16)}
+    return {"flash_attention_bwd": flash, "rglru_scan_bwd": scan}
+
+
+def train_only(dev, timer):
+    """``chip_smoke.py train``: phase 3's backward-kernel checks and timing
+    rows, then phase 11."""
+    t0 = time.perf_counter()
+    check_flash_bwd(dev)
+    check_rglru_bwd(dev)
+    check_grad_guard(dev)
+    train_rows(timer)
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    training_path(dev)
+    print(f"phase seconds: backward checks and timing rows {t1 - t0:.1f}, "
+          f"training {time.perf_counter() - t1:.1f}")
+    return 0
+
+
 def main(argv) -> int:
-    if argv not in ([], ["zoo"]):
-        print("usage: chip_smoke.py [zoo]", file=sys.stderr)
+    if argv not in ([], ["zoo"], ["train"]):
+        print("usage: chip_smoke.py [zoo | train]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2891,12 +3486,17 @@ def main(argv) -> int:
           f"{len(_build.sources())} sources, key {_build.build_key()})")
     if argv == ["zoo"]:
         return zoo_only(dev, Timer(dev, bw, flops, tc))
+    if argv == ["train"]:
+        return train_only(dev, Timer(dev, bw, flops, tc))
 
     t1 = time.perf_counter()
     check_bvsb(dev)
     check_flash(dev)
     check_decode(dev)
     check_rglru(dev)
+    check_flash_bwd(dev)
+    check_rglru_bwd(dev)
+    check_grad_guard(dev)
     timer = Timer(dev, bw, flops, tc)
     for b in (1, 16, 64):
         timer.bvsb(b)
@@ -2925,6 +3525,7 @@ def main(argv) -> int:
         zoo_rows["decode_attention"][name] = timer.decode_at(
             name, ZOO_B, ZOO_S, kv, cfg.num_heads // kv, hd)
     zoo10_timing = zoo10_rows(timer)
+    train_timing = train_rows(timer)
     timer.bvsb_chunks()
     timer.decode_splits()
     timer.rglru_tiles()
@@ -2945,6 +3546,9 @@ def main(argv) -> int:
     zoo_counts, zoo = zoo_path(dev)
     t8 = time.perf_counter()
     zoo10_counts, zoo10 = zoo10_path(dev)
+    torch.cuda.empty_cache()
+    t9 = time.perf_counter()
+    train_counts, trained = training_path(dev)
     print(f"phase seconds: build {t1 - t0:.1f}, kernels {t2 - t1:.1f}, "
           f"cascade path with its profiled rerun {t3 - t2:.1f}, "
           f"{RG_ARCH} path with its CPU check {t4 - t3:.1f}, simulator "
@@ -2952,8 +3556,8 @@ def main(argv) -> int:
           f"{t5 - t4:.1f}, transport + replay + segmented frontier "
           f"{t6 - t5:.1f}, sharded sweeps {t7 - t6:.1f}, zoo with its "
           f"profiled reruns and CPU checks {t8 - t7:.1f}, rest of the zoo "
-          f"with its profiled reruns and CPU checks "
-          f"{time.perf_counter() - t8:.1f}")
+          f"with its profiled reruns and CPU checks {t9 - t8:.1f}, "
+          f"training with its CPU checks {time.perf_counter() - t9:.1f}")
 
     # the kernels line times each kernel at the RecurrentGemma path's shape;
     # BvSB and flash also at the cascade's most frequent server batch (the
@@ -2972,17 +3576,25 @@ def main(argv) -> int:
             ("decode_attention", "decode_attention.cu",
              "src/repro/kernels/decode_attention.py:59"),
             ("rglru_scan", "rglru_scan.cu",
+             "src/repro/kernels/rglru_scan.py:44"),
+            ("flash_attention_bwd", "flash_attention_bwd.cu",
+             "src/repro/kernels/flash_attention.py:81"),
+            ("rglru_scan_bwd", "rglru_scan.cu",
              "src/repro/kernels/rglru_scan.py:44")):
         by_path = {"cascade": counts[name], RG_ARCH: rg_counts[name],
                    "simulator": sim_counts[name],
                    "transport": transport_counts[name],
                    "zoo": zoo_counts[name],
-                   "rest of the zoo": zoo10_counts[name]}
+                   "rest of the zoo": zoo10_counts[name],
+                   "training": train_counts[name]}
+        # a backward kernel's row: RecurrentGemma's training shape
+        row = rg_rows.get(name) or train_timing[name][
+            RG_ARCH if name == "flash_attention_bwd" else "f32"]
         entry = {"name": name, "route": "cuda",
                  "source": f"src/repro_torch/kernels/csrc/{source}",
                  "replaces": replaces, "launches": sum(by_path.values()),
                  "launches_by_path": by_path, "path": RG_ARCH,
-                 **{k: rg_rows[name][k] for k in keys if k in rg_rows[name]}}
+                 **{k: row[k] for k in keys if k in row}}
         if name in cascade_rows:
             entry["cascade"] = {k: cascade_rows[name][k] for k in keys
                                 if k in cascade_rows[name]}
@@ -3000,6 +3612,10 @@ def main(argv) -> int:
             entry["rest of the zoo"] = {
                 form: {k: row[k] for k in keys if k in row}
                 for form, row in zoo10_timing[name].items()}
+        if name in train_timing:
+            entry["training"] = {
+                form: {k: r[k] for k in keys if k in r}
+                for form, r in train_timing[name].items()}
         if name == "flash_attention":
             entry["forms"] = ["causal or windowed, T = S",
                               "non-causal, T = S",
@@ -3013,6 +3629,12 @@ def main(argv) -> int:
         print(f"{name} path: {w['params']} parameters, init "
               f"{w['init_s']:.3f} s, prefill {w['prefill_s']:.3f} s, decode "
               f"{w['step_ms']:.2f} ms a step, peak {w['peak_gb']:.3f} GB")
+    for name in (GRANITE_ARCH, RG_ARCH):
+        w = trained[name]
+        print(f"{name} training: {w['params']} parameters, "
+              f"{w['step_ms']:.1f} ms a step, {w['tokens_per_s']:.1f} "
+              f"tokens/s, peak {w['peak_gb']:.3f} GB, idle share "
+              f"{w['idle']:.4f}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -40,12 +40,16 @@ _SIGNATURES = {
     "repro_bvsb": [_c_ptr, _c_int, _c_ll, _c_ll, _c_int, _c_int, _c_int,
                    _c_ptr, _c_ptr, _c_ptr, _c_ptr],
     "repro_flash_attention": [_c_ptr] * 4 + [_c_int] * 7 + [_c_ll] * 12
-    + [_c_int, _c_int, ctypes.c_float, _c_ptr],
+    + [_c_int, _c_int, ctypes.c_float, _c_ptr, _c_ptr],
     "repro_flash_attention_kernel": [_c_ptr] * 4 + [_c_int] * 7 + [_c_ll] * 12
-    + [_c_int, _c_int, ctypes.c_float, _c_ptr, _c_int],
+    + [_c_int, _c_int, ctypes.c_float, _c_ptr, _c_ptr, _c_int],
     "repro_flash_uses_tensor_cores": [_c_int] * 3,
+    "repro_flash_attention_bwd": [_c_ptr] * 10 + [_c_int] * 7 + [_c_ll] * 15
+    + [_c_int, _c_int, ctypes.c_float, _c_ptr],
     "repro_rglru_scan": [_c_ptr] * 4 + [_c_int] * 4 + [_c_ll] * 4
     + [_c_int] * 3 + [_c_ptr],
+    "repro_rglru_scan_bwd": [_c_ptr] * 7 + [_c_int] * 4 + [_c_ll] * 2
+    + [_c_ptr],
     "repro_decode_attention": [_c_ptr] * 6 + [_c_int] * 9 + [_c_ll] * 10
     + [ctypes.c_float, _c_ptr],
 }
@@ -147,3 +151,22 @@ def sm_count(device: torch.device) -> int:
 
 def stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def wants_grad(*tensors) -> bool:
+    """Whether autograd records a call on ``tensors``: grad mode is on and
+    one of them requires a gradient. A CUDA kernel wrapper then goes
+    through its ``torch.autograd.Function``, or raises where the kernel
+    has no backward; it never returns an output cut off from the graph."""
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise if autograd would record a call of kernel ``name``, which has
+    no backward kernel."""
+    if wants_grad(*tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward, and its output would "
+            "carry no gradient; call it under torch.no_grad() or "
+            "torch.inference_mode(), or on tensors that do not require grad")

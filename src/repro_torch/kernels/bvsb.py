@@ -102,13 +102,15 @@ def bvsb(logits: torch.Tensor):
     """(B, V) logits -> (bvsb (B,) f32, top1 (B,) int32).
 
     CPU tensor: ``bvsb_plain``. CUDA tensor (f32 or bf16, unit column
-    stride, any row stride): the CUDA kernel, on the current stream.
+    stride, any row stride): the CUDA kernel, on the current stream. The
+    kernel has no backward: a CUDA call that autograd would record raises.
     """
     global launches
     if logits.device.type == "cpu":
         return bvsb_plain(logits)
     if logits.device.type != "cuda":
         raise ValueError(f"bvsb: no kernel for device {logits.device}")
+    _build.refuse_grad("bvsb", logits)
     out = run_entry(logits)
     with COUNT_LOCK:
         launches += 1

@@ -81,6 +81,12 @@
 //   sum are warp shuffles. The tiles' row length HD is a template
 //   parameter (128 or 256) so that every shared-memory stride is a
 //   constant: static tiles at 128, dynamic shared memory at 256.
+//
+// Both kernels can also write each row's log-sum-exp, lse = m + log(l)
+// (natural log, over the scaled and masked scores), in f32 at (B, H, S):
+// what the backward kernels (flash_attention_bwd.cu) recompute P from.
+// The serving paths pass a null pointer and run an instantiation without
+// the store (template flag kLse), so their code is the kernel's as it was.
 #include <cstdint>
 
 #include "common.cuh"
@@ -140,13 +146,14 @@ __host__ __device__ constexpr bool tiles_static() {
   return tile_floats<HD>() * 4 <= 48 * 1024;
 }
 
-// HD: the tiles' row length, hd <= HD
-template <typename T, int HD>
+// HD: the tiles' row length, hd <= HD; kLse: write each row's lse
+template <typename T, int HD, bool kLse>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, int S, int Tk,
                  int group, int hd, Strides qs, Strides ks, Strides vs,
-                 Strides os, int causal, int window, float scale) {
+                 Strides os, int causal, int window, float scale,
+                 float* __restrict__ lse) {
   constexpr int kDPerLane = HD / 32;
   constexpr int kld = HD + 1;  // padded: lanes read distinct banks
   // q_s[kBQ][HD], k_s[kBK][HD + 1], v_s[kBK][HD], all f32
@@ -234,6 +241,9 @@ flash_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int r = warp + t * kWarps, qi = q_start + r;
     if (qi >= S) continue;
     const float inv = 1.f / fmaxf(l[t], 1e-30f);
+    if (kLse && lane == 0)
+      lse[(static_cast<long long>(b) * gridDim.y + h) * S + qi] =
+          m[t] + logf(l[t]);
 #pragma unroll
     for (int u = 0; u < kDPerLane; ++u) {
       const int d = lane + 32 * u;
@@ -242,28 +252,29 @@ flash_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool kLse>
 cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o,
                       int B, int S, int Tk, int H, int KV, int hd, Strides qs,
                       Strides ks, Strides vs, Strides os, int causal,
-                      int window, float scale, cudaStream_t stream) {
+                      int window, float scale, float* lse,
+                      cudaStream_t stream) {
   size_t smem = 0;
   if constexpr (!tiles_static<HD>()) {
     smem = sizeof(float) * tile_floats<HD>();
     static bool raised = false;  // the dynamic limit, once per type
     if (!raised) {
       const cudaError_t err = cudaFuncSetAttribute(
-          flash_fma_kernel<T, HD>,
+          flash_fma_kernel<T, HD, kLse>,
           cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
       if (err != cudaSuccess) return err;
       raised = true;
     }
   }
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  flash_fma_kernel<T, HD><<<grid, kWarps * 32, smem, stream>>>(
+  flash_fma_kernel<T, HD, kLse><<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), S, Tk, H / KV, hd, qs,
-      ks, vs, os, causal, window, scale);
+      ks, vs, os, causal, window, scale, lse);
   return cudaGetLastError();
 }
 
@@ -271,12 +282,22 @@ template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int S, int Tk, int H, int KV, int hd, Strides qs,
                    Strides ks, Strides vs, Strides os, int causal,
-                   int window, float scale, cudaStream_t stream) {
+                   int window, float scale, float* lse, cudaStream_t stream) {
+  if (lse != nullptr) {
+    if (hd <= 128)
+      return launch_hd<T, 128, true>(q, k, v, o, B, S, Tk, H, KV, hd, qs, ks,
+                                     vs, os, causal, window, scale, lse,
+                                     stream);
+    return launch_hd<T, 256, true>(q, k, v, o, B, S, Tk, H, KV, hd, qs, ks,
+                                   vs, os, causal, window, scale, lse,
+                                   stream);
+  }
   if (hd <= 128)
-    return launch_hd<T, 128>(q, k, v, o, B, S, Tk, H, KV, hd, qs, ks, vs, os,
-                             causal, window, scale, stream);
-  return launch_hd<T, 256>(q, k, v, o, B, S, Tk, H, KV, hd, qs, ks, vs, os,
-                           causal, window, scale, stream);
+    return launch_hd<T, 128, false>(q, k, v, o, B, S, Tk, H, KV, hd, qs, ks,
+                                    vs, os, causal, window, scale, lse,
+                                    stream);
+  return launch_hd<T, 256, false>(q, k, v, o, B, S, Tk, H, KV, hd, qs, ks,
+                                  vs, os, causal, window, scale, lse, stream);
 }
 
 }  // namespace simt
@@ -466,13 +487,13 @@ __device__ __forceinline__ void accumulate(float (&acc)[HD / 8][4],
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool kLse>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, T* __restrict__ o, int S, int Tk,
                 int group, int hd, Strides qs, Strides ks, Strides vs,
                 Strides os, int causal, int window, float scale,
-                int aligned) {
+                float* __restrict__ lse, int aligned) {
   constexpr int ldqk = ld_qk<T, HD>(), ldv = ld_v<T, HD>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* q_s = reinterpret_cast<T*>(smem_raw);   // [kRows][ldqk]
@@ -597,6 +618,9 @@ flash_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int h = kvh * group + row % group;
     T* out = o + b * os.b + pos[r] * os.s + h * os.h;
     const float inv = 1.f / fmaxf(l[r], 1e-30f);
+    if (kLse && c == 0)
+      lse[(static_cast<long long>(b) * gridDim.y * group + h) * S + pos[r]] =
+          m[r] + logf(l[r]);
 #pragma unroll
     for (int nt = 0; nt < HD / 8; ++nt)
 #pragma unroll
@@ -607,28 +631,28 @@ flash_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool kLse>
 cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o,
                       int B, int S, int Tk, int H, int KV, int hd, Strides qs,
                       Strides ks, Strides vs, Strides os, int causal,
-                      int window, float scale, int aligned,
+                      int window, float scale, float* lse, int aligned,
                       cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<T, HD>();
   static bool raised = false;  // the dynamic limit, once per instantiation
   if (!raised) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_tc_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        flash_tc_kernel<T, HD, kLse>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
     raised = true;
   }
   const int group = H / KV;
   const long long rows = static_cast<long long>(S) * group;
   const dim3 grid(static_cast<unsigned>((rows + kRows - 1) / kRows), KV, B);
-  flash_tc_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
+  flash_tc_kernel<T, HD, kLse><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), S, Tk, group, hd, qs, ks,
-      vs, os, causal, window, scale, aligned);
+      vs, os, causal, window, scale, lse, aligned);
   return cudaGetLastError();
 }
 
@@ -636,7 +660,7 @@ template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int S, int Tk, int H, int KV, int hd, Strides qs,
                    Strides ks, Strides vs, Strides os, int causal,
-                   int window, float scale, cudaStream_t stream) {
+                   int window, float scale, float* lse, cudaStream_t stream) {
   // cp.async needs every row start 16-byte aligned and whole chunks
   const long long e = 16 / sizeof(T);
   auto al = [&](const void* p, const Strides& st) {
@@ -644,14 +668,30 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
            st.s % e == 0 && st.h % e == 0;
   };
   const int aligned = hd % e == 0 && al(q, qs) && al(k, ks) && al(v, vs);
+  if (lse != nullptr) {
+    if (hd <= 64)
+      return launch_hd<T, 64, true>(q, k, v, o, B, S, Tk, H, KV, hd, qs, ks,
+                                    vs, os, causal, window, scale, lse,
+                                    aligned, stream);
+    if (hd <= 128)
+      return launch_hd<T, 128, true>(q, k, v, o, B, S, Tk, H, KV, hd, qs, ks,
+                                     vs, os, causal, window, scale, lse,
+                                     aligned, stream);
+    return launch_hd<T, 256, true>(q, k, v, o, B, S, Tk, H, KV, hd, qs, ks,
+                                   vs, os, causal, window, scale, lse,
+                                   aligned, stream);
+  }
   if (hd <= 64)
-    return launch_hd<T, 64>(q, k, v, o, B, S, Tk, H, KV, hd, qs, ks, vs, os,
-                            causal, window, scale, aligned, stream);
+    return launch_hd<T, 64, false>(q, k, v, o, B, S, Tk, H, KV, hd, qs, ks,
+                                   vs, os, causal, window, scale, lse,
+                                   aligned, stream);
   if (hd <= 128)
-    return launch_hd<T, 128>(q, k, v, o, B, S, Tk, H, KV, hd, qs, ks, vs, os,
-                             causal, window, scale, aligned, stream);
-  return launch_hd<T, 256>(q, k, v, o, B, S, Tk, H, KV, hd, qs, ks, vs, os,
-                           causal, window, scale, aligned, stream);
+    return launch_hd<T, 128, false>(q, k, v, o, B, S, Tk, H, KV, hd, qs, ks,
+                                    vs, os, causal, window, scale, lse,
+                                    aligned, stream);
+  return launch_hd<T, 256, false>(q, k, v, o, B, S, Tk, H, KV, hd, qs, ks,
+                                  vs, os, causal, window, scale, lse,
+                                  aligned, stream);
 }
 
 }  // namespace tensor
@@ -661,14 +701,14 @@ template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
                      int B, int S, int Tk, int H, int KV, int hd, Strides qs,
                      Strides ks, Strides vs, Strides os, int causal,
-                     int window, float scale, cudaStream_t stream,
+                     int window, float scale, float* lse, cudaStream_t stream,
                      int kernel) {
   if (kernel == 0) kernel = use_tensor_cores(S, Tk, hd) ? 2 : 1;
   if (kernel == 2)
     return tensor::launch<T>(q, k, v, o, B, S, Tk, H, KV, hd, qs, ks, vs, os,
-                             causal, window, scale, stream);
+                             causal, window, scale, lse, stream);
   return simt::launch<T>(q, k, v, o, B, S, Tk, H, KV, hd, qs, ks, vs, os,
-                         causal, window, scale, stream);
+                         causal, window, scale, lse, stream);
 }
 
 }  // namespace
@@ -676,7 +716,8 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
 
 // q/o: (B, S, H, hd), k/v: (B, T, KV, hd), each with a contiguous head dim
 // and the given (batch, seq, head) element strides; hd <= 256, H % KV == 0;
-// causal needs T == S. window <= 0 means no window. kernel: 0 picks the
+// causal needs T == S. window <= 0 means no window. lse: (B, H, S) f32
+// contiguous for each row's log-sum-exp, or null. kernel: 0 picks the
 // kernel from the shape (tensor cores from min(S, T) = kTensorCoreMinSeq
 // up, kTensorCoreMinSeqWide at hd > 128), 1 forces the FMA kernel, 2 the
 // tensor-core kernel (for measuring both at one shape). Returns the
@@ -687,7 +728,7 @@ extern "C" int repro_flash_attention_kernel(
     long long qsh, long long ksb, long long kss, long long ksh,
     long long vsb, long long vss, long long vsh, long long osb,
     long long oss, long long osh, int causal, int window, float scale,
-    void* stream, int kernel) {
+    float* lse, void* stream, int kernel) {
   using namespace repro;
   if (hd > kMaxHD || hd <= 0 || KV <= 0 || H % KV != 0 || S <= 0 || T <= 0 ||
       (causal && T != S) || kernel < 0 || kernel > 2)
@@ -698,10 +739,11 @@ extern "C" int repro_flash_attention_kernel(
   switch (dtype) {
     case kF32:
       return dispatch<float>(q, k, v, o, B, S, T, H, KV, hd, qs, ks, vs, os,
-                             causal, window, scale, s, kernel);
+                             causal, window, scale, lse, s, kernel);
     case kBF16:
       return dispatch<__nv_bfloat16>(q, k, v, o, B, S, T, H, KV, hd, qs, ks,
-                                     vs, os, causal, window, scale, s, kernel);
+                                     vs, os, causal, window, scale, lse, s,
+                                     kernel);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -719,9 +761,9 @@ extern "C" int repro_flash_attention(
     long long qsh, long long ksb, long long kss, long long ksh,
     long long vsb, long long vss, long long vsh, long long osb,
     long long oss, long long osh, int causal, int window, float scale,
-    void* stream) {
+    float* lse, void* stream) {
   return repro_flash_attention_kernel(q, k, v, o, dtype, B, S, T, H, KV, hd,
                                       qsb, qss, qsh, ksb, kss, ksh, vsb, vss,
                                       vsh, osb, oss, osh, causal, window,
-                                      scale, stream, 0);
+                                      scale, lse, stream, 0);
 }

@@ -47,6 +47,24 @@
 //   A call that does not have them (D = 300 in bf16, a view at an odd
 //   offset) takes rglru_elem_kernel: the same warps, per-element loads
 //   issued one kUnroll-step tile ahead of the arithmetic.
+//
+// Backward (repro_rglru_scan_bwd, rglru_bwd_kernel): with the forward's h
+// saved and the incoming gradient dh, g_t = dh_t + a_{t+1} g_{t+1} runs from
+// t = S - 1 down, and
+//
+//   du_t = g_t,   da_t = g_t h_{t-1} (h_{-1} = h0, or 0),   dh0 = a_0 g_0.
+//
+// The TPU kernel has no gradient (the JAX package trains through the
+// reference scan under XLA); training on the card needs this one. One lane
+// a (b, d) channel walks time backwards with the same rounding (each product
+// and sum apart), so it is bit for bit the plain reverse loop
+// (rglru_scan.py::rglru_scan_bwd_plain). Bytes bound it, as the forward: a,
+// h and dh read, da and du written, 5 B S D 4 bytes in f32 (492 MB at
+// RecurrentGemma's training shape (2, 3000, 4096), 147 us at 3.35 TB/s).
+// Blocks of one warp (32 channels of one batch row) spread the B * D / 32
+// warps over every SM; each lane loads the kUnroll steps before the ones it
+// is computing, coalesced along d. The saved a is read in its own type and
+// strides, h and dh are contiguous f32.
 #include <climits>
 #include <cstdint>
 
@@ -185,6 +203,67 @@ rglru_elem_kernel(const T* __restrict__ a, const T* __restrict__ u,
   }
 }
 
+// One lane a channel d of batch row blockIdx.y, walking t = S - 1 .. 0;
+// the loads of the kUnroll steps below the ones being computed are in
+// flight meanwhile.
+template <typename T>
+__global__ void __launch_bounds__(kStrip)
+rglru_bwd_kernel(const T* __restrict__ a, const float* __restrict__ h,
+                 const float* __restrict__ h0, const float* __restrict__ dh,
+                 float* __restrict__ da, float* __restrict__ du,
+                 float* __restrict__ dh0, Scan p) {
+  const int b = blockIdx.y;
+  const int d = blockIdx.x * kStrip + threadIdx.x;
+  if (d >= p.D) return;
+  const T* ab = a + b * p.asb + d;
+  const long long row = static_cast<long long>(b) * p.S * p.D + d;
+  const float* hb = h + row;
+  const float* gb = dh + row;
+  float* dab = da + row;
+  float* dub = du + row;
+  const float hinit =
+      h0 != nullptr ? h0[static_cast<long long>(b) * p.D + d] : 0.f;
+  T an[kUnroll];
+  float hn[kUnroll], gn[kUnroll];
+  // steps t0 - i, i < kUnroll: a_t (in its type, widened where used),
+  // h_{t-1} and dh_t
+  auto load = [&](int t0) {
+#pragma unroll
+    for (int i = 0; i < kUnroll; ++i) {
+      const int t = t0 - i;
+      if (t >= 0) {
+        an[i] = ab[static_cast<long long>(t) * p.ass];
+        hn[i] = t > 0 ? hb[static_cast<long long>(t - 1) * p.D] : hinit;
+        gn[i] = gb[static_cast<long long>(t) * p.D];
+      }
+    }
+  };
+  float carry = 0.f;  // a_{t+1} g_{t+1}
+  load(p.S - 1);
+  for (int t0 = p.S - 1; t0 >= 0; t0 -= kUnroll) {
+    T ac[kUnroll];
+    float hc[kUnroll], gc[kUnroll];
+#pragma unroll
+    for (int i = 0; i < kUnroll; ++i) {
+      ac[i] = an[i];
+      hc[i] = hn[i];
+      gc[i] = gn[i];
+    }
+    if (t0 - kUnroll >= 0) load(t0 - kUnroll);  // in flight meanwhile
+#pragma unroll
+    for (int i = 0; i < kUnroll; ++i) {
+      const int t = t0 - i;
+      if (t >= 0) {
+        const float g = __fadd_rn(gc[i], carry);
+        dub[static_cast<long long>(t) * p.D] = g;
+        dab[static_cast<long long>(t) * p.D] = __fmul_rn(g, hc[i]);
+        carry = __fmul_rn(to_f32(ac[i]), g);
+      }
+    }
+  }
+  if (dh0 != nullptr) dh0[static_cast<long long>(b) * p.D + d] = carry;
+}
+
 template <typename T>
 cudaError_t launch(const void* a, const void* u, const float* h0, float* h,
                    int B, Scan p, int steps, int stages, int aligned,
@@ -255,4 +334,42 @@ extern "C" int repro_rglru_scan(const void* a, const void* u, const void* h0,
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// a: (B, S, D) with a contiguous channel dim and the given (batch, time)
+// element strides; h and dh: (B, S, D) contiguous f32 (the forward's output
+// and its gradient); h0: (B, D) contiguous f32 or null. Writes da and du
+// (B, S, D) contiguous f32 and, when dh0 is not null, dh0 (B, D) f32.
+// Returns the launch's cudaError_t.
+extern "C" int repro_rglru_scan_bwd(const void* a, const void* h,
+                                    const void* h0, const void* dh, void* da,
+                                    void* du, void* dh0, int dtype, int B,
+                                    int S, int D, long long asb,
+                                    long long ass, void* stream) {
+  using namespace repro;
+  if (B <= 0 || S <= 0 || D <= 0 || B > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Scan p{S, D, (D + kStrip - 1) / kStrip, asb, ass, 0, 0};
+  const dim3 grid(static_cast<unsigned>(p.strips), static_cast<unsigned>(B));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* hf = static_cast<const float*>(h);
+  const float* h0f = static_cast<const float*>(h0);
+  const float* dhf = static_cast<const float*>(dh);
+  float* daf = static_cast<float*>(da);
+  float* duf = static_cast<float*>(du);
+  float* dh0f = static_cast<float*>(dh0);
+  switch (dtype) {
+    case kF32:
+      rglru_bwd_kernel<float><<<grid, kStrip, 0, s>>>(
+          static_cast<const float*>(a), hf, h0f, dhf, daf, duf, dh0f, p);
+      break;
+    case kBF16:
+      rglru_bwd_kernel<__nv_bfloat16><<<grid, kStrip, 0, s>>>(
+          static_cast<const __nv_bfloat16*>(a), hf, h0f, dhf, daf, duf, dh0f,
+          p);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }

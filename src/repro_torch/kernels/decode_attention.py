@@ -134,12 +134,15 @@ def run_entry(q, k_cache, v_cache, lengths, n_splits: Optional[int] = None):
 def decode_attention(q, k_cache, v_cache, lengths):
     """Attention of one query token per request over its cache; CUDA
     kernel on CUDA tensors, plain on CPU. Lengths must be >= 1 (a request
-    always sees at least its own token); lengths above W mean W."""
+    always sees at least its own token); lengths above W mean W. The
+    kernel has no backward: a CUDA call that autograd would record
+    raises."""
     global launches
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, lengths)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: no kernel for device {q.device}")
+    _build.refuse_grad("decode_attention", q, k_cache, v_cache)
     out = run_entry(q, k_cache, v_cache, lengths)
     with COUNT_LOCK:
         launches += 1

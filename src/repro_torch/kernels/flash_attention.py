@@ -9,6 +9,13 @@ S. ``flash_attention`` runs the hand-written CUDA kernels of
 which: tensor cores for long sequences, CUDA-core FMAs for short ones)
 and ``flash_attention_plain`` on CPU tensors; on any other device it
 raises.
+
+Under autograd a CUDA call goes through ``FlashAttentionFn``: the forward
+kernel also writes each row's log-sum-exp, and the backward runs the
+hand-written kernels of ``csrc/flash_attention_bwd.cu`` (FA2: D =
+rowsum(dO o O), then dK/dV a key tile a block, then dQ a query tile a
+block, no atomics). ``flash_attention_bwd_plain`` is the same arithmetic
+in PyTorch; on the CPU autograd differentiates ``flash_attention_plain``.
 """
 from __future__ import annotations
 
@@ -23,9 +30,10 @@ from repro_torch.kernels import _build
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256  # csrc/flash_attention.cu kMaxHD
 
-# kernel launches since the last ops.reset_launch_counts(); incremented
-# under the lock, since worker threads launch too
+# kernel launches since the last ops.reset_launch_counts(), forward and
+# backward; incremented under the lock, since worker threads launch too
 launches = 0
+bwd_launches = 0
 COUNT_LOCK = threading.Lock()
 
 
@@ -36,27 +44,68 @@ def _check_lengths(s: int, t: int, causal: bool):
                          "queries")
 
 
-def flash_attention_plain(q, k, v, *, causal: bool = True,
-                          window: Optional[int] = None):
-    """The masked-einsum form, float32 softmax (JAX ``flash_attention_ref``
-    at T = S, JAX ``dense_attention`` at T != S)."""
+def _scale(hd: int) -> float:
+    return float(np.float32(1.0 / np.sqrt(hd)))
+
+
+def _masked_scores(q, k, causal, window):
+    """(scaled scores (B, KV, G, S, T) f32 with masked entries at NEG_INF,
+    the mask (S, T))."""
     b, s, h, hd = q.shape
     t, kvh = k.shape[1], k.shape[2]
     _check_lengths(s, t, causal)
-    g = h // kvh
-    qg = q.reshape(b, s, kvh, g, hd).float()
-    scores = torch.einsum("bskgh,btkh->bkgst", qg, k.float())
-    scores = scores * float(np.float32(1.0 / np.sqrt(hd)))
+    qg = q.reshape(b, s, kvh, h // kvh, hd).float()
+    scores = torch.einsum("bskgh,btkh->bkgst", qg, k.float()) * _scale(hd)
     qpos = torch.arange(s, device=q.device)[:, None]
     kpos = torch.arange(t, device=q.device)[None, :]
     ok = kpos <= qpos if causal else torch.ones(s, t, dtype=torch.bool,
                                                 device=q.device)
     if window is not None:
         ok = ok & ((qpos - kpos) < window)
-    scores = scores.masked_fill(~ok, NEG_INF)
+    return scores.masked_fill(~ok, NEG_INF), ok
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True,
+                          window: Optional[int] = None):
+    """The masked-einsum form, float32 softmax (JAX ``flash_attention_ref``
+    at T = S, JAX ``dense_attention`` at T != S)."""
+    b, s, h, hd = q.shape
+    scores, _ = _masked_scores(q, k, causal, window)
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgst,btkh->bskgh", p, v.float())
     return out.reshape(b, s, h, hd).to(q.dtype)
+
+
+def attention_lse_plain(q, k, *, causal: bool = True,
+                        window: Optional[int] = None):
+    """Each row's log-sum-exp of the scaled, masked scores, (B, H, S) f32:
+    what the forward kernel writes for the backward."""
+    b, s, h, _ = q.shape
+    scores, _ = _masked_scores(q, k, causal, window)
+    return torch.logsumexp(scores, dim=-1).reshape(b, h, s)
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
+                              window: Optional[int] = None):
+    """(dq, dk, dv) in the inputs' type from the forward's output ``o`` and
+    row log-sum-exp ``lse`` (B, H, S) and the output gradient ``do``, by
+    the FA2 formulas in f32: P = exp(s - lse), D = rowsum(dO o O), dS = P o
+    (dO V^T - D), dV = P^T dO, dK = dS^T Q scale, dQ = dS K scale."""
+    b, s, h, hd = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    scores, ok = _masked_scores(q, k, causal, window)
+    p = torch.exp(scores - lse.reshape(b, kvh, g, s)[..., None]) * ok
+    do_g = do.reshape(b, s, kvh, g, hd).float()
+    d = (do_g * o.reshape(b, s, kvh, g, hd).float()).sum(-1)   # (B,S,KV,G)
+    dp = torch.einsum("bskgh,btkh->bkgst", do_g, v.float())
+    ds = p * (dp - d.permute(0, 2, 3, 1)[..., None])
+    dv = torch.einsum("bkgst,bskgh->btkh", p, do_g)
+    dk = torch.einsum("bkgst,bskgh->btkh", ds,
+                      q.reshape(b, s, kvh, g, hd).float()) * _scale(hd)
+    dq = torch.einsum("bkgst,btkh->bskgh", ds, k.float()) * _scale(hd)
+    return (dq.reshape(b, s, h, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def uses_tensor_cores(s: int, hd: int, t: Optional[int] = None) -> bool:
@@ -98,36 +147,104 @@ def _check(q, k, v, causal):
 
 
 def run_entry(entry, q, k, v, *, causal: bool = True,
-              window: Optional[int] = None, extra=()):
+              window: Optional[int] = None, extra=(), with_lse: bool = False):
     """Check CUDA tensors and run the C entry point ``entry`` of the kernel
     library on them (``extra``: its arguments after the stream); the new
-    output. Counts nothing: ``flash_attention`` is the counted launch."""
+    output, and with ``with_lse`` also each row's log-sum-exp (B, H, S)
+    f32. Counts nothing: ``flash_attention`` is the counted launch."""
     _check(q, k, v, causal)
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window {window} < 1")
     b, s, h, hd = q.shape
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    lse = torch.empty(b, h, s, dtype=torch.float32, device=q.device) \
+        if with_lse else None
     _build.check(entry(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         _build.DTYPE_CODES[q.dtype], b, s, k.shape[1], h, k.shape[2], hd,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-        int(causal), 0 if window is None else int(window),
-        float(np.float32(1.0 / np.sqrt(hd))), _build.stream_ptr(q), *extra),
+        int(causal), 0 if window is None else int(window), _scale(hd),
+        0 if lse is None else lse.data_ptr(), _build.stream_ptr(q), *extra),
         "flash_attention")
-    return out
+    return (out, lse) if with_lse else out
+
+
+def run_bwd_entry(q, k, v, o, lse, do, *, causal: bool = True,
+                  window: Optional[int] = None):
+    """Check CUDA tensors and run the backward kernels on them: (dq, dk,
+    dv), contiguous, in q's type. ``o`` and ``lse`` are the forward's
+    output and row log-sum-exp. Counts nothing: ``FlashAttentionFn`` is
+    the counted launch."""
+    _check(q, k, v, causal)
+    b, s, h, hd = q.shape
+    if do.shape != q.shape or o.shape != q.shape or do.dtype != q.dtype \
+            or o.dtype != q.dtype or do.stride(3) != 1 or o.stride(3) != 1:
+        raise ValueError(f"flash_attention backward: o {tuple(o.shape)} "
+                         f"{o.dtype}, do {tuple(do.shape)} {do.dtype} against "
+                         f"q {tuple(q.shape)} {q.dtype}")
+    if lse.shape != (b, h, s) or lse.dtype != torch.float32 \
+            or not lse.is_contiguous():
+        raise ValueError(f"flash_attention backward: lse {tuple(lse.shape)} "
+                         f"{lse.dtype}, needs contiguous f32 {(b, h, s)}")
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
+    delta = torch.empty(b, h, s, dtype=torch.float32, device=q.device)
+    _build.check(_build.library().repro_flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), _build.DTYPE_CODES[q.dtype], b, s,
+        k.shape[1], h, k.shape[2], hd, *q.stride()[:3], *k.stride()[:3],
+        *v.stride()[:3], *o.stride()[:3], *do.stride()[:3], int(causal),
+        0 if window is None else int(window), _scale(hd),
+        _build.stream_ptr(q)), "flash_attention backward")
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Flash attention on the card with its hand-written backward: the
+    forward kernel keeps each row's log-sum-exp, and the backward
+    recomputes P from it (no (S, T) matrix is saved). Each direction
+    counts one launch."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        global launches
+        out, lse = run_entry(_build.library().repro_flash_attention, q, k, v,
+                             causal=causal, window=window, with_lse=True)
+        with COUNT_LOCK:
+            launches += 1
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        global bwd_launches
+        q, k, v, out, lse = ctx.saved_tensors
+        if do.stride(3) != 1:
+            do = do.contiguous()
+        dq, dk, dv = run_bwd_entry(q, k, v, out, lse, do, causal=ctx.causal,
+                                   window=ctx.window)
+        with COUNT_LOCK:
+            bwd_launches += 1
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None):
     """Attention of q over k/v; CUDA kernel on CUDA tensors, plain on CPU.
     The C entry point picks the kernel from the shape
-    (``uses_tensor_cores``). ``causal`` with k/v of another length than q
-    raises ValueError."""
+    (``uses_tensor_cores``). A CUDA call that autograd records goes
+    through ``FlashAttentionFn`` (forward and backward kernels).
+    ``causal`` with k/v of another length than q raises ValueError."""
     global launches
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    if _build.wants_grad(q, k, v):
+        return FlashAttentionFn.apply(q, k, v, causal, window)
     out = run_entry(_build.library().repro_flash_attention, q, k, v,
                     causal=causal, window=window)
     with COUNT_LOCK:

@@ -10,6 +10,12 @@ streams the strip's a and u through a ring of ``stages`` tiles of
 ``steps`` time steps in shared memory. ``tiles`` plans the ring from the
 warps an SM holds; ``is_aligned`` says whether the 16-byte copies that fill
 it can serve a call (else the kernel loads element by element).
+
+Under autograd a CUDA call goes through ``RGLRUScanFn``, whose backward
+is the kernel ``rglru_bwd_kernel`` of the same source: g_t = dh_t +
+a_{t+1} g_{t+1} from the last step down, du_t = g_t, da_t = g_t h_{t-1},
+dh0 = a_0 g_0, bit for bit ``rglru_scan_bwd_plain``. On the CPU autograd
+differentiates ``rglru_scan_plain``.
 """
 from __future__ import annotations
 
@@ -27,9 +33,10 @@ STAGES = 3               # ring tiles: two in flight while one is read
 MIN_TILE = 2 * 1024      # a and u bytes of a tile, at least
 MAX_TILE = 16 * 1024     # ... and at most
 
-# kernel launches since the last ops.reset_launch_counts(); incremented
-# under the lock, since worker threads launch too
+# kernel launches since the last ops.reset_launch_counts(), forward and
+# backward; incremented under the lock, since worker threads launch too
 launches = 0
+bwd_launches = 0
 COUNT_LOCK = threading.Lock()
 
 
@@ -48,6 +55,26 @@ def rglru_scan_plain(a, u, h0=None):
         h = a32[:, t] * h + u32[:, t]
         out[:, t] = h
     return out
+
+
+def rglru_scan_bwd_plain(a, h, dh, h0=None):
+    """(da, du, dh0) float32 from the forward's a and output h and the
+    gradient dh of h: the reverse loop g_t = dh_t + a_{t+1} g_{t+1}, du_t =
+    g_t, da_t = g_t h_{t-1} (h_{-1} = h0, or 0), dh0 = a_0 g_0 (None
+    without h0). Each step rounds the product and the sum apart, as the
+    kernel does, so the two agree bit for bit."""
+    a32, dh32 = a.float(), dh.float()
+    b, s, d = a.shape
+    carry = torch.zeros(b, d, dtype=torch.float32, device=a.device)
+    da = torch.empty(b, s, d, dtype=torch.float32, device=a.device)
+    du = torch.empty(b, s, d, dtype=torch.float32, device=a.device)
+    h_init = torch.zeros_like(carry) if h0 is None else h0.float()
+    for t in range(s - 1, -1, -1):
+        g = dh32[:, t] + carry
+        du[:, t] = g
+        da[:, t] = g * (h[:, t - 1] if t > 0 else h_init)
+        carry = a32[:, t] * g
+    return da, du, None if h0 is None else carry
 
 
 def _check(a, u, h0):
@@ -119,13 +146,66 @@ def run_entry(a, u, h0=None, steps: Optional[int] = None,
     return h
 
 
+def run_bwd_entry(a, h, dh, h0=None):
+    """Check CUDA tensors and run the backward kernel: (da, du, dh0 or
+    None), float32, contiguous. ``h`` is the forward's output, ``dh`` its
+    gradient. Counts nothing: ``RGLRUScanFn`` is the counted launch."""
+    _check(a, a, h0)
+    b, s, d = a.shape
+    for name, t in (("h", h), ("dh", dh)):
+        if t.shape != a.shape or t.dtype != torch.float32 \
+                or t.device != a.device or not t.is_contiguous():
+            raise ValueError(f"rglru_scan backward: {name} must be contiguous "
+                             f"float32 {tuple(a.shape)}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    da = torch.empty(b, s, d, dtype=torch.float32, device=a.device)
+    du = torch.empty_like(da)
+    dh0 = None if h0 is None else torch.empty(b, d, dtype=torch.float32,
+                                              device=a.device)
+    _build.check(_build.library().repro_rglru_scan_bwd(
+        a.data_ptr(), h.data_ptr(), 0 if h0 is None else h0.data_ptr(),
+        dh.data_ptr(), da.data_ptr(), du.data_ptr(),
+        0 if dh0 is None else dh0.data_ptr(), _build.DTYPE_CODES[a.dtype], b,
+        s, d, a.stride(0), a.stride(1), _build.stream_ptr(a)),
+        "rglru_scan backward")
+    return da, du, dh0
+
+
+class RGLRUScanFn(torch.autograd.Function):
+    """The scan on the card with its hand-written backward; saves a and the
+    output h (the backward does not rescan). Each direction counts one
+    launch."""
+
+    @staticmethod
+    def forward(ctx, a, u, h0):
+        global launches
+        h = run_entry(a, u, h0)
+        with COUNT_LOCK:
+            launches += 1
+        ctx.save_for_backward(a, h, h0)
+        ctx.u_dtype = u.dtype
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        global bwd_launches
+        a, h, h0 = ctx.saved_tensors
+        da, du, dh0 = run_bwd_entry(a, h, dh.float().contiguous(), h0)
+        with COUNT_LOCK:
+            bwd_launches += 1
+        return da.to(a.dtype), du.to(ctx.u_dtype), dh0
+
+
 def rglru_scan(a, u, h0=None):
-    """h (B, S, D) float32; CUDA kernel on CUDA tensors, plain on CPU."""
+    """h (B, S, D) float32; CUDA kernel on CUDA tensors, plain on CPU. A
+    CUDA call that autograd records goes through ``RGLRUScanFn``."""
     global launches
     if a.device.type == "cpu":
         return rglru_scan_plain(a, u, h0)
     if a.device.type != "cuda":
         raise ValueError(f"rglru_scan: no kernel for device {a.device}")
+    if _build.wants_grad(a, u, h0):
+        return RGLRUScanFn.apply(a, u, h0)
     h = run_entry(a, u, h0)
     with COUNT_LOCK:
         launches += 1

@@ -1,5 +1,5 @@
 """Shared building blocks: init, RMSNorm, group norm, RoPE and M-RoPE,
-gated MLP, embeddings.
+gated MLP, embeddings, the LM loss.
 
 Plain functions on tensors, in the JAX package's layout: activations
 (B, S, d), heads (B, S, H, hd), weights applied as ``x @ W`` with W of
@@ -16,9 +16,14 @@ import torch.nn.functional as F
 from torch import nn
 
 
+# the label that takes no part in the loss
+IGNORE = -100
+
+
 def param(*shape, device, dtype) -> nn.Parameter:
-    """An uninitialised inference parameter; the model's init or the
-    weight converter fills it."""
+    """An uninitialised parameter that does not require grad (serving
+    needs none); the model's init or the weight converter fills it, and
+    the trainers turn gradients on for what they train."""
     return nn.Parameter(torch.empty(shape, device=device, dtype=dtype),
                         requires_grad=False)
 
@@ -166,3 +171,16 @@ def lm_head_apply(table, x, vocab_size: int):
         pad = torch.arange(pv, device=logits.device) >= vocab_size
         logits = logits.masked_fill(pad, torch.finfo(logits.dtype).min)
     return logits
+
+
+def cross_entropy(logits, labels, vocab_size: int):
+    """Mean cross-entropy over the positions whose label is not IGNORE
+    (JAX ``models.model.cross_entropy``); ``logits`` may be vocab-padded,
+    the padding at finfo.min (``lm_head_apply``), so it takes no mass."""
+    logits = logits.float()
+    mask = labels != IGNORE
+    safe = torch.where(mask, labels, 0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    nll = (logz - gold) * mask
+    return nll.sum() / torch.clamp(mask.sum(), min=1)

@@ -115,6 +115,13 @@ class EncDecModel(nn.Module):
         it."""
         return self.lm_head.table
 
+    def loss(self, tokens, labels=None, *, audio_embeds=None, remat=False):
+        """Not ported yet: training an encoder-decoder (ROADMAP.md Queue A).
+        Only decoder-only models train in this port."""
+        raise NotImplementedError(
+            "EncDecModel.loss: training an encoder-decoder is not ported to "
+            "repro_torch yet (ROADMAP.md Queue A)")
+
     def encode(self, audio_embeds):
         """(B, F, d) stub-frontend frames -> encoder output (B, F, d)."""
         cfg = self.cfg

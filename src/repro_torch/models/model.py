@@ -8,6 +8,7 @@
     logits, _ = model(tokens, audio_embeds=a)    # enc-dec: (B, S, V_pad)
     hidden, cache = model(tokens, collect_cache=True, return_hidden=True)
     logits, cache = model.decode_step(tokens1, cache, pos)
+    loss, metrics = model.loss(tokens, labels)   # decoder-only: ce + aux
 
 A decoder-only config builds a ``transformer.Model``, an
 encoder-decoder config an ``encdec.EncDecModel``.
@@ -23,11 +24,12 @@ import numpy as np
 import torch
 
 from repro_torch.models import common, recurrent, xlstm
+from repro_torch.models.common import IGNORE, cross_entropy
 from repro_torch.models.encdec import EncDecModel
 from repro_torch.models.transformer import Model
 
-__all__ = ["EncDecModel", "Model", "build_model", "init_params",
-           "params_from_jax"]
+__all__ = ["EncDecModel", "IGNORE", "Model", "build_model", "cross_entropy",
+           "init_params", "params_from_jax"]
 
 
 def resolve_device(device) -> torch.device:

@@ -63,9 +63,10 @@ def capacity(n: int, cfg) -> int:
 def route(x_flat, router_w, cfg):
     """Top-k routing of x_flat (N, d). Returns (gates (N, k) f32, ids (N,
     k) int64, probs (N, E) f32). The softmax is written out as
-    ``jax.nn.softmax`` computes it."""
+    ``jax.nn.softmax`` computes it, its max shift outside the gradient.
+    Every step is differentiable but the integer ids, as in JAX."""
     logits = x_flat.float() @ router_w.float()
-    e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    e = torch.exp(logits - logits.amax(dim=-1, keepdim=True).detach())
     probs = e / e.sum(dim=-1, keepdim=True)
     gates, ids = torch.topk(probs, cfg.num_experts_per_tok, dim=-1)
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)

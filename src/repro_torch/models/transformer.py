@@ -17,10 +17,20 @@ follow the JAX tree (``layers.{i}.attn.wq`` is
 cache is a list with one entry per layer: a ring KV cache for
 ``attn``/``lattn``, the (h, conv tail) state for ``rglru``, the float32
 cell states for ``mlstm`` / ``slstm``.
+
+Training (``Model.loss``, ``forward(..., with_aux=True)``) runs the same
+layers and sums the MoE layers' load-balance losses, as the JAX ``forward``
+returns them. With ``remat`` each layer's forward goes through
+``torch.utils.checkpoint.checkpoint`` (non-reentrant): its activations
+are dropped and recomputed in the backward, JAX's ``jax.checkpoint(...,
+nothing_saveable)`` per super-block taken a layer at a time. The
+recompute repeats the forward's bits (the kernels and the MoE dispatch
+are deterministic), so the gradients are those of no remat.
 """
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.models import attention as attn
@@ -70,16 +80,23 @@ class DecoderLayer(nn.Module):
             else:
                 self.mlp = common.MLP(cfg.d_model, cfg.d_ff, **kw)
 
-    def _mlp(self, x, cfg):
+    def _mlp(self, x, cfg, with_aux=False):
+        """(x after the MLP sublayer, the MoE load-balance loss times its
+        coefficient where ``with_aux`` and the layer is MoE, else None)."""
         if hasattr(self, "moe"):
-            return x + self.moe(self.norm2(x, cfg.norm_eps), cfg)
+            h = self.norm2(x, cfg.norm_eps)
+            if with_aux:
+                y, aux = moe.moe_apply(self.moe, h, cfg, return_aux=True)
+                return x + y, aux
+            return x + self.moe(h, cfg), None
         if hasattr(self, "mlp"):
-            return x + self.mlp(self.norm2(x, cfg.norm_eps), cfg.mlp_act)
-        return x
+            return x + self.mlp(self.norm2(x, cfg.norm_eps), cfg.mlp_act), None
+        return x, None
 
     def forward(self, x, positions, cfg, *, pos3=None, collect_cache=False,
-                cache_len=None):
-        """Returns (x, cache entry or None)."""
+                cache_len=None, with_aux=False):
+        """Returns (x, cache entry or None, the layer's MoE aux loss where
+        ``with_aux`` and the layer is MoE, else None)."""
         h = self.norm1(x, cfg.norm_eps)
         cache = None
         if self.kind == "rglru":
@@ -100,7 +117,8 @@ class DecoderLayer(nn.Module):
                 cache = attn.fill_kv_cache(
                     attn.init_kv_cache(x.shape[0], w, cfg, x.dtype, x.device),
                     k, v)
-        return self._mlp(x + out, cfg), cache
+        x, aux = self._mlp(x + out, cfg, with_aux)
+        return x, cache, aux
 
     def decode(self, x1, cache, pos, cfg, *, pos3=None):
         """One token. Returns (x1, new cache entry)."""
@@ -113,7 +131,7 @@ class DecoderLayer(nn.Module):
         else:
             out, cache = attn.attn_decode(self.attn, h, cache, pos, cfg,
                                           pos3=pos3)
-        return self._mlp(x1 + out, cfg), cache
+        return self._mlp(x1 + out, cfg)[0], cache
 
 
 class Model(nn.Module):
@@ -141,20 +159,11 @@ class Model(nn.Module):
 
     def _out(self, x, return_hidden):
         x = self.final_norm(x, self.cfg.norm_eps)
-        if return_hidden:
-            return x
-        return common.lm_head_apply(self.head_table, x, self.cfg.vocab_size)
+        return x if return_hidden else self.head(x)
 
-    def forward(self, tokens, *, vision_embeds=None, collect_cache=False,
-                cache_len=None, return_hidden=False):
-        """tokens: (B, S_text); vision_embeds: (B, V, d) or None, which
-        makes the sequence [vision | text] with M-RoPE positions
-        (``vlm_positions``). Returns (logits (B, S, padded vocab), or the
-        final hidden states (B, S, d) with ``return_hidden``; the cache
-        for ``decode_step`` with ``collect_cache``, else None), S = V +
-        S_text. The attention caches hold min(cache_len, window) slots,
-        cache_len defaulting to S."""
-        cfg = self.cfg
+    def _embed(self, tokens, vision_embeds):
+        """(x (B, S, d), positions (B, S), M-RoPE ids (3, B, S) or None),
+        the vision embeddings in front of the text where given."""
         x = common.embed_apply(self.embed.table, tokens)
         b = x.shape[0]
         pos3 = None
@@ -163,14 +172,60 @@ class Model(nn.Module):
             pos3 = vlm_positions(b, vision_embeds.shape[1], tokens.shape[1],
                                  x.device)
         s = x.shape[1]
-        positions = torch.arange(s, device=x.device).expand(b, s)
-        cache_len = cache_len or s
+        return x, torch.arange(s, device=x.device).expand(b, s), pos3
+
+    def forward(self, tokens, *, vision_embeds=None, collect_cache=False,
+                cache_len=None, return_hidden=False, remat=False,
+                with_aux=False):
+        """tokens: (B, S_text); vision_embeds: (B, V, d) or None, which
+        makes the sequence [vision | text] with M-RoPE positions
+        (``vlm_positions``). Returns (logits (B, S, padded vocab), or the
+        final hidden states (B, S, d) with ``return_hidden``; the cache
+        for ``decode_step`` with ``collect_cache``, else None), S = V +
+        S_text. The attention caches hold min(cache_len, window) slots,
+        cache_len defaulting to S. With ``with_aux`` a third item, the MoE
+        layers' load-balance losses summed (a float32 scalar, 0 without
+        MoE), as JAX ``forward`` returns it; ``remat`` recomputes each
+        layer's activations in the backward."""
+        cfg = self.cfg
+        x, positions, pos3 = self._embed(tokens, vision_embeds)
+        kw = dict(pos3=pos3, collect_cache=collect_cache,
+                  cache_len=cache_len or x.shape[1], with_aux=with_aux)
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device) \
+            if with_aux else None
         caches = []
         for layer in self.layers:
-            x, c = layer(x, positions, cfg, pos3=pos3,
-                         collect_cache=collect_cache, cache_len=cache_len)
+            if remat:
+                x, c, aux = torch.utils.checkpoint.checkpoint(
+                    layer, x, positions, cfg, use_reentrant=False, **kw)
+            else:
+                x, c, aux = layer(x, positions, cfg, **kw)
+            if aux is not None:
+                aux_total = aux_total + aux
             caches.append(c)
-        return self._out(x, return_hidden), caches if collect_cache else None
+        out = (self._out(x, return_hidden), caches if collect_cache else None)
+        return out + (aux_total,) if with_aux else out
+
+    def head(self, hidden):
+        """Logits over the padded vocab of final hidden states."""
+        return common.lm_head_apply(self.head_table, hidden,
+                                    self.cfg.vocab_size)
+
+    def loss(self, tokens, labels=None, *, vision_embeds=None, remat=False):
+        """(ce + aux, {"ce", "aux"}), JAX ``Model.loss``: the mean
+        cross-entropy of the next-token labels (``labels`` (B, S_text),
+        IGNORE where none; by default the tokens shifted by one) plus the
+        MoE aux loss. A VLM's vision prefix takes no part in the CE."""
+        if labels is None:
+            labels = torch.cat([tokens[:, 1:], torch.full_like(
+                tokens[:, :1], common.IGNORE)], dim=1)
+        hidden, _, aux = self(tokens, vision_embeds=vision_embeds,
+                              return_hidden=True, remat=remat, with_aux=True)
+        if hidden.shape[1] != labels.shape[1]:
+            hidden = hidden[:, -labels.shape[1]:]
+        ce = common.cross_entropy(self.head(hidden), labels,
+                                  self.cfg.vocab_size)
+        return ce + aux, {"ce": ce, "aux": aux}
 
     def init_cache(self, batch, cache_len, dtype=torch.bfloat16):
         """An empty cache: rings of min(cache_len, window) slots and conv

@@ -16,8 +16,11 @@ from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import rglru_scan as _rglru
 from repro_torch.kernels.bvsb import bvsb_plain, chunks
 from repro_torch.kernels.decode_attention import decode_attention_plain
-from repro_torch.kernels.flash_attention import flash_attention_plain
-from repro_torch.kernels.rglru_scan import rglru_scan_plain
+from repro_torch.kernels.flash_attention import (attention_lse_plain,
+                                                 flash_attention_bwd_plain,
+                                                 flash_attention_plain)
+from repro_torch.kernels.rglru_scan import (rglru_scan_bwd_plain,
+                                            rglru_scan_plain)
 from repro_torch.launch.distributed import make_prefill_step, make_serve_step
 from repro_torch.models import common, moe
 from repro_torch.models.model import init_params
@@ -31,6 +34,10 @@ BF16_CONF_ATOL = 2e-3  # the repo's kernel gate (NUMERIC_ATOL)
 FLASH_ATOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 DECODE_ATOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 MOE_ATOL = 1e-4        # float32 expert products in another order
+# the backward kernels: max |err| over max |ref|, f32 sums in another
+# order; bf16 outputs rounded once each
+FLASH_BWD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+LSE_ATOL = 1e-4        # the forward's row log-sum-exp, f32
 ROUTE_GAP = 1e-6       # router probabilities closer than this may swap
 
 
@@ -325,7 +332,7 @@ def test_reduced_xlstm_and_encdec_steps_on_the_card_match_the_cpu(dev, arch,
                                rtol=0)
     n = cfg.num_layers
     want = {"bvsb": 5, "flash_attention": 0, "decode_attention": 0,
-            "rglru_scan": 0}
+            "rglru_scan": 0, "flash_attention_bwd": 0, "rglru_scan_bwd": 0}
     if inputs:
         want.update(flash_attention=cfg.encoder_layers + 2 * n,
                     decode_attention=2 * n * 4)
@@ -576,7 +583,8 @@ def test_reduced_recurrentgemma_steps_on_the_card_match_the_cpu(dev):
         runs.append((torch.stack(confs), ops.launch_counts()))
     torch.testing.assert_close(runs[0][0], runs[1][0], atol=1e-5, rtol=0)
     assert runs[0][1] == {"bvsb": 5, "flash_attention": 1,
-                          "decode_attention": 4, "rglru_scan": 2}
+                          "decode_attention": 4, "rglru_scan": 2,
+                          "flash_attention_bwd": 0, "rglru_scan_bwd": 0}
     assert runs[1][1] == dict.fromkeys(runs[1][1], 0)
 
 
@@ -653,3 +661,130 @@ def test_moe_apply_on_the_card_matches_the_cpu(dev, pull):
     torch.testing.assert_close(y.reshape(n, -1).cpu()[agree],
                                y_cpu.reshape(n, -1)[agree], atol=MOE_ATOL,
                                rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# backward kernels and the grad guard
+# ---------------------------------------------------------------------------
+# (B, S, T, H, KV, hd, causal, window): the tiers' S = 16 (the CUDA-core
+# forward), GQA with windows under and over a key tile, hd 48 / 160 padded
+# in their tiles, non-causal T = S and T != S both ways
+FLASH_BWD_CASES = [(2, 16, None, 8, 8, 48, True, None),
+                   (2, 16, None, 4, 4, 32, True, None),
+                   (2, 200, None, 8, 2, 64, True, 20),
+                   (1, 300, None, 16, 1, 256, True, 100),
+                   (2, 130, None, 32, 8, 160, True, None),
+                   (1, 97, None, 16, 16, 128, True, None),
+                   (2, 80, None, 8, 2, 64, False, None),
+                   (2, 77, 300, 8, 2, 64, False, None),
+                   (2, 300, 77, 16, 16, 64, False, None)]
+
+
+def _rel_err(got, ref):
+    return float((got.float() - ref.float()).abs().max()
+                 / ref.float().abs().max())
+
+
+@pytest.mark.parametrize("b,s,t,h,kv,hd,causal,window", FLASH_BWD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_kernel_matches_plain(dev, b, s, t, h, kv, hd, causal,
+                                             window, dtype):
+    """A CUDA call under autograd goes through FlashAttentionFn: one forward
+    and one backward launch; the forward's lse and output as the plain
+    versions', dq/dk/dv against ``flash_attention_bwd_plain`` on the same
+    (q, k, v, o, lse, dO), and a second backward bitwise equal."""
+    gen = torch.Generator(device=dev).manual_seed(s * 1000 + hd)
+    t = t or s
+    q, k, v = (torch.randn(b, n, m, hd, generator=gen, device=dev).to(dtype)
+               .requires_grad_() for n, m in ((s, h), (t, kv), (t, kv)))
+    do = torch.randn(b, s, h, hd, generator=gen, device=dev).to(dtype)
+    ops.reset_launch_counts()
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert out.requires_grad
+    grads = torch.autograd.grad(out, (q, k, v), do, retain_graph=True)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == 1
+    assert counts["flash_attention_bwd"] == 1
+    with torch.no_grad():
+        torch.testing.assert_close(
+            out.float(), flash_attention_plain(q, k, v, causal=causal,
+                                               window=window).float(),
+            atol=FLASH_ATOL[dtype], rtol=0)
+        _, lse = _flash.run_entry(_build.library().repro_flash_attention,
+                                  q, k, v, causal=causal, window=window,
+                                  with_lse=True)
+        torch.testing.assert_close(
+            lse, attention_lse_plain(q, k, causal=causal, window=window),
+            atol=LSE_ATOL, rtol=0)
+        ref = flash_attention_bwd_plain(q, k, v, out, lse, do, causal=causal,
+                                        window=window)
+    for g, r in zip(grads, ref):
+        assert g.dtype == dtype and g.shape == r.shape
+        assert _rel_err(g, r) <= FLASH_BWD_RTOL[dtype]
+    again = torch.autograd.grad(out, (q, k, v), do)
+    assert all(torch.equal(a, g) for a, g in zip(again, grads))
+
+
+@pytest.mark.parametrize("kernel", [1, 2])
+def test_flash_both_forward_kernels_write_the_same_lse(dev, kernel):
+    """Each forward kernel, forced, writes lse with one meaning: natural
+    log, scale applied."""
+    gen = torch.Generator(device=dev).manual_seed(kernel)
+    q = torch.randn(2, 90, 8, 64, generator=gen, device=dev)
+    k = torch.randn(2, 90, 2, 64, generator=gen, device=dev)
+    _, lse = _flash.run_entry(_build.library().repro_flash_attention_kernel,
+                              q, k, k, window=30, extra=(kernel,),
+                              with_lse=True)
+    torch.testing.assert_close(lse, attention_lse_plain(q, k, window=30),
+                               atol=LSE_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("b,s,d", [(2, 3000, 512), (3, 129, 300), (1, 1, 32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_rglru_backward_kernel_is_plain_bitwise(dev, b, s, d, dtype,
+                                                with_h0):
+    """A CUDA call under autograd goes through RGLRUScanFn: one forward and
+    one backward launch, da / du / dh0 bit for bit the plain reverse loop
+    (cast to the inputs' types)."""
+    a, u, h0 = _rglru_inputs(dev, b, s, d, None, dtype, with_h0)
+    a.requires_grad_()
+    u.requires_grad_()
+    ins = (a, u) + ((h0.requires_grad_(),) if with_h0 else ())
+    dh = torch.randn(b, s, d, device=dev)
+    ops.reset_launch_counts()
+    h = ops.rglru_scan(a, u, h0)
+    grads = torch.autograd.grad(h, ins, dh)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["rglru_scan"] == 1 and counts["rglru_scan_bwd"] == 1
+    with torch.no_grad():
+        da, du, dh0 = rglru_scan_bwd_plain(a, h, dh, h0)
+    assert torch.equal(grads[0], da.to(dtype))
+    assert torch.equal(grads[1], du.to(dtype))
+    if with_h0:
+        assert torch.equal(grads[2], dh0)
+
+
+def test_kernels_without_backward_refuse_grad(dev):
+    """BvSB and decode attention have no backward kernel: a CUDA call that
+    autograd would record raises, and launches nothing; under no_grad it
+    runs."""
+    x = torch.randn(4, 2048, device=dev, requires_grad=True)
+    q = torch.randn(2, 8, 64, device=dev, requires_grad=True)
+    kc = torch.randn(2, 64, 2, 64, device=dev)
+    lengths = torch.tensor([64, 10], dtype=torch.int32, device=dev)
+    ops.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.bvsb(x)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.decode_attention(q, kc, kc, lengths)
+    assert not any(ops.launch_counts().values())
+    with torch.no_grad():
+        ops.bvsb(x)
+        ops.decode_attention(q, kc, kc, lengths)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["bvsb"] == 1
+    assert ops.launch_counts()["decode_attention"] == 1

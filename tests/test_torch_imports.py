@@ -11,6 +11,8 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.models.model import build_model, init_params, params_from_jax
+from repro_torch.training.data import DataConfig, SyntheticLM
+from repro_torch.training.trainer import init_model
 
 torch.set_num_threads(2)
 
@@ -35,7 +37,10 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.sim.events", "repro_torch.configs.scenarios",
             "repro_torch.core.calibration", "repro_torch.serving.transport",
             "repro_torch.serving.replay",
-            "repro_torch.launch.mesh"} <= set(mods)
+            "repro_torch.launch.mesh", "repro_torch.training.optimizer",
+            "repro_torch.training.trainer", "repro_torch.training.distill",
+            "repro_torch.training.data",
+            "repro_torch.training.checkpoint"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -80,3 +85,8 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="CUDA"):
         init_params(get_config("recurrentgemma-9b").reduced(),
                     torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SyntheticLM(DataConfig(vocab_size=64, seq_len=8,
+                               global_batch=2)).batch_at(0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_model(cfg)

@@ -261,7 +261,9 @@ def test_cpu_tensors_take_the_plain_versions_without_launching():
     assert torch.equal(ops.rglru_scan(a, x[:2, :40].reshape(2, 5, 8)),
                        rglru_scan_plain(a, x[:2, :40].reshape(2, 5, 8)))
     assert ops.launch_counts() == {"bvsb": 0, "flash_attention": 0,
-                                   "decode_attention": 0, "rglru_scan": 0}
+                                   "decode_attention": 0, "rglru_scan": 0,
+                                   "flash_attention_bwd": 0,
+                                   "rglru_scan_bwd": 0}
 
 
 def test_other_devices_raise_instead_of_falling_back():
