@@ -396,7 +396,8 @@ def time_ms(fn, iters=25, warmup=10, spin=True):
 
 PTXAS_KERNELS = ("flash_tc", "flash_fma", "decode_partial", "decode_merge",
                  "bvsb_chunk", "bvsb_merge", "rglru_ring", "rglru_elem",
-                 "flash_bwd_prep", "flash_bwd_dkdv", "flash_bwd_dq",
+                 "flash_bwd_prep", "flash_bwd_fma_dkdv", "flash_bwd_fma_dq",
+                 "flash_bwd_tc_dkdv", "flash_bwd_tc_dq", "flash_bwd_sum",
                  "rglru_bwd")
 
 
@@ -1414,16 +1415,21 @@ class Timer:
             rglru_bwd_bound_ms(a, self.bw, self.flops), 0.0, 0.0, (b, s, d),
             plain_spin=False, dt=name)
 
-    def flash_threshold(self, seqs=(16, 32, 40, 48, 64, 80, 96, 128, 256)):
+    def flash_threshold(self, seqs=(16, 32, 40, 48, 64, 80, 96, 128, 256),
+                        forward=True):
         """Device us of both flash kernels, forced, over S at the tiers'
         shapes and RecurrentGemma's heads (f32): where the tensor-core
-        kernel starts to win sets the entry point's threshold."""
+        kernel starts to win sets the entry point's threshold. Then the
+        same for the two backward forms (``run_bwd_entry`` forced, on the
+        forward kernel's output and lse; the tiers train at B = 64), which
+        sets the backward's threshold; ``forward`` False sweeps only
+        those."""
         shapes = [(name, b, cfg.num_heads, cfg.num_kv_heads,
                    cfg.resolved_head_dim)
                   for name, b in (("tier-low", 1), ("tier-server-fast", 8),
                                   ("tier-server-heavy", 64), (RG_ARCH, 1))
                   for cfg in (get_config(name),)]
-        for name, b, h, kv, hd in shapes:
+        for name, b, h, kv, hd in shapes if forward else ():
             cells = []
             for s in seqs:
                 q, k, v = qkv(self.dev, b, s, h, kv, hd)
@@ -1435,6 +1441,78 @@ class Timer:
                              f"({pick})")
             print(f"flash threshold {name} (B,H,KV,hd)=({b},{h},{kv},{hd}) "
                   f"f32, device us fma/tc (picked): {'; '.join(cells)}")
+        for name, _, h, kv, hd in shapes:
+            b = 1 if name == RG_ARCH else PAIR_BS
+            cells = []
+            for s in seqs:
+                q, k, v, do = flash_bwd_inputs(self.dev, b, s, None, h, kv,
+                                               hd, torch.float32)
+                out, lse = _flash.run_entry(
+                    _build.library().repro_flash_attention, q, k, v,
+                    with_lse=True)
+                fma_ms, tc_ms = (time_ms(lambda: _flash.run_bwd_entry(
+                    q, k, v, out, lse, do, kernel=kernel))[0]
+                                 for kernel in (1, 2))
+                pick = "tc" if _flash.uses_tensor_cores_bwd(s, hd) else "fma"
+                cells.append(f"S={s} {fma_ms * 1e3:.2f}/{tc_ms * 1e3:.2f}"
+                             f"({pick})")
+            print(f"flash backward threshold {name} (B,H,KV,hd)=({b},{h},"
+                  f"{kv},{hd}) f32, device us fma/tc (picked): "
+                  f"{'; '.join(cells)}")
+
+    def flash_bwd_splits(self, splits=(1, 2, 3, 4, 6, 8, 12, 16)):
+        """Device us of the backward at RecurrentGemma's and granite's
+        training shapes (f32) with the tensor-core dK/dV grid split
+        ``splits`` ways, forced, beside the plan's pick (``bwd_splits``)."""
+        rg = get_config(RG_ARCH)
+        for name, b, s, cfg, window in (
+                (RG_ARCH, RGT_B, RGT_S, rg, rg.local_attn_window),
+                (GRANITE_ARCH, GRANITE_B, GRANITE_S, get_config(GRANITE_ARCH),
+                 None)):
+            h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+            q, k, v, do = flash_bwd_inputs(self.dev, b, s, None, h, kv, hd,
+                                           torch.float32)
+            out, lse = _flash.run_entry(
+                _build.library().repro_flash_attention, q, k, v,
+                window=window, with_lse=True)
+            pick = _flash.bwd_splits(b, s, s, h, kv, hd, window,
+                                     _build.sm_count(self.dev))
+            cells = []
+            for n in splits:
+                ms = time_ms(lambda: _flash.run_bwd_entry(
+                    q, k, v, out, lse, do, window=window, kernel=2,
+                    splits=n), iters=10, warmup=3)[0]
+                cells.append(f"{n}: {ms * 1e3:.2f}")
+            print(f"flash backward splits {name} ({b},{s},{h},{kv},{hd}) "
+                  f"window {window} f32, device us by splits (plan {pick}): "
+                  f"{'; '.join(cells)}")
+
+    def flash_bwd_parts(self, name, b, s, h, kv, hd, window):
+        """Device ms a launch of each backward kernel at a training shape
+        (f32), from a profiled run of three calls."""
+        q, k, v, do = flash_bwd_inputs(self.dev, b, s, None, h, kv, hd,
+                                       torch.float32)
+        out, lse = _flash.run_entry(_build.library().repro_flash_attention,
+                                    q, k, v, window=window, with_lse=True)
+        _flash.run_bwd_entry(q, k, v, out, lse, do, window=window)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                _flash.run_bwd_entry(q, k, v, out, lse, do, window=window)
+            torch.cuda.synchronize()
+        parts = [e for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and "flash_bwd" in e.key]
+        if not parts:
+            raise AssertionError("the profiled backward traced no kernel")
+        cells = [f"{re.sub(r'<.*', '', e.key).split('::')[-1]} "
+                 f"{e.self_device_time_total / 1e3 / e.count:.3f} ms "
+                 f"({e.count} launches)"
+                 for e in sorted(parts, key=lambda e: -e.self_device_time_total)]
+        print(f"flash backward parts {name} ({b},{s},{h},{kv},{hd}) window "
+              f"{window} f32, device ms a launch (profiled, 3 calls): "
+              f"{'; '.join(cells)}")
 
 
 # ---------------------------------------------------------------------------
@@ -3434,6 +3512,10 @@ def train_rows(timer):
     flash = {name: timer.flash_bwd(name, b, s, t, h, kv, hd, causal, window)
              for name, b, s, t, h, kv, hd, causal, window in flash_bwd_cases()
              if name != "tier-low"}
+    for name, b, s, t, h, kv, hd, causal, window in flash_bwd_cases():
+        if name in (GRANITE_ARCH, RG_ARCH):
+            timer.flash_bwd_parts(name, b, s, h, kv, hd, window)
+    timer.flash_bwd_splits()
     scan = {"f32": timer.rglru_bwd(), "bf16": timer.rglru_bwd(
         dt=torch.bfloat16)}
     return {"flash_attention_bwd": flash, "rglru_scan_bwd": scan}
@@ -3447,6 +3529,7 @@ def train_only(dev, timer):
     check_rglru_bwd(dev)
     check_grad_guard(dev)
     train_rows(timer)
+    timer.flash_threshold(forward=False)
     torch.cuda.empty_cache()
     t1 = time.perf_counter()
     training_path(dev)

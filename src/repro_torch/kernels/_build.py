@@ -44,8 +44,12 @@ _SIGNATURES = {
     "repro_flash_attention_kernel": [_c_ptr] * 4 + [_c_int] * 7 + [_c_ll] * 12
     + [_c_int, _c_int, ctypes.c_float, _c_ptr, _c_ptr, _c_int],
     "repro_flash_uses_tensor_cores": [_c_int] * 3,
+    "repro_flash_attention_bwd_kernel": [_c_ptr] * 10 + [_c_int] * 7
+    + [_c_ll] * 15 + [_c_int, _c_int, ctypes.c_float, _c_ptr, _c_int, _c_ptr,
+                      _c_int],
+    "repro_flash_bwd_uses_tensor_cores": [_c_int] * 3,
     "repro_flash_attention_bwd": [_c_ptr] * 10 + [_c_int] * 7 + [_c_ll] * 15
-    + [_c_int, _c_int, ctypes.c_float, _c_ptr],
+    + [_c_int, _c_int, ctypes.c_float, _c_ptr, _c_int, _c_ptr],
     "repro_rglru_scan": [_c_ptr] * 4 + [_c_int] * 4 + [_c_ll] * 4
     + [_c_int] * 3 + [_c_ptr],
     "repro_rglru_scan_bwd": [_c_ptr] * 7 + [_c_int] * 4 + [_c_ll] * 2

@@ -14,8 +14,10 @@ Under autograd a CUDA call goes through ``FlashAttentionFn``: the forward
 kernel also writes each row's log-sum-exp, and the backward runs the
 hand-written kernels of ``csrc/flash_attention_bwd.cu`` (FA2: D =
 rowsum(dO o O), then dK/dV a key tile a block, then dQ a query tile a
-block, no atomics). ``flash_attention_bwd_plain`` is the same arithmetic
-in PyTorch; on the CPU autograd differentiates ``flash_attention_plain``.
+block, no atomics; ``uses_tensor_cores_bwd`` says whether on tensor cores
+or CUDA-core FMAs, and ``bwd_splits`` how many blocks share a key tile's
+query rows). ``flash_attention_bwd_plain`` is the same arithmetic in
+PyTorch; on the CPU autograd differentiates ``flash_attention_plain``.
 """
 from __future__ import annotations
 
@@ -29,6 +31,18 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256  # csrc/flash_attention.cu kMaxHD
+# the tensor-core backward (csrc/flash_attention_bwd.cu namespace tensor):
+# keys a dK/dV block (kM)
+BWD_KEYS = 64
+MAX_BWD_SPLITS = 16
+BWD_WAVES = 12         # dK/dV blocks wanted per SM before splitting stops
+MIN_SPLIT_TILES = 16   # streamed row tiles a split walks, at least
+
+
+def bwd_rows(hd: int) -> int:
+    """Packed query rows a streamed tile of the tensor-core dK/dV kernel
+    (n_tile): 64 at hd <= 128, 32 above."""
+    return 64 if hd <= 128 else 32
 
 # kernel launches since the last ops.reset_launch_counts(), forward and
 # backward; incremented under the lock, since worker threads launch too
@@ -117,6 +131,29 @@ def uses_tensor_cores(s: int, hd: int, t: Optional[int] = None) -> bool:
         s, s if t is None else t, hd))
 
 
+def uses_tensor_cores_bwd(s: int, hd: int, t: Optional[int] = None) -> bool:
+    """Whether the backward's C entry point runs the tensor-core kernels
+    at ``s`` queries over ``t`` keys (default ``s``) of head dim ``hd``
+    (else the CUDA-core FMA kernels); needs the library."""
+    return bool(_build.library().repro_flash_bwd_uses_tensor_cores(
+        s, s if t is None else t, hd))
+
+
+def bwd_splits(b: int, s: int, t: int, h: int, kv: int, hd: int,
+               window: Optional[int], sms: int) -> int:
+    """Blocks of the tensor-core dK/dV kernel that share one key tile's
+    query rows, each summing its share into an f32 partial that a second
+    pass adds in split order. One while the b * kv key-tile columns give
+    BWD_WAVES blocks an SM; else as many as reach that, at most
+    MAX_BWD_SPLITS, each walking at least MIN_SPLIT_TILES row tiles of
+    the rows a key tile sees (a window's span of positions, G rows each)."""
+    blocks = -(-t // BWD_KEYS) * kv * b
+    want = -(-BWD_WAVES * sms // blocks)
+    span = s if window is None else min(s, window + BWD_KEYS - 1)
+    tiles = -(-span * (h // kv) // bwd_rows(hd))
+    return max(1, min(MAX_BWD_SPLITS, want, tiles // MIN_SPLIT_TILES))
+
+
 def _check(q, k, v, causal):
     if not (q.device == k.device == v.device):
         raise ValueError("flash_attention: q, k, v on different devices")
@@ -170,12 +207,18 @@ def run_entry(entry, q, k, v, *, causal: bool = True,
 
 
 def run_bwd_entry(q, k, v, o, lse, do, *, causal: bool = True,
-                  window: Optional[int] = None):
+                  window: Optional[int] = None, kernel: int = 0,
+                  splits: Optional[int] = None):
     """Check CUDA tensors and run the backward kernels on them: (dq, dk,
     dv), contiguous, in q's type. ``o`` and ``lse`` are the forward's
-    output and row log-sum-exp. Counts nothing: ``FlashAttentionFn`` is
-    the counted launch."""
+    output and row log-sum-exp. ``kernel`` 0 lets the entry point pick
+    from the shape (``uses_tensor_cores_bwd``), 1 forces the FMA kernels
+    and 2 the tensor-core ones; ``splits`` (tensor cores only) defaults to
+    ``bwd_splits``. Counts nothing: ``FlashAttentionFn`` is the counted
+    launch."""
     _check(q, k, v, causal)
+    if kernel not in (0, 1, 2):
+        raise ValueError(f"flash_attention backward: kernel {kernel}")
     b, s, h, hd = q.shape
     if do.shape != q.shape or o.shape != q.shape or do.dtype != q.dtype \
             or o.dtype != q.dtype or do.stride(3) != 1 or o.stride(3) != 1:
@@ -186,18 +229,33 @@ def run_bwd_entry(q, k, v, o, lse, do, *, causal: bool = True,
             or not lse.is_contiguous():
         raise ValueError(f"flash_attention backward: lse {tuple(lse.shape)} "
                          f"{lse.dtype}, needs contiguous f32 {(b, h, s)}")
+    t, kvh = k.shape[1], k.shape[2]
+    tensor_cores = kernel == 2 or (kernel == 0
+                                   and uses_tensor_cores_bwd(s, hd, t))
+    if splits is None:
+        splits = bwd_splits(b, s, t, h, kvh, hd, window,
+                            _build.sm_count(q.device)) if tensor_cores else 1
+    if splits < 1 or (splits > 1 and not tensor_cores) \
+            or b * splits > 65535:
+        raise ValueError(f"flash_attention backward: {splits} splits")
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
     delta = torch.empty(b, h, s, dtype=torch.float32, device=q.device)
-    _build.check(_build.library().repro_flash_attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), _build.DTYPE_CODES[q.dtype], b, s,
-        k.shape[1], h, k.shape[2], hd, *q.stride()[:3], *k.stride()[:3],
-        *v.stride()[:3], *o.stride()[:3], *do.stride()[:3], int(causal),
-        0 if window is None else int(window), _scale(hd),
-        _build.stream_ptr(q)), "flash_attention backward")
+    part = torch.empty(2 * splits * k.numel(), dtype=torch.float32,
+                       device=q.device) if splits > 1 else None
+    lib = _build.library()
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), _build.DTYPE_CODES[q.dtype], b, s,
+            t, h, kvh, hd, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *o.stride()[:3], *do.stride()[:3], int(causal),
+            0 if window is None else int(window), _scale(hd),
+            _build.stream_ptr(q), splits,
+            0 if part is None else part.data_ptr())
+    _build.check(lib.repro_flash_attention_bwd(*args) if kernel == 0 else
+                 lib.repro_flash_attention_bwd_kernel(*args, kernel),
+                 "flash_attention backward")
     return dq, dk, dv
 
 

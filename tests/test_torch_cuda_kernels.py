@@ -668,11 +668,14 @@ def test_moe_apply_on_the_card_matches_the_cpu(dev, pull):
 # ---------------------------------------------------------------------------
 # (B, S, T, H, KV, hd, causal, window): the tiers' S = 16 (the CUDA-core
 # forward), GQA with windows under and over a key tile, hd 48 / 160 padded
-# in their tiles, non-causal T = S and T != S both ways
+# in their tiles, non-causal T = S and T != S both ways; RG-like (hd 256,
+# 16 heads over one, a window over more than two 64-key tiles, S off the
+# tiles), whose few key tiles make the tensor-core dK/dV grid split
 FLASH_BWD_CASES = [(2, 16, None, 8, 8, 48, True, None),
                    (2, 16, None, 4, 4, 32, True, None),
                    (2, 200, None, 8, 2, 64, True, 20),
                    (1, 300, None, 16, 1, 256, True, 100),
+                   (2, 333, None, 16, 1, 256, True, 150),
                    (2, 130, None, 32, 8, 160, True, None),
                    (1, 97, None, 16, 16, 128, True, None),
                    (2, 80, None, 8, 2, 64, False, None),
@@ -687,12 +690,16 @@ def _rel_err(got, ref):
 
 @pytest.mark.parametrize("b,s,t,h,kv,hd,causal,window", FLASH_BWD_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", [0, 1, 2])
 def test_flash_backward_kernel_matches_plain(dev, b, s, t, h, kv, hd, causal,
-                                             window, dtype):
-    """A CUDA call under autograd goes through FlashAttentionFn: one forward
-    and one backward launch; the forward's lse and output as the plain
-    versions', dq/dk/dv against ``flash_attention_bwd_plain`` on the same
-    (q, k, v, o, lse, dO), and a second backward bitwise equal."""
+                                             window, dtype, kernel):
+    """Kernel 0: a CUDA call under autograd goes through FlashAttentionFn,
+    one forward and one backward launch (the entry point picks the
+    backward form from the shape); 1 / 2: the FMA / tensor-core backward
+    forced through ``run_bwd_entry`` (not counted). The forward's lse and
+    output as the plain versions', dq/dk/dv against
+    ``flash_attention_bwd_plain`` on the same (q, k, v, o, lse, dO), and a
+    second backward bitwise equal."""
     gen = torch.Generator(device=dev).manual_seed(s * 1000 + hd)
     t = t or s
     q, k, v = (torch.randn(b, n, m, hd, generator=gen, device=dev).to(dtype)
@@ -701,11 +708,23 @@ def test_flash_backward_kernel_matches_plain(dev, b, s, t, h, kv, hd, causal,
     ops.reset_launch_counts()
     out = ops.flash_attention(q, k, v, causal=causal, window=window)
     assert out.requires_grad
-    grads = torch.autograd.grad(out, (q, k, v), do, retain_graph=True)
+    if kernel:
+        with torch.no_grad():
+            _, lse = _flash.run_entry(_build.library().repro_flash_attention,
+                                      q, k, v, causal=causal, window=window,
+                                      with_lse=True)
+
+        def backward():
+            return _flash.run_bwd_entry(q, k, v, out, lse, do, causal=causal,
+                                        window=window, kernel=kernel)
+    else:
+        def backward():
+            return torch.autograd.grad(out, (q, k, v), do, retain_graph=True)
+    grads = backward()
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     assert counts["flash_attention"] == 1
-    assert counts["flash_attention_bwd"] == 1
+    assert counts["flash_attention_bwd"] == int(kernel == 0)
     with torch.no_grad():
         torch.testing.assert_close(
             out.float(), flash_attention_plain(q, k, v, causal=causal,
@@ -722,8 +741,53 @@ def test_flash_backward_kernel_matches_plain(dev, b, s, t, h, kv, hd, causal,
     for g, r in zip(grads, ref):
         assert g.dtype == dtype and g.shape == r.shape
         assert _rel_err(g, r) <= FLASH_BWD_RTOL[dtype]
-    again = torch.autograd.grad(out, (q, k, v), do)
+    again = backward()
     assert all(torch.equal(a, g) for a, g in zip(again, grads))
+
+
+@pytest.mark.parametrize("b,s,h,kv,hd,window,dtype",
+                         [(2, 333, 16, 1, 256, 150, torch.float32),
+                          (1, 200, 8, 2, 64, None, torch.bfloat16),
+                          (1, 64, 4, 1, 128, 20, torch.float32)])
+def test_flash_backward_split_grid_sums_in_a_fixed_order(dev, b, s, h, kv, hd,
+                                                         window, dtype):
+    """The tensor-core dK/dV grid split 1 to 16 ways, forced (16: more
+    splits than a key tile has row tiles, so some blocks walk none and
+    write zero partials): every plan within the gate of the plain
+    version, each repeated bitwise, dq the same bits whatever the split."""
+    gen = torch.Generator(device=dev).manual_seed(s + hd)
+    q = torch.randn(b, s, h, hd, generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn(b, s, kv, hd, generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    do = torch.randn(b, s, h, hd, generator=gen, device=dev).to(dtype)
+    out, lse = _flash.run_entry(_build.library().repro_flash_attention, q, k,
+                                v, window=window, with_lse=True)
+    ref = flash_attention_bwd_plain(q, k, v, out, lse, do, window=window)
+    dq0 = None
+    for splits in (1, 2, 3, 7, 16):
+        def run():
+            return _flash.run_bwd_entry(q, k, v, out, lse, do, window=window,
+                                        kernel=2, splits=splits)
+        grads = run()
+        torch.cuda.synchronize()
+        for g, r in zip(grads, ref):
+            assert _rel_err(g, r) <= FLASH_BWD_RTOL[dtype], splits
+        assert all(torch.equal(a, g) for a, g in zip(run(), grads))
+        dq0 = grads[0] if dq0 is None else dq0
+        assert torch.equal(grads[0], dq0)
+
+
+def test_flash_backward_refuses_bad_plans(dev):
+    q = torch.randn(1, 64, 4, 64, device=dev)
+    k = torch.randn(1, 64, 1, 64, device=dev)
+    out, lse = _flash.run_entry(_build.library().repro_flash_attention, q, k,
+                                k, with_lse=True)
+    for kw in (dict(kernel=1, splits=2), dict(kernel=2, splits=0),
+               dict(kernel=3)):
+        with pytest.raises(ValueError):
+            _flash.run_bwd_entry(q, k, k, out, lse, q, **kw)
+    assert not _flash.uses_tensor_cores_bwd(16, 64)
+    assert _flash.uses_tensor_cores_bwd(2048, 64)
 
 
 @pytest.mark.parametrize("kernel", [1, 2])

@@ -1,6 +1,11 @@
 """The precision scheme of the tensor-core attention kernels, emulated on
 the CPU.
 
+The backward's five products (``csrc/flash_attention_bwd.cu``) are
+emulated at the end of the file against the FA2 formulas in f64: 3xTF32
+with the kernel's truncated split within the f32 gate, 1xTF32 missing it,
+and the bf16 scheme (P and dS as hi + lo bf16 terms) within the bf16 gate.
+
 ``csrc/flash_attention.cu`` (and ``csrc/decode_attention.cu`` alike) runs
 f32 attention on TF32 tensor cores as
 3xTF32: each operand x splits into hi = tf32(x) (round to nearest, ties
@@ -231,3 +236,158 @@ def test_2xtf32_decode_over_a_bf16_cache_within_the_f32_gate(case):
     err = float((decode(q, k.float(), v.float(), lens, mm_2xtf32_exact_b)
                  - ref).abs().max())
     assert err <= F32_GATE / 10, err
+
+
+# ---------------------------------------------------------------------------
+# the backward (csrc/flash_attention_bwd.cu, tensor-core form)
+# ---------------------------------------------------------------------------
+FLASH_BWD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def mm_3xtf32_trunc(a, b):
+    """a @ b as the backward's mma chains form it: hi is the operand as it
+    stands, which the tensor core truncates to TF32, and lo = x - hi,
+    truncated again where read."""
+    ah, bh = tf32_truncate(a), tf32_truncate(b)
+    al, bl = tf32_truncate(a - ah), tf32_truncate(b - bh)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def mm_f64(a, b):
+    return a.double() @ b.double()
+
+
+def mm_bf16(a, b):
+    """Both operands bf16 values: exact products, f32 sums."""
+    return a.float() @ b.float()
+
+
+def mm_bf16_split_a(a, b):
+    """a (f32: P or dS) as hi = bf16(a) and lo = bf16(a - hi), b bf16."""
+    hi = a.bfloat16().float()
+    lo = (a - hi).bfloat16().float()
+    return lo @ b.float() + hi @ b.float()
+
+
+def attention_bwd(q, k, v, o, lse, do, causal, window, mm, mm_p=None):
+    """(dq, dk, dv) by the FA2 formulas with the five products taken by
+    ``mm`` (``mm_p`` for the three whose left operand is P or dS, default
+    ``mm``), in ``mm``'s precision elsewhere: S = Q K^T, dP = dO V^T, dV =
+    P^T dO, dK = dS^T Q scale, dQ = dS K scale, the GQA group's rows packed
+    (position, head) into one product as the kernel packs them."""
+    mm_p = mm_p or mm
+    b, s, h, hd = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    wide = torch.float64 if mm is mm_f64 else torch.float32
+    scale = (1.0 / np.sqrt(hd)) if wide == torch.float64 \
+        else np.float32(1.0 / np.sqrt(hd))
+    # packed rows: (b, kv, s * g, hd), row = position * g + head-in-group
+    qp, dop, op = (x.reshape(b, s, kvh, g, hd).permute(0, 2, 1, 3, 4)
+                   .reshape(b, kvh, s * g, hd) for x in (q, do, o))
+    kt, vt = (x.permute(0, 2, 1, 3) for x in (k, v))       # (b, kv, t, hd)
+    pos = torch.arange(s).repeat_interleave(g)[:, None]
+    key = torch.arange(t)[None, :]
+    ok = key <= pos if causal else torch.ones(s * g, t, dtype=torch.bool)
+    if window is not None:
+        ok = ok & (pos - key < window)
+    lse_p = lse.reshape(b, kvh, g, s).permute(0, 1, 3, 2).reshape(
+        b, kvh, s * g, 1).to(wide)
+    sc = mm(qp, kt.transpose(-1, -2)).to(wide) * scale
+    p = torch.where(ok, torch.exp(sc - lse_p), torch.zeros((), dtype=wide))
+    dp = mm(dop, vt.transpose(-1, -2)).to(wide)
+    d = (dop.to(wide) * op.to(wide)).sum(-1, keepdim=True)
+    ds = p * (dp - d)
+    dv = mm_p(p.transpose(-1, -2), dop).to(wide)
+    dk = mm_p(ds.transpose(-1, -2), qp).to(wide) * scale
+    dq = mm_p(ds, kt).to(wide) * scale
+    dq = dq.reshape(b, kvh, s, g, hd).permute(0, 2, 1, 3, 4).reshape(
+        b, s, h, hd)
+    return dq, dk.permute(0, 2, 1, 3), dv.permute(0, 2, 1, 3)
+
+
+# (B, S, T, H, KV, hd, causal, window): RG-like (16 heads over one of 256,
+# a window), GQA at hd 64 with a window, non-causal over T != S keys
+BWD_CASES = [(1, 96, None, 16, 1, 256, True, 40),
+             (2, 80, None, 8, 2, 64, True, 24),
+             (1, 48, 72, 4, 2, 64, False, None)]
+
+
+def _bwd_inputs(case, dtype=torch.float32):
+    """q, k, v, dO from a seed with numpy (in ``dtype``), and the forward's
+    output and lse in f64 from them, cast as the forward kernel writes
+    them (o in ``dtype``, lse f32)."""
+    b, s, t, h, kv, hd, causal, window = case
+    t = t or s
+    rng = np.random.default_rng(s * 1000 + hd + h)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(shape)
+                                    .astype(np.float32)).to(dtype)
+                   for shape in ((b, s, h, hd), (b, t, kv, hd),
+                                 (b, t, kv, hd), (b, s, h, hd)))
+    qg = q.double().reshape(b, s, kv, h // kv, hd)
+    sc = torch.einsum("bskgh,btkh->bkgst", qg, k.double()) / np.sqrt(hd)
+    i, j = torch.arange(s)[:, None], torch.arange(t)[None, :]
+    ok = j <= i if causal else torch.ones(s, t, dtype=torch.bool)
+    if window is not None:
+        ok = ok & (i - j < window)
+    sc = sc.masked_fill(~ok, -np.inf)
+    lse = torch.logsumexp(sc, -1)                            # (b, kv, g, s)
+    o = torch.einsum("bkgst,btkh->bskgh", torch.exp(sc - lse[..., None]),
+                     v.double()).reshape(b, s, h, hd)
+    return q, k, v, o.to(dtype), lse.reshape(b, h, s).float(), do
+
+
+def _bwd_errors(case, dtype, mm, mm_p=None):
+    """max |err| / max |ref| of dq, dk, dv against the f64 formulas on
+    the same inputs."""
+    causal, window = case[6], case[7]
+    q, k, v, o, lse, do = _bwd_inputs(case, dtype)
+    ref = attention_bwd(q, k, v, o, lse, do, causal, window, mm_f64)
+    got = attention_bwd(*((x.float() for x in (q, k, v, o))), lse,
+                        do.float(), causal, window, mm, mm_p)
+    return [float((g.to(dtype).double() - r).abs().max() / r.abs().max())
+            for g, r in zip(got, ref)]
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=str)
+def test_bwd_formulas_equal_the_plain_backward(case):
+    """The packed-row emulation in f64 is flash_attention_bwd_plain's
+    arithmetic (which runs in f32) to f32's rounding."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_plain
+    causal, window = case[6], case[7]
+    q, k, v, o, lse, do = _bwd_inputs(case)
+    ref = attention_bwd(q, k, v, o, lse, do, causal, window, mm_f64)
+    plain = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                      window=window)
+    for g, r in zip(plain, ref):
+        assert float((g.double() - r).abs().max() / r.abs().max()) < 1e-5
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=str)
+@pytest.mark.parametrize("mm", [mm_3xtf32_trunc, mm_3xtf32],
+                         ids=["truncated split", "rounded split"])
+def test_3xtf32_backward_within_the_f32_gate(case, mm):
+    """The backward kernel's truncated split (hi = the operand as the
+    tensor core reads it: 0.7-1.5e-6 of max |ref| at these shapes) and the
+    forward's rounded one (0.3-1.2e-6) are both far inside the gate."""
+    errs = _bwd_errors(case, torch.float32, mm)
+    assert max(errs) <= FLASH_BWD_RTOL[torch.float32] / 10, errs
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=str)
+def test_1xtf32_backward_misses_the_f32_gate(case):
+    """One TF32 product per pair misses the backward's f32 gate too, by
+    several times: the backward needs the split as the forward does."""
+    errs = _bwd_errors(case, torch.float32, mm_1xtf32)
+    assert max(errs) > 3 * FLASH_BWD_RTOL[torch.float32], errs
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=str)
+def test_bf16_backward_scheme_within_the_bf16_gate(case):
+    """bf16 inputs: Q K^T and dO V^T as exact bf16 products summed in f32,
+    P and dS entering their products as hi + lo bf16 terms, each output
+    rounded once to bf16: 1.7-3.3e-3 of max |ref| at these shapes, within
+    the bf16 gate with a wide margin (P / dS rounded to one bf16 term give
+    2.0-4.1e-3)."""
+    errs = _bwd_errors(case, torch.bfloat16, mm_bf16, mm_bf16_split_a)
+    assert max(errs) <= FLASH_BWD_RTOL[torch.bfloat16] / 4, errs

@@ -19,7 +19,11 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.bvsb import (BLOCKS_PER_SM, MIN_CHUNK, MIN_CHUNKS,
                                      VEC, bvsb_plain, chunks)
 from repro_torch.kernels.decode_attention import decode_attention_plain
-from repro_torch.kernels.flash_attention import flash_attention_plain
+from repro_torch.kernels.flash_attention import (BWD_KEYS, BWD_WAVES,
+                                                 MAX_BWD_SPLITS,
+                                                 MIN_SPLIT_TILES, bwd_rows,
+                                                 bwd_splits,
+                                                 flash_attention_plain)
 from repro_torch.kernels.rglru_scan import rglru_scan_plain
 
 torch.set_num_threads(2)
@@ -306,3 +310,86 @@ def test_decode_wrapper_takes_exactly_three_dtype_mixes():
 def test_cache_token_separates_devices():
     assert ops.cache_token("cpu") != ops.cache_token("cuda")
     assert ops.cache_token(torch.device("cuda", 0)) == ops.cache_token("cuda")
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core flash backward's plan and tile walks
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("b,s,h,kv,hd,window,sms,want", [
+    (2, 3000, 16, 1, 256, 2048, 132, 16),   # RecurrentGemma's training shape
+    (4, 2048, 16, 8, 64, None, 132, 2),     # granite-moe-1b-a400m's
+    (4, 2048, 16, 16, 128, None, 132, 1),   # deepseek-moe-16b's
+    (64, 16, 8, 8, 48, None, 132, 1),       # the tiers'
+    (1, 300, 16, 1, 256, 100, 132, 5),
+    (1, 64, 4, 1, 128, None, 132, 1)])
+def test_flash_bwd_splits_fill_the_card(b, s, h, kv, hd, window, sms, want):
+    """Split only while the key-tile columns give fewer than BWD_WAVES
+    blocks an SM, at most MAX_BWD_SPLITS, each split walking at least
+    MIN_SPLIT_TILES row tiles."""
+    n = bwd_splits(b, s, s, h, kv, hd, window, sms)
+    assert n == want
+    blocks = -(-s // BWD_KEYS) * kv * b
+    span = s if window is None else min(s, window + BWD_KEYS - 1)
+    tiles = -(-span * (h // kv) // bwd_rows(hd))
+    assert 1 <= n <= MAX_BWD_SPLITS
+    if n > 1:
+        assert blocks * (n - 1) < BWD_WAVES * sms
+        assert tiles // n >= MIN_SPLIT_TILES
+
+
+def _dkdv_walk(s, t, g, causal, window, splits, rows_tile):
+    """(first key, row tiles) of each block of flash_bwd_tc_dkdv_kernel, in
+    the kernel's own arithmetic."""
+    n_rows = s * g
+    for k0 in range(0, t, BWD_KEYS):
+        pos_lo = k0 if causal else 0
+        pos_hi = min(s - 1, k0 + BWD_KEYS - 1 + window - 1) if window \
+            else s - 1
+        t_lo = pos_lo * g // rows_tile
+        tiles = (min(n_rows, (pos_hi + 1) * g) - 1) // rows_tile - t_lo + 1
+        for split in range(splits):
+            yield k0, range(t_lo + split * tiles // splits,
+                            t_lo + (split + 1) * tiles // splits)
+
+
+def _dq_walk(s, t, g, causal, window, keys_tile, rows=64):
+    """(first packed row, key tiles) of each block of
+    flash_bwd_tc_dq_kernel, in the kernel's own arithmetic."""
+    n_rows = s * g
+    for m in range(0, n_rows, rows):
+        p_lo, p_hi = m // g, (min(m + rows, n_rows) - 1) // g
+        k_hi = min(p_hi, t - 1) if causal else t - 1
+        k_lo = max(0, p_lo - window + 1) if window else 0
+        yield m, range(k_lo // keys_tile * keys_tile, k_hi + 1, keys_tile)
+
+
+@pytest.mark.parametrize("s,t,g,causal,window,hd", [
+    (300, None, 16, True, 100, 256), (333, None, 16, True, 150, 256),
+    (200, None, 2, True, 20, 64), (97, None, 1, True, None, 128),
+    (80, None, 4, False, None, 64), (77, 300, 4, False, None, 64),
+    (300, 77, 1, False, None, 64)])
+@pytest.mark.parametrize("splits", [1, 3, 16])
+def test_flash_bwd_tile_walks_visit_each_pair_once(s, t, g, causal, window,
+                                                   hd, splits):
+    """Every (packed query row, key) pair that the mask keeps lies in
+    exactly one (block, streamed tile) of the dK/dV walk, split or not, and
+    of the dQ walk: nothing summed twice, nothing left out; pairs outside
+    the mask only in tiles that cross an edge."""
+    t = t or s
+    rows_tile = bwd_rows(hd)
+    pos = np.repeat(np.arange(s), g)[:, None]
+    key = np.arange(t)[None, :]
+    ok = key <= pos if causal else np.ones((s * g, t), bool)
+    if window:
+        ok = ok & (pos - key < window)
+    seen = np.zeros((s * g, t), np.int32)
+    for k0, tiles in _dkdv_walk(s, t, g, causal, window, splits, rows_tile):
+        for tile in tiles:
+            r0 = tile * rows_tile
+            seen[r0:r0 + rows_tile, k0:k0 + BWD_KEYS] += 1
+    assert (seen[ok] == 1).all() and seen.max() <= 1
+    seen[:] = 0
+    for m, kts in _dq_walk(s, t, g, causal, window, rows_tile):
+        for kt in kts:
+            seen[m:m + 64, kt:kt + rows_tile] += 1
+    assert (seen[ok] == 1).all() and seen.max() <= 1
