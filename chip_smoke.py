@@ -4,6 +4,7 @@
     python3 chip_smoke.py        # from the repository root, one card
     python3 chip_smoke.py zoo    # phases 1-3's zoo part, 9 and 10 alone
     python3 chip_smoke.py train  # phases 1-3's training part and 11 alone
+    python3 chip_smoke.py softcap  # phases 1-3's soft-cap part and 12 alone
 
 Phases, each printing its own lines; any failure raises, and the script
 then exits non-zero without the final result line:
@@ -41,7 +42,15 @@ then exits non-zero without the final result line:
    under grad raising; the backward kernels' times beside their bounds
    (flash: 2.5 times the forward's products at the tensor-core and the
    FP32 rates; the scan: 5 B S D 4 bytes), plain versions and SDPA's
-   backward through autograd;
+   backward through autograd; the scan's backward on its cp.async ring
+   and its per-element path, each forced, bit for bit the plain loop, its
+   rows beside the per-element path's time and a sweep of the ring's
+   (steps, stages) at B = 2 and 1. The soft-cap part: flash forward and
+   backward (each form forced) and decode (three dtype pairs) with
+   gemma's cap against their plain versions with the cap, each repeated
+   bitwise, and capped rows at gemma-7b's shapes beside the uncapped
+   ones, the library flex attention with a tanh score_mod where the
+   card's install compiles it;
 4. cascade path: the live cascade — 16 device clients on tier-low, a
    server engine hosting tier-server-fast and tier-server-heavy with
    model switching, the MultiTASC++ scheduler — through ``run_cascade``,
@@ -151,8 +160,18 @@ then exits non-zero without the final result line:
    the loss within 1e-5 relative, each parameter's gradient within 1e-4
    of its max |g|, the grad norm within 1e-4 relative, and on the card
    remat on and off bitwise equal;
-12. the kernels line: one JSON object describing every ported kernel;
-13. the result line: {"ok": true, "device": {...}}.
+12. soft-capped attention: gemma-7b at full width with Gemma 2's
+   attention soft cap of 50 (``logit_soft_cap``), served at 4 layers
+   (``make_prefill_step`` on 4 prompts of 2,048 positions, 8
+   ``make_serve_step`` steps feeding back each top-1; launches held to one
+   flash launch a layer at the prefill, layers x steps decode and 1 +
+   steps BvSB; a profiled rerun; 2 layers card vs CPU on 2 x 64 and 4
+   steps: BvSB within 1e-5, top-1), then trained at 2 layers through
+   ``make_train_step`` with remat, 3 steps of 2 x 2,048 SyntheticLM
+   tokens (two flash forward and one backward launch a layer a step),
+   then 2 layers on 1 x 256 tokens card vs CPU under phase 11's rules;
+13. the kernels line: one JSON object describing every ported kernel;
+14. the result line: {"ok": true, "device": {...}}.
 
 ``zoo`` runs phases 1 and 2, phase 3's BvSB, flash and decode checks
 and its zoo timing rows, the MoE dispatch's scan of its one-hot in two
@@ -161,6 +180,8 @@ forms in turns (JAX's ``cumsum`` down the (N k, E) one-hot against
 granite's and deepseek's prefill: the same rows, device ms), then phases
 9 and 10, and prints no result line. ``train`` runs phases 1 and 2,
 phase 3's training part, then phase 11, and prints no result line.
+``softcap`` runs phases 1 and 2, phase 3's soft-cap part, then phase 12,
+and prints no result line.
 
 ``throughput`` of the cascade is a virtual-clock figure from the paper's
 latency profiles, not a measurement of the card.
@@ -324,6 +345,21 @@ TRAIN_GNORM_RTOL = 1e-4
 FLASH_BWD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 LSE_ATOL = 1e-4
 
+# phase 12, soft-capped attention: gemma-7b's widths (16 heads of 256, G =
+# 1) with Gemma 2's attn_logit_softcapping, served at CAP_LAYERS layers
+# (ZOO_B prompts of ZOO_S positions, CAP_STEPS decode steps) and trained
+# at CAP_TRAIN_LAYERS (CAP_TRAIN_STEPS steps of CAP_TRAIN_B x
+# CAP_TRAIN_S SyntheticLM tokens, remat); the card against the CPU at
+# CAP_CHECK_LAYERS layers (serving: ZOO_CHECK_B x ZOO_CHECK_S and
+# ZOO_CHECK_STEPS steps; training: TRAIN_CHECK_B x TRAIN_CHECK_S tokens)
+CAP_ARCH, CAP = "gemma-7b", 50.0
+CAP_LAYERS, CAP_STEPS = 4, 8
+CAP_TRAIN_LAYERS, CAP_TRAIN_B, CAP_TRAIN_S, CAP_TRAIN_STEPS = 2, 2, 2048, 3
+CAP_CHECK_LAYERS = 2
+# phase 3's capped cases draw q and k at CAP_QK times a unit normal, so
+# that the scores reach the cap's curved part
+CAP_QK = 3.0
+
 
 def card_rates(name: str):
     """(HBM bytes/s, FP32 FLOP/s outside the tensor cores, dense
@@ -398,7 +434,7 @@ PTXAS_KERNELS = ("flash_tc", "flash_fma", "decode_partial", "decode_merge",
                  "bvsb_chunk", "bvsb_merge", "rglru_ring", "rglru_elem",
                  "flash_bwd_prep", "flash_bwd_fma_dkdv", "flash_bwd_fma_dq",
                  "flash_bwd_tc_dkdv", "flash_bwd_tc_dq", "flash_bwd_sum",
-                 "rglru_bwd")
+                 "rglru_bwd_ring", "rglru_bwd")
 
 
 def print_ptxas(log: str):
@@ -560,12 +596,16 @@ def serving_flash_cases():
     return cases
 
 
-def qkv(dev, b, s, h, kv, hd, dtype=torch.float32, seed=0, t=None):
-    """q (B, S, H, hd) and k/v (B, T, KV, hd), T = S by default."""
+def qkv(dev, b, s, h, kv, hd, dtype=torch.float32, seed=0, t=None,
+        qk_scale=1.0):
+    """q (B, S, H, hd) and k/v (B, T, KV, hd), T = S by default; q and k
+    drawn at ``qk_scale`` times a unit normal."""
     gen = torch.Generator(device=dev).manual_seed(seed)
-    return tuple(torch.randn(b, n_pos, n, hd, generator=gen, device=dev)
-                 .to(dtype) for n_pos, n in ((s, h), (t or s, kv),
-                                             (t or s, kv)))
+    return tuple((torch.randn(b, n_pos, n, hd, generator=gen, device=dev)
+                  * scale).to(dtype)
+                 for n_pos, n, scale in ((s, h, qk_scale), (t or s, kv,
+                                                            qk_scale),
+                                         (t or s, kv, 1.0)))
 
 
 def flash_kernel(q, k, v, window, kernel, causal=True):
@@ -698,6 +738,181 @@ def check_flash_cross(dev):
         print("flash_attention refuses causal attention over T != S keys")
     else:
         raise AssertionError("flash_attention took causal=True with T != S")
+
+
+def cap_cfg(layers=None):
+    """gemma-7b with Gemma 2's attention soft cap, cut to ``layers``."""
+    cfg = get_config(CAP_ARCH).with_(logit_soft_cap=CAP)
+    return cfg if layers is None else cfg.with_(num_layers=layers)
+
+
+# (name, B, S, T or None, H, KV, hd, causal, window): phase 12's prefill
+# and training shapes, gemma's heads around the tensor-core thresholds,
+# RG-like GQA with a window, non-causal T = S and T != S
+CAP_FLASH_CASES = [
+    (f"{CAP_ARCH} prefill", ZOO_B, ZOO_S, None, 16, 16, 256, True, None),
+    (f"{CAP_ARCH} training", CAP_TRAIN_B, CAP_TRAIN_S, None, 16, 16, 256,
+     True, None),
+    ("gemma heads S=300", 2, 300, None, 16, 16, 256, True, None),
+    ("gemma heads S=63", 2, 63, None, 16, 16, 256, True, None),
+    ("RG-like window", 1, 200, None, 16, 1, 256, True, 7),
+    ("GQA hd 128", 2, 47, None, 8, 2, 128, True, None),
+    ("tiers S=16", 64, 16, None, 8, 8, 64, True, None),
+    ("non-causal", 2, 80, None, 8, 2, 64, False, None),
+    ("cross 77 over 300", 2, 77, 300, 8, 2, 64, False, None),
+    ("cross 300 over 77", 2, 300, 77, 16, 16, 64, False, None)]
+
+
+def check_flash_capped(dev):
+    """Soft-capped flash forward (cap CAP) against its plain version with
+    the cap: each case on the kernel the shape picks (counted) and, but
+    the two largest, with each kernel forced, f32 and bf16, each repeated
+    bitwise; the forward's lse against ``attention_lse_plain``; and the
+    cap moving the plain output by more than the gate."""
+    lib = _build.library()
+    for name, b, s, t, h, kv, hd, causal, window in CAP_FLASH_CASES:
+        big = s >= 2048
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = qkv(dev, b, s, h, kv, hd, dt, seed=s, t=t,
+                          qk_scale=CAP_QK)
+            ref = flash_attention_plain(q, k, v, causal=causal, window=window,
+                                        soft_cap=CAP)
+            free = flash_attention_plain(q, k, v, causal=causal,
+                                         window=window)
+            moved = max_err(ref, free)
+            if not moved > FLASH_ATOL[dt]:
+                raise AssertionError(f"capped flash {name}: the cap moves "
+                                     f"the output by {moved:.3g} only")
+            shape = (b, s, h, kv, hd) if t is None else (b, s, t, h, kv, hd)
+            ops.reset_launch_counts()
+            out = ops.flash_attention(q, k, v, causal=causal, window=window,
+                                      soft_cap=CAP)
+            if ops.launch_counts()["flash_attention"] != 1:
+                raise AssertionError("capped flash: not one launch")
+            _check_flash_twice(
+                f"soft_cap={CAP:g} {name} {shape} causal={causal} "
+                f"window={window}", lambda: ops.flash_attention(
+                    q, k, v, causal=causal, window=window, soft_cap=CAP),
+                ref, dt)
+            for kernel in () if big else (1, 2):
+                _check_flash_twice(
+                    f"soft_cap={CAP:g} kernel {kernel} {name} {shape}",
+                    lambda: _flash.run_entry(
+                        lib.repro_flash_attention_kernel, q, k, v,
+                        causal=causal, window=window, soft_cap=CAP,
+                        extra=(kernel,)), ref, dt)
+            _, lse = _flash.run_entry(lib.repro_flash_attention, q, k, v,
+                                      causal=causal, window=window,
+                                      soft_cap=CAP, with_lse=True)
+            err = max_err(lse, attention_lse_plain(
+                q, k, causal=causal, window=window, soft_cap=CAP))
+            print(f"flash_attention soft_cap={CAP:g} {name} {str(dt)[6:]}: "
+                  f"lse max|err| {err:.3g} (atol {LSE_ATOL:g}); the cap "
+                  f"moves the plain output by {moved:.3g}")
+            if not err <= LSE_ATOL:
+                raise AssertionError(f"capped flash lse disagrees at {name}")
+            del q, k, v, ref, free, out, lse
+            torch.cuda.empty_cache()
+
+
+def check_flash_bwd_capped(dev):
+    """The capped backward under autograd (FlashAttentionFn with the cap:
+    one forward and two backward launches) at each capped case, f32 and
+    bf16, and, but the two largest, each backward form forced: dq / dk /
+    dv against ``flash_attention_bwd_plain`` with the cap on the same (q,
+    k, v, o, lse, dO), a second backward bitwise equal."""
+    for name, b, s, t, h, kv, hd, causal, window in CAP_FLASH_CASES:
+        if name == f"{CAP_ARCH} prefill":
+            continue          # the training shape stands for it
+        big = s >= 2048
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v, do = flash_bwd_inputs(dev, b, s, t, h, kv, hd, dt,
+                                           seed=s + 1, qk_scale=CAP_QK)
+            for x in (q, k, v):
+                x.requires_grad_()
+            ops.reset_launch_counts()
+            out = ops.flash_attention(q, k, v, causal=causal, window=window,
+                                      soft_cap=CAP)
+            runs = {"autograd": lambda: torch.autograd.grad(
+                out, (q, k, v), do, retain_graph=True)}
+            with torch.no_grad():
+                _, lse = _flash.run_entry(
+                    _build.library().repro_flash_attention, q, k, v,
+                    causal=causal, window=window, soft_cap=CAP, with_lse=True)
+                for kernel in () if big else (1, 2):
+                    runs[f"kernel {kernel}"] = functools.partial(
+                        _flash.run_bwd_entry, q, k, v, out, lse, do,
+                        causal=causal, window=window, soft_cap=CAP,
+                        kernel=kernel)
+                ref = flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                                causal=causal, window=window,
+                                                soft_cap=CAP)
+            for form, run in runs.items():
+                grads = run()
+                again = run()
+                torch.cuda.synchronize()
+                errs = [_rel(g, r) for g, r in zip(grads, ref)]
+                same = all(torch.equal(a, g) for a, g in zip(again, grads))
+                print(f"flash_attention_bwd soft_cap={CAP:g} {name} {form} "
+                      f"{str(dt)[6:]}: max|err|/max|ref| dq {errs[0]:.3g} dk "
+                      f"{errs[1]:.3g} dv {errs[2]:.3g} (tol "
+                      f"{FLASH_BWD_RTOL[dt]:g}), second backward "
+                      f"{'bitwise equal' if same else 'DIFFERS'}")
+                if not (max(errs) <= FLASH_BWD_RTOL[dt] and same):
+                    raise AssertionError(f"capped flash backward disagrees "
+                                         f"at {name} {form} {dt}")
+            counts = ops.launch_counts()
+            if not (counts["flash_attention"] == 1
+                    and counts["flash_attention_bwd"] == 2):
+                raise AssertionError(f"capped flash under autograd launched "
+                                     f"{counts}")
+            del q, k, v, do, out, lse, ref, grads, again
+            torch.cuda.empty_cache()
+
+
+def check_decode_capped(dev):
+    """Capped decode (cap CAP) against its plain version with the cap in
+    the three dtype pairs: phase 12's shape (gemma's 16 KV heads of 256
+    over rings of ZOO_S + CAP_STEPS slots) and edges; a second call and a
+    call with NaN past the lengths bitwise equal to the first."""
+    w = ZOO_S + CAP_STEPS
+    cases = [(ZOO_B, w, 16, 1, 256, [ZOO_S + 1] * ZOO_B),
+             (ZOO_B, w, 16, 1, 256, [1, 777, w, ZOO_S + 5]),
+             (4, 2048, 1, 16, 256, [2048] * 4),
+             (3, 100, 2, 4, 64, [1, 100, 37]),
+             (3, 100, 2, 4, 48, [1, 100, 37])]
+    for b, w, kv, g, hd, lengths in cases:
+        for dt, cdt in DECODE_DTYPES:
+            q, k, v, lens = decode_inputs(dev, b, w, kv, g, hd, lengths, dt,
+                                          cdt)
+            q, k = (q.float() * CAP_QK).to(dt), (k.float() * CAP_QK).to(cdt)
+            out = ops.decode_attention(q, k, v, lens, soft_cap=CAP)
+            torch.cuda.synchronize()
+            ref = decode_attention_plain(q, k, v, lens, soft_cap=CAP)
+            moved = max_err(ref, decode_attention_plain(q, k, v, lens))
+            err, atol = max_err(out, ref), DECODE_ATOL[dt]
+            again = ops.decode_attention(q, k, v, lens, soft_cap=CAP)
+            past = torch.arange(w, device=dev)[None, :] >= lens[:, None]
+            k[past], v[past] = float("nan"), float("nan")
+            poisoned = ops.decode_attention(q, k, v, lens, soft_cap=CAP)
+            same = torch.equal(again, out) and torch.equal(poisoned, out)
+            print(f"decode_attention soft_cap={CAP:g} (B,W,KV,G,hd)=({b},"
+                  f"{w},{kv},{g},{hd}) lengths {sorted(set(lengths))} "
+                  f"{dtype_name(dt, cdt)}: max|err| {err:.3g} (atol "
+                  f"{atol:g}), the cap moves the plain output by "
+                  f"{moved:.3g}; again and with NaN past the length: "
+                  f"{'bitwise equal' if same else 'DIFFER'}")
+            if not (err <= atol and same and moved > atol):
+                raise AssertionError(f"capped decode disagrees at "
+                                     f"{(b, w, kv, g, hd)} "
+                                     f"{dtype_name(dt, cdt)}")
+
+
+def check_capped(dev):
+    """Phase 3's soft-cap part."""
+    check_flash_capped(dev)
+    check_flash_bwd_capped(dev)
+    check_decode_capped(dev)
 
 
 def decode_cases():
@@ -878,10 +1093,11 @@ def flash_bwd_cases():
              *heads(SEAM_ARCH), False, None)]
 
 
-def flash_bwd_inputs(dev, b, s, t, h, kv, hd, dt, seed=0):
+def flash_bwd_inputs(dev, b, s, t, h, kv, hd, dt, seed=0, qk_scale=1.0):
     """q, k, v as ``qkv`` makes them and an output gradient dO (B, S, H,
     hd), in ``dt``."""
-    q, k, v = qkv(dev, b, s, h, kv, hd, dt, seed=seed, t=t)
+    q, k, v = qkv(dev, b, s, h, kv, hd, dt, seed=seed, t=t,
+                  qk_scale=qk_scale)
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
     return q, k, v, torch.randn(b, s, h, hd, generator=gen,
                                 device=dev).to(dt)
@@ -965,6 +1181,57 @@ def check_rglru_bwd(dev):
                     raise AssertionError(f"rglru_scan backward kernel differs "
                                          f"from its plain loop at ({b},{s},"
                                          f"{d}) {dt} h0={with_h0}")
+
+
+def check_rglru_bwd_paths(dev):
+    """The scan's backward through ``run_bwd_entry`` (not counted): the
+    planned path, the per-element path forced, and the ring forced where
+    its copies can serve, each (da, du, dh0) bit for bit the plain reverse
+    loop, in f32 and bf16 a, with and without h0: RecurrentGemma's
+    training shape (S = 3000 no multiple of the ring's steps), D off a
+    strip (300; in bf16 off 16 bytes, so per-element), S under a tile, a
+    strided in time (a [:, ::2] view, still on the ring) and a [:, :, 1:]
+    view (off 16 bytes: per-element)."""
+    for dt in (torch.float32, torch.bfloat16):
+        for with_h0 in (False, True):
+            for name, b, s, d, view in (
+                    (f"({RGT_B},{RGT_S},4096)", RGT_B, RGT_S, 4096, None),
+                    ("(3,129,300)", 3, 129, 300, None),
+                    ("(2,7,256)", 2, 7, 256, None),
+                    ("(2,600,512)[:, ::2]", 2, 600, 512, "time"),
+                    ("(2,300,513)[:, :, 1:]", 2, 300, 513, "offset")):
+                a, u, h0 = rglru_inputs(dev, b, s, d, with_h0, seed=s + d)
+                a, u = a.to(dt), u.to(dt)
+                if view == "time":
+                    a, u = a[:, ::2], u[:, ::2]
+                elif view == "offset":
+                    a, u = a[:, :, 1:], u[:, :, 1:]
+                if h0 is not None:
+                    h0 = h0[:, :a.shape[2]].contiguous()
+                h = _rglru.run_entry(a, u, h0)
+                dh = torch.randn(h.shape, device=dev)
+                ref = rglru_scan_bwd_plain(a, h, dh, h0)
+                ring = _rglru.is_aligned_bwd(a, h, dh, h0)
+                cells = []
+                for path in ("plan", "per-element") + (
+                        ("ring",) if ring else ()):
+                    got = _rglru.run_bwd_entry(
+                        a, h, dh, h0, aligned={"plan": None, "ring": True,
+                                               "per-element": False}[path])
+                    torch.cuda.synchronize()
+                    same = all(x is None and y is None or torch.equal(x, y)
+                               for x, y in zip(got, ref))
+                    cells.append(f"{path} "
+                                 f"{'bitwise equal' if same else 'DIFFERS'}")
+                    if not same:
+                        raise AssertionError(f"rglru_scan_bwd {name} {dt} "
+                                             f"h0={with_h0} {path} differs "
+                                             "from its plain loop")
+                plan = _rglru.bwd_tiles(*a.shape, a.element_size(),
+                                        _build.sm_count(dev))
+                print(f"rglru_scan_bwd {name} {str(dt)[6:]} h0={with_h0} "
+                      f"(planned {'ring ' + str(plan) if ring else 'per-element'}"
+                      f"): {'; '.join(cells)}")
 
 
 def check_grad_guard(dev):
@@ -1074,6 +1341,52 @@ def rglru_bound_ms(a, bw, flops):
                   bw, flops)
 
 
+def flex_library(q, k, v, causal, cap, do=None):
+    """(one call of ``torch.nn.attention.flex_attention``, compiled, with a
+    tanh ``score_mod`` c tanh(s / c) and a causal block mask where
+    ``causal``, on q (B, S, H, hd) and k / v (B, T, KV, hd) transposed to
+    its (B, H, S, hd); with ``do``, the call is its backward through
+    autograd, the forward run once outside), or (None, the reason) where
+    the card's install does not compile or run it. SDPA has no score
+    modifier, so this is the one PyTorch call that computes capped
+    attention; the port never calls it."""
+    try:
+        from torch.nn.attention.flex_attention import (create_block_mask,
+                                                       flex_attention)
+        fn = torch.compile(flex_attention)
+
+        def score_mod(score, b, h, q_idx, kv_idx):
+            return torch.tanh(score / cap) * cap
+
+        mask = None
+        if causal:
+            mask = create_block_mask(
+                lambda b, h, q_idx, kv_idx: q_idx >= kv_idx, None, None,
+                q.shape[1], k.shape[1], device=q.device)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        gqa = q.shape[2] != k.shape[2]
+        if do is None:
+            def call():
+                return fn(qt, kt, vt, score_mod=score_mod, block_mask=mask,
+                          enable_gqa=gqa)
+            out = call().transpose(1, 2)
+        else:
+            qt, kt, vt = (x.requires_grad_() for x in (qt, kt, vt))
+            o_t = fn(qt, kt, vt, score_mod=score_mod, block_mask=mask,
+                     enable_gqa=gqa)
+            do_t = do.transpose(1, 2).contiguous()
+
+            def call():
+                return torch.autograd.grad(o_t, (qt, kt, vt), do_t,
+                                           retain_graph=True)
+            out = [g.transpose(1, 2) for g in call()]
+        torch.cuda.synchronize()
+        return call, out
+    except Exception as err:  # noqa: BLE001 - the reason is the result
+        torch.cuda.synchronize()
+        return None, f"{type(err).__name__}: {str(err).splitlines()[0][:160]}"
+
+
 class Timer:
     """Kernel / plain / library device times (``time_ms``) beside the bound,
     per shape, each shape timed once, on inputs shaped as the main path
@@ -1086,7 +1399,7 @@ class Timer:
         self.rows = {}
 
     def _row(self, key, kernel, plain, library, bound, err, atol, shape,
-             plain_spin=True, bound_fp32=None, dt="f32"):
+             plain_spin=True, bound_fp32=None, dt="f32", library_note=None):
         """``library`` None: no single PyTorch call computes the function.
         ``plain_spin`` False: the plain version launches more kernels than
         the launch queue holds, so it is timed without the spin (an upper
@@ -1110,6 +1423,9 @@ class Timer:
             fp32 = (f", FP32 CUDA-core bound {bound_fp32[0] * 1e3:.4f} us "
                     f"({bound_fp32[1]})")
         lib = "none" if l_ms is None else f"{l_ms * 1e3:.2f} us"
+        if library_note:
+            r["library_note"] = library_note
+            lib += f" ({library_note})"
         print(f"time {key[0]} {key[1]} {tuple(shape)} {dt}: kernel "
               f"{k_ms * 1e3:.2f} us on the device ({call_ms * 1e3:.2f} us "
               f"per call on the host), plain {p_ms * 1e3:.2f} us"
@@ -1243,29 +1559,43 @@ class Timer:
         return self.decode_at(RG_ARCH, b, w, 1, 16, 256, dt, cache_dt)
 
     def decode_at(self, arch, b, w, kv, g, hd, dt=torch.float32,
-                  cache_dt=None):
+                  cache_dt=None, soft_cap=None):
         """``arch``'s decode shape with every ring full (length W). The
         SDPA yardstick takes the cache in q's type (SDPA takes one type
-        for all three)."""
+        for all three); under ``soft_cap`` (q and k drawn at CAP_QK) the
+        yardstick is flex attention with the cap (``flex_library``)."""
         cache_dt = cache_dt or dt
         tag = "" if (dt, cache_dt) == (torch.float32,) * 2 else \
             " " + dtype_name(dt, cache_dt)
+        if soft_cap:
+            tag += " capped"
         key = ("decode_attention", f"{arch} B={b}{tag}")
         q, k, v, lens = decode_inputs(self.dev, b, w, kv, g, hd, [w] * b,
                                       dt, cache_dt)
+        if soft_cap:
+            q, k = (q.float() * CAP_QK).to(dt), \
+                (k.float() * CAP_QK).to(cache_dt)
         qt = q[:, :, None, :]
         kt, vt = (c.transpose(1, 2).to(dt) for c in (k, v))
         mask = (torch.arange(w, device=self.dev)[None, :]
                 < lens[:, None])[:, None, None, :]
-        err = max_err(ops.decode_attention(q, k, v, lens),
-                      decode_attention_plain(q, k, v, lens))
+        ref = decode_attention_plain(q, k, v, lens, soft_cap)
+        err = max_err(ops.decode_attention(q, k, v, lens, soft_cap=soft_cap),
+                      ref)
+        library, note = (lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)), None
+        if soft_cap:
+            library, out = flex_library(q[:, None], k.to(dt), v.to(dt),
+                                        False, soft_cap)
+            note = out if library is None else \
+                f"flex attention, max|diff| {max_err(out[:, 0], ref):.3g}"
         return self._row(
-            key, lambda: ops.decode_attention(q, k, v, lens),
-            lambda: decode_attention_plain(q, k, v, lens),
-            lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
-                                                   enable_gqa=True),
-            decode_bound_ms(q, k, lens, self.bw, self.flops), err,
-            DECODE_ATOL[dt], (b, w, kv, g, hd), dt=dtype_name(dt, cache_dt))
+            key, lambda: ops.decode_attention(q, k, v, lens,
+                                              soft_cap=soft_cap),
+            lambda: decode_attention_plain(q, k, v, lens, soft_cap),
+            library, decode_bound_ms(q, k, lens, self.bw, self.flops), err,
+            DECODE_ATOL[dt], (b, w, kv, g, hd), dt=dtype_name(dt, cache_dt),
+            library_note=note)
 
     def rglru_rg(self, b=RG_B, s=RG_S, d=4096, dt=torch.float32):
         name = "f32" if dt == torch.float32 else "bf16"
@@ -1324,79 +1654,106 @@ class Timer:
                   f"torch.add(a, u, out=h) over the same bytes "
                   f"{add_ms * 1e3:.2f} us ({moved / add_ms / 1e9:.3f} TB/s)")
 
-    def flash(self, arch, b, s=16, t=None, causal=True, form=""):
+    def flash(self, arch, b, s=16, t=None, causal=True, form="",
+              soft_cap=None):
         """Attention at ``arch``'s heads, B prompts of S positions over T
         keys (T = S unless given; T != S is non-causal), causal unless
         said; ``form`` names a row beside the arch's causal one. The
-        library is SDPA on the same inputs."""
+        library is SDPA on the same inputs; under ``soft_cap`` (q and k
+        drawn at CAP_QK) flex attention with the cap (``flex_library``)."""
         key = ("flash_attention", f"{arch}{form} B={b}")
         if key in self.rows:
             return self.rows[key]
         cfg = get_config(arch)
         h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-        q, k, v = qkv(self.dev, b, s, h, kv, hd, t=t)
+        q, k, v = qkv(self.dev, b, s, h, kv, hd, t=t,
+                      qk_scale=CAP_QK if soft_cap else 1.0)
         qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
-        err = max_err(ops.flash_attention(q, k, v, causal=causal),
-                      flash_attention_plain(q, k, v, causal=causal))
+        ref = flash_attention_plain(q, k, v, causal=causal, soft_cap=soft_cap)
+        err = max_err(ops.flash_attention(q, k, v, causal=causal,
+                                          soft_cap=soft_cap), ref)
         bound, fp32 = flash_bounds_ms(q, k, self.bw, self.flops, self.tc,
                                       causal=causal)
+        library, note = (lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=kv != h)), None
+        if soft_cap:
+            library, out = flex_library(q, k, v, causal, soft_cap)
+            note = out if library is None else \
+                f"flex attention, max|diff| {max_err(out, ref):.3g}"
         return self._row(
-            key, lambda: ops.flash_attention(q, k, v, causal=causal),
-            lambda: flash_attention_plain(q, k, v, causal=causal),
-            lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal, enable_gqa=kv != h),
-            bound, err, FLASH_ATOL[torch.float32],
+            key, lambda: ops.flash_attention(q, k, v, causal=causal,
+                                             soft_cap=soft_cap),
+            lambda: flash_attention_plain(q, k, v, causal=causal,
+                                          soft_cap=soft_cap),
+            library, bound, err, FLASH_ATOL[torch.float32],
             (b, s, h, kv, hd) if t is None else (b, s, t, h, kv, hd),
-            bound_fp32=fp32)
+            bound_fp32=fp32, library_note=note)
 
-    def flash_bwd(self, name, b, s, t, h, kv, hd, causal, window):
+    def flash_bwd(self, name, b, s, t, h, kv, hd, causal, window,
+                  soft_cap=None):
         """The backward kernels (``run_bwd_entry``: D, dK/dV, dQ) at a
         training path's shape, f32, on the forward kernel's output and lse;
         the plain version the FA2 formulas in PyTorch; the library SDPA's
         backward through autograd (its forward run once outside the
-        timing)."""
+        timing); under ``soft_cap`` (q and k drawn at CAP_QK) flex
+        attention's backward with the cap (``flex_library``)."""
         key = ("flash_attention_bwd", f"{name} B={b}")
         if key in self.rows:
             return self.rows[key]
         q, k, v, do = flash_bwd_inputs(self.dev, b, s, t, h, kv, hd,
-                                       torch.float32)
+                                       torch.float32,
+                                       qk_scale=CAP_QK if soft_cap else 1.0)
         out, lse = _flash.run_entry(_build.library().repro_flash_attention,
                                     q, k, v, causal=causal, window=window,
-                                    with_lse=True)
+                                    soft_cap=soft_cap, with_lse=True)
 
         def run():
             return _flash.run_bwd_entry(q, k, v, out, lse, do, causal=causal,
-                                        window=window)
+                                        window=window, soft_cap=soft_cap)
 
         def plain():
             return flash_attention_bwd_plain(q, k, v, out, lse, do,
-                                             causal=causal, window=window)
-        err = max(_rel(g, r) for g, r in zip(run(), plain()))
-        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
-                      for x in (q, k, v))
-        if window is None:
-            o_t = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
-                                                 enable_gqa=kv != h)
-        else:
-            i = torch.arange(s, device=self.dev)
-            mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :]
-                                                 < window)
-            o_t = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
-                                                 enable_gqa=kv != h)
-        do_t = do.transpose(1, 2).contiguous()
+                                             causal=causal, window=window,
+                                             soft_cap=soft_cap)
+        ref = plain()
+        err = max(_rel(g, r) for g, r in zip(run(), ref))
         bound, fp32 = flash_bwd_bounds_ms(q, k, self.bw, self.flops, self.tc,
                                           window, causal)
+        note = None
+        if soft_cap:
+            library, got = flex_library(q, k, v, causal, soft_cap, do=do)
+            note = got if library is None else (
+                "flex attention's backward, max|diff|/max|ref| "
+                f"{max(_rel(g, r) for g, r in zip(got, ref)):.3g}")
+        else:
+            qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                          for x in (q, k, v))
+            if window is None:
+                o_t = F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal, enable_gqa=kv != h)
+            else:
+                i = torch.arange(s, device=self.dev)
+                mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :]
+                                                     < window)
+                o_t = F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, enable_gqa=kv != h)
+            do_t = do.transpose(1, 2).contiguous()
+
+            def library():
+                return torch.autograd.grad(o_t, (qt, kt, vt), do_t,
+                                           retain_graph=True)
+        del ref
         return self._row(
-            key, run, plain,
-            lambda: torch.autograd.grad(o_t, (qt, kt, vt), do_t,
-                                        retain_graph=True),
-            bound, err, FLASH_BWD_RTOL[torch.float32],
+            key, run, plain, library, bound, err,
+            FLASH_BWD_RTOL[torch.float32],
             (b, s, h, kv, hd) if t is None else (b, s, t, h, kv, hd),
-            bound_fp32=fp32)
+            bound_fp32=fp32, library_note=note)
 
     def rglru_bwd(self, b=RGT_B, s=RGT_S, d=4096, dt=torch.float32):
-        """The scan's backward at RecurrentGemma's training shape, bit for
-        bit against the plain reverse loop; no PyTorch call computes it."""
+        """The scan's backward at RecurrentGemma's training shape (and B =
+        1), bit for bit against the plain reverse loop, on the planned ring;
+        beside it the per-element path forced (``elem_ms``), timed in the
+        same run. No PyTorch call computes it."""
         name = "f32" if dt == torch.float32 else "bf16"
         key = ("rglru_scan_bwd", f"{RG_ARCH} B={b}" + (" bf16" if name ==
                                                        "bf16" else ""))
@@ -1404,16 +1761,72 @@ class Timer:
         a, u = a.to(dt), u.to(dt)
         h = _rglru.run_entry(a, u, h0)
         dh = torch.randn(b, s, d, device=self.dev)
-        got, ref = _rglru.run_bwd_entry(a, h, dh, h0), \
-            rglru_scan_bwd_plain(a, h, dh, h0)
-        if not all(torch.equal(x, y) for x, y in zip(got, ref)):
-            raise AssertionError(f"rglru_scan_bwd {key[1]}: differs from its "
-                                 "plain version")
-        return self._row(
+        ref = rglru_scan_bwd_plain(a, h, dh, h0)
+        for aligned in (None, False):
+            got = _rglru.run_bwd_entry(a, h, dh, h0, aligned=aligned)
+            if not all(torch.equal(x, y) for x, y in zip(got, ref)):
+                raise AssertionError(f"rglru_scan_bwd {key[1]} aligned="
+                                     f"{aligned}: differs from its plain "
+                                     "version")
+        row = self._row(
             key, lambda: _rglru.run_bwd_entry(a, h, dh, h0),
             lambda: rglru_scan_bwd_plain(a, h, dh, h0), None,
             rglru_bwd_bound_ms(a, self.bw, self.flops), 0.0, 0.0, (b, s, d),
             plain_spin=False, dt=name)
+        row["elem_ms"] = time_ms(
+            lambda: _rglru.run_bwd_entry(a, h, dh, h0, aligned=False))[0]
+        row["plan"] = list(_rglru.bwd_tiles(b, s, d, a.element_size(),
+                                            _build.sm_count(self.dev)))
+        print(f"time rglru_scan_bwd {key[1]}: ring (steps, stages) "
+              f"{tuple(row['plan'])} {row['ms'] * 1e3:.2f} us, per-element "
+              f"path {row['elem_ms'] * 1e3:.2f} us, on the device; "
+              f"{row['bound_ms'] / row['ms'] * 100:.1f}% of the bound")
+        return row
+
+    def rglru_bwd_tiles(self, shapes=((RGT_B, torch.float32),
+                                      (1, torch.float32),
+                                      (RGT_B, torch.bfloat16)),
+                        s=RGT_S, d=4096):
+        """Device us of the scan's backward ring forced to (steps, stages)
+        (``run_bwd_entry``, not counted) around the plan, each bitwise
+        equal to the plain reverse loop, and of the per-element path; the
+        pick, the fastest, and its rate over the 5 B S D 4 bytes (f32)."""
+        sms = _build.sm_count(self.dev)
+        for b, dt in shapes:
+            a, u, h0 = rglru_inputs(self.dev, b, s, d, True, seed=4)
+            a, u = a.to(dt), u.to(dt)
+            h = _rglru.run_entry(a, u, h0)
+            dh = torch.randn(b, s, d, device=self.dev)
+            ref = rglru_scan_bwd_plain(a, h, dh, h0)
+            elt = a.element_size()
+            plan = _rglru.bwd_tiles(b, s, d, elt, sms)
+            row = _rglru.STRIP * (elt + 8)
+            times = {}
+            for steps, stages in sorted(
+                    {(st, n) for st in (8, 16, 32, 64, 128)
+                     for n in (2, 3, 4, 6)
+                     if st * n * row <= 96 * 1024} | {plan}):
+                got = _rglru.run_bwd_entry(a, h, dh, h0, steps, stages,
+                                           aligned=True)
+                if not all(torch.equal(x, y) for x, y in zip(got, ref)):
+                    raise AssertionError(f"rglru_scan_bwd ({b},{s},{d}) {dt} "
+                                         f"at steps={steps} stages={stages} "
+                                         "differs from its plain version")
+                times[steps, stages] = time_ms(lambda: _rglru.run_bwd_entry(
+                    a, h, dh, h0, steps, stages, aligned=True))[0]
+            elem_ms = time_ms(lambda: _rglru.run_bwd_entry(
+                a, h, dh, h0, aligned=False))[0]
+            moved = a.numel() * (elt + 16)
+            best = min(times, key=times.get)
+            cells = "; ".join(f"{st}x{n} ({st * n * row // 1024} KB) "
+                              f"{ms * 1e3:.2f}"
+                              for (st, n), ms in times.items())
+            print(f"rglru backward tiles (B,S,D)=({b},{s},{d}) "
+                  f"{str(dt)[6:]}, planned steps x stages {plan[0]}x{plan[1]} "
+                  f"{times[plan] * 1e3:.2f} us ({moved / times[plan] / 1e9:.3f}"
+                  f" TB/s), fastest {best[0]}x{best[1]} "
+                  f"{times[best] * 1e3:.2f} us; device us: {cells}; "
+                  f"per-element path {elem_ms * 1e3:.2f}")
 
     def flash_threshold(self, seqs=(16, 32, 40, 48, 64, 80, 96, 128, 256),
                         forward=True):
@@ -2703,14 +3116,15 @@ def moe_dropped(cfg):
     return count
 
 
-def zoo_model(dev, name, layers, steps):
-    """One zoo model through the serving entry points: random weights drawn
-    on the card, ``make_prefill_step`` on ZOO_B prompts of ZOO_S positions,
-    then ``steps`` ``make_serve_step`` decode steps feeding back each
-    top-1, the launch counters read around them; for MoE a second prefill,
-    bitwise equal to the first, counting the drops; a profiled rerun; the
-    card against the CPU. Returns (launch counts, walls)."""
-    cfg = get_config(name)
+def zoo_model(dev, name, layers, steps, cfg=None):
+    """One zoo model (``cfg``, by default ``name``'s config) through the
+    serving entry points: random weights drawn on the card,
+    ``make_prefill_step`` on ZOO_B prompts of ZOO_S positions, then
+    ``steps`` ``make_serve_step`` decode steps feeding back each top-1, the
+    launch counters read around them; for MoE a second prefill, bitwise
+    equal to the first, counting the drops; a profiled rerun; the card
+    against the CPU. Returns (launch counts, walls)."""
+    cfg = cfg or get_config(name)
     cfg = cfg if layers is None else cfg.with_(num_layers=layers)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2722,6 +3136,8 @@ def zoo_model(dev, name, layers, steps):
                      for p in model.parameters()) / 1e9
     cut = "" if layers is None else \
         f" (depth cut from {get_config(name).num_layers})"
+    if cfg.logit_soft_cap:
+        cut += f", attention soft cap {cfg.logit_soft_cap:g}"
     print(f"{name}: {cfg.num_layers} layers{cut}, {cfg.param_count()} "
           f"parameters (param_count; {cfg.active_param_count()} active), "
           f"{weights_gb:.3f} GB float32 with the padded vocab, drawn on the "
@@ -3437,14 +3853,15 @@ def lm_train_path(dev, tag, cfg, b, s, steps, seed):
                         idle=1 - busy / step_s, loss=[r["loss"] for r in rows])
 
 
-def train_check_cpu(dev, arch, layers):
-    """``arch`` at full width and ``layers`` layers, the same weights and
+def train_check_cpu(dev, arch, layers, cfg=None):
+    """``arch`` (or ``cfg``) at full width and ``layers`` layers, the same
+    weights and
     batch (TRAIN_CHECK_B x TRAIN_CHECK_S tokens) on the card and the CPU,
     the gradients of the train step's loss (``make_loss_fn``): the loss
     within 1e-5 relative, each leaf within 1e-4 of its max |g|, the
     global norm within 1e-4 relative; on the card remat on and off give
     bitwise-equal gradients, and the remat run launches the kernels."""
-    cfg = get_config(arch).with_(num_layers=layers)
+    cfg = (cfg or get_config(arch)).with_(num_layers=layers)
     card = init_model(cfg, 1, device=dev)
     cpu = build_model(cfg, device="cpu")
     cpu.load_state_dict(card.state_dict())
@@ -3517,7 +3934,8 @@ def train_rows(timer):
             timer.flash_bwd_parts(name, b, s, h, kv, hd, window)
     timer.flash_bwd_splits()
     scan = {"f32": timer.rglru_bwd(), "bf16": timer.rglru_bwd(
-        dt=torch.bfloat16)}
+        dt=torch.bfloat16), "b1": timer.rglru_bwd(b=1)}
+    timer.rglru_bwd_tiles()
     return {"flash_attention_bwd": flash, "rglru_scan_bwd": scan}
 
 
@@ -3527,6 +3945,7 @@ def train_only(dev, timer):
     t0 = time.perf_counter()
     check_flash_bwd(dev)
     check_rglru_bwd(dev)
+    check_rglru_bwd_paths(dev)
     check_grad_guard(dev)
     train_rows(timer)
     timer.flash_threshold(forward=False)
@@ -3538,9 +3957,69 @@ def train_only(dev, timer):
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 12: soft-capped attention (gemma-7b's widths, Gemma 2's cap)
+# ---------------------------------------------------------------------------
+def cap_rows(timer):
+    """Phase 3's timing rows of the capped kernels at gemma-7b's shapes,
+    each beside the uncapped row at the same shape: the prefill (ZOO_B,
+    ZOO_S, 16, 16, 256) forward and backward, and decode over rings of
+    ZOO_S + CAP_STEPS slots, full."""
+    cfg = get_config(CAP_ARCH)
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    rows = {"flash_attention": {}, "flash_attention_bwd": {},
+            "decode_attention": {}}
+    for tag, cap in (("capped", CAP), ("uncapped", None)):
+        form = " capped" if cap else ""
+        rows["flash_attention"][tag] = timer.flash(
+            CAP_ARCH, ZOO_B, ZOO_S, form=form, soft_cap=cap)
+        rows["flash_attention_bwd"][tag] = timer.flash_bwd(
+            CAP_ARCH + form, ZOO_B, ZOO_S, None, h, kv, hd, True, None,
+            soft_cap=cap)
+        rows["decode_attention"][tag] = timer.decode_at(
+            CAP_ARCH, ZOO_B, ZOO_S + CAP_STEPS, kv, h // kv, hd,
+            soft_cap=cap)
+        torch.cuda.empty_cache()
+    return rows
+
+
+def softcap_path(dev):
+    """Phase 12: gemma-7b at full width with Gemma 2's attention soft cap,
+    served at CAP_LAYERS layers (``zoo_model``: ZOO_B prompts of ZOO_S
+    positions, CAP_STEPS decode steps, one flash launch a layer at the
+    prefill, layers x steps decode launches, 1 + steps BvSB; then 2 layers
+    card against CPU on 2 x 64, BvSB within 1e-5, top-1), then trained at
+    CAP_TRAIN_LAYERS through ``make_train_step`` with remat
+    (``lm_train_path``: two flash forward and one backward launch a layer
+    a step), then the card against the CPU at 2 layers on 1 x 256 tokens
+    (``train_check_cpu``). Returns (launch counts, figures)."""
+    counts, serving = zoo_model(dev, CAP_ARCH, CAP_LAYERS, CAP_STEPS,
+                                cfg=cap_cfg())
+    torch.cuda.empty_cache()
+    tc, training = lm_train_path(dev, "softcap", cap_cfg(CAP_TRAIN_LAYERS),
+                                 CAP_TRAIN_B, CAP_TRAIN_S, CAP_TRAIN_STEPS, 2)
+    _add_counts(counts, tc)
+    train_check_cpu(dev, CAP_ARCH, CAP_CHECK_LAYERS, cfg=cap_cfg())
+    torch.cuda.empty_cache()
+    return counts, dict(serving=serving, training=training)
+
+
+def softcap_only(dev, timer):
+    """``chip_smoke.py softcap``: phase 3's soft-cap checks and capped
+    timing rows, then phase 12."""
+    t0 = time.perf_counter()
+    check_capped(dev)
+    cap_rows(timer)
+    t1 = time.perf_counter()
+    softcap_path(dev)
+    print(f"phase seconds: soft-cap checks and timing rows {t1 - t0:.1f}, "
+          f"soft-capped gemma-7b {time.perf_counter() - t1:.1f}")
+    return 0
+
+
 def main(argv) -> int:
-    if argv not in ([], ["zoo"], ["train"]):
-        print("usage: chip_smoke.py [zoo | train]", file=sys.stderr)
+    if argv not in ([], ["zoo"], ["train"], ["softcap"]):
+        print("usage: chip_smoke.py [zoo | train | softcap]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3571,6 +4050,8 @@ def main(argv) -> int:
         return zoo_only(dev, Timer(dev, bw, flops, tc))
     if argv == ["train"]:
         return train_only(dev, Timer(dev, bw, flops, tc))
+    if argv == ["softcap"]:
+        return softcap_only(dev, Timer(dev, bw, flops, tc))
 
     t1 = time.perf_counter()
     check_bvsb(dev)
@@ -3579,7 +4060,9 @@ def main(argv) -> int:
     check_rglru(dev)
     check_flash_bwd(dev)
     check_rglru_bwd(dev)
+    check_rglru_bwd_paths(dev)
     check_grad_guard(dev)
+    check_capped(dev)
     timer = Timer(dev, bw, flops, tc)
     for b in (1, 16, 64):
         timer.bvsb(b)
@@ -3609,6 +4092,7 @@ def main(argv) -> int:
             name, ZOO_B, ZOO_S, kv, cfg.num_heads // kv, hd)
     zoo10_timing = zoo10_rows(timer)
     train_timing = train_rows(timer)
+    cap_timing = cap_rows(timer)
     timer.bvsb_chunks()
     timer.decode_splits()
     timer.rglru_tiles()
@@ -3632,6 +4116,9 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     t9 = time.perf_counter()
     train_counts, trained = training_path(dev)
+    torch.cuda.empty_cache()
+    t10 = time.perf_counter()
+    cap_counts, capped = softcap_path(dev)
     print(f"phase seconds: build {t1 - t0:.1f}, kernels {t2 - t1:.1f}, "
           f"cascade path with its profiled rerun {t3 - t2:.1f}, "
           f"{RG_ARCH} path with its CPU check {t4 - t3:.1f}, simulator "
@@ -3640,7 +4127,9 @@ def main(argv) -> int:
           f"{t6 - t5:.1f}, sharded sweeps {t7 - t6:.1f}, zoo with its "
           f"profiled reruns and CPU checks {t8 - t7:.1f}, rest of the zoo "
           f"with its profiled reruns and CPU checks {t9 - t8:.1f}, "
-          f"training with its CPU checks {time.perf_counter() - t9:.1f}")
+          f"training with its CPU checks {t10 - t9:.1f}, soft-capped "
+          f"{CAP_ARCH} with its CPU checks {time.perf_counter() - t10:.1f}; "
+          f"all phases {time.perf_counter() - t0:.1f}")
 
     # the kernels line times each kernel at the RecurrentGemma path's shape;
     # BvSB and flash also at the cascade's most frequent server batch (the
@@ -3669,7 +4158,8 @@ def main(argv) -> int:
                    "transport": transport_counts[name],
                    "zoo": zoo_counts[name],
                    "rest of the zoo": zoo10_counts[name],
-                   "training": train_counts[name]}
+                   "training": train_counts[name],
+                   "softcap": cap_counts[name]}
         # a backward kernel's row: RecurrentGemma's training shape
         row = rg_rows.get(name) or train_timing[name][
             RG_ARCH if name == "flash_attention_bwd" else "f32"]
@@ -3699,10 +4189,22 @@ def main(argv) -> int:
             entry["training"] = {
                 form: {k: r[k] for k in keys if k in r}
                 for form, r in train_timing[name].items()}
-        if name == "flash_attention":
+        if name in cap_timing:
+            entry["soft_cap"] = {
+                form: {k: r[k] for k in keys + ("library_note",) if k in r}
+                for form, r in cap_timing[name].items()}
+        if name == "rglru_scan_bwd":
+            entry["per_element_ms"] = {
+                tag: r["elem_ms"] for tag, r in train_timing[name].items()}
+        if name in ("flash_attention", "flash_attention_bwd"):
             entry["forms"] = ["causal or windowed, T = S",
                               "non-causal, T = S",
-                              "non-causal over T != S keys (cross-attention)"]
+                              "non-causal over T != S keys (cross-attention)",
+                              f"soft_cap (c tanh(s / c), {CAP_ARCH} c = "
+                              f"{CAP:g}) on any of the above"]
+        if name == "decode_attention":
+            entry["forms"] = ["ring of W slots, lengths", f"soft_cap ("
+                              f"{CAP_ARCH} c = {CAP:g})"]
         kernels.append(entry)
     print(f"{RG_ARCH} path seconds: init {rg['init_s']:.3f}, prefill "
           f"{rg['prefill_s']:.3f}, decode {rg['decode_s']:.3f}; peak "
@@ -3712,6 +4214,12 @@ def main(argv) -> int:
         print(f"{name} path: {w['params']} parameters, init "
               f"{w['init_s']:.3f} s, prefill {w['prefill_s']:.3f} s, decode "
               f"{w['step_ms']:.2f} ms a step, peak {w['peak_gb']:.3f} GB")
+    print(f"{CAP_ARCH} soft-capped path: serving {capped['serving']['params']}"
+          f" parameters, prefill {capped['serving']['prefill_s']:.3f} s, "
+          f"decode {capped['serving']['step_ms']:.2f} ms a step; training "
+          f"{capped['training']['step_ms']:.1f} ms a step, "
+          f"{capped['training']['tokens_per_s']:.1f} tokens/s, peak "
+          f"{capped['training']['peak_gb']:.3f} GB")
     for name in (GRANITE_ARCH, RG_ARCH):
         w = trained[name]
         print(f"{name} training: {w['params']} parameters, "

@@ -35,27 +35,28 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _c_ll = ctypes.c_longlong
 _c_int = ctypes.c_int
 _c_ptr = ctypes.c_void_p
+_c_float = ctypes.c_float
 # C signatures, in the order of the extern "C" declarations in csrc/*.cu
 _SIGNATURES = {
     "repro_bvsb": [_c_ptr, _c_int, _c_ll, _c_ll, _c_int, _c_int, _c_int,
                    _c_ptr, _c_ptr, _c_ptr, _c_ptr],
     "repro_flash_attention": [_c_ptr] * 4 + [_c_int] * 7 + [_c_ll] * 12
-    + [_c_int, _c_int, ctypes.c_float, _c_ptr, _c_ptr],
+    + [_c_int, _c_int, _c_float, _c_float, _c_ptr, _c_ptr],
     "repro_flash_attention_kernel": [_c_ptr] * 4 + [_c_int] * 7 + [_c_ll] * 12
-    + [_c_int, _c_int, ctypes.c_float, _c_ptr, _c_ptr, _c_int],
+    + [_c_int, _c_int, _c_float, _c_float, _c_ptr, _c_ptr, _c_int],
     "repro_flash_uses_tensor_cores": [_c_int] * 3,
     "repro_flash_attention_bwd_kernel": [_c_ptr] * 10 + [_c_int] * 7
-    + [_c_ll] * 15 + [_c_int, _c_int, ctypes.c_float, _c_ptr, _c_int, _c_ptr,
-                      _c_int],
+    + [_c_ll] * 15 + [_c_int, _c_int, _c_float, _c_float, _c_ptr, _c_int,
+                      _c_ptr, _c_int],
     "repro_flash_bwd_uses_tensor_cores": [_c_int] * 3,
     "repro_flash_attention_bwd": [_c_ptr] * 10 + [_c_int] * 7 + [_c_ll] * 15
-    + [_c_int, _c_int, ctypes.c_float, _c_ptr, _c_int, _c_ptr],
+    + [_c_int, _c_int, _c_float, _c_float, _c_ptr, _c_int, _c_ptr],
     "repro_rglru_scan": [_c_ptr] * 4 + [_c_int] * 4 + [_c_ll] * 4
     + [_c_int] * 3 + [_c_ptr],
     "repro_rglru_scan_bwd": [_c_ptr] * 7 + [_c_int] * 4 + [_c_ll] * 2
-    + [_c_ptr],
+    + [_c_int] * 3 + [_c_ptr],
     "repro_decode_attention": [_c_ptr] * 6 + [_c_int] * 9 + [_c_ll] * 10
-    + [ctypes.c_float, _c_ptr],
+    + [_c_float, _c_float, _c_ptr],
 }
 
 _LOCK = threading.Lock()

@@ -59,6 +59,11 @@
 //   partials from L2, where the first kernel has just written them, 32
 //   splits' loads in flight a thread, and is launched so that it is
 //   scheduled while the first kernel runs (programmatic dependent launch).
+// * Soft cap (the JAX package's attn_decode under cfg.logit_soft_cap): a cap
+//   c > 0 replaces each scaled score s by c tanh(s / c) before the mask, in
+//   the partial kernel, behind a template flag (kCap) so that the uncapped
+//   instantiations are the code they were; tanhf, not tanh.approx.f32,
+//   whose error times the cap would miss the 1e-4 gate.
 #include <cstdint>
 
 #include "common.cuh"
@@ -363,14 +368,15 @@ __device__ __forceinline__ void load_tile(T* slot, const T* kb, const T* vb,
 // One block per (split, KV head, request): the partial softmax state of
 // the group's G query heads over keys [split * chunk, min(.. + chunk,
 // length)), written to m_part / l_part (rows of G) and acc_part (G x hd).
-template <typename TQ, typename T, int HD>
+template <typename TQ, typename T, int HD, bool kCap>
 __global__ void __launch_bounds__(kThreads, 2)
 decode_partial_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const int* __restrict__ lengths,
                       float* __restrict__ m_part, float* __restrict__ l_part,
                       float* __restrict__ acc_part, int W, int G, int hd,
                       int chunk, long long qsb, long long qsh, CacheStrides ks,
-                      CacheStrides vs, float scale, int aligned) {
+                      CacheStrides vs, float scale, float cap, float inv_cap,
+                      int aligned) {
   using M = Mma<TQ, T, HD>;
   constexpr int ldk = ld_k<T, HD>(), ldv = ld_v<T, HD>();
   constexpr int kSlot = slot_elems<T, HD>();
@@ -473,6 +479,7 @@ decode_partial_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
         for (int w = 1; w < kWarps; ++w)
           s += red[((w * kNT + nt) * 4 + i) * 32 + lane];
         s *= scale;
+        if constexpr (kCap) s = cap * tanhf(s * inv_cap);
         if (kt + nt * 8 + 2 * c + (i & 1) >= k1) s = kNegInf;
         sc[nt][i] = s;
         mx[i >> 1] = fmaxf(mx[i >> 1], s);
@@ -574,18 +581,19 @@ decode_merge_kernel(const float* __restrict__ m_part,
       from_f32<T>(acc * (1.f / fmaxf(l, 1e-30f)));
 }
 
-template <typename TQ, typename T, int HD>
+template <typename TQ, typename T, int HD, bool kCap>
 cudaError_t launch_hd(const void* q, const void* k, const void* v,
                       const int* lengths, float* scratch, void* o, int B,
                       int W, int H, int KV, int hd, int NS, int chunk,
                       long long qsb, long long qsh, CacheStrides ks,
                       CacheStrides vs, long long osb, long long osh,
-                      float scale, int aligned, cudaStream_t stream) {
+                      float scale, float cap, int aligned,
+                      cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<T, HD>();
   static bool raised = false;  // the dynamic limit, once per instantiation
   if (!raised) {
     const cudaError_t err = cudaFuncSetAttribute(
-        decode_partial_kernel<TQ, T, HD>,
+        decode_partial_kernel<TQ, T, HD, kCap>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
     raised = true;
@@ -595,11 +603,11 @@ cudaError_t launch_hd(const void* q, const void* k, const void* v,
   float* m_part = scratch;
   float* l_part = scratch + rows;
   float* acc_part = scratch + 2 * rows;
-  decode_partial_kernel<TQ, T, HD>
+  decode_partial_kernel<TQ, T, HD, kCap>
       <<<dim3(NS, KV, B), kThreads, smem, stream>>>(
       static_cast<const TQ*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), lengths, m_part, l_part, acc_part, W, G, hd,
-      chunk, qsb, qsh, ks, vs, scale, aligned);
+      chunk, qsb, qsh, ks, vs, scale, cap, kCap ? 1.f / cap : 0.f, aligned);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const dim3 merge_grid((G * hd + kMergeThreads - 1) / kMergeThreads, KV, B);
@@ -611,12 +619,33 @@ cudaError_t launch_hd(const void* q, const void* k, const void* v,
                           static_cast<TQ*>(o), NS, G, hd, osb, osh);
 }
 
+template <typename TQ, typename T, bool kCap>
+cudaError_t launch_cap(const void* q, const void* k, const void* v,
+                       const int* lengths, float* scratch, void* o, int B,
+                       int W, int H, int KV, int hd, int NS, int chunk,
+                       long long qsb, long long qsh, CacheStrides ks,
+                       CacheStrides vs, long long osb, long long osh,
+                       float scale, float cap, int aligned,
+                       cudaStream_t stream) {
+  if (hd <= 64)
+    return launch_hd<TQ, T, 64, kCap>(q, k, v, lengths, scratch, o, B, W, H,
+                                      KV, hd, NS, chunk, qsb, qsh, ks, vs, osb,
+                                      osh, scale, cap, aligned, stream);
+  if (hd <= 128)
+    return launch_hd<TQ, T, 128, kCap>(q, k, v, lengths, scratch, o, B, W, H,
+                                       KV, hd, NS, chunk, qsb, qsh, ks, vs,
+                                       osb, osh, scale, cap, aligned, stream);
+  return launch_hd<TQ, T, 256, kCap>(q, k, v, lengths, scratch, o, B, W, H,
+                                     KV, hd, NS, chunk, qsb, qsh, ks, vs, osb,
+                                     osh, scale, cap, aligned, stream);
+}
+
 template <typename TQ, typename T>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const int* lengths, float* scratch, void* o, int B, int W,
                    int H, int KV, int hd, int NS, int chunk, long long qsb,
                    long long qsh, CacheStrides ks, CacheStrides vs,
-                   long long osb, long long osh, float scale,
+                   long long osb, long long osh, float scale, float cap,
                    cudaStream_t stream) {
   // cp.async needs every row start 16-byte aligned and whole tile rows
   const long long e = 16 / sizeof(T);
@@ -626,17 +655,13 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   };
   const int HDs = hd <= 64 ? 64 : hd <= 128 ? 128 : 256;
   const int aligned = hd == HDs && al(k, ks) && al(v, vs);
-  if (hd <= 64)
-    return launch_hd<TQ, T, 64>(q, k, v, lengths, scratch, o, B, W, H, KV, hd,
-                                NS, chunk, qsb, qsh, ks, vs, osb, osh, scale,
-                                aligned, stream);
-  if (hd <= 128)
-    return launch_hd<TQ, T, 128>(q, k, v, lengths, scratch, o, B, W, H, KV,
-                                 hd, NS, chunk, qsb, qsh, ks, vs, osb, osh,
-                                 scale, aligned, stream);
-  return launch_hd<TQ, T, 256>(q, k, v, lengths, scratch, o, B, W, H, KV, hd,
-                               NS, chunk, qsb, qsh, ks, vs, osb, osh, scale,
-                               aligned, stream);
+  if (cap > 0.f)
+    return launch_cap<TQ, T, true>(q, k, v, lengths, scratch, o, B, W, H, KV,
+                                   hd, NS, chunk, qsb, qsh, ks, vs, osb, osh,
+                                   scale, cap, aligned, stream);
+  return launch_cap<TQ, T, false>(q, k, v, lengths, scratch, o, B, W, H, KV,
+                                  hd, NS, chunk, qsb, qsh, ks, vs, osb, osh,
+                                  scale, cap, aligned, stream);
 }
 
 }  // namespace
@@ -648,19 +673,21 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 // (B, H, hd) with (batch, head) strides, in q's type. q_dtype / c_dtype:
 // the query's and the caches' type codes, both f32, both bf16, or f32
 // over bf16. hd <= 256, H / KV <= 16, NS <= 256 splits of chunk keys (a
-// multiple of 16), NS * chunk >= W.
+// multiple of 16), NS * chunk >= W. cap > 0 soft-caps the scaled scores at
+// cap (cap tanh(s / cap)); 0 means no cap.
 // Returns the launches' cudaError_t.
 extern "C" int repro_decode_attention(
     const void* q, const void* k, const void* v, const void* lengths,
     void* scratch, void* o, int q_dtype, int c_dtype, int B, int W, int H,
     int KV, int hd, int NS, int chunk, long long qsb, long long qsh,
     long long ksb, long long ksw, long long ksh, long long vsb, long long vsw,
-    long long vsh, long long osb, long long osh, float scale, void* stream) {
+    long long vsh, long long osb, long long osh, float scale, float cap,
+    void* stream) {
   using namespace repro;
   if (hd > kMaxHD || hd <= 0 || KV <= 0 || H % KV != 0 || H / KV > kMaxG ||
       NS <= 0 || NS > kMaxSplits || chunk <= 0 || chunk % kTile != 0 ||
       static_cast<long long>(NS) * chunk < W || B <= 0 || B > 65535 ||
-      KV > 65535)
+      KV > 65535 || !(cap >= 0.f))
     return static_cast<int>(cudaErrorInvalidValue);
   const CacheStrides ks{ksb, ksw, ksh}, vs{vsb, vsw, vsh};
   const int* len = static_cast<const int*>(lengths);
@@ -668,14 +695,15 @@ extern "C" int repro_decode_attention(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (q_dtype == kF32 && c_dtype == kF32)
     return launch<float, float>(q, k, v, len, sc, o, B, W, H, KV, hd, NS,
-                                chunk, qsb, qsh, ks, vs, osb, osh, scale, s);
+                                chunk, qsb, qsh, ks, vs, osb, osh, scale, cap,
+                                s);
   if (q_dtype == kBF16 && c_dtype == kBF16)
     return launch<__nv_bfloat16, __nv_bfloat16>(
         q, k, v, len, sc, o, B, W, H, KV, hd, NS, chunk, qsb, qsh, ks, vs, osb,
-        osh, scale, s);
+        osh, scale, cap, s);
   if (q_dtype == kF32 && c_dtype == kBF16)
     return launch<float, __nv_bfloat16>(q, k, v, len, sc, o, B, W, H, KV, hd,
                                         NS, chunk, qsb, qsh, ks, vs, osb, osh,
-                                        scale, s);
+                                        scale, cap, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -87,6 +87,15 @@
 // what the backward kernels (flash_attention_bwd.cu) recompute P from.
 // The serving paths pass a null pointer and run an instantiation without
 // the store (template flag kLse), so their code is the kernel's as it was.
+//
+// Soft cap (Gemma 2's attn_logit_softcapping; the JAX package's
+// models/attention.py applies it whenever cfg.logit_soft_cap is set): a cap
+// c > 0 replaces each scaled score s by c tanh(s / c) before the mask, as
+// JAX does, and the lse is then over the capped scores. c arrives as a
+// runtime float with its reciprocal, behind a template flag (kCap), so the
+// uncapped instantiations compile to the code they had. tanhf, not
+// tanh.approx.f32: the approximation's relative error (~2^-11) times a cap
+// of 50 would move a score by ~0.02, far over the 1e-4 gate.
 #include <cstdint>
 
 #include "common.cuh"
@@ -111,6 +120,11 @@ bool use_tensor_cores(int S, int T, int hd) {
 __device__ __forceinline__ bool key_ok(int kj, int qi, int T, int causal,
                                        int window) {
   return kj < T && (!causal || kj <= qi) && (window <= 0 || qi - kj < window);
+}
+
+// c tanh(s / c), with inv_cap = 1 / c
+__device__ __forceinline__ float soft_cap(float s, float cap, float inv_cap) {
+  return cap * tanhf(s * inv_cap);
 }
 
 // ---------------------------------------------------------------------------
@@ -146,14 +160,15 @@ __host__ __device__ constexpr bool tiles_static() {
   return tile_floats<HD>() * 4 <= 48 * 1024;
 }
 
-// HD: the tiles' row length, hd <= HD; kLse: write each row's lse
-template <typename T, int HD, bool kLse>
+// HD: the tiles' row length, hd <= HD; kLse: write each row's lse; kCap:
+// soft-cap the scaled scores at cap
+template <typename T, int HD, bool kLse, bool kCap>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, int S, int Tk,
                  int group, int hd, Strides qs, Strides ks, Strides vs,
                  Strides os, int causal, int window, float scale,
-                 float* __restrict__ lse) {
+                 float cap, float inv_cap, float* __restrict__ lse) {
   constexpr int kDPerLane = HD / 32;
   constexpr int kld = HD + 1;  // padded: lanes read distinct banks
   // q_s[kBQ][HD], k_s[kBK][HD + 1], v_s[kBK][HD], all f32
@@ -215,6 +230,7 @@ flash_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float* kr = k_s + lane * kld;
       for (int d = 0; d < hd; ++d) sc = fmaf(qr[d], kr[d], sc);
       sc *= scale;
+      if constexpr (kCap) sc = soft_cap(sc, cap, inv_cap);
       sc = key_ok(kj, qi, Tk, causal, window) ? sc : kNegInf;
 
       const float m_new = fmaxf(m[t], warp_max(sc));
@@ -252,11 +268,11 @@ flash_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int HD, bool kLse>
+template <typename T, int HD, bool kLse, bool kCap>
 cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o,
                       int B, int S, int Tk, int H, int KV, int hd, Strides qs,
                       Strides ks, Strides vs, Strides os, int causal,
-                      int window, float scale, float* lse,
+                      int window, float scale, float cap, float* lse,
                       cudaStream_t stream) {
   size_t smem = 0;
   if constexpr (!tiles_static<HD>()) {
@@ -264,40 +280,50 @@ cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o,
     static bool raised = false;  // the dynamic limit, once per type
     if (!raised) {
       const cudaError_t err = cudaFuncSetAttribute(
-          flash_fma_kernel<T, HD, kLse>,
+          flash_fma_kernel<T, HD, kLse, kCap>,
           cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
       if (err != cudaSuccess) return err;
       raised = true;
     }
   }
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  flash_fma_kernel<T, HD, kLse><<<grid, kWarps * 32, smem, stream>>>(
+  flash_fma_kernel<T, HD, kLse, kCap><<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), S, Tk, H / KV, hd, qs,
-      ks, vs, os, causal, window, scale, lse);
+      ks, vs, os, causal, window, scale, cap, kCap ? 1.f / cap : 0.f, lse);
   return cudaGetLastError();
+}
+
+template <typename T, bool kLse, bool kCap>
+cudaError_t launch_lse_cap(const void* q, const void* k, const void* v,
+                           void* o, int B, int S, int Tk, int H, int KV,
+                           int hd, Strides qs, Strides ks, Strides vs,
+                           Strides os, int causal, int window, float scale,
+                           float cap, float* lse, cudaStream_t stream) {
+  if (hd <= 128)
+    return launch_hd<T, 128, kLse, kCap>(q, k, v, o, B, S, Tk, H, KV, hd, qs,
+                                         ks, vs, os, causal, window, scale,
+                                         cap, lse, stream);
+  return launch_hd<T, 256, kLse, kCap>(q, k, v, o, B, S, Tk, H, KV, hd, qs,
+                                       ks, vs, os, causal, window, scale, cap,
+                                       lse, stream);
 }
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int S, int Tk, int H, int KV, int hd, Strides qs,
                    Strides ks, Strides vs, Strides os, int causal,
-                   int window, float scale, float* lse, cudaStream_t stream) {
-  if (lse != nullptr) {
-    if (hd <= 128)
-      return launch_hd<T, 128, true>(q, k, v, o, B, S, Tk, H, KV, hd, qs, ks,
-                                     vs, os, causal, window, scale, lse,
-                                     stream);
-    return launch_hd<T, 256, true>(q, k, v, o, B, S, Tk, H, KV, hd, qs, ks,
-                                   vs, os, causal, window, scale, lse,
-                                   stream);
-  }
-  if (hd <= 128)
-    return launch_hd<T, 128, false>(q, k, v, o, B, S, Tk, H, KV, hd, qs, ks,
-                                    vs, os, causal, window, scale, lse,
-                                    stream);
-  return launch_hd<T, 256, false>(q, k, v, o, B, S, Tk, H, KV, hd, qs, ks,
-                                  vs, os, causal, window, scale, lse, stream);
+                   int window, float scale, float cap, float* lse,
+                   cudaStream_t stream) {
+#define REPRO_FLASH_SIMT(LSE, CAP)                                         \
+  launch_lse_cap<T, LSE, CAP>(q, k, v, o, B, S, Tk, H, KV, hd, qs, ks, vs,  \
+                              os, causal, window, scale, cap, lse, stream)
+  if (lse != nullptr)
+    return cap > 0.f ? REPRO_FLASH_SIMT(true, true)
+                     : REPRO_FLASH_SIMT(true, false);
+  return cap > 0.f ? REPRO_FLASH_SIMT(false, true)
+                   : REPRO_FLASH_SIMT(false, false);
+#undef REPRO_FLASH_SIMT
 }
 
 }  // namespace simt
@@ -487,13 +513,13 @@ __device__ __forceinline__ void accumulate(float (&acc)[HD / 8][4],
   }
 }
 
-template <typename T, int HD, bool kLse>
+template <typename T, int HD, bool kLse, bool kCap>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, T* __restrict__ o, int S, int Tk,
                 int group, int hd, Strides qs, Strides ks, Strides vs,
-                Strides os, int causal, int window, float scale,
-                float* __restrict__ lse, int aligned) {
+                Strides os, int causal, int window, float scale, float cap,
+                float inv_cap, float* __restrict__ lse, int aligned) {
   constexpr int ldqk = ld_qk<T, HD>(), ldv = ld_v<T, HD>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* q_s = reinterpret_cast<T*>(smem_raw);   // [kRows][ldqk]
@@ -568,6 +594,7 @@ flash_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           float s = sc[nt][i] * scale;
+          if constexpr (kCap) s = soft_cap(s, cap, inv_cap);
           if (!full && !key_ok(kt + nt * 8 + 2 * c + (i & 1), pos[i >> 1],
                                Tk, causal, window))
             s = kNegInf;
@@ -631,17 +658,17 @@ flash_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int HD, bool kLse>
+template <typename T, int HD, bool kLse, bool kCap>
 cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o,
                       int B, int S, int Tk, int H, int KV, int hd, Strides qs,
                       Strides ks, Strides vs, Strides os, int causal,
-                      int window, float scale, float* lse, int aligned,
-                      cudaStream_t stream) {
+                      int window, float scale, float cap, float* lse,
+                      int aligned, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<T, HD>();
   static bool raised = false;  // the dynamic limit, once per instantiation
   if (!raised) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_tc_kernel<T, HD, kLse>,
+        flash_tc_kernel<T, HD, kLse, kCap>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
     raised = true;
@@ -649,18 +676,40 @@ cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o,
   const int group = H / KV;
   const long long rows = static_cast<long long>(S) * group;
   const dim3 grid(static_cast<unsigned>((rows + kRows - 1) / kRows), KV, B);
-  flash_tc_kernel<T, HD, kLse><<<grid, kThreads, smem, stream>>>(
+  flash_tc_kernel<T, HD, kLse, kCap><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), S, Tk, group, hd, qs, ks,
-      vs, os, causal, window, scale, lse, aligned);
+      vs, os, causal, window, scale, cap, kCap ? 1.f / cap : 0.f, lse,
+      aligned);
   return cudaGetLastError();
+}
+
+template <typename T, bool kLse, bool kCap>
+cudaError_t launch_lse_cap(const void* q, const void* k, const void* v,
+                           void* o, int B, int S, int Tk, int H, int KV,
+                           int hd, Strides qs, Strides ks, Strides vs,
+                           Strides os, int causal, int window, float scale,
+                           float cap, float* lse, int aligned,
+                           cudaStream_t stream) {
+  if (hd <= 64)
+    return launch_hd<T, 64, kLse, kCap>(q, k, v, o, B, S, Tk, H, KV, hd, qs,
+                                        ks, vs, os, causal, window, scale, cap,
+                                        lse, aligned, stream);
+  if (hd <= 128)
+    return launch_hd<T, 128, kLse, kCap>(q, k, v, o, B, S, Tk, H, KV, hd, qs,
+                                         ks, vs, os, causal, window, scale,
+                                         cap, lse, aligned, stream);
+  return launch_hd<T, 256, kLse, kCap>(q, k, v, o, B, S, Tk, H, KV, hd, qs,
+                                       ks, vs, os, causal, window, scale, cap,
+                                       lse, aligned, stream);
 }
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int S, int Tk, int H, int KV, int hd, Strides qs,
                    Strides ks, Strides vs, Strides os, int causal,
-                   int window, float scale, float* lse, cudaStream_t stream) {
+                   int window, float scale, float cap, float* lse,
+                   cudaStream_t stream) {
   // cp.async needs every row start 16-byte aligned and whole chunks
   const long long e = 16 / sizeof(T);
   auto al = [&](const void* p, const Strides& st) {
@@ -668,30 +717,14 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
            st.s % e == 0 && st.h % e == 0;
   };
   const int aligned = hd % e == 0 && al(q, qs) && al(k, ks) && al(v, vs);
-  if (lse != nullptr) {
-    if (hd <= 64)
-      return launch_hd<T, 64, true>(q, k, v, o, B, S, Tk, H, KV, hd, qs, ks,
-                                    vs, os, causal, window, scale, lse,
-                                    aligned, stream);
-    if (hd <= 128)
-      return launch_hd<T, 128, true>(q, k, v, o, B, S, Tk, H, KV, hd, qs, ks,
-                                     vs, os, causal, window, scale, lse,
-                                     aligned, stream);
-    return launch_hd<T, 256, true>(q, k, v, o, B, S, Tk, H, KV, hd, qs, ks,
-                                   vs, os, causal, window, scale, lse,
-                                   aligned, stream);
-  }
-  if (hd <= 64)
-    return launch_hd<T, 64, false>(q, k, v, o, B, S, Tk, H, KV, hd, qs, ks,
-                                   vs, os, causal, window, scale, lse,
-                                   aligned, stream);
-  if (hd <= 128)
-    return launch_hd<T, 128, false>(q, k, v, o, B, S, Tk, H, KV, hd, qs, ks,
-                                    vs, os, causal, window, scale, lse,
-                                    aligned, stream);
-  return launch_hd<T, 256, false>(q, k, v, o, B, S, Tk, H, KV, hd, qs, ks,
-                                  vs, os, causal, window, scale, lse,
-                                  aligned, stream);
+#define REPRO_FLASH_TC(LSE, CAP)                                           \
+  launch_lse_cap<T, LSE, CAP>(q, k, v, o, B, S, Tk, H, KV, hd, qs, ks, vs,  \
+                              os, causal, window, scale, cap, lse, aligned, \
+                              stream)
+  if (lse != nullptr)
+    return cap > 0.f ? REPRO_FLASH_TC(true, true) : REPRO_FLASH_TC(true, false);
+  return cap > 0.f ? REPRO_FLASH_TC(false, true) : REPRO_FLASH_TC(false, false);
+#undef REPRO_FLASH_TC
 }
 
 }  // namespace tensor
@@ -701,14 +734,14 @@ template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
                      int B, int S, int Tk, int H, int KV, int hd, Strides qs,
                      Strides ks, Strides vs, Strides os, int causal,
-                     int window, float scale, float* lse, cudaStream_t stream,
-                     int kernel) {
+                     int window, float scale, float cap, float* lse,
+                     cudaStream_t stream, int kernel) {
   if (kernel == 0) kernel = use_tensor_cores(S, Tk, hd) ? 2 : 1;
   if (kernel == 2)
     return tensor::launch<T>(q, k, v, o, B, S, Tk, H, KV, hd, qs, ks, vs, os,
-                             causal, window, scale, lse, stream);
+                             causal, window, scale, cap, lse, stream);
   return simt::launch<T>(q, k, v, o, B, S, Tk, H, KV, hd, qs, ks, vs, os,
-                         causal, window, scale, lse, stream);
+                         causal, window, scale, cap, lse, stream);
 }
 
 }  // namespace
@@ -716,7 +749,8 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
 
 // q/o: (B, S, H, hd), k/v: (B, T, KV, hd), each with a contiguous head dim
 // and the given (batch, seq, head) element strides; hd <= 256, H % KV == 0;
-// causal needs T == S. window <= 0 means no window. lse: (B, H, S) f32
+// causal needs T == S. window <= 0 means no window. cap > 0 soft-caps the
+// scaled scores at cap (cap tanh(s / cap)); 0 means no cap. lse: (B, H, S) f32
 // contiguous for each row's log-sum-exp, or null. kernel: 0 picks the
 // kernel from the shape (tensor cores from min(S, T) = kTensorCoreMinSeq
 // up, kTensorCoreMinSeqWide at hd > 128), 1 forces the FMA kernel, 2 the
@@ -728,10 +762,10 @@ extern "C" int repro_flash_attention_kernel(
     long long qsh, long long ksb, long long kss, long long ksh,
     long long vsb, long long vss, long long vsh, long long osb,
     long long oss, long long osh, int causal, int window, float scale,
-    float* lse, void* stream, int kernel) {
+    float cap, float* lse, void* stream, int kernel) {
   using namespace repro;
   if (hd > kMaxHD || hd <= 0 || KV <= 0 || H % KV != 0 || S <= 0 || T <= 0 ||
-      (causal && T != S) || kernel < 0 || kernel > 2)
+      (causal && T != S) || kernel < 0 || kernel > 2 || !(cap >= 0.f))
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh},
       os{osb, oss, osh};
@@ -739,11 +773,11 @@ extern "C" int repro_flash_attention_kernel(
   switch (dtype) {
     case kF32:
       return dispatch<float>(q, k, v, o, B, S, T, H, KV, hd, qs, ks, vs, os,
-                             causal, window, scale, lse, s, kernel);
+                             causal, window, scale, cap, lse, s, kernel);
     case kBF16:
       return dispatch<__nv_bfloat16>(q, k, v, o, B, S, T, H, KV, hd, qs, ks,
-                                     vs, os, causal, window, scale, lse, s,
-                                     kernel);
+                                     vs, os, causal, window, scale, cap, lse,
+                                     s, kernel);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -761,9 +795,9 @@ extern "C" int repro_flash_attention(
     long long qsh, long long ksb, long long kss, long long ksh,
     long long vsb, long long vss, long long vsh, long long osb,
     long long oss, long long osh, int causal, int window, float scale,
-    float* lse, void* stream) {
+    float cap, float* lse, void* stream) {
   return repro_flash_attention_kernel(q, k, v, o, dtype, B, S, T, H, KV, hd,
                                       qsb, qss, qsh, ksb, kss, ksh, vsb, vss,
                                       vsh, osb, oss, osh, causal, window,
-                                      scale, lse, stream, 0);
+                                      scale, cap, lse, stream, 0);
 }

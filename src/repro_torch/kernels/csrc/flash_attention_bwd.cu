@@ -15,6 +15,13 @@
 //   dS = P o (dP - D)       dV = P^T dO          dK = dS^T Q * scale
 //   dQ = dS K * scale
 //
+// With a soft cap c (flash_attention.cu: s' = c tanh(s / c) before the
+// mask, and the forward's lse over s'), P = exp(s' - lse) and dS takes the
+// cap's derivative, dS = P o (dP - D) o (1 - t^2) with t = tanh(s / c),
+// before the scale of dK and dQ. As in the forward, a template flag (kCap)
+// keeps the uncapped instantiations the code they were, and the cap is
+// tanhf, not tanh.approx.f32.
+//
 // Kernels on PyTorch's stream, in order: flash_bwd_prep_kernel (D, one warp
 // a (b, h, position) row, f32 at (B, H, S)); a dK/dV kernel; for a split
 // dK/dV grid, flash_bwd_sum_kernel; a dQ kernel. No atomics: every output
@@ -108,7 +115,7 @@ struct Strides {
 
 struct Shape {
   int S, Tk, H, group, hd, causal, window;
-  float scale;
+  float scale, cap, inv_cap;  // cap 0: no soft cap (inv_cap = 1 / cap)
 };
 
 bool use_tensor_cores(int S, int T, int hd) {
@@ -119,6 +126,23 @@ bool use_tensor_cores(int S, int T, int hd) {
 __device__ __forceinline__ bool key_ok(int kj, int qi, int T, int causal,
                                        int window) {
   return kj < T && (!causal || kj <= qi) && (window <= 0 || qi - kj < window);
+}
+
+// P and dS of one (row, key) from the raw dot s, dP, the row's lse and D:
+// P = exp(s' - lse), dS = P (dP - D), s' the scaled score, soft-capped
+// under kCap, where dS also takes the cap's derivative 1 - tanh^2
+template <bool kCap>
+__device__ __forceinline__ void prob(float s, float dp, float lse, float d,
+                                     bool ok, const Shape& sh, float& p,
+                                     float& ds) {
+  if constexpr (kCap) {
+    const float t = tanhf(s * sh.scale * sh.inv_cap);
+    p = ok ? expf(sh.cap * t - lse) : 0.f;
+    ds = p * (dp - d) * (1.f - t * t);
+  } else {
+    p = ok ? expf(s * sh.scale - lse) : 0.f;
+    ds = p * (dp - d);
+  }
 }
 
 template <typename Kernel>
@@ -241,7 +265,7 @@ __device__ __forceinline__ void dots(float (&s)[kRows], float (&dp)[kRows],
 
 // P and dS of a warp's 4 query rows against key `lane`, at absolute query
 // positions q0 + i and key position k0 + lane; 0 where masked or past S.
-template <int HD>
+template <int HD, bool kCap>
 __device__ __forceinline__ void probs(float (&p)[kRows], float (&ds)[kRows],
                                       const float* q_s, const float* do_s,
                                       const float* k_s, const float* v_s,
@@ -255,13 +279,12 @@ __device__ __forceinline__ void probs(float (&p)[kRows], float (&ds)[kRows],
     const int i = warp * kRows + t, qi = q0 + i;
     const bool ok = qi < sh.S && key_ok(k0 + lane, qi, sh.Tk, sh.causal,
                                         sh.window);
-    p[t] = ok ? expf(s[t] * sh.scale - lse_s[i]) : 0.f;
-    ds[t] = p[t] * (dp[t] - d_s[i]);
+    prob<kCap>(s[t], dp[t], lse_s[i], d_s[i], ok, sh, p[t], ds[t]);
   }
 }
 
 // dK, dV: one block a (key tile, kv head, batch)
-template <typename T, int HD>
+template <typename T, int HD, bool kCap>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_fma_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v, const T* __restrict__ dout,
@@ -313,8 +336,8 @@ flash_bwd_fma_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
       __syncthreads();
       float p[kRows], dsv[kRows];
-      probs<HD>(p, dsv, q_s, do_s, k_s, v_s, lse_s, d_s, q0, k0, sh, warp,
-                lane);
+      probs<HD, kCap>(p, dsv, q_s, do_s, k_s, v_s, lse_s, d_s, q0, k0, sh,
+                      warp, lane);
 #pragma unroll
       for (int t = 0; t < kRows; ++t) {
         const int i = warp * kRows + t;
@@ -366,7 +389,7 @@ flash_bwd_fma_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // dQ: one block a (query tile, head, batch)
-template <typename T, int HD>
+template <typename T, int HD, bool kCap>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_fma_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ dout,
@@ -416,8 +439,8 @@ flash_bwd_fma_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     load_rows<T, HD>(v_s, vb, vs.s, k0, sh.Tk, sh.hd);
     __syncthreads();
     float p[kRows], dsv[kRows];
-    probs<HD>(p, dsv, q_s, do_s, k_s, v_s, lse_s, d_s, q0, k0, sh, warp,
-              lane);
+    probs<HD, kCap>(p, dsv, q_s, do_s, k_s, v_s, lse_s, d_s, q0, k0, sh,
+                    warp, lane);
 #pragma unroll
     for (int t = 0; t < kRows; ++t)
       ds_s[(warp * kRows + t) * kTile + lane] = dsv[t];
@@ -453,7 +476,7 @@ flash_bwd_fma_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool kCap>
 cudaError_t launch_hd(const T* q, const T* k, const T* v, const T* dout,
                       const float* lse, const float* delta, T* dq, T* dk,
                       T* dv, int B, int KV, Strides qs, Strides ks,
@@ -461,19 +484,19 @@ cudaError_t launch_hd(const T* q, const T* k, const T* v, const T* dout,
                       cudaStream_t stream) {
   constexpr size_t smem = sizeof(float) * smem_floats<HD>();
   static bool raised_kv = false, raised_q = false;  // once per instantiation
-  cudaError_t err = raise_smem(flash_bwd_fma_dkdv_kernel<T, HD>, smem,
+  cudaError_t err = raise_smem(flash_bwd_fma_dkdv_kernel<T, HD, kCap>, smem,
                                raised_kv);
   if (err != cudaSuccess) return err;
   const dim3 grid_kv((sh.Tk + kTile - 1) / kTile, KV, B);
-  flash_bwd_fma_dkdv_kernel<T, HD><<<grid_kv, kThreads, smem, stream>>>(
+  flash_bwd_fma_dkdv_kernel<T, HD, kCap><<<grid_kv, kThreads, smem, stream>>>(
       q, k, v, dout, lse, delta, dk, dv, qs, ks, vs, ds, sh);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  err = raise_smem(flash_bwd_fma_dq_kernel<T, HD>, smem, raised_q);
+  err = raise_smem(flash_bwd_fma_dq_kernel<T, HD, kCap>, smem, raised_q);
   if (err != cudaSuccess) return err;
   const dim3 grid_q((sh.S + kTile - 1) / kTile, sh.H, B);
-  flash_bwd_fma_dq_kernel<T, HD><<<grid_q, kThreads, smem, stream>>>(
+  flash_bwd_fma_dq_kernel<T, HD, kCap><<<grid_q, kThreads, smem, stream>>>(
       q, k, v, dout, lse, delta, dq, qs, ks, vs, ds, sh);
   return cudaGetLastError();
 }
@@ -516,9 +539,14 @@ template <int HD>
 using Acc = float[kMB][nt_b<HD>()][4];
 
 // blocks an SM the register allocation aims at: two at hd <= 64, where
-// the tiles leave room for them (128 registers a thread)
+// the tiles leave room for them (128 registers a thread); one for the
+// capped f32 dQ kernel, whose tanhf spilled under 128 registers
 template <int HD>
 __host__ __device__ constexpr int min_blocks() { return HD <= 64 ? 2 : 1; }
+template <typename T, int HD, bool kCap>
+__host__ __device__ constexpr int min_blocks_dq() {
+  return kCap && sizeof(T) == 4 ? 1 : min_blocks<HD>();
+}
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&d)[4], const void* p) {
   const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -743,10 +771,10 @@ __device__ __forceinline__ void accumulate(Acc<HD>& acc, const float* a,
 // P' and dS' of this warp's 16 x n_tile / 2 scores (rows m0 + g (+8) of
 // the resident side, columns n0 + 8 nt + 2c (+1) of the streamed side) into
 // p_s (null: not stored) and ds_s, masked where !ok(r, nt, e).
-template <int HD, typename Ok, typename Lse, typename Del>
+template <int HD, bool kCap, typename Ok, typename Lse, typename Del>
 __device__ __forceinline__ void probs(const float (&s)[n_tile<HD>() / 16][4],
                                       const float (&dp)[n_tile<HD>() / 16][4],
-                                      float scale, float* p_s, float* ds_s,
+                                      const Shape& sh, float* p_s, float* ds_s,
                                       int m0, int n0, int g, int c, Ok ok,
                                       Lse lse_of, Del d_of) {
   constexpr int kLdP = ld_p<HD>();
@@ -758,8 +786,8 @@ __device__ __forceinline__ void probs(const float (&s)[n_tile<HD>() / 16][4],
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int i = 2 * r + e;
-        p[e] = ok(r, nt, e) ? expf(s[nt][i] * scale - lse_of(r, nt, e)) : 0.f;
-        dsv[e] = p[e] * (dp[nt][i] - d_of(r, nt, e));
+        prob<kCap>(s[nt][i], dp[nt][i], lse_of(r, nt, e), d_of(r, nt, e),
+                   ok(r, nt, e), sh, p[e], dsv[e]);
       }
       const int off = (m0 + g + 8 * r) * kLdP + n0 + nt * 8 + 2 * c;
       if (p_s) *reinterpret_cast<float2*>(p_s + off) = make_float2(p[0], p[1]);
@@ -809,7 +837,7 @@ struct Args {
 // its split's share of the packed (position, head-in-group) query rows
 // that can see its keys. splits == 1: dk, dv in T; else f32 partials at
 // part[(split) * n] (dK) and part[(splits + split) * n] (dV), n = B T KV hd.
-template <typename T, int HD>
+template <typename T, int HD, bool kCap>
 __global__ void __launch_bounds__(kThreads, min_blocks<HD>())
 flash_bwd_tc_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ dout,
@@ -911,7 +939,7 @@ flash_bwd_tc_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const bool full = k0 + kM <= sh.Tk && r0 + kN <= n_rows &&
                       (!sh.causal || k0 + kM - 1 <= p_first) &&
                       (sh.window <= 0 || p_last - k0 < sh.window);
-    probs<HD>(s, dp, sh.scale, p_s, ds_s, m0, n0, g, c,
+    probs<HD, kCap>(s, dp, sh, p_s, ds_s, m0, n0, g, c,
           [&](int r, int nt, int e) {
             const int row = r0 + n0 + nt * 8 + 2 * c + e;
             return full || (row < n_rows &&
@@ -974,8 +1002,8 @@ flash_bwd_tc_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // dQ: one block a (tile of kM packed (position, head-in-group) query rows,
 // kv head, batch), walking the key tiles its rows can see
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads, min_blocks<HD>())
+template <typename T, int HD, bool kCap>
+__global__ void __launch_bounds__(kThreads, min_blocks_dq<T, HD, kCap>())
 flash_bwd_tc_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, const T* __restrict__ dout,
                        const float* __restrict__ lse,
@@ -1070,7 +1098,7 @@ flash_bwd_tc_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const bool full = kt + kN <= sh.Tk && m_base + kM <= n_rows &&
                       (!sh.causal || kt + kN - 1 <= p_lo) &&
                       (sh.window <= 0 || p_hi - kt < sh.window);
-    probs<HD>(s, dp, sh.scale, nullptr, ds_s, m0, n0, g, c,
+    probs<HD, kCap>(s, dp, sh, nullptr, ds_s, m0, n0, g, c,
           [&](int r, int nt, int e) {
             const int pos = pos_r[r];
             return full || (pos >= 0 && key_ok(kt + n0 + nt * 8 + 2 * c + e,
@@ -1117,7 +1145,7 @@ flash_bwd_sum_kernel(const float* __restrict__ part, int splits, long long n,
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool kCap>
 cudaError_t launch_hd(const T* q, const T* k, const T* v, const T* dout,
                       const float* lse, const float* delta, T* dq, T* dk,
                       T* dv, float* part, int B, int KV, const Args& args,
@@ -1127,12 +1155,13 @@ cudaError_t launch_hd(const T* q, const T* k, const T* v, const T* dout,
                              2 * sizeof(float) * n_tile<HD>(),
                    smem_q = smem_bytes<T, HD, 1>();
   static bool raised_kv = false, raised_q = false;  // once per instantiation
-  cudaError_t err = raise_smem(flash_bwd_tc_dkdv_kernel<T, HD>, smem_kv,
-                               raised_kv);
+  cudaError_t err = raise_smem(flash_bwd_tc_dkdv_kernel<T, HD, kCap>,
+                               smem_kv, raised_kv);
   if (err != cudaSuccess) return err;
   const Shape& sh = args.sh;
   const dim3 grid_kv((sh.Tk + kM - 1) / kM, KV, B * args.splits);
-  flash_bwd_tc_dkdv_kernel<T, HD><<<grid_kv, kThreads, smem_kv, stream>>>(
+  flash_bwd_tc_dkdv_kernel<T, HD, kCap>
+      <<<grid_kv, kThreads, smem_kv, stream>>>(
       q, k, v, dout, lse, delta, dk, dv, part, args);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -1146,11 +1175,11 @@ cudaError_t launch_hd(const T* q, const T* k, const T* v, const T* dout,
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  err = raise_smem(flash_bwd_tc_dq_kernel<T, HD>, smem_q, raised_q);
+  err = raise_smem(flash_bwd_tc_dq_kernel<T, HD, kCap>, smem_q, raised_q);
   if (err != cudaSuccess) return err;
   const long long rows = static_cast<long long>(sh.S) * sh.group;
   const dim3 grid_q(static_cast<unsigned>((rows + kM - 1) / kM), KV, B);
-  flash_bwd_tc_dq_kernel<T, HD><<<grid_q, kThreads, smem_q, stream>>>(
+  flash_bwd_tc_dq_kernel<T, HD, kCap><<<grid_q, kThreads, smem_q, stream>>>(
       q, k, v, dout, lse, delta, dq, args);
   return cudaGetLastError();
 }
@@ -1158,7 +1187,7 @@ cudaError_t launch_hd(const T* q, const T* k, const T* v, const T* dout,
 }  // namespace tensor
 
 // kernel: 0 picks from the shape, 1 the FMA kernels, 2 the tensor-core ones
-template <typename T>
+template <typename T, bool kCap>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* o, const void* dout, const float* lse,
                    float* delta, void* dq, void* dk, void* dv, float* part,
@@ -1179,13 +1208,16 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return err;
   if (kernel == 1) {
     if (sh.hd <= 64)
-      return simt::launch_hd<T, 64>(qt, kt, vt, dt, lse, delta, dqt, dkt,
-                                    dvt, B, KV, qs, ks, vs, ds, sh, stream);
+      return simt::launch_hd<T, 64, kCap>(qt, kt, vt, dt, lse, delta, dqt,
+                                          dkt, dvt, B, KV, qs, ks, vs, ds, sh,
+                                          stream);
     if (sh.hd <= 128)
-      return simt::launch_hd<T, 128>(qt, kt, vt, dt, lse, delta, dqt, dkt,
-                                     dvt, B, KV, qs, ks, vs, ds, sh, stream);
-    return simt::launch_hd<T, 256>(qt, kt, vt, dt, lse, delta, dqt, dkt, dvt,
-                                   B, KV, qs, ks, vs, ds, sh, stream);
+      return simt::launch_hd<T, 128, kCap>(qt, kt, vt, dt, lse, delta, dqt,
+                                           dkt, dvt, B, KV, qs, ks, vs, ds, sh,
+                                           stream);
+    return simt::launch_hd<T, 256, kCap>(qt, kt, vt, dt, lse, delta, dqt, dkt,
+                                         dvt, B, KV, qs, ks, vs, ds, sh,
+                                         stream);
   }
   // cp.async needs every row start 16-byte aligned and whole chunks
   const long long e = 16 / sizeof(T);
@@ -1197,13 +1229,28 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       qs, ks, vs, ds, sh, splits,
       sh.hd % e == 0 && al(q, qs) && al(k, ks) && al(v, vs) && al(dout, ds)};
   if (sh.hd <= 64)
-    return tensor::launch_hd<T, 64>(qt, kt, vt, dt, lse, delta, dqt, dkt, dvt,
-                                    part, B, KV, args, stream);
+    return tensor::launch_hd<T, 64, kCap>(qt, kt, vt, dt, lse, delta, dqt,
+                                          dkt, dvt, part, B, KV, args, stream);
   if (sh.hd <= 128)
-    return tensor::launch_hd<T, 128>(qt, kt, vt, dt, lse, delta, dqt, dkt,
-                                     dvt, part, B, KV, args, stream);
-  return tensor::launch_hd<T, 256>(qt, kt, vt, dt, lse, delta, dqt, dkt, dvt,
-                                   part, B, KV, args, stream);
+    return tensor::launch_hd<T, 128, kCap>(qt, kt, vt, dt, lse, delta, dqt,
+                                           dkt, dvt, part, B, KV, args,
+                                           stream);
+  return tensor::launch_hd<T, 256, kCap>(qt, kt, vt, dt, lse, delta, dqt, dkt,
+                                         dvt, part, B, KV, args, stream);
+}
+
+template <typename T>
+cudaError_t launch_capped(const void* q, const void* k, const void* v,
+                          const void* o, const void* dout, const float* lse,
+                          float* delta, void* dq, void* dk, void* dv,
+                          float* part, int B, int KV, Strides qs, Strides ks,
+                          Strides vs, Strides os, Strides ds, const Shape& sh,
+                          int splits, int kernel, cudaStream_t stream) {
+  if (sh.cap > 0.f)
+    return launch<T, true>(q, k, v, o, dout, lse, delta, dq, dk, dv, part, B,
+                           KV, qs, ks, vs, os, ds, sh, splits, kernel, stream);
+  return launch<T, false>(q, k, v, o, dout, lse, delta, dq, dk, dv, part, B,
+                          KV, qs, ks, vs, os, ds, sh, splits, kernel, stream);
 }
 
 }  // namespace
@@ -1212,8 +1259,9 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 // q, o, dout: (B, S, H, hd); k, v: (B, T, KV, hd); each with a contiguous
 // head dim and the given (batch, seq, head) element strides. lse: the
 // forward's (B, H, S) f32; delta: (B, H, S) f32 scratch for D; dq (B, S, H,
-// hd), dk and dv (B, T, KV, hd): contiguous, in the inputs' type. Masks and
-// scale as repro_flash_attention's. kernel: 0 picks from the shape
+// hd), dk and dv (B, T, KV, hd): contiguous, in the inputs' type. Masks,
+// scale and soft cap (cap > 0; 0 means none) as repro_flash_attention's,
+// whose lse this takes. kernel: 0 picks from the shape
 // (repro_flash_bwd_uses_tensor_cores), 1 forces the FMA kernels, 2 the
 // tensor-core ones. splits: blocks sharing a key tile's query rows in the
 // tensor-core dK/dV kernel (1 with the FMA kernels); above 1, part holds
@@ -1226,29 +1274,32 @@ extern "C" int repro_flash_attention_bwd_kernel(
     long long qsb, long long qss, long long qsh, long long ksb, long long kss,
     long long ksh, long long vsb, long long vss, long long vsh, long long osb,
     long long oss, long long osh, long long dsb, long long dss, long long dsh,
-    int causal, int window, float scale, void* stream, int splits,
+    int causal, int window, float scale, float cap, void* stream, int splits,
     void* part, int kernel) {
   using namespace repro;
   if (hd > kMaxHD || hd <= 0 || KV <= 0 || H % KV != 0 || S <= 0 || T <= 0 ||
       B <= 0 || B > 65535 || H > 65535 || (causal && T != S) || splits < 1 ||
       static_cast<long long>(B) * splits > 65535 ||
-      (splits > 1 && part == nullptr) || kernel < 0 || kernel > 2)
+      (splits > 1 && part == nullptr) || kernel < 0 || kernel > 2 ||
+      !(cap >= 0.f))
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh},
       os{osb, oss, osh}, ds{dsb, dss, dsh};
-  const Shape sh{S, T, H, H / KV, hd, causal, window, scale};
+  const Shape sh{S, T, H, H / KV, hd, causal, window, scale, cap,
+                 cap > 0.f ? 1.f / cap : 0.f};
   const float* lf = static_cast<const float*>(lse);
   float* df = static_cast<float*>(delta);
   float* pf = static_cast<float*>(part);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kF32:
-      return launch<float>(q, k, v, o, dout, lf, df, dq, dk, dv, pf, B, KV,
-                           qs, ks, vs, os, ds, sh, splits, kernel, s);
+      return launch_capped<float>(q, k, v, o, dout, lf, df, dq, dk, dv, pf,
+                                  B, KV, qs, ks, vs, os, ds, sh, splits,
+                                  kernel, s);
     case kBF16:
-      return launch<__nv_bfloat16>(q, k, v, o, dout, lf, df, dq, dk, dv, pf,
-                                   B, KV, qs, ks, vs, os, ds, sh, splits,
-                                   kernel, s);
+      return launch_capped<__nv_bfloat16>(q, k, v, o, dout, lf, df, dq, dk,
+                                          dv, pf, B, KV, qs, ks, vs, os, ds,
+                                          sh, splits, kernel, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1268,10 +1319,10 @@ extern "C" int repro_flash_attention_bwd(
     long long qsb, long long qss, long long qsh, long long ksb, long long kss,
     long long ksh, long long vsb, long long vss, long long vsh, long long osb,
     long long oss, long long osh, long long dsb, long long dss, long long dsh,
-    int causal, int window, float scale, void* stream, int splits,
+    int causal, int window, float scale, float cap, void* stream, int splits,
     void* part) {
   return repro_flash_attention_bwd_kernel(
       q, k, v, o, dout, lse, delta, dq, dk, dv, dtype, B, S, T, H, KV, hd, qsb,
       qss, qsh, ksb, kss, ksh, vsb, vss, vsh, osb, oss, osh, dsb, dss, dsh,
-      causal, window, scale, stream, splits, part, 0);
+      causal, window, scale, cap, stream, splits, part, 0);
 }

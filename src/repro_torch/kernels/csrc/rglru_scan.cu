@@ -48,23 +48,46 @@
 //   offset) takes rglru_elem_kernel: the same warps, per-element loads
 //   issued one kUnroll-step tile ahead of the arithmetic.
 //
-// Backward (repro_rglru_scan_bwd, rglru_bwd_kernel): with the forward's h
-// saved and the incoming gradient dh, g_t = dh_t + a_{t+1} g_{t+1} runs from
-// t = S - 1 down, and
+// Backward (repro_rglru_scan_bwd): with the forward's h saved and the
+// incoming gradient dh, g_t = dh_t + a_{t+1} g_{t+1} runs from t = S - 1
+// down, and
 //
 //   du_t = g_t,   da_t = g_t h_{t-1} (h_{-1} = h0, or 0),   dh0 = a_0 g_0.
 //
 // The TPU kernel has no gradient (the JAX package trains through the
-// reference scan under XLA); training on the card needs this one. One lane
-// a (b, d) channel walks time backwards with the same rounding (each product
+// reference scan under XLA); training on the card needs this one. Each lane
+// walks its channel backwards in time with the same rounding (each product
 // and sum apart), so it is bit for bit the plain reverse loop
 // (rglru_scan.py::rglru_scan_bwd_plain). Bytes bound it, as the forward: a,
 // h and dh read, da and du written, 5 B S D 4 bytes in f32 (492 MB at
-// RecurrentGemma's training shape (2, 3000, 4096), 147 us at 3.35 TB/s).
-// Blocks of one warp (32 channels of one batch row) spread the B * D / 32
-// warps over every SM; each lane loads the kUnroll steps before the ones it
-// is computing, coalesced along d. The saved a is read in its own type and
-// strides, h and dh are contiguous f32.
+// RecurrentGemma's training shape (2, 3000, 4096), 147 us at 3.35 TB/s),
+// 32 (elt + 16) bytes a strip a step. At that shape the grid is only 256
+// warps, about 2 an SM, so each warp has to keep about half an SM's bytes
+// in flight.
+//
+// * rglru_bwd_ring_kernel does for the backward what rglru_ring_kernel does
+//   for the forward: a warp owns 32 channels of one batch row and carries
+//   a_{t+1} g_{t+1} in a register; it walks tiles of `steps` time steps from
+//   the last tile down, through its own ring of `stages` tiles filled by
+//   16-byte cp.async copies, one commit group a tile, ordered only by
+//   cp.async.wait_group and __syncwarp. A tile holds three streams: a_t in
+//   its own type and strides, dh_t (f32, contiguous) and h_{t-1}, the h rows
+//   shifted by one step (row t = 0 copies h0, or zero-fills). da_t and du_t
+//   go straight to global memory, one coalesced row of the strip a step.
+// * With two warps an SM, a warp's step time is the kernel's time, so the
+//   loop is built for latency: rows are read from the tile kBwdGroup at a
+//   time into registers, then the chain runs over them, then their du and
+//   da rows are stored under one predicate. Read a step at a time, every
+//   step waited for its shared-memory load behind a branch around its
+//   stores, ~90 cycles a step, and the ring ran no faster than the
+//   per-element path (310 against 301 us at (2, 3000, 4096) on an H100).
+//   The wrapper plans two tiles of 64 steps (kernels/rglru_scan.py::
+//   bwd_tiles), 24 KB in flight a warp in f32: the tile's length, which
+//   spreads each tile's wait and copy issue over its steps, set the time
+//   more than the bytes in flight did (chip_smoke.py's backward sweep).
+// * rglru_bwd_kernel, the per-element path, serves calls whose pointers,
+//   strides or D * elt are off 16 bytes: one lane a channel, the loads of
+//   the kUnroll steps below the ones it computes in flight meanwhile.
 #include <climits>
 #include <cstdint>
 
@@ -76,6 +99,7 @@ namespace {
 constexpr int kStrip = 32;       // channels a warp owns, one a lane
 constexpr int kMaxStages = 8;    // ring tiles (rglru_scan.py MAX_STAGES)
 constexpr int kUnroll = 16;      // steps the per-element path loads ahead
+constexpr int kBwdGroup = 8;     // rows the backward ring reads at once
 constexpr int kMaxSmem = 227 * 1024;
 
 __device__ __forceinline__ float rglru_step(float a, float h, float u) {
@@ -203,6 +227,137 @@ rglru_elem_kernel(const T* __restrict__ a, const T* __restrict__ u,
   }
 }
 
+// bytes of one ring tile row (a time step of a strip): a, dh and h_{t-1}
+template <typename T>
+__host__ __device__ constexpr int bwd_row_bytes() {
+  return kStrip * (static_cast<int>(sizeof(T)) + 8);
+}
+
+// A warp a (strip, batch row), walking its strip's tiles of `steps` time
+// steps from the last down through a ring of `stages` tiles; a slot holds
+// the tile's a, then dh, then h_{t-1}, row r being time step t0 + r. Each
+// lane copies fixed 16-byte columns of every kRowsPerCopy-th row, so the
+// copy loops carry no division. The rows are walked kBwdGroup at a time:
+// the group's a, dh and h_{t-1} are read from shared memory into registers
+// first, then the chain runs over them, then the group's du and da rows
+// are stored under one predicate: one shared-memory latency a group, not
+// one a step, and no branch a step.
+template <typename T>
+__global__ void __launch_bounds__(kStrip)
+rglru_bwd_ring_kernel(const T* __restrict__ a, const float* __restrict__ h,
+                      const float* __restrict__ h0,
+                      const float* __restrict__ dh, float* __restrict__ da,
+                      float* __restrict__ du, float* __restrict__ dh0,
+                      Scan p, int steps, int stages) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int kE = 16 / sizeof(T);     // a elements a 16-byte copy moves
+  constexpr int kCpa = kStrip / kE;      // copies of a tile row of a: 8 f32
+  constexpr int kCpf = kStrip / 4;       // ... of dh or h: 8
+  const int lane = threadIdx.x;
+  const int b = blockIdx.x / p.strips;
+  const int d0 = (blockIdx.x % p.strips) * kStrip;
+  const bool live = d0 + lane < p.D;
+  const long long row0 = static_cast<long long>(b) * p.S * p.D + d0;
+  const int tile = steps * kStrip;       // elements of one stream a tile
+  const int slot_bytes = steps * bwd_row_bytes<T>();
+  const int n_tiles = (p.S + steps - 1) / steps;
+  // this lane's copy columns and first rows: a, then dh and h
+  const int col_a = (lane % kCpa) * kE, r_a = lane / kCpa;
+  const int col_f = (lane % kCpf) * 4, r_f = lane / kCpf;
+  const bool in_a = d0 + col_a < p.D, in_f = d0 + col_f < p.D;
+  const T* a_src = a + b * p.asb + d0 + col_a;
+  const float* g_src = dh + row0 + col_f;
+  const float* h_src = h + row0 + col_f;
+  const float* h0_src =
+      h0 != nullptr && in_f ? h0 + static_cast<long long>(b) * p.D + d0 + col_f
+                            : nullptr;
+
+  auto slot_at = [&](int slot) { return smem_raw + slot * slot_bytes; };
+  // tile n_tiles - 1 - j into ring slot `slot`, one commit group (empty
+  // past the first tile, which keeps every lane's count of groups the same)
+  auto issue = [&](int j, int slot) {
+    if (j < n_tiles) {
+      const int t0 = (n_tiles - 1 - j) * steps;
+      const int rows = min(steps, p.S - t0);
+      T* as = reinterpret_cast<T*>(slot_at(slot));
+      float* gs = reinterpret_cast<float*>(as + tile);
+      float* hs = gs + tile;
+      for (int r = r_a; r < rows; r += kStrip / kCpa)
+        cp_async16(as + r * kStrip + col_a,
+                   in_a ? a_src + (t0 + r) * p.ass : a, in_a);
+      for (int r = r_f; r < rows; r += kStrip / kCpf) {
+        const long long t = t0 + r;
+        cp_async16(gs + r * kStrip + col_f, in_f ? g_src + t * p.D : dh,
+                   in_f);
+        // h_{t-1}; row t = 0 takes h0, or zero
+        const float* src = t > 0 ? (in_f ? h_src + (t - 1) * p.D : nullptr)
+                                 : h0_src;
+        cp_async16(hs + r * kStrip + col_f, src ? src : dh, src != nullptr);
+      }
+    }
+    cp_async_commit();
+  };
+
+  for (int j = 0; j < stages - 1; ++j) issue(j, j);
+  float carry = 0.f;  // a_{t+1} g_{t+1}
+  int slot = 0;
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_async_wait_upto(stages - 2);  // this lane's copies of tile j landed
+    __syncwarp();                    // ... and every lane's; slot j - 1 free
+    issue(j + stages - 1, slot == 0 ? stages - 1 : slot - 1);
+    const T* as = reinterpret_cast<const T*>(slot_at(slot)) + lane;
+    const float* gs = reinterpret_cast<const float*>(
+        reinterpret_cast<const T*>(slot_at(slot)) + tile) + lane;
+    const float* hs = gs + tile;
+    const int t0 = (n_tiles - 1 - j) * steps;
+    int r = min(steps, p.S - t0);  // rows left, walked from the last
+    // du and da of row r - 1
+    float* up = du + row0 + static_cast<long long>(t0 + r - 1) * p.D + lane;
+    float* dp = da + row0 + static_cast<long long>(t0 + r - 1) * p.D + lane;
+    for (; r >= kBwdGroup; r -= kBwdGroup) {
+      T av[kBwdGroup];
+      float gv[kBwdGroup], hv[kBwdGroup];
+#pragma unroll
+      for (int i = 0; i < kBwdGroup; ++i) {
+        const int k = (r - 1 - i) * kStrip;
+        av[i] = as[k];
+        gv[i] = gs[k];
+        hv[i] = hs[k];
+      }
+#pragma unroll
+      for (int i = 0; i < kBwdGroup; ++i) {
+        gv[i] = __fadd_rn(gv[i], carry);
+        hv[i] = __fmul_rn(gv[i], hv[i]);
+        carry = __fmul_rn(to_f32(av[i]), gv[i]);
+      }
+      if (live) {
+#pragma unroll
+        for (int i = 0; i < kBwdGroup; ++i) {
+          up[-static_cast<long long>(i) * p.D] = gv[i];
+          dp[-static_cast<long long>(i) * p.D] = hv[i];
+        }
+      }
+      up -= static_cast<long long>(kBwdGroup) * p.D;
+      dp -= static_cast<long long>(kBwdGroup) * p.D;
+    }
+    for (; r > 0; --r) {  // the tile's first rows, under a group
+      const int k = (r - 1) * kStrip;
+      const float g = __fadd_rn(gs[k], carry);
+      if (live) {
+        *up = g;
+        *dp = __fmul_rn(g, hs[k]);
+      }
+      carry = __fmul_rn(to_f32(as[k]), g);
+      up -= p.D;
+      dp -= p.D;
+    }
+    slot = slot + 1 == stages ? 0 : slot + 1;
+  }
+  cp_async_wait_all();
+  if (dh0 != nullptr && live)
+    dh0[static_cast<long long>(b) * p.D + d0 + lane] = carry;
+}
+
 // One lane a channel d of batch row blockIdx.y, walking t = S - 1 .. 0;
 // the loads of the kUnroll steps below the ones being computed are in
 // flight meanwhile.
@@ -304,6 +459,54 @@ cudaError_t launch(const void* a, const void* u, const float* h0, float* h,
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t launch_bwd(const void* a, const void* h, const void* h0,
+                       const void* dh, void* da, void* du, void* dh0, int B,
+                       Scan p, int steps, int stages, int aligned,
+                       cudaStream_t stream) {
+  const T* at = static_cast<const T*>(a);
+  const float* hf = static_cast<const float*>(h);
+  const float* h0f = static_cast<const float*>(h0);
+  const float* dhf = static_cast<const float*>(dh);
+  float* daf = static_cast<float*>(da);
+  float* duf = static_cast<float*>(du);
+  float* dh0f = static_cast<float*>(dh0);
+  if (!aligned) {
+    const dim3 grid(static_cast<unsigned>(p.strips),
+                    static_cast<unsigned>(B));
+    rglru_bwd_kernel<T><<<grid, kStrip, 0, stream>>>(at, hf, h0f, dhf, daf,
+                                                     duf, dh0f, p);
+    return cudaGetLastError();
+  }
+  const long long blocks = static_cast<long long>(B) * p.strips;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  // the copies need every row start on 16 bytes and whole 16-byte chunks
+  const long long e = 16 / sizeof(T);
+  auto on16 = [](const void* q) {
+    return reinterpret_cast<uintptr_t>(q) % 16 == 0;
+  };
+  const bool ok = on16(a) && on16(h) && on16(dh) &&
+                  (h0 == nullptr || on16(h0)) && p.D % e == 0 &&
+                  p.D % 4 == 0 && p.asb % e == 0 && p.ass % e == 0;
+  const long long smem =
+      static_cast<long long>(stages) * steps * bwd_row_bytes<T>();
+  if (!ok || steps < 1 || stages < 2 || stages > kMaxStages ||
+      smem > kMaxSmem)
+    return cudaErrorInvalidValue;
+  static bool raised = false;  // rings past 48 KB, once per instantiation
+  if (!raised && smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        rglru_bwd_ring_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kMaxSmem);
+    if (err != cudaSuccess) return err;
+    raised = true;
+  }
+  rglru_bwd_ring_kernel<T><<<static_cast<int>(blocks), kStrip,
+                             static_cast<size_t>(smem), stream>>>(
+      at, hf, h0f, dhf, daf, duf, dh0f, p, steps, stages);
+  return cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace repro
 
@@ -340,36 +543,29 @@ extern "C" int repro_rglru_scan(const void* a, const void* u, const void* h0,
 // element strides; h and dh: (B, S, D) contiguous f32 (the forward's output
 // and its gradient); h0: (B, D) contiguous f32 or null. Writes da and du
 // (B, S, D) contiguous f32 and, when dh0 is not null, dh0 (B, D) f32.
-// Returns the launch's cudaError_t.
+// aligned != 0 takes the cp.async ring of `stages` tiles of `steps` time
+// steps (refused unless a, h, dh and h0 start on 16 bytes, a's strides and
+// D * elt are whole 16 bytes and the ring fits 227 KB); aligned == 0 the
+// per-element loads. Returns the launch's cudaError_t.
 extern "C" int repro_rglru_scan_bwd(const void* a, const void* h,
                                     const void* h0, const void* dh, void* da,
                                     void* du, void* dh0, int dtype, int B,
                                     int S, int D, long long asb,
-                                    long long ass, void* stream) {
+                                    long long ass, int steps, int stages,
+                                    int aligned, void* stream) {
   using namespace repro;
   if (B <= 0 || S <= 0 || D <= 0 || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const Scan p{S, D, (D + kStrip - 1) / kStrip, asb, ass, 0, 0};
-  const dim3 grid(static_cast<unsigned>(p.strips), static_cast<unsigned>(B));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* hf = static_cast<const float*>(h);
-  const float* h0f = static_cast<const float*>(h0);
-  const float* dhf = static_cast<const float*>(dh);
-  float* daf = static_cast<float*>(da);
-  float* duf = static_cast<float*>(du);
-  float* dh0f = static_cast<float*>(dh0);
   switch (dtype) {
     case kF32:
-      rglru_bwd_kernel<float><<<grid, kStrip, 0, s>>>(
-          static_cast<const float*>(a), hf, h0f, dhf, daf, duf, dh0f, p);
-      break;
+      return launch_bwd<float>(a, h, h0, dh, da, du, dh0, B, p, steps,
+                               stages, aligned, s);
     case kBF16:
-      rglru_bwd_kernel<__nv_bfloat16><<<grid, kStrip, 0, s>>>(
-          static_cast<const __nv_bfloat16*>(a), hf, h0f, dhf, daf, duf, dh0f,
-          p);
-      break;
+      return launch_bwd<__nv_bfloat16>(a, h, h0, dh, da, du, dh0, B, p, steps,
+                                       stages, aligned, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }

@@ -5,10 +5,12 @@ of valid slots: slots [0, length) of each request are attended, the rest
 are masked. Returns (B, H, hd) in q's dtype; the KV head of query head h
 is h // (H // KV). The dtypes are all float32, all bfloat16, or a float32
 q over bfloat16 caches (the JAX package's default cache under a float32
-model), which computes in float32 as JAX does. ``decode_attention`` runs
-the hand-written CUDA kernel ``csrc/decode_attention.cu`` on CUDA tensors
-and ``decode_attention_plain`` on CPU tensors; on any other device it
-raises.
+model), which computes in float32 as JAX does. ``soft_cap`` c (None or 0: none)
+replaces each scaled score s by c tanh(s / c) before the mask, as the JAX
+package's ``attn_decode`` does under ``cfg.logit_soft_cap``.
+``decode_attention`` runs the hand-written CUDA kernel
+``csrc/decode_attention.cu`` on CUDA tensors and ``decode_attention_plain``
+on CPU tensors; on any other device it raises.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import cap_operand
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256   # csrc/decode_attention.cu kMaxHD
@@ -38,13 +41,16 @@ DTYPE_PAIRS = ((torch.float32, torch.float32),
                (torch.float32, torch.bfloat16))
 
 
-def decode_attention_plain(q, k_cache, v_cache, lengths):
-    """The masked-einsum form, float32 softmax (JAX ``decode_attention_ref``)."""
+def decode_attention_plain(q, k_cache, v_cache, lengths, soft_cap=None):
+    """The masked-einsum form, float32 softmax (JAX ``decode_attention_ref``;
+    with a soft cap, the softmax of JAX's ``attn_decode``)."""
     b, w, kvh, hd = k_cache.shape
     h = q.shape[1]
     qg = q.reshape(b, kvh, h // kvh, hd).float()
     scores = torch.einsum("bkgh,bwkh->bkgw", qg, k_cache.float())
     scores = scores * float(np.float32(1.0 / np.sqrt(hd)))
+    if soft_cap:
+        scores = torch.tanh(scores / soft_cap) * soft_cap
     valid = torch.arange(w, device=q.device)[None, :] \
         < lengths.to(q.device)[:, None]
     scores = scores.masked_fill(~valid[:, None, None, :], NEG_INF)
@@ -101,12 +107,14 @@ def _cut(w: int, n: int):
     return -(-w // chunk), chunk
 
 
-def run_entry(q, k_cache, v_cache, lengths, n_splits: Optional[int] = None):
+def run_entry(q, k_cache, v_cache, lengths, n_splits: Optional[int] = None,
+              soft_cap=None):
     """Check CUDA tensors and run the kernel on them with the planned
     splits (``splits``) or, for measuring, about ``n_splits`` splits of
     whole tiles. Counts nothing: ``decode_attention`` is the counted
     launch."""
     _check(q, k_cache, v_cache, lengths)
+    cap = cap_operand(soft_cap)
     b, h, hd = q.shape
     _, w, kvh, _ = k_cache.shape
     g = h // kvh
@@ -126,24 +134,24 @@ def run_entry(q, k_cache, v_cache, lengths, n_splits: Optional[int] = None):
         b, w, h, kvh, hd, ns, chunk,
         q.stride(0), q.stride(1), *k_cache.stride()[:3],
         *v_cache.stride()[:3], out.stride(0), out.stride(1),
-        float(np.float32(1.0 / np.sqrt(hd))), _build.stream_ptr(q)),
+        float(np.float32(1.0 / np.sqrt(hd))), cap, _build.stream_ptr(q)),
         "decode_attention")
     return out
 
 
-def decode_attention(q, k_cache, v_cache, lengths):
+def decode_attention(q, k_cache, v_cache, lengths, soft_cap=None):
     """Attention of one query token per request over its cache; CUDA
     kernel on CUDA tensors, plain on CPU. Lengths must be >= 1 (a request
-    always sees at least its own token); lengths above W mean W. The
-    kernel has no backward: a CUDA call that autograd would record
-    raises."""
+    always sees at least its own token); lengths above W mean W;
+    ``soft_cap`` c caps the scaled scores at c tanh(s / c). The kernel has
+    no backward: a CUDA call that autograd would record raises."""
     global launches
     if q.device.type == "cpu":
-        return decode_attention_plain(q, k_cache, v_cache, lengths)
+        return decode_attention_plain(q, k_cache, v_cache, lengths, soft_cap)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: no kernel for device {q.device}")
     _build.refuse_grad("decode_attention", q, k_cache, v_cache)
-    out = run_entry(q, k_cache, v_cache, lengths)
+    out = run_entry(q, k_cache, v_cache, lengths, soft_cap=soft_cap)
     with COUNT_LOCK:
         launches += 1
     return out

@@ -18,6 +18,11 @@ block, no atomics; ``uses_tensor_cores_bwd`` says whether on tensor cores
 or CUDA-core FMAs, and ``bwd_splits`` how many blocks share a key tile's
 query rows). ``flash_attention_bwd_plain`` is the same arithmetic in
 PyTorch; on the CPU autograd differentiates ``flash_attention_plain``.
+
+``soft_cap`` c (None or 0: none) replaces each scaled score s by c tanh(s /
+c) before the mask, as the JAX package's attention does under
+``cfg.logit_soft_cap``; the kernels take it as a runtime float behind a
+compile-time flag, and the backward takes the cap's derivative.
 """
 from __future__ import annotations
 
@@ -62,58 +67,77 @@ def _scale(hd: int) -> float:
     return float(np.float32(1.0 / np.sqrt(hd)))
 
 
-def _masked_scores(q, k, causal, window):
-    """(scaled scores (B, KV, G, S, T) f32 with masked entries at NEG_INF,
-    the mask (S, T))."""
+def cap_operand(soft_cap) -> float:
+    """The kernels' cap operand: 0 for no cap (None or 0, as the JAX
+    package's ``if soft_cap:``)."""
+    if not soft_cap:
+        return 0.0
+    if not soft_cap > 0:
+        raise ValueError(f"soft cap {soft_cap} must be positive")
+    return float(soft_cap)
+
+
+def _masked_scores(q, k, causal, window, soft_cap=None):
+    """(scaled scores (B, KV, G, S, T) f32, soft-capped where ``soft_cap``
+    is set, with masked entries at NEG_INF; the mask (S, T); tanh(s / c) of
+    the scaled scores s under a cap c, else None)."""
     b, s, h, hd = q.shape
     t, kvh = k.shape[1], k.shape[2]
     _check_lengths(s, t, causal)
     qg = q.reshape(b, s, kvh, h // kvh, hd).float()
     scores = torch.einsum("bskgh,btkh->bkgst", qg, k.float()) * _scale(hd)
+    th = None
+    if soft_cap:
+        th = torch.tanh(scores / soft_cap)
+        scores = th * soft_cap
     qpos = torch.arange(s, device=q.device)[:, None]
     kpos = torch.arange(t, device=q.device)[None, :]
     ok = kpos <= qpos if causal else torch.ones(s, t, dtype=torch.bool,
                                                 device=q.device)
     if window is not None:
         ok = ok & ((qpos - kpos) < window)
-    return scores.masked_fill(~ok, NEG_INF), ok
+    return scores.masked_fill(~ok, NEG_INF), ok, th
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True,
-                          window: Optional[int] = None):
+                          window: Optional[int] = None, soft_cap=None):
     """The masked-einsum form, float32 softmax (JAX ``flash_attention_ref``
-    at T = S, JAX ``dense_attention`` at T != S)."""
+    at T = S, JAX ``dense_attention`` at T != S and with a soft cap)."""
     b, s, h, hd = q.shape
-    scores, _ = _masked_scores(q, k, causal, window)
+    scores, _, _ = _masked_scores(q, k, causal, window, soft_cap)
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgst,btkh->bskgh", p, v.float())
     return out.reshape(b, s, h, hd).to(q.dtype)
 
 
 def attention_lse_plain(q, k, *, causal: bool = True,
-                        window: Optional[int] = None):
-    """Each row's log-sum-exp of the scaled, masked scores, (B, H, S) f32:
-    what the forward kernel writes for the backward."""
+                        window: Optional[int] = None, soft_cap=None):
+    """Each row's log-sum-exp of the scaled (soft-capped), masked scores,
+    (B, H, S) f32: what the forward kernel writes for the backward."""
     b, s, h, _ = q.shape
-    scores, _ = _masked_scores(q, k, causal, window)
+    scores, _, _ = _masked_scores(q, k, causal, window, soft_cap)
     return torch.logsumexp(scores, dim=-1).reshape(b, h, s)
 
 
 def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
-                              window: Optional[int] = None):
+                              window: Optional[int] = None, soft_cap=None):
     """(dq, dk, dv) in the inputs' type from the forward's output ``o`` and
     row log-sum-exp ``lse`` (B, H, S) and the output gradient ``do``, by
     the FA2 formulas in f32: P = exp(s - lse), D = rowsum(dO o O), dS = P o
-    (dO V^T - D), dV = P^T dO, dK = dS^T Q scale, dQ = dS K scale."""
+    (dO V^T - D), dV = P^T dO, dK = dS^T Q scale, dQ = dS K scale. Under a
+    soft cap c, s is the capped score and dS takes the cap's derivative, P
+    o (dO V^T - D) o (1 - t^2) with t = tanh(s_scaled / c)."""
     b, s, h, hd = q.shape
     t, kvh = k.shape[1], k.shape[2]
     g = h // kvh
-    scores, ok = _masked_scores(q, k, causal, window)
+    scores, ok, th = _masked_scores(q, k, causal, window, soft_cap)
     p = torch.exp(scores - lse.reshape(b, kvh, g, s)[..., None]) * ok
     do_g = do.reshape(b, s, kvh, g, hd).float()
     d = (do_g * o.reshape(b, s, kvh, g, hd).float()).sum(-1)   # (B,S,KV,G)
     dp = torch.einsum("bskgh,btkh->bkgst", do_g, v.float())
     ds = p * (dp - d.permute(0, 2, 3, 1)[..., None])
+    if th is not None:
+        ds = ds * (1 - th * th)
     dv = torch.einsum("bkgst,bskgh->btkh", p, do_g)
     dk = torch.einsum("bkgst,bskgh->btkh", ds,
                       q.reshape(b, s, kvh, g, hd).float()) * _scale(hd)
@@ -184,12 +208,14 @@ def _check(q, k, v, causal):
 
 
 def run_entry(entry, q, k, v, *, causal: bool = True,
-              window: Optional[int] = None, extra=(), with_lse: bool = False):
+              window: Optional[int] = None, soft_cap=None, extra=(),
+              with_lse: bool = False):
     """Check CUDA tensors and run the C entry point ``entry`` of the kernel
     library on them (``extra``: its arguments after the stream); the new
     output, and with ``with_lse`` also each row's log-sum-exp (B, H, S)
     f32. Counts nothing: ``flash_attention`` is the counted launch."""
     _check(q, k, v, causal)
+    cap = cap_operand(soft_cap)
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window {window} < 1")
     b, s, h, hd = q.shape
@@ -200,23 +226,24 @@ def run_entry(entry, q, k, v, *, causal: bool = True,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         _build.DTYPE_CODES[q.dtype], b, s, k.shape[1], h, k.shape[2], hd,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-        int(causal), 0 if window is None else int(window), _scale(hd),
+        int(causal), 0 if window is None else int(window), _scale(hd), cap,
         0 if lse is None else lse.data_ptr(), _build.stream_ptr(q), *extra),
         "flash_attention")
     return (out, lse) if with_lse else out
 
 
 def run_bwd_entry(q, k, v, o, lse, do, *, causal: bool = True,
-                  window: Optional[int] = None, kernel: int = 0,
+                  window: Optional[int] = None, soft_cap=None, kernel: int = 0,
                   splits: Optional[int] = None):
     """Check CUDA tensors and run the backward kernels on them: (dq, dk,
     dv), contiguous, in q's type. ``o`` and ``lse`` are the forward's
-    output and row log-sum-exp. ``kernel`` 0 lets the entry point pick
+    output and row log-sum-exp (under the same ``soft_cap``). ``kernel`` 0 lets the entry point pick
     from the shape (``uses_tensor_cores_bwd``), 1 forces the FMA kernels
     and 2 the tensor-core ones; ``splits`` (tensor cores only) defaults to
     ``bwd_splits``. Counts nothing: ``FlashAttentionFn`` is the counted
     launch."""
     _check(q, k, v, causal)
+    cap = cap_operand(soft_cap)
     if kernel not in (0, 1, 2):
         raise ValueError(f"flash_attention backward: kernel {kernel}")
     b, s, h, hd = q.shape
@@ -250,7 +277,7 @@ def run_bwd_entry(q, k, v, o, lse, do, *, causal: bool = True,
             dk.data_ptr(), dv.data_ptr(), _build.DTYPE_CODES[q.dtype], b, s,
             t, h, kvh, hd, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *o.stride()[:3], *do.stride()[:3], int(causal),
-            0 if window is None else int(window), _scale(hd),
+            0 if window is None else int(window), _scale(hd), cap,
             _build.stream_ptr(q), splits,
             0 if part is None else part.data_ptr())
     _build.check(lib.repro_flash_attention_bwd(*args) if kernel == 0 else
@@ -266,14 +293,15 @@ class FlashAttentionFn(torch.autograd.Function):
     counts one launch."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
+    def forward(ctx, q, k, v, causal, window, soft_cap):
         global launches
         out, lse = run_entry(_build.library().repro_flash_attention, q, k, v,
-                             causal=causal, window=window, with_lse=True)
+                             causal=causal, window=window, soft_cap=soft_cap,
+                             with_lse=True)
         with COUNT_LOCK:
             launches += 1
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.window = causal, window
+        ctx.causal, ctx.window, ctx.soft_cap = causal, window, soft_cap
         return out
 
     @staticmethod
@@ -283,28 +311,30 @@ class FlashAttentionFn(torch.autograd.Function):
         if do.stride(3) != 1:
             do = do.contiguous()
         dq, dk, dv = run_bwd_entry(q, k, v, out, lse, do, causal=ctx.causal,
-                                   window=ctx.window)
+                                   window=ctx.window, soft_cap=ctx.soft_cap)
         with COUNT_LOCK:
             bwd_launches += 1
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
-                    window: Optional[int] = None):
+                    window: Optional[int] = None, soft_cap=None):
     """Attention of q over k/v; CUDA kernel on CUDA tensors, plain on CPU.
     The C entry point picks the kernel from the shape
     (``uses_tensor_cores``). A CUDA call that autograd records goes
     through ``FlashAttentionFn`` (forward and backward kernels).
-    ``causal`` with k/v of another length than q raises ValueError."""
+    ``causal`` with k/v of another length than q raises ValueError;
+    ``soft_cap`` c caps the scaled scores at c tanh(s / c)."""
     global launches
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     soft_cap=soft_cap)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     if _build.wants_grad(q, k, v):
-        return FlashAttentionFn.apply(q, k, v, causal, window)
+        return FlashAttentionFn.apply(q, k, v, causal, window, soft_cap)
     out = run_entry(_build.library().repro_flash_attention, q, k, v,
-                    causal=causal, window=window)
+                    causal=causal, window=window, soft_cap=soft_cap)
     with COUNT_LOCK:
         launches += 1
     return out

@@ -12,10 +12,13 @@ warps an SM holds; ``is_aligned`` says whether the 16-byte copies that fill
 it can serve a call (else the kernel loads element by element).
 
 Under autograd a CUDA call goes through ``RGLRUScanFn``, whose backward
-is the kernel ``rglru_bwd_kernel`` of the same source: g_t = dh_t +
-a_{t+1} g_{t+1} from the last step down, du_t = g_t, da_t = g_t h_{t-1},
-dh0 = a_0 g_0, bit for bit ``rglru_scan_bwd_plain``. On the CPU autograd
-differentiates ``rglru_scan_plain``.
+is a kernel of the same source: g_t = dh_t + a_{t+1} g_{t+1} from the last
+step down, du_t = g_t, da_t = g_t h_{t-1}, dh0 = a_0 g_0, bit for bit
+``rglru_scan_bwd_plain``. It walks each strip's tiles from the last down
+through the same kind of ring, a tile holding a, dh and h shifted by one
+step (``bwd_tiles`` plans it, ``is_aligned_bwd`` says whether the copies
+can serve), else per-element loads. On the CPU autograd differentiates
+``rglru_scan_plain``.
 """
 from __future__ import annotations
 
@@ -32,6 +35,9 @@ IN_FLIGHT = 32 * 1024    # a and u bytes the plan keeps in flight on an SM
 STAGES = 3               # ring tiles: two in flight while one is read
 MIN_TILE = 2 * 1024      # a and u bytes of a tile, at least
 MAX_TILE = 16 * 1024     # ... and at most
+BWD_STEPS = 64           # time steps of a backward tile, at most
+BWD_SMEM = 192 * 1024    # backward ring bytes the plan lets an SM's warps hold
+MAX_RESIDENT = 32        # one-warp blocks an SM holds, at most
 
 # kernel launches since the last ops.reset_launch_counts(), forward and
 # backward; incremented under the lock, since worker threads launch too
@@ -115,6 +121,26 @@ def tiles(b: int, s: int, d: int, elt: int, sms: int):
     return steps, min(STAGES, -(-s // steps) + 1)
 
 
+def bwd_tiles(b: int, s: int, d: int, elt: int, sms: int):
+    """(steps, stages) of the backward's ring: two tiles (one read while
+    the other is in flight) of BWD_STEPS time steps, halved while the rings
+    of the warps an SM holds (B * ceil(D / STRIP) over ``sms``) would pass
+    BWD_SMEM; never longer than S. A tile row (a time step of a strip)
+    holds a in its type and dh and h_{t-1} in f32, STRIP * (elt + 8) bytes,
+    so an SM keeps 24 KB in flight a warp in f32. Unlike the forward's, the
+    backward's time is set by the tile's length more than by the bytes in
+    flight (chip_smoke.py's backward tile sweep at RecurrentGemma's
+    training shape: 64 x 2 within 3% of the fastest ring at B = 2 in f32,
+    the fastest in bf16 and at B = 1, where 16-step tiles were 1.2-1.3x
+    slower at any depth)."""
+    resident = min(-(-b * -(-d // STRIP) // sms), MAX_RESIDENT)
+    row = STRIP * (elt + 8)
+    steps = BWD_STEPS
+    while steps > 1 and resident * 2 * steps * row > BWD_SMEM:
+        steps //= 2
+    return min(steps, s), 2
+
+
 def is_aligned(a, u) -> bool:
     """Whether the kernel's 16-byte copies can serve (a, u): both base
     pointers, both (batch, time) strides and D * elt on 16 bytes."""
@@ -146,10 +172,22 @@ def run_entry(a, u, h0=None, steps: Optional[int] = None,
     return h
 
 
-def run_bwd_entry(a, h, dh, h0=None):
+def is_aligned_bwd(a, h, dh, h0=None) -> bool:
+    """Whether the backward's 16-byte copies can serve: a as ``is_aligned``
+    takes it, and h, dh and h0 starting on 16 bytes."""
+    return is_aligned(a, a) and all(
+        t.data_ptr() % 16 == 0 for t in (h, dh, h0) if t is not None)
+
+
+def run_bwd_entry(a, h, dh, h0=None, steps: Optional[int] = None,
+                  stages: Optional[int] = None,
+                  aligned: Optional[bool] = None):
     """Check CUDA tensors and run the backward kernel: (da, du, dh0 or
     None), float32, contiguous. ``h`` is the forward's output, ``dh`` its
-    gradient. Counts nothing: ``RGLRUScanFn`` is the counted launch."""
+    gradient. The ring is planned (``bwd_tiles``, ``is_aligned_bwd``)
+    unless ``steps``, ``stages`` or the path (``aligned`` False:
+    per-element loads) are forced, as ``run_entry``'s. Counts nothing:
+    ``RGLRUScanFn`` is the counted launch."""
     _check(a, a, h0)
     b, s, d = a.shape
     for name, t in (("h", h), ("dh", dh)):
@@ -158,6 +196,10 @@ def run_bwd_entry(a, h, dh, h0=None):
             raise ValueError(f"rglru_scan backward: {name} must be contiguous "
                              f"float32 {tuple(a.shape)}, got {t.dtype} "
                              f"{tuple(t.shape)}")
+    plan = bwd_tiles(b, s, d, a.element_size(), _build.sm_count(a.device))
+    steps = plan[0] if steps is None else steps
+    stages = plan[1] if stages is None else stages
+    ring = is_aligned_bwd(a, h, dh, h0) if aligned is None else aligned
     da = torch.empty(b, s, d, dtype=torch.float32, device=a.device)
     du = torch.empty_like(da)
     dh0 = None if h0 is None else torch.empty(b, d, dtype=torch.float32,
@@ -166,7 +208,8 @@ def run_bwd_entry(a, h, dh, h0=None):
         a.data_ptr(), h.data_ptr(), 0 if h0 is None else h0.data_ptr(),
         dh.data_ptr(), da.data_ptr(), du.data_ptr(),
         0 if dh0 is None else dh0.data_ptr(), _build.DTYPE_CODES[a.dtype], b,
-        s, d, a.stride(0), a.stride(1), _build.stream_ptr(a)),
+        s, d, a.stride(0), a.stride(1), steps, stages, int(ring),
+        _build.stream_ptr(a)),
         "rglru_scan backward")
     return da, du, dh0
 

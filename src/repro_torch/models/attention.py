@@ -12,6 +12,11 @@ this port to both.
 
 Decode keeps a ring-buffer KV cache of W = min(cache_len, window) slots
 per request: the key of absolute position p lives in slot p % W.
+
+``cfg.logit_soft_cap`` soft-caps the scores of the decoder's
+self-attention and its decode, as the JAX package does (the kernels take
+the cap); an encoder's self-attention and every cross-attention take none,
+as in the JAX package, whatever the config says.
 """
 from __future__ import annotations
 
@@ -54,12 +59,12 @@ def _qkv(p: Attention, x, cfg):
 
 def attention_core(q, k, v, *, causal=True, window=None, soft_cap=None):
     """q: (B, S, H, hd), k/v: (B, T, KV, hd) -> (B, S, H, hd); causal
-    needs T = S."""
-    if soft_cap is not None:
-        raise NotImplementedError(
-            "soft-capped attention has no kernel in repro_torch yet "
-            "(ROADMAP.md Queue A, the rest of the model zoo)")
-    return ops.flash_attention(q, k, v, causal=causal, window=window)
+    needs T = S; ``soft_cap`` c (None or 0: none) caps the scaled scores at
+    c tanh(s / c). JAX's ``windowed_attention`` drops the cap where it
+    falls back to ``dense_attention`` (window + 512 >= S > 1,024); this
+    caps there too, as ``dense_attention`` does."""
+    return ops.flash_attention(q, k, v, causal=causal, window=window,
+                               soft_cap=soft_cap)
 
 
 def _rotate(q, k, positions, pos3, cfg):
@@ -74,12 +79,13 @@ def _rotate(q, k, positions, pos3, cfg):
 def self_attention(p: Attention, x, positions, cfg, *, window=None,
                    pos3=None, causal=True):
     """x: (B, S, d); positions: (B, S) int; pos3: (3, B, S) M-RoPE ids or
-    None; ``causal`` False for an encoder's bidirectional attention.
+    None; ``causal`` False for an encoder's bidirectional attention, which
+    takes no soft cap (the JAX package's ``_enc_self_attention``).
     Returns (out (B, S, d), (k, v)), k already rotated, for the cache."""
     q, k, v = _qkv(p, x, cfg)
     q, k = _rotate(q, k, positions, pos3, cfg)
     out = attention_core(q, k, v, causal=causal, window=window,
-                         soft_cap=cfg.logit_soft_cap)
+                         soft_cap=cfg.logit_soft_cap if causal else None)
     b, s, _, _ = out.shape
     return out.reshape(b, s, -1) @ p.wo, (k, v)
 
@@ -161,11 +167,8 @@ def attn_decode(p: Attention, x1, cache, pos, cfg, *, pos3=None):
     """One token per request. x1: (B, 1, d); cache: ring (B, W, KV, hd),
     updated in place (slot pos % W); pos: (B,) absolute position of the
     new token; pos3: its (3, B, 1) M-RoPE ids or None. Returns (out (B,
-    1, d), cache)."""
-    if cfg.logit_soft_cap is not None:
-        raise NotImplementedError(
-            "soft-capped attention has no kernel in repro_torch yet "
-            "(ROADMAP.md Queue A, the rest of the model zoo)")
+    1, d), cache). Soft-capped at ``cfg.logit_soft_cap``, as the JAX
+    package's ``attn_decode``."""
     b = x1.shape[0]
     w = cache["k"].shape[1]
     q, k_new, v_new = _qkv(p, x1, cfg)
@@ -175,5 +178,6 @@ def attn_decode(p: Attention, x1, cache, pos, cfg, *, pos3=None):
     cache["k"][rows, slot] = k_new[:, 0].to(cache["k"].dtype)
     cache["v"][rows, slot] = v_new[:, 0].to(cache["v"].dtype)
     out = ops.decode_attention(q[:, 0], cache["k"], cache["v"],
-                               ring_lengths(pos, w))
+                               ring_lengths(pos, w),
+                               soft_cap=cfg.logit_soft_cap)
     return out.reshape(b, 1, -1) @ p.wo, cache

@@ -852,3 +852,220 @@ def test_kernels_without_backward_refuse_grad(dev):
     torch.cuda.synchronize()
     assert ops.launch_counts()["bvsb"] == 1
     assert ops.launch_counts()["decode_attention"] == 1
+
+
+# ---------------------------------------------------------------------------
+# soft-capped attention: c tanh(s / c) on the scaled scores, before the
+# mask; q and k drawn at CAP_QK times a unit normal so that the scores
+# reach the cap's curved part
+# ---------------------------------------------------------------------------
+CAP_QK = 3.0
+# (B, S, T or None, H, KV, hd, causal, window, cap): gemma-7b's heads (16 of
+# 256, G = 1), RG-like GQA with windows, both sides of the tensor-core
+# thresholds, non-causal T = S and T != S both ways
+CAP_CASES = [(2, 300, None, 16, 16, 256, True, None, 50.0),
+             (2, 63, None, 16, 1, 256, True, 20, 30.0),
+             (2, 47, None, 8, 2, 128, True, None, 50.0),
+             (1, 200, None, 16, 1, 256, True, 7, 30.0),
+             (64, 16, None, 8, 8, 64, True, None, 50.0),
+             (2, 80, None, 8, 2, 64, False, None, 30.0),
+             (2, 77, 300, 8, 2, 64, False, None, 50.0),
+             (2, 300, 77, 16, 16, 64, False, None, 30.0)]
+
+
+def _capped_qkv(dev, b, s, t, h, kv, hd, dtype, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = (torch.randn(b, s, h, hd, generator=gen, device=dev) * CAP_QK)
+    k = (torch.randn(b, t, kv, hd, generator=gen, device=dev) * CAP_QK)
+    v = torch.randn(b, t, kv, hd, generator=gen, device=dev)
+    do = torch.randn(b, s, h, hd, generator=gen, device=dev)
+    return tuple(x.to(dtype) for x in (q, k, v, do))
+
+
+@pytest.mark.parametrize("b,s,t,h,kv,hd,causal,window,cap", CAP_CASES)
+@pytest.mark.parametrize("kernel", [0, 1, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_capped_flash_forward_matches_plain(dev, b, s, t, h, kv, hd, causal,
+                                            window, cap, kernel, dtype):
+    """The capped forward, picked from the shape (0, counted) or each
+    kernel forced (1, 2), against ``flash_attention_plain`` with the cap,
+    its lse against ``attention_lse_plain``, a second call bitwise equal;
+    and the cap moves the output by more than the gate."""
+    t = t or s
+    q, k, v, _ = _capped_qkv(dev, b, s, t, h, kv, hd, dtype, s + hd)
+    lib = _build.library()
+
+    def run():
+        if kernel == 0:
+            return ops.flash_attention(q, k, v, causal=causal, window=window,
+                                       soft_cap=cap)
+        return _flash.run_entry(lib.repro_flash_attention_kernel, q, k, v,
+                                causal=causal, window=window, soft_cap=cap,
+                                extra=(kernel,))
+    ops.reset_launch_counts()
+    out = run()
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == int(kernel == 0)
+    ref = flash_attention_plain(q, k, v, causal=causal, window=window,
+                                soft_cap=cap)
+    torch.testing.assert_close(out.float(), ref.float(),
+                               atol=FLASH_ATOL[dtype], rtol=0)
+    assert torch.equal(run(), out)
+    free = flash_attention_plain(q, k, v, causal=causal, window=window)
+    assert float((free.float() - ref.float()).abs().max()) > FLASH_ATOL[dtype]
+    entry = lib.repro_flash_attention if kernel == 0 else \
+        lib.repro_flash_attention_kernel
+    _, lse = _flash.run_entry(entry, q, k, v, causal=causal, window=window,
+                              soft_cap=cap, with_lse=True,
+                              extra=() if kernel == 0 else (kernel,))
+    torch.testing.assert_close(
+        lse, attention_lse_plain(q, k, causal=causal, window=window,
+                                 soft_cap=cap), atol=LSE_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("b,s,t,h,kv,hd,causal,window,cap", CAP_CASES)
+@pytest.mark.parametrize("kernel", [0, 1, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_capped_flash_backward_matches_plain(dev, b, s, t, h, kv, hd, causal,
+                                             window, cap, kernel, dtype):
+    """Kernel 0: under autograd through FlashAttentionFn with the cap (one
+    forward, one backward launch); 1 / 2: each backward form forced. dq /
+    dk / dv against ``flash_attention_bwd_plain`` with the cap on the same
+    (q, k, v, o, lse, dO), a second backward bitwise equal."""
+    t = t or s
+    q, k, v, do = _capped_qkv(dev, b, s, t, h, kv, hd, dtype, s * 7 + hd)
+    for x in (q, k, v):
+        x.requires_grad_()
+    ops.reset_launch_counts()
+    out = ops.flash_attention(q, k, v, causal=causal, window=window,
+                              soft_cap=cap)
+    with torch.no_grad():
+        _, lse = _flash.run_entry(_build.library().repro_flash_attention, q,
+                                  k, v, causal=causal, window=window,
+                                  soft_cap=cap, with_lse=True)
+    if kernel:
+        def backward():
+            return _flash.run_bwd_entry(q, k, v, out, lse, do, causal=causal,
+                                        window=window, soft_cap=cap,
+                                        kernel=kernel)
+    else:
+        def backward():
+            return torch.autograd.grad(out, (q, k, v), do, retain_graph=True)
+    grads = backward()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == 1
+    assert counts["flash_attention_bwd"] == int(kernel == 0)
+    with torch.no_grad():
+        ref = flash_attention_bwd_plain(q, k, v, out, lse, do, causal=causal,
+                                        window=window, soft_cap=cap)
+    for g, r in zip(grads, ref):
+        assert g.dtype == dtype and g.shape == r.shape
+        assert _rel_err(g, r) <= FLASH_BWD_RTOL[dtype]
+    assert all(torch.equal(a, g) for a, g in zip(backward(), grads))
+
+
+CAP_DECODE_CASES = [(4, 2048, 16, 1, 256, [1, 777, 2048, 1500], 50.0),
+                    (4, 2048, 1, 16, 256, [2048] * 4, 30.0),
+                    (3, 100, 2, 4, 64, [1, 100, 37], 50.0),
+                    (2, 100, 2, 4, 128, [99, 64], 30.0),
+                    (3, 100, 2, 4, 48, [1, 100, 37], 50.0)]
+
+
+@pytest.mark.parametrize("b,w,kvh,g,hd,lengths,cap", CAP_DECODE_CASES)
+@pytest.mark.parametrize("dtype,cache_dtype",
+                         [(torch.float32, torch.float32),
+                          (torch.bfloat16, torch.bfloat16),
+                          (torch.float32, torch.bfloat16)],
+                         ids=["f32", "bf16", "f32-over-bf16"])
+def test_capped_decode_kernel_matches_plain(dev, b, w, kvh, g, hd, lengths,
+                                            cap, dtype, cache_dtype):
+    """The capped split-K partial, in the three dtype pairs, against
+    ``decode_attention_plain`` with the cap (gemma-7b's 16 KV heads of 256
+    among the cases), a second call and one with NaN past the lengths
+    bitwise equal to the first."""
+    gen = torch.Generator(device=dev).manual_seed(b * w + hd)
+    q = (torch.randn(b, kvh * g, hd, generator=gen, device=dev)
+         * CAP_QK).to(dtype)
+    k = (torch.randn(b, w, kvh, hd, generator=gen, device=dev)
+         * CAP_QK).to(cache_dtype)
+    v = torch.randn(b, w, kvh, hd, generator=gen, device=dev).to(cache_dtype)
+    lens = torch.tensor(lengths, device=dev)
+    ops.reset_launch_counts()
+    out = ops.decode_attention(q, k, v, lens, soft_cap=cap)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["decode_attention"] == 1
+    ref = decode_attention_plain(q, k, v, lens, soft_cap=cap)
+    torch.testing.assert_close(out.float(), ref.float(),
+                               atol=DECODE_ATOL[dtype], rtol=0)
+    again = ops.decode_attention(q, k, v, lens, soft_cap=cap)
+    past = torch.arange(w, device=dev)[None, :] >= lens[:, None]
+    k[past], v[past] = float("nan"), float("nan")
+    poisoned = ops.decode_attention(q, k, v, lens, soft_cap=cap)
+    assert torch.equal(again, out) and torch.equal(poisoned, out)
+
+
+# ---------------------------------------------------------------------------
+# the RG-LRU scan's backward: its cp.async ring and its per-element path
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("b,s,d,view,ring", [
+    (2, 3000, 512, None, (True, True)),     # S no multiple of the steps
+    (1, 1, 256, None, (True, True)),
+    (3, 129, 300, None, (True, False)),     # D off a strip; bf16 off 16 B
+    (2, 101, 40, None, (True, True)),
+    (2, 300, 513, "offset", (False, False)),
+    (2, 600, 512, "time", (True, True))])   # a strided in time
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_rglru_backward_paths_are_plain_bitwise(dev, b, s, d, view, ring,
+                                                dtype, with_h0):
+    """``run_bwd_entry`` with the planned path (``ring``: the ring for each
+    dtype, by ``is_aligned_bwd``), then the per-element path forced, and
+    the ring forced where it can serve: (da, du, dh0) each bit for bit
+    ``rglru_scan_bwd_plain``, none counted."""
+    a, u, h0 = _rglru_inputs(dev, b, s, d, view, dtype, with_h0)
+    h = _rglru.run_entry(a, u, h0)
+    dh = torch.randn(h.shape, device=dev)
+    assert _rglru.is_aligned_bwd(a, h, dh, h0) == ring[dtype ==
+                                                       torch.bfloat16]
+    ref = rglru_scan_bwd_plain(a, h, dh, h0)
+    ops.reset_launch_counts()
+    forced = [None, False] + ([True] if ring[dtype == torch.bfloat16] else [])
+    for aligned in forced:
+        got = _rglru.run_bwd_entry(a, h, dh, h0, aligned=aligned)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+        assert (got[2] is None) == (ref[2] is None)
+        if with_h0:
+            assert torch.equal(got[2], ref[2])
+    assert ops.launch_counts()["rglru_scan_bwd"] == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_rglru_backward_forced_rings_match_plain(dev, dtype):
+    """Every ring the plan gives at S = 3000 over batches, widths and SM
+    counts, and rings it does not (7 and 24 steps, 8 and 5 tiles), forced
+    at (2, 3000, 512): bitwise the plain reverse loop, with and without
+    h0; the ring refused where its copies would be misaligned."""
+    a, u, h0 = _rglru_inputs(dev, 2, 3000, 512, None, dtype, True)
+    dh = torch.randn(2, 3000, 512, device=dev)
+    hs = {True: _rglru.run_entry(a, u, h0), False: _rglru.run_entry(a, u)}
+    refs = {w: rglru_scan_bwd_plain(a, hs[w], dh, h0 if w else None)
+            for w in (True, False)}
+    plans = sorted({_rglru.bwd_tiles(b, 3000, d, a.element_size(), sms)
+                    for b in range(1, 65) for d in (512, 4096)
+                    for sms in (132, 114, 8)})
+    for steps, stages in plans + [(7, 3), (24, 2), (8, 8), (16, 5)]:
+        for w in (True, False):
+            got = _rglru.run_bwd_entry(a, hs[w], dh, h0 if w else None,
+                                       steps, stages, aligned=True)
+            assert torch.equal(got[0], refs[w][0]), (steps, stages, w)
+            assert torch.equal(got[1], refs[w][1]), (steps, stages, w)
+            if w:
+                assert torch.equal(got[2], refs[w][2])
+    off = a[:, :, 1:]
+    with pytest.raises(RuntimeError, match="rglru_scan backward"):
+        _rglru.run_bwd_entry(off, hs[True][:, :, 1:].contiguous(),
+                             dh[:, :, 1:].contiguous(), aligned=True)

@@ -174,12 +174,33 @@ def test_fill_kv_cache_places_positions_in_ring_slots():
 
 
 def test_soft_capped_decode_raises(lattn_layer):
-    cfg, _, p = lattn_layer
-    cache = attention.init_kv_cache(1, 4, cfg, torch.float32)
-    with pytest.raises(NotImplementedError, match="soft-capped"):
-        attention.attn_decode(p, torch.zeros(1, 1, cfg.d_model), cache,
-                              torch.zeros(1, dtype=torch.long),
-                              cfg.with_(logit_soft_cap=30.0))
+    """Soft-capped decode, which raised before the kernels took the cap,
+    now agrees with the JAX package's ``attn_decode`` under
+    ``logit_soft_cap`` = 30: 20 steps over a ring of 16 slots on inputs
+    scaled by 20, so that the scores reach the cap (outputs within TOL,
+    and off the uncapped decode's by more)."""
+    base, jp, p = lattn_layer
+    cfg = base.with_(logit_soft_cap=30.0)
+    w, b = 16, 2
+    rng = np.random.default_rng(30)
+    cache = attention.init_kv_cache(b, w, cfg, torch.float32)
+    free = attention.init_kv_cache(b, w, base, torch.float32)
+    jcache = jattn.init_kv_cache(b, w, cfg, jnp.float32)
+    jstep = jax.jit(lambda p_, x, c, pos: jattn.attn_decode(
+        p_, x, c, pos, cfg, window=w))
+    moved = 0.0
+    for t in range(20):
+        x1 = (rng.standard_normal((b, 1, cfg.d_model)) * 20).astype(np.float32)
+        pos = np.array([t, t + 3], np.int32)
+        tpos = torch.from_numpy(pos).long()
+        out, cache = attention.attn_decode(p, torch.from_numpy(x1), cache,
+                                           tpos, cfg)
+        uncapped, free = attention.attn_decode(p, torch.from_numpy(x1), free,
+                                               tpos, base)
+        jout, jcache = jstep(jp, x1, jcache, pos)
+        np.testing.assert_allclose(out.numpy(), np.asarray(jout), **TOL)
+        moved = max(moved, float((out - uncapped).abs().max()))
+    assert moved > 10 * TOL["atol"]
 
 
 # ---------------------------------------------------------------------------

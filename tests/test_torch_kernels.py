@@ -24,7 +24,9 @@ from repro_torch.kernels.flash_attention import (BWD_KEYS, BWD_WAVES,
                                                  MIN_SPLIT_TILES, bwd_rows,
                                                  bwd_splits,
                                                  flash_attention_plain)
-from repro_torch.kernels.rglru_scan import rglru_scan_plain
+from repro_torch.kernels.rglru_scan import STRIP as SCAN_STRIP
+from repro_torch.kernels.rglru_scan import (BWD_SMEM, BWD_STEPS, bwd_tiles,
+                                            rglru_scan_plain)
 
 torch.set_num_threads(2)
 
@@ -393,3 +395,31 @@ def test_flash_bwd_tile_walks_visit_each_pair_once(s, t, g, causal, window,
         for kt in kts:
             seen[m:m + 64, kt:kt + rows_tile] += 1
     assert (seen[ok] == 1).all() and seen.max() <= 1
+
+
+# the RG-LRU scan backward's ring plan (kernels/rglru_scan.py bwd_tiles):
+# one warp's ring of stages x steps rows of a, dh and h_{t-1}
+SCAN_BWD_SMEM = 227 * 1024
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("elt", [4, 2], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,s,d", [(1, 3000, 4096), (2, 3000, 4096),
+                                   (4, 3000, 4096), (2, 5, 4096),
+                                   (1, 1, 32), (4, 129, 296),
+                                   (64, 3000, 4096)])
+def test_rglru_bwd_tiles_fit_the_sm(b, s, d, elt, sms):
+    """Two tiles of a power of two of steps (or all of S), at most
+    BWD_STEPS, never longer than S; one warp's ring within the 227 KB a
+    block may use, and the rings of the warps an SM holds within BWD_SMEM;
+    RecurrentGemma's training shape (B = 2) and B = 1 take the longest
+    tiles."""
+    steps, stages = bwd_tiles(b, s, d, elt, sms)
+    assert 1 <= steps <= min(s, BWD_STEPS) and stages == 2
+    assert steps == s or steps & (steps - 1) == 0
+    row = SCAN_STRIP * (elt + 8)
+    assert stages * steps * row <= SCAN_BWD_SMEM
+    resident = min(-(-b * -(-d // SCAN_STRIP) // sms), 32)
+    assert resident * stages * steps * row <= BWD_SMEM or steps == 1
+    if b <= 2 and s >= BWD_STEPS:
+        assert steps == BWD_STEPS

@@ -123,17 +123,30 @@ def test_init_params_distribution_and_seed():
 
 
 def test_unported_families_raise():
-    """What the port does not serve yet: unknown archs and soft-capped
-    attention. The xLSTM and encoder-decoder configs, which raised here
-    before they were ported, now build on the CPU."""
-    cfg = get_config("tier-low")
+    """An unknown arch raises. The families that raised here before they
+    were ported now run: the xLSTM and encoder-decoder configs build on the
+    CPU, and soft-capped attention (tier-low with a cap of 30, weights
+    drawn at 0.1 so that the scores reach the cap) agrees with the JAX
+    package's forward within LOGIT_TOL, and differs from the uncapped
+    model's."""
     for name in ("xlstm-350m", "seamless-m4t-medium"):
         model = build_model(get_config(name).reduced(), device="cpu")
         assert model.device == torch.device("cpu")
         assert sum(p.numel() for p in model.parameters()) > 0
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("no-such-arch")
-    model = init_params(cfg.with_(logit_soft_cap=30.0),
-                        torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="soft-capped"):
-        model(torch.zeros(1, 4, dtype=torch.int32))
+    jcfg, cfg = (g("tier-low").with_(logit_soft_cap=30.0, init_scale=0.1)
+                 for g in (jget_config, get_config))
+    jm = jbuild_model(jcfg)
+    tree = jax.tree.map(np.asarray, jm.init(jax.random.key(9)))
+    tokens = np.random.default_rng(9).integers(
+        0, cfg.vocab_size, (2, 16)).astype(np.int32)
+    jlogits = np.asarray(jax.jit(
+        lambda p, t: jm.forward(p, {"tokens": t})[0])(tree, tokens))
+    with torch.inference_mode():
+        logits = params_from_jax(tree, cfg, device="cpu")(
+            torch.from_numpy(tokens))[0].numpy()
+        free = params_from_jax(tree, cfg.with_(logit_soft_cap=None),
+                               device="cpu")(torch.from_numpy(tokens))[0]
+    np.testing.assert_allclose(logits, jlogits, **LOGIT_TOL)
+    assert np.abs(logits - free.numpy()).max() > 100 * LOGIT_TOL["atol"]

@@ -225,6 +225,154 @@ def test_rglru_ring_forced_plans_wrap_the_ring(steps, stages):
     assert torch.equal(h, rglru_scan_plain(at, ut, h0t))
 
 
+def _ring_scan_bwd(a, h, dh, h0, steps, stages):
+    """rglru_bwd_ring_kernel's index arithmetic in PyTorch on the CPU, all
+    warps at once: warp w owns strip w % strips of row w // strips and
+    walks its tiles from the last down, tile n_tiles - 1 - j copied into
+    ring slot j mod stages (the slot read at iteration j - 1): chunk c =
+    lane + 32 i of a (row c // cpr), of dh and of h_{t-1} (row c // 8; row
+    t = 0 from h0, or zero-filled), chunks past D zero-filled, no row past
+    S; then the tile's rows from the last down. A slot is poisoned with NaN
+    once read. Returns (da, du, dh0 or None) and how many times each
+    element of a, dh, h and h0 was copied and each of da and du written."""
+    b, s, d = a.shape
+    e = 16 // a.element_size()
+    strip = _scan.STRIP
+    strips = -(-d // strip)
+    n_tiles = -(-s // steps)
+    da = torch.full((b, s, d), float("nan"))
+    du = torch.full((b, s, d), float("nan"))
+    counts = {n: torch.zeros(b, s, d, dtype=torch.int64)
+              for n in ("a", "dh", "h", "da", "du")}
+    h0_copied = torch.zeros(b, d, dtype=torch.int64)
+    a32 = a.float()
+    w = torch.arange(b * strips)
+    bi, d0 = w // strips, (w % strips) * strip
+    ring = torch.full((len(w), stages, 3, steps, strip), float("nan"))
+    lanes = d0[:, None] + torch.arange(strip)
+    live = lanes < d
+    bl = bi[:, None].expand_as(lanes)
+
+    def copy(slot, part, src, t0, rows, per):
+        """Chunks of ``per`` elements, row c // (strip / per), of the
+        (B, S, D) ``src`` at time t0 + row + shift into ring part ``part``;
+        returns the (b, t, channel) copied."""
+        cpr = strip // per
+        c = torch.arange(rows * cpr)
+        r, col = c // cpr, (c % cpr) * per
+        cols = col[:, None] + torch.arange(per)
+        rr = r[:, None].expand_as(cols)
+        chan = d0[:, None, None] + cols
+        inside = (d0[:, None] + col < d)[:, :, None].expand_as(chan)
+        assert (chan[inside] < d).all()                   # whole chunks in D
+        tb = bi[:, None, None].expand_as(chan)
+        tt = (t0 + rr).expand_as(chan)
+        vals = src(tb, tt, chan.clamp(max=d - 1))
+        ring[:, slot, part, rr, cols] = torch.where(inside, vals, 0.0)
+        return tb[inside], tt[inside], chan[inside]
+
+    def mark(name, idx):
+        counts[name].index_put_(idx, torch.ones(len(idx[0]),
+                                                dtype=torch.int64),
+                                accumulate=True)
+
+    def h_prev(tb, tt, chan):
+        first = tt == 0
+        prev = h[tb, (tt - 1).clamp(min=0), chan]
+        init = torch.zeros_like(prev) if h0 is None else h0[tb, chan]
+        return torch.where(first, init, prev)
+
+    def issue(j, slot):
+        if j >= n_tiles:
+            return
+        t0 = (n_tiles - 1 - j) * steps
+        rows = min(steps, s - t0)
+        mark("a", copy(slot, 0, lambda tb, tt, c: a32[tb, tt, c], t0, rows,
+                       e))
+        mark("dh", copy(slot, 1, lambda tb, tt, c: dh[tb, tt, c], t0, rows,
+                        4))
+        tb, tt, chan = copy(slot, 2, h_prev, t0, rows, 4)
+        later = tt > 0
+        mark("h", (tb[later], tt[later] - 1, chan[later]))
+        if h0 is not None:
+            h0_copied.index_put_((tb[~later], chan[~later]),
+                                 torch.ones(int((~later).sum()),
+                                            dtype=torch.int64),
+                                 accumulate=True)
+
+    for j in range(stages - 1):
+        issue(j, j)
+    carry = torch.zeros(len(w), strip)
+    slot = 0
+    for j in range(n_tiles):
+        issue(j + stages - 1, stages - 1 if slot == 0 else slot - 1)
+        t0 = (n_tiles - 1 - j) * steps
+        for r in range(min(steps, s - t0) - 1, -1, -1):
+            g = ring[:, slot, 1, r] + carry
+            t = t0 + r
+            idx = (bl[live], torch.full_like(bl[live], t), lanes[live])
+            du[idx] = g[live]
+            da[idx] = (g * ring[:, slot, 2, r])[live]
+            mark("du", idx)
+            mark("da", idx)
+            carry = ring[:, slot, 0, r] * g
+        ring[:, slot] = float("nan")
+        slot = 0 if slot + 1 == stages else slot + 1
+    dh0 = None
+    if h0 is not None:
+        dh0 = torch.zeros(b, d)
+        dh0[bl[live], lanes[live]] = carry[live]
+    return (da, du, dh0), counts, h0_copied
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,s,d,steps,stages", [
+    (2, 700, 64, None, None), (3, 129, 296, None, None), (1, 7, 40, None, None),
+    (1, 1, 8, None, None), (2, 101, 40, 3, 2), (2, 101, 40, 5, 8),
+    (1, 50, 72, 64, 2), (2, 33, 16, 1, 3)])
+def test_rglru_bwd_ring_is_the_plain_reverse_loop(b, s, d, steps, stages,
+                                                  dtype):
+    """Under the plan (``bwd_tiles`` at 132 SMs) or a forced ring that
+    wraps many times: every element of a, dh, h (but the last step's) and
+    h0 copied once, every element of da and du written once, and (da, du,
+    dh0) bitwise the plain reverse loop's, with and without h0."""
+    a, u, h0 = _au(b, s, d, s * d + 1, True)
+    at, ut = (torch.from_numpy(x).to(dtype) for x in (a, u))
+    if steps is None:
+        steps, stages = _scan.bwd_tiles(b, s, d, at.element_size(), 132)
+    dh = torch.from_numpy(np.random.default_rng(s).standard_normal(
+        (b, s, d)).astype(np.float32))
+    for h0t in (None, torch.from_numpy(h0)):
+        h = rglru_scan_plain(at, ut, h0t)
+        got, counts, h0_copied = _ring_scan_bwd(at, h, dh, h0t, steps,
+                                                stages)
+        for name in ("a", "dh", "da", "du"):
+            assert (counts[name] == 1).all(), name
+        assert (counts["h"][:, :-1] == 1).all()
+        assert (counts["h"][:, -1] == 0).all()
+        assert (h0_copied == (0 if h0t is None else 1)).all()
+        ref = _scan.rglru_scan_bwd_plain(at, h, dh, h0t)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+        assert (got[2] is None) == (ref[2] is None)
+        if ref[2] is not None:
+            assert torch.equal(got[2], ref[2])
+
+
+def test_rglru_is_aligned_bwd_adds_the_gradient_streams():
+    """The backward's copies also need h, dh and h0 on 16 bytes."""
+    a = torch.zeros(2, 8, 64)
+    h, dh, h0 = torch.zeros(2, 8, 64), torch.zeros(2, 8, 64), \
+        torch.zeros(2, 64)
+    assert _scan.is_aligned_bwd(a, h, dh, h0) and \
+        _scan.is_aligned_bwd(a, h, dh)
+    off = torch.zeros(2 * 8 * 64 + 1)[1:].view(2, 8, 64)
+    assert not _scan.is_aligned_bwd(a, off, dh, h0)
+    assert not _scan.is_aligned_bwd(a, h, off, h0)
+    assert not _scan.is_aligned_bwd(a, h, dh, torch.zeros(129)[1:].view(2,
+                                                                       64))
+    assert not _scan.is_aligned_bwd(a[:, :, 1:], h[:, :, 1:], dh[:, :, 1:])
+
+
 def _aligned_cases():
     """(name, a, u, aligned): what the 16-byte copies can serve."""
     x = torch.zeros(2, 64, 520)
