@@ -5,6 +5,7 @@
     python3 chip_smoke.py zoo    # phases 1-3's zoo part, 9 and 10 alone
     python3 chip_smoke.py train  # phases 1-3's training part and 11 alone
     python3 chip_smoke.py softcap  # phases 1-3's soft-cap part and 12 alone
+    python3 chip_smoke.py mesh   # phases 1-3's mesh part and 13 alone
 
 Phases, each printing its own lines; any failure raises, and the script
 then exits non-zero without the final result line:
@@ -170,8 +171,33 @@ then exits non-zero without the final result line:
    ``make_train_step`` with remat, 3 steps of 2 x 2,048 SyntheticLM
    tokens (two flash forward and one backward launch a layer a step),
    then 2 layers on 1 x 256 tokens card vs CPU under phase 11's rules;
-13. the kernels line: one JSON object describing every ported kernel;
-14. the result line: {"ok": true, "device": {...}}.
+13. the step factories over a (data, model) mesh, four ``gloo`` ranks
+   spawned on the card as in phase 8 (``make_model_mesh``): (a)
+   granite-moe-1b-a400m at full width and depth on a (1, 4) mesh, 8
+   experts a rank and the head's rows cut in 4: ``make_prefill_step`` on
+   4 x 2,048 tokens, 8 ``make_serve_step`` steps feeding back top-1 (one
+   BvSB partial and one merge launch a call, counted on every rank), 3
+   ``make_train_step`` steps of 2 x 2,048 with remat, held to the one-card
+   steps on the same weights and tokens (BvSB 1e-5, top-1 equal, the
+   losses 1e-5 relative), every rank's conf and top-1 bitwise equal; the
+   gradients at 2 layers on 1 x 256 tokens, the rank's experts against
+   their slice of the one-card gradient, 1e-4 of a leaf's max |g|; (b)
+   the same weights on a (2, 2) mesh: each data rank's rows against a
+   one-card run on those rows alone (their own capacity), and the
+   gradients at 2 layers against the mean of the two rows' one-card
+   gradients; walls, tokens/s, each rank's peak (together at most 72
+   GB) and the all_reduces' share of a clocked step (gloo: a host copy
+   each way, not a fabric); (c) seamless-m4t-medium trained at full
+   width and depth (3 steps of 2 x 512 tokens over 1,024 audio frames,
+   remat; flash's three forms each held to twice its layers a step),
+   (d) xlstm-350m (2 steps of 2 x 256, no kernel: its cells are plain
+   PyTorch), (e) each at 2 layers against the CPU under phase 11's rules.
+   Phase 3 holds the BvSB partial entry to its plain version (shards of
+   granite's head with padded columns, whole chunks at -inf, bf16,
+   bitwise repeats) and the merge over four shards to ``bvsb_plain``,
+   and times both at granite's shard beside their bounds;
+14. the kernels line: one JSON object describing every ported kernel;
+15. the result line: {"ok": true, "device": {...}}.
 
 ``zoo`` runs phases 1 and 2, phase 3's BvSB, flash and decode checks
 and its zoo timing rows, the MoE dispatch's scan of its one-hot in two
@@ -181,7 +207,9 @@ granite's and deepseek's prefill: the same rows, device ms), then phases
 9 and 10, and prints no result line. ``train`` runs phases 1 and 2,
 phase 3's training part, then phase 11, and prints no result line.
 ``softcap`` runs phases 1 and 2, phase 3's soft-cap part, then phase 12,
-and prints no result line.
+and prints no result line. ``mesh`` runs phases 1 and 2, phase 3's
+partial-entry checks and rows, then phase 13, and prints no result
+line.
 
 ``throughput`` of the cascade is a virtual-clock figure from the paper's
 latency profiles, not a measurement of the card.
@@ -229,7 +257,8 @@ from repro_torch.kernels import bvsb as _bvsb  # noqa: E402
 from repro_torch.kernels import decode_attention as _decode  # noqa: E402
 from repro_torch.kernels import flash_attention as _flash  # noqa: E402
 from repro_torch.kernels import rglru_scan as _rglru  # noqa: E402
-from repro_torch.kernels.bvsb import bvsb_plain  # noqa: E402
+from repro_torch.kernels.bvsb import (bvsb_merge_plain,  # noqa: E402
+                                      bvsb_partials_plain, bvsb_plain)
 from repro_torch.kernels.decode_attention import \
     decode_attention_plain  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
@@ -359,6 +388,35 @@ CAP_CHECK_LAYERS = 2
 # phase 3's capped cases draw q and k at CAP_QK times a unit normal, so
 # that the scores reach the cap's curved part
 CAP_QK = 3.0
+
+
+# every kernel's launch count at zero: what a path's expected counts start
+# from
+NO_LAUNCHES = dict.fromkeys(ops.launch_counts(), 0)
+
+
+# phase 13, the step factories over a (data, model) mesh: MESH_RANKS gloo
+# ranks on the one card (NCCL refuses two ranks on one GPU), each a
+# process of its own. (a) granite-moe-1b-a400m at full width and depth on
+# a MESH_SHAPE mesh (8 experts a rank, the head's rows cut in 4): a
+# prefill of MESH_B x MESH_S tokens into rings of MESH_S + MESH_STEPS
+# slots, MESH_STEPS serve steps feeding back top-1, MESH_TRAIN_STEPS train
+# steps (remat) of MESH_TRAIN_B x MESH_S SyntheticLM tokens; the
+# gradients at MESH_GRAD_LAYERS layers on TRAIN_CHECK_B x TRAIN_CHECK_S
+# tokens. (b) the same model on a (2, 2) mesh, the prefill and
+# MESH22_STEPS serve steps, the gradients at MESH_GRAD_LAYERS layers on 2 x
+# TRAIN_CHECK_S tokens (a row a data rank). (c) seamless-m4t-medium
+# trained at full width and depth, SEAMT_STEPS steps of SEAMT_B x
+# SEAMT_FRAMES audio frames and SEAMT_S-token prompts; (d) xlstm-350m
+# trained at full width and depth, XLSTMT_STEPS steps of XLSTMT_B x
+# XLSTMT_S tokens; (e) each at 2 layers (seamless 2 + 2) against the CPU
+MESH_RANKS, MESH_SHAPE, MESH_SEED = 4, (1, 4), 3
+MESH_B, MESH_S, MESH_STEPS = 4, 2048, 8
+MESH_TRAIN_B, MESH_TRAIN_STEPS = 2, 3
+MESH_GRAD_LAYERS, MESH22_STEPS = 2, 4
+MESH_PEAK_GB = 72        # the ranks' peaks together, at most
+SEAMT_B, SEAMT_FRAMES, SEAMT_S, SEAMT_STEPS = 2, 1024, 512, 3
+XLSTMT_B, XLSTMT_S, XLSTMT_STEPS = 2, 256, 2
 
 
 def card_rates(name: str):
@@ -555,6 +613,87 @@ def check_bvsb(dev):
                 and bool(torch.isnan(conf[2]))):
             raise AssertionError(f"bvsb {name}: a tie across chunks must give "
                                  "margin 0 at the first index, +inf NaN")
+
+
+def partials_cases(dev):
+    """(name, logits, first column) as the mesh paths hand the partial entry
+    its shard: granite's head (PV 49,280) cut in 4 at phase 13's B = 4
+    and at 64, each shard at its offset, the last holding padded columns;
+    a row cut into several chunks with whole chunks at -inf; bf16; a short
+    row; seamless's head (256,256) cut in 2."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    cfg = get_config(GRANITE_ARCH)
+    pv = common.padded_vocab(cfg.vocab_size)
+    cases = []
+    for b in (MESH_B, 64):
+        full = torch.randn(b, pv, generator=gen, device=dev) * 4
+        full[:, cfg.vocab_size:] = PAD_LOGIT
+        m = MESH_SHAPE[1]
+        for j in range(m):
+            lo, hi = j * pv // m, (j + 1) * pv // m
+            cases.append((f"granite shard {j} ({b},{hi - lo})",
+                          full[:, lo:hi].contiguous(), lo))
+    x = torch.randn(4, 65536, generator=gen, device=dev) * 4
+    x[1, :32768] = float("-inf")
+    x[2, [9, 60000]] = 30.0
+    cases.append(("(4,65536) -inf chunks, ties", x, 1000))
+    cases.append(("(4,65536) bf16", x.to(torch.bfloat16), 0))
+    cases.append(("(3,130)", torch.randn(3, 130, generator=gen,
+                                         device=dev) * 4, 7))
+    v = common.padded_vocab(get_config(SEAM_ARCH).vocab_size)
+    x = torch.randn(MESH_B, v, generator=gen, device=dev) * 4
+    cases.append((f"seamless shard 1 ({MESH_B},{v // 2})",
+                  x[:, v // 2:].contiguous(), v // 2))
+    return cases
+
+
+def check_bvsb_partials(dev):
+    """The partial entry against its plain version (m1, m2, index exact, z
+    to 1e-5 relative), twice bitwise; then the merge entry over each
+    granite row's four shards against ``bvsb_plain`` of the whole row
+    (BVSB_ATOL, top-1 equal), twice bitwise, and a maximum tied across two
+    shards giving margin 0 at the first index."""
+    shards = {}
+    for name, x, offset in partials_cases(dev):
+        t = ops.bvsb_partials(x, offset)
+        torch.cuda.synchronize()
+        ref = bvsb_partials_plain(x, offset)
+        exact = torch.equal(t[:, [0, 1, 3]], ref[:, [0, 1, 3]])
+        z_err = float(((t[:, 2] - ref[:, 2]).abs()
+                       / ref[:, 2].abs().clamp(min=1e-30)).max())
+        same = torch.equal(bits(t), bits(ops.bvsb_partials(x, offset)))
+        print(f"bvsb partials {name} {str(x.dtype)[6:]} at column {offset}: "
+              f"m1, m2, index {'equal' if exact else 'DIFFER'}, z max rel "
+              f"{z_err:.3g}, second call "
+              f"{'bitwise equal' if same else 'DIFFERS'}")
+        if not (exact and z_err <= 1e-5 and same):
+            raise AssertionError(f"bvsb partials disagree on {name}")
+        if name.startswith("granite"):
+            shards.setdefault(x.shape[0], []).append((x, t))
+    for b, parts in shards.items():
+        full = torch.cat([x for x, _ in parts], dim=1)
+        tuples = torch.stack([t for _, t in parts], dim=1)
+        conf, top1 = ops.bvsb_merge(tuples)
+        pconf, ptop1 = bvsb_plain(full)
+        c2, t2 = ops.bvsb_merge(tuples)
+        err = max_err(conf, pconf)
+        ok = err <= BVSB_ATOL[torch.float32] and torch.equal(top1, ptop1) \
+            and torch.equal(bits(conf), bits(c2)) and torch.equal(top1, t2)
+        print(f"bvsb merge of granite's 4 shards (B={b}): max|err| "
+              f"{err:.3g} against bvsb_plain of the whole row, top-1 "
+              f"{'equal' if torch.equal(top1, ptop1) else 'DIFFERS'}, second "
+              f"call {'bitwise equal' if ok else 'DIFFERS'}")
+        if not ok:
+            raise AssertionError("bvsb merge disagrees with bvsb_plain")
+    x = torch.randn(2, 1024, device=dev)
+    x[0, [100, 900]] = 20.0
+    tuples = torch.stack([ops.bvsb_partials(x[:, j * 256:(j + 1) * 256]
+                                            .contiguous(), j * 256)
+                          for j in range(4)], dim=1)
+    conf, top1 = ops.bvsb_merge(tuples)
+    if not (float(conf[0]) == 0.0 and int(top1[0]) == 100):
+        raise AssertionError("bvsb merge: a tie across shards must give "
+                             "margin 0 at the first index")
 
 
 FLASH_CASES = [(1, 16, 4, 4, 32, None), (64, 16, 8, 8, 48, None),
@@ -1460,6 +1599,51 @@ class Timer:
             bvsb_bound_ms(b, v, 4, self.bw, self.flops),
             max_err(conf, pconf), BVSB_ATOL[torch.float32], (b, v))
 
+    def bvsb_partials(self, b, arch=GRANITE_ARCH, m=4):
+        """The partial entry on model rank 0's shard of ``arch``'s head cut
+        in ``m`` (B, PV / m) f32; library: amax + logsumexp + top-2 on the
+        shard (what the tuple holds). Bound: the shard read once and 16
+        bytes a row written, four operations an element."""
+        pv = common.padded_vocab(get_config(arch).vocab_size)
+        v = pv // m
+        x = torch.randn(b, v, device=self.dev) * 4
+        t, ref = ops.bvsb_partials(x, 0), bvsb_partials_plain(x, 0)
+        if not torch.equal(t[:, [0, 1, 3]], ref[:, [0, 1, 3]]):
+            raise AssertionError(f"bvsb partials B={b}: m1, m2 or the "
+                                 "index differ")
+        # the error: BvSB from the kernel's tuple against the plain one's
+        err = max_err(bvsb_merge_plain(t[:, None])[0],
+                      bvsb_merge_plain(ref[:, None])[0])
+
+        def library():
+            return (torch.amax(x, dim=-1), torch.logsumexp(x, dim=-1),
+                    torch.topk(x, 2, dim=-1))
+        return self._row(
+            ("bvsb_partials", f"{arch} shard of {m} B={b}"),
+            lambda: ops.bvsb_partials(x, 0),
+            lambda: bvsb_partials_plain(x, 0), library,
+            _bound(b * v * 4 + b * 16, 4 * b * v, self.bw, self.flops),
+            err, BVSB_ATOL[torch.float32], (b, v))
+
+    def bvsb_merge(self, b, m=4, arch=GRANITE_ARCH):
+        """The merge entry over (B, m, 4) tuples of ``arch``'s head cut in
+        m; no library call computes it. Bound: the tuples read once, conf
+        and top-1 written, about 12 operations a tuple."""
+        pv = common.padded_vocab(get_config(arch).vocab_size)
+        x = torch.randn(b, pv, device=self.dev) * 4
+        parts = torch.stack([ops.bvsb_partials(
+            x[:, j * pv // m:(j + 1) * pv // m].contiguous(), j * pv // m)
+            for j in range(m)], dim=1)
+        (conf, top1), (pconf, ptop1) = ops.bvsb_merge(parts), bvsb_plain(x)
+        if not torch.equal(top1, ptop1):
+            raise AssertionError(f"bvsb merge B={b}: top-1 differs")
+        return self._row(
+            ("bvsb_merge", f"{arch} {m} shards B={b}"),
+            lambda: ops.bvsb_merge(parts), lambda: bvsb_merge_plain(parts),
+            None, _bound(b * m * 16 + b * 8, 12 * b * m, self.bw,
+                         self.flops),
+            max_err(conf, pconf), BVSB_ATOL[torch.float32], (b, m, 4))
+
     def bvsb_chunks(self, shapes=((8, 2048), (8, 8192), (8, 12288),
                                   (8, 16384), (1, 16384), (64, 16384),
                                   (8, 65536), (RG_B, 256_000),
@@ -2103,10 +2287,10 @@ def main_path(dev):
 # ---------------------------------------------------------------------------
 def rg_expected_launches(cfg, steps):
     kinds = cfg.pattern
-    return {"bvsb": 1 + steps, "flash_attention": kinds.count("lattn"),
+    return {**NO_LAUNCHES, "bvsb": 1 + steps,
+            "flash_attention": kinds.count("lattn"),
             "rglru_scan": kinds.count("rglru"),
-            "decode_attention": kinds.count("lattn") * steps,
-            "flash_attention_bwd": 0, "rglru_scan_bwd": 0}
+            "decode_attention": kinds.count("lattn") * steps}
 
 
 def ring_keys(model, tokens, layer):
@@ -2528,9 +2712,7 @@ def simulator_path(dev):
         print(f"simulator (b): highest server index reached per lane "
               f"{switched.tolist()}; peak device memory {peak_gb:.3f} GB; "
               f"launches {counts}; {jaxsim.GRAPH_TRIPS} trips a graph")
-        if counts != {"bvsb": 1, "flash_attention": 0,
-                      "decode_attention": 0, "rglru_scan": 0,
-                      "flash_attention_bwd": 0, "rglru_scan_bwd": 0}:
+        if counts != {**NO_LAUNCHES, "bvsb": 1}:
             raise AssertionError(f"simulator path launches {counts}")
         t0 = time.perf_counter()
         sim_widths(dev)
@@ -3071,9 +3253,8 @@ def zoo_expected_launches(cfg, steps):
     """One flash launch an attention layer at the prefill, one decode
     launch an attention layer a step, one BvSB launch a call."""
     n = sum(kind in ("attn", "lattn") for kind in cfg.pattern)
-    return {"bvsb": 1 + steps, "flash_attention": n,
-            "decode_attention": n * steps, "rglru_scan": 0,
-            "flash_attention_bwd": 0, "rglru_scan_bwd": 0}
+    return {**NO_LAUNCHES, "bvsb": 1 + steps, "flash_attention": n,
+            "decode_attention": n * steps}
 
 
 def zoo_inputs(cfg, dev, b, n_text, n_embeds, seed):
@@ -3375,8 +3556,7 @@ def zoo10_expected_launches(cfg, steps):
     encoder-decoder: one flash launch an encoder layer and two a decoder
     layer (self and cross) at the prefill, two decode launches a decoder
     layer a step (self and cross), one BvSB launch a call."""
-    want = {"bvsb": 1 + steps, "flash_attention": 0, "decode_attention": 0,
-            "rglru_scan": 0, "flash_attention_bwd": 0, "rglru_scan_bwd": 0}
+    want = {**NO_LAUNCHES, "bvsb": 1 + steps}
     if cfg.is_encoder_decoder:
         want.update(flash_attention=cfg.encoder_layers + 2 * cfg.num_layers,
                     decode_attention=2 * cfg.num_layers * steps)
@@ -3688,7 +3868,30 @@ class PairData:
 
 
 def _attn_layers(cfg):
+    """Attention calls a forward makes: an encoder-decoder's encoder layers
+    and its decoder layers twice (self and cross)."""
+    if cfg.is_encoder_decoder:
+        return cfg.encoder_layers + 2 * cfg.num_layers
     return sum(kind in ("attn", "lattn") for kind in cfg.pattern)
+
+
+@contextlib.contextmanager
+def flash_form_counts():
+    """Tally ``ops.flash_attention`` calls by form while the block runs:
+    "causal" (T = S), "non-causal" (T = S) and "cross" (non-causal over
+    T != S keys)."""
+    real, tally = ops.flash_attention, {}
+
+    def counted(q, k, v, *a, causal=True, **kw):
+        form = "causal" if causal else (
+            "non-causal" if q.shape[1] == k.shape[1] else "cross")
+        tally[form] = tally.get(form, 0) + 1
+        return real(q, k, v, *a, causal=causal, **kw)
+    ops.flash_attention = counted
+    try:
+        yield tally
+    finally:
+        ops.flash_attention = real
 
 
 def train_expected_launches(cfg, steps, remat):
@@ -3698,7 +3901,7 @@ def train_expected_launches(cfg, steps, remat):
     nothing else."""
     n, r = _attn_layers(cfg), cfg.pattern.count("rglru")
     fwd = 2 if remat else 1
-    return {"bvsb": 0, "decode_attention": 0,
+    return {**NO_LAUNCHES,
             "flash_attention": fwd * n * steps, "flash_attention_bwd": n * steps,
             "rglru_scan": fwd * r * steps, "rglru_scan_bwd": r * steps}
 
@@ -3774,12 +3977,16 @@ def pair_path(dev):
         distill_ms=distill_s * 1e3 / PAIR_STEPS, loss=losses, kd=kds)
 
 
-def lm_train_path(dev, tag, cfg, b, s, steps, seed):
+def lm_train_path(dev, tag, cfg, b, s, steps, seed, frames=None,
+                  profiled=True):
     """``steps`` steps of ``launch.distributed.make_train_step`` (remat) on
-    ``cfg`` at full width, B x S tokens of ``SyntheticLM``, weights drawn
-    on the card: finite losses, the first near ln(vocab), the expected
-    launches, peak memory at most TRAIN_PEAK_GB; then a profiled step for
-    the device's idle share."""
+    ``cfg`` at full width, B x S tokens of ``SyntheticLM`` (and an
+    encoder-decoder's B x ``frames`` seeded audio frame embeddings),
+    weights drawn on the card: finite losses, the first near ln(vocab),
+    the expected launches (flash's forward also by form, each form's
+    calls twice its layers a step with the recompute), peak memory at most
+    TRAIN_PEAK_GB; then, where ``profiled``, a profiled step for the
+    device's idle share."""
     t0 = time.perf_counter()
     model = init_model(cfg, seed, device=dev)
     torch.cuda.synchronize()
@@ -3789,6 +3996,11 @@ def lm_train_path(dev, tag, cfg, b, s, steps, seed):
     data = SyntheticLM(DataConfig(cfg.vocab_size, s, b, seed=seed),
                        device=dev)
     batches = [data.batch_at(i) for i in range(steps)]
+    if cfg.is_encoder_decoder:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        for batch in batches:
+            batch["audio_embeds"] = torch.randn(b, frames, cfg.d_model,
+                                                generator=gen, device=dev)
     torch.cuda.synchronize()
     data_s = time.perf_counter() - t0
     step = make_train_step(model, remat=True, adamw=opt.AdamWConfig(
@@ -3797,23 +4009,32 @@ def lm_train_path(dev, tag, cfg, b, s, steps, seed):
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     walls, rows = [], []
-    for batch in batches:
-        t0 = time.perf_counter()
-        state, m = step(state, batch)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-        rows.append({k: float(v) for k, v in m.items()})
+    with flash_form_counts() as forms:
+        for batch in batches:
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            rows.append({k: float(v) for k, v in m.items()})
     counts = ops.launch_counts()
+    if cfg.is_encoder_decoder:
+        want_forms = {"non-causal": 2 * cfg.encoder_layers * steps,
+                      "causal": 2 * cfg.num_layers * steps,
+                      "cross": 2 * cfg.num_layers * steps}
+    else:
+        want_forms = {"causal": 2 * _attn_layers(cfg) * steps} \
+            if _attn_layers(cfg) else {}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     want = train_expected_launches(cfg, steps, True)
     step_s = float(np.mean(walls[1:])) if steps > 1 else walls[0]
-    from torch.profiler import ProfilerActivity, profile
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        step(state, batches[0])
-        torch.cuda.synchronize()
-    prof_s = time.perf_counter() - t0
-    busy, launches, top = _top_kernels(prof)
+    if profiled:
+        from torch.profiler import ProfilerActivity, profile
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            step(state, batches[0])
+            torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+        busy, launches, top = _top_kernels(prof)
     ln_v = float(np.log(cfg.vocab_size))
     first_ce = ln_v + cfg.init_scale ** 2 * TRUNC_VAR * cfg.d_model / 2
     losses = ", ".join("%.4f" % r["loss"] for r in rows)
@@ -3826,17 +4047,23 @@ def lm_train_path(dev, tag, cfg, b, s, steps, seed):
           f"{first_ce:.4f}; aux "
           f"{rows[0]['aux']:.4g}); grad norms {norms}; steps {ms} ms, "
           f"{b * s / step_s:.1f} tokens/s; peak {peak_gb:.3f} GB; launches "
-          f"{counts}")
-    print(f"training ({tag}) device time (profiled step): {busy:.4f} s busy "
-          f"over {step_s:.4f} s of unprofiled wall (a step's mean), idle "
-          f"share {1 - busy / step_s:.4f}; the profiled step's own wall "
-          f"{prof_s:.4f} s; {launches} kernel launches")
-    for e in top:
-        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  "
-              f"{e.key[:90]}")
+          f"{counts}; flash forward calls by form {forms}")
+    if profiled:
+        print(f"training ({tag}) device time (profiled step): {busy:.4f} s "
+              f"busy over {step_s:.4f} s of unprofiled wall (a step's mean), "
+              f"idle share {1 - busy / step_s:.4f}; the profiled step's own "
+              f"wall {prof_s:.4f} s; {launches} kernel launches")
+        for e in top:
+            print(f"  {e.self_device_time_total / 1e3:9.3f} ms  "
+                  f"{e.count:6d}x  {e.key[:90]}")
+    else:
+        busy = None
+        print(f"training ({tag}): no profiled step (the sLSTM's position "
+              f"loop makes too many launches for the profiler)")
     checks = {
         "finite": all(np.isfinite(list(r.values())).all() for r in rows),
-        "profiled step traced device time": busy > 0,
+        "profiled step traced device time": not profiled or busy > 0,
+        "flash forms": forms == want_forms,
         "first ce as random weights give": abs(rows[0]["ce"] - first_ce)
         <= FIRST_CE_ATOL,
         "launches": counts == want,
@@ -3850,7 +4077,8 @@ def lm_train_path(dev, tag, cfg, b, s, steps, seed):
     torch.cuda.empty_cache()
     return counts, dict(params=n_params, init_s=init_s, step_ms=step_s * 1e3,
                         tokens_per_s=b * s / step_s, peak_gb=peak_gb,
-                        idle=1 - busy / step_s, loss=[r["loss"] for r in rows])
+                        idle=None if busy is None else 1 - busy / step_s,
+                        loss=[r["loss"] for r in rows])
 
 
 def train_check_cpu(dev, arch, layers, cfg=None):
@@ -3862,6 +4090,8 @@ def train_check_cpu(dev, arch, layers, cfg=None):
     global norm within 1e-4 relative; on the card remat on and off give
     bitwise-equal gradients, and the remat run launches the kernels."""
     cfg = (cfg or get_config(arch)).with_(num_layers=layers)
+    if cfg.is_encoder_decoder:
+        cfg = cfg.with_(encoder_layers=layers)
     card = init_model(cfg, 1, device=dev)
     cpu = build_model(cfg, device="cpu")
     cpu.load_state_dict(card.state_dict())
@@ -3870,6 +4100,10 @@ def train_check_cpu(dev, arch, layers, cfg=None):
                           (TRAIN_CHECK_B, TRAIN_CHECK_S)).astype(np.int32)
     batch = {"tokens": tokens, "labels": np.concatenate(
         [tokens[:, 1:], np.full((TRAIN_CHECK_B, 1), -100, np.int32)], 1)}
+    if cfg.is_encoder_decoder:   # the audio frames of phase 10's check
+        batch["audio_embeds"] = rng.standard_normal(
+            (TRAIN_CHECK_B, SEAM_CHECK_FRAMES, cfg.d_model)).astype(
+                np.float32)
 
     def grads(model, remat):
         return grads_of(make_loss_fn(model, remat=remat), trainable(model),
@@ -4017,9 +4251,383 @@ def softcap_only(dev, timer):
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the step factories over a (data, model) mesh; training of the
+# encoder-decoder and of xLSTM
+# ---------------------------------------------------------------------------
+@contextlib.contextmanager
+def collective_clock():
+    """Time every ``torch.distributed.all_reduce`` while the block runs,
+    the device synchronised before each (so the clock holds the exchange
+    alone): yields a tally {"n": calls, "s": seconds}."""
+    real, tally = dist.all_reduce, {"n": 0, "s": 0.0}
+
+    def timed(tensor, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(tensor, *a, **kw)
+        torch.cuda.synchronize()
+        tally["s"] += time.perf_counter() - t0
+        tally["n"] += 1
+        return out
+    dist.all_reduce = timed
+    try:
+        yield tally
+    finally:
+        dist.all_reduce = real
+
+
+def mesh_tokens(cfg, dev, b, s, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                         device=dev)
+
+
+def mesh_expected_launches(cfg, steps):
+    """A prefill and ``steps`` serve steps on a mesh: one flash launch an
+    attention layer, one decode launch an attention layer a step, one
+    BvSB partial and one merge launch a call (no whole-row BvSB)."""
+    n = _attn_layers(cfg)
+    return {**NO_LAUNCHES, "flash_attention": n,
+            "decode_attention": n * steps, "bvsb_partials": 1 + steps,
+            "bvsb_merge": 1 + steps}
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def mesh_serve(model, mesh, dev, tokens, steps):
+    """A prefill and ``steps`` serve steps feeding back top-1 on every rank,
+    the counters read around them: (per-step (conf, top1) on the host,
+    launches, prefill s, a serve step's s (mean after the first), the
+    collectives' tally of one more clocked serve step)."""
+    prefill = make_prefill_step(model, mesh)
+    serve = make_serve_step(model, mesh)
+    b, s = tokens.shape
+    ops.reset_launch_counts()
+    (conf, top1, cache), prefill_s = _timed(
+        lambda: prefill(tokens, cache_len=s + steps + 1))
+    out, walls = [(conf.cpu(), top1.cpu())], []
+    for i in range(steps):
+        pos = torch.full((b,), s + i, dtype=torch.long, device=dev)
+        (conf, top1, cache), w = _timed(
+            lambda: serve(top1[:, None], cache, pos))
+        out.append((conf.cpu(), top1.cpu()))
+        walls.append(w)
+    counts = ops.launch_counts()
+    pos = torch.full((b,), s + steps, dtype=torch.long, device=dev)
+    with collective_clock() as clock:
+        _, clocked = _timed(lambda: serve(top1[:, None], cache, pos))
+    return out, counts, prefill_s, float(np.mean(walls[1:])), \
+        dict(clock, wall=clocked)
+
+
+def mesh_grads(cfg, dev, mesh, rows):
+    """The gradients of the train step's loss at MESH_GRAD_LAYERS layers on
+    ``rows`` rows of TRAIN_CHECK_S tokens, on this rank's model of the mesh
+    (summed over the data group) and on the one-card model of the same
+    weights on each data rank's rows alone, the latter averaged (every
+    row has the same count of labels, so den_r / den = 1 / rows): the
+    worst leaf's max |mesh - one-card| over its max |one-card| (an expert
+    leaf against its slice), and the losses."""
+    from repro_torch.launch.distributed import make_loss_fn as loss_of
+    from repro_torch.models.common import mesh_context
+    from repro_torch.models.model import expert_slices
+    from repro_torch.training.trainer import all_reduce_grads, data_rows
+    cfg = cfg.with_(num_layers=MESH_GRAD_LAYERS)
+    mctx = mesh_context(mesh)
+    gen = torch.Generator(device=dev)
+    model = init_params(cfg, gen.manual_seed(MESH_SEED), device=dev,
+                        mesh=mesh)
+    local = init_params(cfg, gen.manual_seed(MESH_SEED), device=dev)
+    rng = np.random.default_rng(11)
+    tokens = rng.integers(0, cfg.vocab_size,
+                          (rows, TRAIN_CHECK_S)).astype(np.int32)
+    batch = to_device({"tokens": tokens, "labels": np.concatenate(
+        [tokens[:, 1:], np.full((rows, 1), -100, np.int32)], 1)}, dev)
+    loss, _, g = grads_of(loss_of(model, remat=True, mctx=mctx),
+                          trainable(model), data_rows(batch, mctx))
+    all_reduce_grads(g, mctx)
+    ref, ref_loss = None, 0.0
+    for r in range(rows):
+        lr, _, gr = grads_of(loss_of(local, remat=True), trainable(local),
+                             {k: v[r:r + 1] for k, v in batch.items()})
+        ref = gr if ref is None else {k: ref[k] + gr[k] for k in ref}
+        ref_loss += float(lr) / rows
+    ref = {k: v / rows for k, v in ref.items()}
+    experts = expert_slices(model)
+    errs = {k: _rel(v, ref[k][experts.get(k, slice(None))])
+            for k, v in g.items()}
+    worst = max(errs, key=errs.get)
+    return {"worst": worst, "err": errs[worst], "leaves": len(errs),
+            "loss": float(loss), "ref_loss": ref_loss}
+
+
+def mesh_work(_, dev):
+    """A rank's share of phase 13: (a) on the MESH_SHAPE mesh, then (b) on
+    (2, 2); its results, launches, walls, collectives and peak memory."""
+    from repro_torch.launch.mesh import make_model_mesh
+    cfg = get_config(GRANITE_ARCH)
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+    mesh = make_model_mesh(MESH_SHAPE, device_type="cuda")
+    t0 = time.perf_counter()
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(
+        MESH_SEED), device=dev, mesh=mesh)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tokens = mesh_tokens(cfg, dev, MESH_B, MESH_S, MESH_SEED)
+    steps, counts, prefill_s, step_s, clock = mesh_serve(
+        model, mesh, dev, tokens, MESH_STEPS)
+    out["a_serve"] = dict(steps=steps, counts=counts, prefill_s=prefill_s,
+                          step_s=step_s, clock=clock, init_s=init_s,
+                          experts=tuple(model.layers[0].moe.w_gate.shape))
+    data = SyntheticLM(DataConfig(cfg.vocab_size, MESH_S, MESH_TRAIN_B,
+                                  seed=MESH_SEED), device=dev)
+    step = make_train_step(model, mesh, remat=True, adamw=opt.AdamWConfig(
+        warmup_steps=2, total_steps=MESH_TRAIN_STEPS))
+    state = opt.init(trainable(model))
+    ops.reset_launch_counts()
+    losses, walls = [], []
+    for i in range(MESH_TRAIN_STEPS - 1):
+        (state, m), w = _timed(lambda: step(state, data.batch_at(i)))
+        losses.append(float(m["loss"]))
+        walls.append(w)
+    with collective_clock() as tally:
+        (state, m), w = _timed(lambda: step(state, data.batch_at(
+            MESH_TRAIN_STEPS - 1)))
+    losses.append(float(m["loss"]))
+    out["a_train"] = dict(losses=losses, walls=walls, counts=ops.
+                          launch_counts(), clock=dict(tally, wall=w))
+    del model, state, step
+    torch.cuda.empty_cache()
+    out["a_grads"] = mesh_grads(cfg, dev, mesh, TRAIN_CHECK_B)
+    out["a_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    mesh = make_model_mesh((2, 2), device_type="cuda")
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(
+        MESH_SEED), device=dev, mesh=mesh)
+    steps, counts, prefill_s, step_s, clock = mesh_serve(
+        model, mesh, dev, tokens, MESH22_STEPS)
+    out["b_serve"] = dict(steps=steps, counts=counts, prefill_s=prefill_s,
+                          step_s=step_s, clock=clock,
+                          experts=tuple(model.layers[0].moe.w_gate.shape))
+    del model
+    torch.cuda.empty_cache()
+    out["b_grads"] = mesh_grads(cfg, dev, mesh, 2)
+    out["b_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def _same_steps(results, key):
+    """Every rank's conf and top-1 of every step equal bit for bit."""
+    ref = results[0][key]["steps"]
+    return all(torch.equal(bits(c), bits(c0)) and torch.equal(t, t0)
+               for res in results
+               for (c, t), (c0, t0) in zip(res[key]["steps"], ref))
+
+
+def _one_rank_steps(model, dev, tokens, steps):
+    """The one-card prefill and the serve steps fed the tokens ``steps``
+    (a list of (B,) top-1 from the mesh run), conf and top-1 a step."""
+    prefill, serve = make_prefill_step(model), make_serve_step(model)
+    b, s = tokens.shape
+    conf, top1, cache = prefill(tokens, cache_len=s + len(steps))
+    out = [(conf.cpu(), top1.cpu())]
+    for i, (_, fed) in enumerate(steps[:-1]):
+        pos = torch.full((b,), s + i, dtype=torch.long, device=dev)
+        conf, top1, cache = serve(fed.to(dev)[:, None], cache, pos)
+        out.append((conf.cpu(), top1.cpu()))
+    return out
+
+
+def _steps_err(got, ref):
+    """(max |conf - ref| over the steps, top-1 equal at every step)."""
+    err = max(max_err(c, rc) for (c, _), (rc, _) in zip(got, ref))
+    return err, all(torch.equal(t, rt) for (_, t), (_, rt) in zip(got, ref))
+
+
+def mesh_lm_path(dev):
+    """Phase 13 (a) and (b): MESH_RANKS ranks spawned on the card, each
+    running ``mesh_work``; every rank's conf and top-1 equal bit for bit;
+    (a) held to the one-card steps on the same weights and tokens (BvSB
+    within BVSB_ATOL, top-1 equal, the train losses within
+    TRAIN_LOSS_RTOL), (b)'s rows to one-card runs on each data rank's rows
+    alone; the gradients at cut depth within TRAIN_GRAD_TOL of their
+    leaf's max |g|; the launches each rank counted against what the steps
+    make; the ranks' peaks together within MESH_PEAK_GB. Returns (the
+    launches summed over the ranks, the walls)."""
+    torch.cuda.empty_cache()
+    results, spawn_wall = shard_ranks(dev.type, mesh_work)
+    cfg = get_config(GRANITE_ARCH)
+    a, b = results[0]["a_serve"], results[0]["b_serve"]
+    tokens = mesh_tokens(cfg, dev, MESH_B, MESH_S, MESH_SEED)
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(
+        MESH_SEED), device=dev)
+    ref = _one_rank_steps(model, dev, tokens, a["steps"])
+    a_err, a_top1 = _steps_err(a["steps"], ref)
+    half = MESH_B // 2
+    b_ref = [_one_rank_steps(model, dev, tokens[r * half:(r + 1) * half],
+                             [(c[r * half:(r + 1) * half],
+                               t[r * half:(r + 1) * half])
+                              for c, t in b["steps"]])
+             for r in range(2)]
+    b_ref = [(torch.cat([x[i][0] for x in b_ref]),
+              torch.cat([x[i][1] for x in b_ref]))
+             for i in range(MESH22_STEPS + 1)]
+    b_err, b_top1 = _steps_err(b["steps"], b_ref)
+    data = SyntheticLM(DataConfig(cfg.vocab_size, MESH_S, MESH_TRAIN_B,
+                                  seed=MESH_SEED), device=dev)
+    step = make_train_step(model, remat=True, adamw=opt.AdamWConfig(
+        warmup_steps=2, total_steps=MESH_TRAIN_STEPS))
+    state = opt.init(trainable(model))
+    ref_losses, ref_walls = [], []
+    for i in range(MESH_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, data.batch_at(i))
+        ref_losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        ref_walls.append(time.perf_counter() - t0)
+    del model, state, step
+    torch.cuda.empty_cache()
+    losses = results[0]["a_train"]["losses"]
+    loss_err = max(abs(x - y) / abs(y) for x, y in zip(losses, ref_losses))
+    same_losses = all(res["a_train"]["losses"] == losses for res in results)
+    want = {"a_serve": mesh_expected_launches(cfg, MESH_STEPS),
+            "a_train": train_expected_launches(cfg, MESH_TRAIN_STEPS, True),
+            "b_serve": mesh_expected_launches(cfg, MESH22_STEPS)}
+    bad_counts = [(r, k) for r, res in enumerate(results)
+                  for k in want if res[k]["counts"] != want[k]]
+    peaks = [res["a_peak_gb"] for res in results], \
+        [res["b_peak_gb"] for res in results]
+    grads = {k: max((res[k] for res in results), key=lambda g: g["err"])
+             for k in ("a_grads", "b_grads")}
+    n_tok = MESH_B * MESH_S
+    print(f"mesh (a) {GRANITE_ARCH} at full width and depth on a "
+          f"{MESH_SHAPE} mesh ({MESH_RANKS} gloo ranks on one card, experts "
+          f"{a['experts']} a rank; init {a['init_s']:.3f} s): prefill "
+          f"{MESH_B} x {MESH_S} {a['prefill_s']:.3f} s ({n_tok / a['prefill_s']:.1f} "
+          f"tokens/s), {MESH_STEPS} serve steps {a['step_s'] * 1e3:.2f} ms a "
+          f"step; BvSB max|err| {a_err:.3g} against the one-card steps, "
+          f"top-1 {'equal' if a_top1 else 'DIFFERS'}, every rank "
+          f"{'bitwise equal' if _same_steps(results, 'a_serve') else 'DIFFERS'}"
+          f"; a clocked serve step {a['clock']['wall'] * 1e3:.2f} ms, "
+          f"{a['clock']['n']} all_reduces {a['clock']['s'] * 1e3:.2f} ms "
+          f"({a['clock']['s'] / a['clock']['wall']:.4f} of it)")
+    tr = results[0]["a_train"]
+    print(f"mesh (a) training: {MESH_TRAIN_STEPS} steps of {MESH_TRAIN_B} x "
+          f"{MESH_S} (remat), losses "
+          f"{', '.join('%.6f' % x for x in losses)} against the one-card "
+          f"{', '.join('%.6f' % x for x in ref_losses)} (max rel "
+          f"{loss_err:.3g}), every rank's equal: {same_losses}; steps "
+          f"{', '.join('%.1f' % (w * 1e3) for w in tr['walls'])} ms "
+          f"({MESH_TRAIN_B * MESH_S / tr['walls'][-1]:.1f} tokens/s at the "
+          f"last unclocked; the one-card steps "
+          f"{', '.join('%.1f' % (w * 1e3) for w in ref_walls)} ms); a clocked "
+          f"step {tr['clock']['wall'] * 1e3:.1f} ms, {tr['clock']['n']} "
+          f"all_reduces {tr['clock']['s'] * 1e3:.1f} ms "
+          f"({tr['clock']['s'] / tr['clock']['wall']:.4f} of it)")
+    print(f"mesh (b) the same weights on a (2, 2) mesh (experts "
+          f"{b['experts']} a rank): prefill {b['prefill_s']:.3f} s, "
+          f"{MESH22_STEPS} serve steps {b['step_s'] * 1e3:.2f} ms a step; "
+          f"each data rank's rows against one-card runs on those rows alone "
+          f"(their own capacity): BvSB max|err| {b_err:.3g}, top-1 "
+          f"{'equal' if b_top1 else 'DIFFERS'}, every rank "
+          f"{'bitwise equal' if _same_steps(results, 'b_serve') else 'DIFFERS'}"
+          f"; a clocked serve step {b['clock']['wall'] * 1e3:.2f} ms, "
+          f"{b['clock']['s'] / b['clock']['wall']:.4f} in all_reduces")
+    for k, rows in (("a_grads", TRAIN_CHECK_B), ("b_grads", 2)):
+        g = grads[k]
+        print(f"mesh ({k[0]}) gradients at {MESH_GRAD_LAYERS} layers on "
+              f"{rows} x {TRAIN_CHECK_S}: loss {g['loss']:.6f} / one-card "
+              f"{g['ref_loss']:.6f}; worst leaf over the ranks {g['worst']} "
+              f"{g['err']:.3g} of its max |g| (tol {TRAIN_GRAD_TOL:g}) over "
+              f"{g['leaves']} leaves a rank")
+    print(f"mesh: each rank's peak {', '.join('%.3f' % p for p in peaks[0])}"
+          f" GB in (a), {', '.join('%.3f' % p for p in peaks[1])} GB in (b) "
+          f"(together {sum(peaks[0]):.3f} / {sum(peaks[1]):.3f}, limit "
+          f"{MESH_PEAK_GB}); launches a rank {results[0]['a_serve']['counts']}"
+          f" (a serve), {results[0]['a_train']['counts']} (a train), "
+          f"{results[0]['b_serve']['counts']} (b serve); {MESH_RANKS} ranks "
+          f"spawned, run and joined in {spawn_wall:.1f} s")
+    checks = {
+        "(a) BvSB": a_err <= BVSB_ATOL[torch.float32] and a_top1,
+        "(a) ranks equal": _same_steps(results, "a_serve"),
+        "(a) losses": loss_err <= TRAIN_LOSS_RTOL and same_losses,
+        "(b) BvSB": b_err <= BVSB_ATOL[torch.float32] and b_top1,
+        "(b) ranks equal": _same_steps(results, "b_serve"),
+        "gradients": all(g["err"] <= TRAIN_GRAD_TOL and abs(
+            g["loss"] - g["ref_loss"]) <= TRAIN_LOSS_RTOL * abs(g["ref_loss"])
+            for g in grads.values()),
+        "launches": not bad_counts,
+        "peaks": max(sum(p) for p in peaks) <= MESH_PEAK_GB,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"mesh checks failed: {failed} (launches off "
+                             f"at {bad_counts})")
+    total = {}
+    for res in results:
+        for k in want:
+            _add_counts(total, res[k]["counts"])
+    return total, dict(prefill_s=a["prefill_s"], step_ms=a["step_s"] * 1e3,
+                       train_ms=tr["walls"][-1] * 1e3,
+                       peak_gb=max(sum(p) for p in peaks))
+
+
+def mesh_path(dev):
+    """Phase 13: (a), (b) over the ranks; (c) seamless and (d) xLSTM
+    trained on the card at full width and depth; (e) both against the CPU
+    at 2 layers. Returns (launches, figures)."""
+    counts, out = mesh_lm_path(dev)
+    sc, out["seamless"] = lm_train_path(
+        dev, "13c", get_config(SEAM_ARCH), SEAMT_B, SEAMT_S, SEAMT_STEPS, 2,
+        frames=SEAMT_FRAMES)
+    _add_counts(counts, sc)
+    xc, out["xlstm"] = lm_train_path(
+        dev, "13d", get_config(XLSTM_ARCH), XLSTMT_B, XLSTMT_S, XLSTMT_STEPS,
+        3, profiled=False)
+    _add_counts(counts, xc)
+    for arch in (SEAM_ARCH, XLSTM_ARCH):
+        train_check_cpu(dev, arch, 2)
+        torch.cuda.empty_cache()
+    return counts, out
+
+
+def mesh_rows(timer):
+    """Phase 3's rows of the partial and merge entries at granite's shard
+    (phase 13's B and 64)."""
+    return {"bvsb_partials": {f"B={b}": timer.bvsb_partials(b)
+                              for b in (MESH_B, 64)},
+            "bvsb_merge": {f"B={b}": timer.bvsb_merge(b)
+                           for b in (MESH_B, 64)}}
+
+
+def mesh_only(dev, timer):
+    """``mesh``: the partial and merge checks and rows of phase 3, then
+    phase 13."""
+    check_bvsb_partials(dev)
+    mesh_rows(timer)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    counts, out = mesh_path(dev)
+    print(f"phase seconds: mesh and the new training paths "
+          f"{time.perf_counter() - t0:.1f}; launches {counts}")
+    return 0
+
+
 def main(argv) -> int:
-    if argv not in ([], ["zoo"], ["train"], ["softcap"]):
-        print("usage: chip_smoke.py [zoo | train | softcap]", file=sys.stderr)
+    if argv not in ([], ["zoo"], ["train"], ["softcap"], ["mesh"]):
+        print("usage: chip_smoke.py [zoo | train | softcap | mesh]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4052,6 +4660,8 @@ def main(argv) -> int:
         return train_only(dev, Timer(dev, bw, flops, tc))
     if argv == ["softcap"]:
         return softcap_only(dev, Timer(dev, bw, flops, tc))
+    if argv == ["mesh"]:
+        return mesh_only(dev, Timer(dev, bw, flops, tc))
 
     t1 = time.perf_counter()
     check_bvsb(dev)
@@ -4063,6 +4673,7 @@ def main(argv) -> int:
     check_rglru_bwd_paths(dev)
     check_grad_guard(dev)
     check_capped(dev)
+    check_bvsb_partials(dev)
     timer = Timer(dev, bw, flops, tc)
     for b in (1, 16, 64):
         timer.bvsb(b)
@@ -4093,6 +4704,7 @@ def main(argv) -> int:
     zoo10_timing = zoo10_rows(timer)
     train_timing = train_rows(timer)
     cap_timing = cap_rows(timer)
+    mesh_timing = mesh_rows(timer)
     timer.bvsb_chunks()
     timer.decode_splits()
     timer.rglru_tiles()
@@ -4119,6 +4731,9 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     t10 = time.perf_counter()
     cap_counts, capped = softcap_path(dev)
+    torch.cuda.empty_cache()
+    t11 = time.perf_counter()
+    mesh_counts, meshed = mesh_path(dev)
     print(f"phase seconds: build {t1 - t0:.1f}, kernels {t2 - t1:.1f}, "
           f"cascade path with its profiled rerun {t3 - t2:.1f}, "
           f"{RG_ARCH} path with its CPU check {t4 - t3:.1f}, simulator "
@@ -4128,8 +4743,10 @@ def main(argv) -> int:
           f"profiled reruns and CPU checks {t8 - t7:.1f}, rest of the zoo "
           f"with its profiled reruns and CPU checks {t9 - t8:.1f}, "
           f"training with its CPU checks {t10 - t9:.1f}, soft-capped "
-          f"{CAP_ARCH} with its CPU checks {time.perf_counter() - t10:.1f}; "
-          f"all phases {time.perf_counter() - t0:.1f}")
+          f"{CAP_ARCH} with its CPU checks {t11 - t10:.1f}, mesh and the new "
+          f"training paths with their CPU checks "
+          f"{time.perf_counter() - t11:.1f}; all phases "
+          f"{time.perf_counter() - t0:.1f}")
 
     # the kernels line times each kernel at the RecurrentGemma path's shape;
     # BvSB and flash also at the cascade's most frequent server batch (the
@@ -4152,22 +4769,32 @@ def main(argv) -> int:
             ("flash_attention_bwd", "flash_attention_bwd.cu",
              "src/repro/kernels/flash_attention.py:81"),
             ("rglru_scan_bwd", "rglru_scan.cu",
-             "src/repro/kernels/rglru_scan.py:44")):
+             "src/repro/kernels/rglru_scan.py:44"),
+            ("bvsb_partials", "bvsb.cu", "src/repro/kernels/bvsb.py:82"),
+            ("bvsb_merge", "bvsb.cu", "src/repro/kernels/bvsb.py:82")):
         by_path = {"cascade": counts[name], RG_ARCH: rg_counts[name],
                    "simulator": sim_counts[name],
                    "transport": transport_counts[name],
                    "zoo": zoo_counts[name],
                    "rest of the zoo": zoo10_counts[name],
                    "training": train_counts[name],
-                   "softcap": cap_counts[name]}
-        # a backward kernel's row: RecurrentGemma's training shape
-        row = rg_rows.get(name) or train_timing[name][
-            RG_ARCH if name == "flash_attention_bwd" else "f32"]
+                   "softcap": cap_counts[name],
+                   "mesh (summed over the ranks)": mesh_counts[name]}
+        # a backward kernel's row: RecurrentGemma's training shape; the
+        # partial and merge entries': granite's shard at phase 13's B
+        row = rg_rows.get(name) or (
+            mesh_timing[name][f"B={MESH_B}"] if name in mesh_timing else
+            train_timing[name][RG_ARCH if name == "flash_attention_bwd"
+                               else "f32"])
         entry = {"name": name, "route": "cuda",
                  "source": f"src/repro_torch/kernels/csrc/{source}",
                  "replaces": replaces, "launches": sum(by_path.values()),
-                 "launches_by_path": by_path, "path": RG_ARCH,
+                 "launches_by_path": by_path,
+                 "path": "mesh" if name in mesh_timing else RG_ARCH,
                  **{k: row[k] for k in keys if k in row}}
+        if name in mesh_timing:
+            entry["b64"] = {k: mesh_timing[name]["B=64"][k] for k in keys
+                            if k in mesh_timing[name]["B=64"]}
         if name in cascade_rows:
             entry["cascade"] = {k: cascade_rows[name][k] for k in keys
                                 if k in cascade_rows[name]}
@@ -4220,6 +4847,12 @@ def main(argv) -> int:
           f"{capped['training']['step_ms']:.1f} ms a step, "
           f"{capped['training']['tokens_per_s']:.1f} tokens/s, peak "
           f"{capped['training']['peak_gb']:.3f} GB")
+    print(f"mesh path: (a) prefill {meshed['prefill_s']:.3f} s, serve "
+          f"{meshed['step_ms']:.2f} ms a step, training "
+          f"{meshed['train_ms']:.1f} ms a step, the ranks' peaks together "
+          f"{meshed['peak_gb']:.3f} GB; seamless training "
+          f"{meshed['seamless']['step_ms']:.1f} ms a step, xLSTM "
+          f"{meshed['xlstm']['step_ms']:.1f}")
     for name in (GRANITE_ARCH, RG_ARCH):
         w = trained[name]
         print(f"{name} training: {w['params']} parameters, "

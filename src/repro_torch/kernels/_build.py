@@ -40,6 +40,9 @@ _c_float = ctypes.c_float
 _SIGNATURES = {
     "repro_bvsb": [_c_ptr, _c_int, _c_ll, _c_ll, _c_int, _c_int, _c_int,
                    _c_ptr, _c_ptr, _c_ptr, _c_ptr],
+    "repro_bvsb_partials": [_c_ptr, _c_int, _c_ll, _c_ll, _c_int, _c_int,
+                            _c_int, _c_ptr, _c_ptr, _c_int, _c_ptr],
+    "repro_bvsb_merge": [_c_ptr, _c_ll, _c_int, _c_ptr, _c_ptr, _c_ptr],
     "repro_flash_attention": [_c_ptr] * 4 + [_c_int] * 7 + [_c_ll] * 12
     + [_c_int, _c_int, _c_float, _c_float, _c_ptr, _c_ptr],
     "repro_flash_attention_kernel": [_c_ptr] * 4 + [_c_int] * 7 + [_c_ll] * 12

@@ -6,6 +6,14 @@
 tensor and ``bvsb_plain`` on a CPU tensor; on any other device it
 raises. ``bvsb_plain`` is the plain PyTorch version the CPU tests hold to
 the JAX package and ``chip_smoke.py`` holds the kernel to on the card.
+
+Over a vocabulary cut across the model ranks (``launch.distributed.
+vocab_parallel_bvsb``), ``bvsb_partials`` folds a rank's columns into one
+(m1, m2, z, global top-1 index) tuple a row and ``bvsb_merge`` merges the
+ranks' tuples, in rank order, into BvSB and top-1: the same two kernels
+(chunk and merge), with the one-device semantics (first index on ties, a
+maximum duplicated across ranks gives margin 0). ``bvsb_partials_plain``
+and ``bvsb_merge_plain`` are their plain versions.
 """
 from __future__ import annotations
 
@@ -24,7 +32,11 @@ VEC = 8             # chunk widths in 16-byte vectors of bf16 (2 of f32)
 # kernel launches since the last ops.reset_launch_counts(); incremented
 # under the lock, since worker threads launch too
 launches = 0
+partials_launches = 0
+merge_launches = 0
 COUNT_LOCK = threading.Lock()
+# a tuple's index is a float: exact below 2^24 (the largest head, 256,256)
+MAX_INDEX = 1 << 24
 
 
 def bvsb_plain(logits: torch.Tensor):
@@ -43,6 +55,54 @@ def bvsb_plain(logits: torch.Tensor):
     p1 = p.gather(-1, top1[:, None])[:, 0]
     p2 = p.scatter(-1, top1[:, None], float("-inf")).amax(dim=-1)
     return p1 - p2, top1.to(torch.int32)
+
+
+def _fold_plain(x: torch.Tensor):
+    """(m1, m2, z, idx) of each row of f32 ``x`` as the kernel folds it:
+    the max, the runner-up with that one column masked (a duplicated
+    maximum gives m2 = m1), sum exp(x - m1) (0 where m1 is -inf), the
+    first index of the max."""
+    m1 = x.amax(dim=-1)
+    idx = torch.argmax(x, dim=-1)
+    m2 = x.scatter(-1, idx[:, None], float("-inf")).amax(dim=-1)
+    live = m1 != float("-inf")
+    z = torch.exp(x - torch.where(live, m1, 0.0)[:, None]).sum(dim=-1)
+    return m1, m2, torch.where(live, z, 0.0), idx
+
+
+def bvsb_partials_plain(logits: torch.Tensor, col_offset: int = 0):
+    """(B, V) logits, columns [col_offset, col_offset + V) of a wider row ->
+    (B, 4) f32 tuples (m1, m2, z, col_offset + top-1 index)."""
+    m1, m2, z, idx = _fold_plain(logits.float())
+    return torch.stack([m1, m2, z, (idx + col_offset).float()], dim=-1)
+
+
+def _merge_tuples_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The kernel's merge of two (..., 4) tuple sets: the larger m1 and its
+    index (the smaller index on equal m1), m2 the largest of both m2 and
+    the smaller m1, z rescaled to the new m1 (a side at m1 = -inf adding
+    0)."""
+    m1 = torch.maximum(a[..., 0], b[..., 0])
+    m2 = torch.maximum(torch.maximum(a[..., 1], b[..., 1]),
+                       torch.minimum(a[..., 0], b[..., 0]))
+
+    def scaled(t):
+        dead = t[..., 0] == float("-inf")
+        return torch.where(dead, 0.0, t[..., 2] * torch.exp(
+            torch.where(dead, 0.0, t[..., 0] - m1)))
+    idx = torch.where(a[..., 0] > b[..., 0], a[..., 3], torch.where(
+        b[..., 0] > a[..., 0], b[..., 3], torch.minimum(a[..., 3], b[..., 3])))
+    return torch.stack([m1, m2, scaled(a) + scaled(b), idx], dim=-1)
+
+
+def bvsb_merge_plain(parts: torch.Tensor):
+    """(B, n, 4) tuples, a row's n shards in index order -> (bvsb (B,) f32,
+    top1 (B,) int32): the tuples merged one after another."""
+    s = parts[:, 0].float()
+    for j in range(1, parts.shape[1]):
+        s = _merge_tuples_plain(s, parts[:, j].float())
+    conf = (1.0 - torch.exp(s[:, 1] - s[:, 0])) / s[:, 2]
+    return conf, s[:, 3].to(torch.int32)
 
 
 def chunks(b: int, v: int, sms: int):
@@ -96,6 +156,84 @@ def run_entry(logits: torch.Tensor, n_chunks: Optional[int] = None):
         logits.stride(0), v, n, per, 0 if part is None else part.data_ptr(),
         conf.data_ptr(), top1.data_ptr(), _build.stream_ptr(logits)), "bvsb")
     return conf, top1
+
+
+def run_partials_entry(logits: torch.Tensor, col_offset: int,
+                       n_chunks: Optional[int] = None):
+    """``bvsb_partials``'s launch on a CUDA tensor, uncounted: the
+    planned chunks (``chunks``) or, for measuring, about ``n_chunks``."""
+    _check(logits)
+    b, v = logits.shape
+    if col_offset < 0 or col_offset + v > MAX_INDEX:
+        raise ValueError(f"bvsb_partials: columns [{col_offset}, "
+                         f"{col_offset + v}) pass 2^24, where a float index "
+                         f"stops being exact")
+    n, per = chunks(b, v, _build.sm_count(logits.device)) \
+        if n_chunks is None else _cut(v, n_chunks)
+    tuples = torch.empty(b, 4, dtype=torch.float32, device=logits.device)
+    part = torch.empty(b * n * 4, dtype=torch.float32,
+                       device=logits.device) if n > 1 else None
+    _build.check(_build.library().repro_bvsb_partials(
+        logits.data_ptr(), _build.DTYPE_CODES[logits.dtype], b,
+        logits.stride(0), v, n, per, 0 if part is None else part.data_ptr(),
+        tuples.data_ptr(), col_offset, _build.stream_ptr(logits)),
+        "bvsb_partials")
+    return tuples
+
+
+def run_merge_entry(parts: torch.Tensor):
+    """``bvsb_merge``'s launch on a CUDA tensor, uncounted."""
+    if parts.dim() != 3 or parts.shape[-1] != 4 or \
+            parts.dtype != torch.float32 or 0 in parts.shape[:2]:
+        raise ValueError(f"bvsb_merge: parts must be (B, n, 4) float32, got "
+                         f"{tuple(parts.shape)} {parts.dtype}")
+    parts = parts.contiguous()
+    if parts.data_ptr() % 16:
+        parts = parts.clone()
+    b, n, _ = parts.shape
+    conf = torch.empty(b, dtype=torch.float32, device=parts.device)
+    top1 = torch.empty(b, dtype=torch.int32, device=parts.device)
+    _build.check(_build.library().repro_bvsb_merge(
+        parts.data_ptr(), b, n, conf.data_ptr(), top1.data_ptr(),
+        _build.stream_ptr(parts)), "bvsb_merge")
+    return conf, top1
+
+
+def bvsb_partials(logits: torch.Tensor, col_offset: int = 0):
+    """(B, V) logits, a rank's columns [col_offset, col_offset + V) of the
+    vocabulary -> (B, 4) f32 tuples (m1, m2, z, global top-1 index).
+
+    CPU tensor: ``bvsb_partials_plain``. CUDA tensor (f32 or bf16, unit
+    column stride): the chunk kernel (and the merge kernel where a row
+    takes several chunks), on the current stream, counted once a call. No
+    backward: a CUDA call autograd would record raises."""
+    global partials_launches
+    if logits.device.type == "cpu":
+        return bvsb_partials_plain(logits, col_offset)
+    if logits.device.type != "cuda":
+        raise ValueError(f"bvsb_partials: no kernel for device "
+                         f"{logits.device}")
+    _build.refuse_grad("bvsb_partials", logits)
+    out = run_partials_entry(logits, col_offset)
+    with COUNT_LOCK:
+        partials_launches += 1
+    return out
+
+
+def bvsb_merge(parts: torch.Tensor):
+    """(B, n, 4) tuples, each row's n shards in index order -> (bvsb (B,)
+    f32, top1 (B,) int32). CPU tensor: ``bvsb_merge_plain``; CUDA tensor:
+    the merge kernel, a warp a row, counted."""
+    global merge_launches
+    if parts.device.type == "cpu":
+        return bvsb_merge_plain(parts)
+    if parts.device.type != "cuda":
+        raise ValueError(f"bvsb_merge: no kernel for device {parts.device}")
+    _build.refuse_grad("bvsb_merge", parts)
+    out = run_merge_entry(parts)
+    with COUNT_LOCK:
+        merge_launches += 1
+    return out
 
 
 def bvsb(logits: torch.Tensor):

@@ -46,6 +46,20 @@
 // its first column), which weighs 0 in every merge. A +inf logit makes m1
 // = +inf, and the first merge that meets it forms exp(inf - inf) = NaN, so
 // BvSB is NaN as in the reference.
+//
+// Over a vocabulary cut across ranks (the JAX package's vocab_parallel_bvsb
+// in src/repro/launch/distributed.py, its head sharded over the model
+// axis), the same two kernels serve in two more entries:
+//
+// * repro_bvsb_partials: a rank's (rows, V / m) logits folded into one
+//   (m1, m2, z, idx) tuple a row, idx offset to the global column and
+//   stored as a float (exact below 2^24), written as 16 bytes a row
+//   instead of conf / top-1: the chunk kernel alone for a one-chunk row,
+//   else the chunk kernel and the merge kernel.
+// * repro_bvsb_merge: the ranks' tuples (rows, n, 4), gathered in rank
+//   order, merged a warp a row as the chunks are, into conf / top-1. The
+//   merge above is the one-device kernel's, so a maximum tied across two
+//   ranks gives margin 0 and the first index, as on one device.
 #include <climits>
 #include <cmath>
 #include <cstdint>
@@ -107,6 +121,23 @@ __device__ __forceinline__ void finish(const Top2& s, long long row,
   top1[row] = s.idx;
 }
 
+// A row's result: conf / top-1, or (tuples non-null) its tuple with the
+// index offset to the global column, as 16 bytes of floats.
+__device__ __forceinline__ void emit(const Top2& s, long long row,
+                                     float4* tuples, int col_offset,
+                                     float* conf, int* top1) {
+  if (tuples)
+    tuples[row] = make_float4(s.m1, s.m2, s.z,
+                              static_cast<float>(s.idx + col_offset));
+  else
+    finish(s, row, conf, top1);
+}
+
+__device__ __forceinline__ Top2 load(const Top2& t) { return t; }
+__device__ __forceinline__ Top2 load(const float4& t) {
+  return Top2{t.x, t.y, t.z, static_cast<int>(t.w)};
+}
+
 // 16 bytes of logits, unpacked to f32 in column order
 template <typename T> struct Vec;
 template <> struct Vec<float> {
@@ -130,12 +161,13 @@ template <> struct Vec<__nv_bfloat16> {
 };
 
 // Block (row, chunk) folds columns [chunk * cols_per, .. + cols_per) of its
-// row. One chunk a row: the block writes conf/top1; several: its tuple
-// goes to part[row * chunks + chunk] for bvsb_merge_kernel.
+// row. One chunk a row: the block writes the row's result (emit); several:
+// its tuple goes to part[row * chunks + chunk] for bvsb_merge_kernel.
 template <typename T>
 __global__ void __launch_bounds__(kBvsbThreads)
 bvsb_chunk_kernel(const T* __restrict__ logits, long long row_stride,
                   int cols, int cols_per, Top2* __restrict__ part,
+                  float4* __restrict__ tuples, int col_offset,
                   float* __restrict__ conf, int* __restrict__ top1) {
   allow_dependent_launch();  // the merge (several chunks) may be scheduled
   using V = Vec<T>;
@@ -186,37 +218,70 @@ bvsb_chunk_kernel(const T* __restrict__ logits, long long row_stride,
   if (lane != 0) return;
   if (s.idx == INT_MAX) s.idx = c0;  // every logit -inf: the first column
   if (chunks == 1)
-    finish(s, row, conf, top1);
+    emit(s, row, tuples, col_offset, conf, top1);
   else
     part[row * chunks + chunk] = s;
 }
 
-// One warp per row: the row's chunk tuples merged in a fixed order.
+// One warp per row: the row's n tuples (a row's chunks, Top2, or the
+// ranks' shard tuples, float4) merged in a fixed order, lane j taking
+// tuples j, j + 32, ... in order, then the butterfly.
+template <typename In>
 __global__ void __launch_bounds__(32)
-bvsb_merge_kernel(const Top2* __restrict__ part, int chunks,
+bvsb_merge_kernel(const In* __restrict__ part, int n,
+                  float4* __restrict__ tuples, int col_offset,
                   float* __restrict__ conf, int* __restrict__ top1) {
   grid_dependency_wait();  // the chunk kernel has finished
   const long long row = blockIdx.x;
   Top2 s = {-INFINITY, -INFINITY, 0.f, INT_MAX};
-  for (int j = threadIdx.x; j < chunks; j += 32)
-    s = merge(s, part[row * chunks + j]);
+  for (int j = threadIdx.x; j < n; j += 32)
+    s = merge(s, load(part[row * n + j]));
   s = warp_merge(s);
-  if (threadIdx.x == 0) finish(s, row, conf, top1);
+  if (threadIdx.x == 0) emit(s, row, tuples, col_offset, conf, top1);
 }
 
 template <typename T>
 cudaError_t launch(const void* logits, long long rows, long long row_stride,
                    int cols, int chunks, int cols_per, Top2* part,
-                   float* conf, int* top1, cudaStream_t stream) {
+                   float4* tuples, int col_offset, float* conf, int* top1,
+                   cudaStream_t stream) {
   const dim3 grid(static_cast<unsigned>(rows), static_cast<unsigned>(chunks));
   bvsb_chunk_kernel<T><<<grid, kBvsbThreads, 0, stream>>>(
-      static_cast<const T*>(logits), row_stride, cols, cols_per, part, conf,
-      top1);
+      static_cast<const T*>(logits), row_stride, cols, cols_per, part,
+      tuples, col_offset, conf, top1);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || chunks == 1) return err;
-  return launch_dependent(bvsb_merge_kernel, dim3(static_cast<unsigned>(rows)),
-                          dim3(32), stream, static_cast<const Top2*>(part),
-                          chunks, conf, top1);
+  return launch_dependent(bvsb_merge_kernel<Top2>,
+                          dim3(static_cast<unsigned>(rows)), dim3(32), stream,
+                          static_cast<const Top2*>(part), chunks, tuples,
+                          col_offset, conf, top1);
+}
+
+bool bad_plan(long long rows, int cols, int chunks, int cols_per,
+              const void* scratch) {
+  return rows <= 0 || rows >= (1LL << 31) || cols <= 0 || chunks <= 0 ||
+         chunks > 65535 || cols_per <= 0 ||
+         static_cast<long long>(chunks) * cols_per < cols ||
+         (chunks > 1 && scratch == nullptr);
+}
+
+cudaError_t launch_any(const void* logits, int dtype, long long rows,
+                       long long row_stride, int cols, int chunks,
+                       int cols_per, void* scratch, float4* tuples,
+                       int col_offset, float* conf, int* top1,
+                       cudaStream_t s) {
+  Top2* part = static_cast<Top2*>(scratch);
+  switch (dtype) {
+    case kF32:
+      return launch<float>(logits, rows, row_stride, cols, chunks, cols_per,
+                           part, tuples, col_offset, conf, top1, s);
+    case kBF16:
+      return launch<__nv_bfloat16>(logits, rows, row_stride, cols, chunks,
+                                   cols_per, part, tuples, col_offset, conf,
+                                   top1, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -232,21 +297,40 @@ extern "C" int repro_bvsb(const void* logits, int dtype, long long rows,
                           int cols_per, void* scratch, float* conf,
                           int* top1, void* stream) {
   using namespace repro;
-  if (rows <= 0 || rows >= (1LL << 31) || cols <= 0 || chunks <= 0 ||
-      chunks > 65535 || cols_per <= 0 ||
-      static_cast<long long>(chunks) * cols_per < cols ||
-      (chunks > 1 && scratch == nullptr))
+  if (bad_plan(rows, cols, chunks, cols_per, scratch))
     return static_cast<int>(cudaErrorInvalidValue);
-  Top2* part = static_cast<Top2*>(scratch);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kF32:
-      return launch<float>(logits, rows, row_stride, cols, chunks, cols_per,
-                           part, conf, top1, s);
-    case kBF16:
-      return launch<__nv_bfloat16>(logits, rows, row_stride, cols, chunks,
-                                   cols_per, part, conf, top1, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return static_cast<int>(launch_any(
+      logits, dtype, rows, row_stride, cols, chunks, cols_per, scratch,
+      nullptr, 0, conf, top1, static_cast<cudaStream_t>(stream)));
+}
+
+// The same plan over a rank's shard of the vocabulary, whose first column
+// is global column `col_offset` (col_offset + cols <= 2^24): tuples (rows,
+// 4) f32 (m1, m2, z, global top-1 index) are written.
+extern "C" int repro_bvsb_partials(const void* logits, int dtype,
+                                   long long rows, long long row_stride,
+                                   int cols, int chunks, int cols_per,
+                                   void* scratch, float* tuples,
+                                   int col_offset, void* stream) {
+  using namespace repro;
+  if (bad_plan(rows, cols, chunks, cols_per, scratch) || tuples == nullptr ||
+      col_offset < 0 || col_offset + static_cast<long long>(cols) > (1 << 24))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_any(
+      logits, dtype, rows, row_stride, cols, chunks, cols_per, scratch,
+      reinterpret_cast<float4*>(tuples), col_offset, nullptr, nullptr,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// tuples: (rows, n, 4) f32 as repro_bvsb_partials writes them, contiguous,
+// n in index order; conf (rows,) f32 and top1 (rows,) int32 are written.
+extern "C" int repro_bvsb_merge(const float* tuples, long long rows, int n,
+                                float* conf, int* top1, void* stream) {
+  using namespace repro;
+  if (rows <= 0 || rows >= (1LL << 31) || n <= 0 || tuples == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  bvsb_merge_kernel<float4><<<static_cast<unsigned>(rows), 32, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const float4*>(tuples), n, nullptr, 0, conf, top1);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -17,8 +17,9 @@ threads are none of them lost.
 Under autograd (grad mode on and an input that requires grad) a CUDA call
 of flash attention or of the RG-LRU scan goes through the kernel's
 ``torch.autograd.Function``, whose backward is a kernel too, counted as
-``flash_attention_bwd`` / ``rglru_scan_bwd``; BvSB and decode attention
-have no backward, and such a call raises. No CUDA call returns an output
+``flash_attention_bwd`` / ``rglru_scan_bwd``; BvSB (its partial and merge
+entries too) and decode attention have no backward, and such a call
+raises. No CUDA call returns an output
 cut off from the graph. The serving step factories run under
 ``torch.inference_mode()``.
 """
@@ -34,12 +35,16 @@ from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import rglru_scan as _rglru
 
 bvsb = _bvsb.bvsb
+bvsb_partials = _bvsb.bvsb_partials
+bvsb_merge = _bvsb.bvsb_merge
 flash_attention = _flash.flash_attention
 decode_attention = _decode.decode_attention
 rglru_scan = _rglru.rglru_scan
 
 # kernel -> (its wrapper's module, the module's count of its launches)
 _COUNTS = {"bvsb": (_bvsb, "launches"),
+           "bvsb_partials": (_bvsb, "partials_launches"),
+           "bvsb_merge": (_bvsb, "merge_launches"),
            "flash_attention": (_flash, "launches"),
            "decode_attention": (_decode, "launches"),
            "rglru_scan": (_rglru, "launches"),

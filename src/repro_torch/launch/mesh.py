@@ -1,6 +1,8 @@
-"""Sweep meshes over ``torch.distributed`` ranks, and their helpers.
+"""Meshes over ``torch.distributed`` ranks, and their helpers.
 
-Counterpart of the JAX package's ``launch/mesh.py`` sweep half. JAX runs
+Counterpart of the JAX package's ``launch/mesh.py``: the sweep meshes and
+the model mesh (``make_model_mesh``, ``make_production_mesh``'s
+("data", "model") axes) that the step factories shard over. JAX runs
 one controller over a mesh of devices; PyTorch runs one process per rank.
 So a mesh here is a ``torch.distributed.device_mesh.DeviceMesh`` over the
 process group the caller initialised (its backend, address, world size,
@@ -11,7 +13,9 @@ picks no backend and starts no process group of its own.
 A one-axis mesh over the whole world is the world group itself
 (``DeviceMesh.from_group``). Any other shape goes through
 ``init_device_mesh``, which makes its axis groups with the world's
-backend.
+backend. ``models.common.mesh_context`` reads a model mesh's groups,
+sizes and this rank's positions into the ``MeshContext`` the models
+take.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ import math
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
 
 
 def make_sweep_mesh(shape=None, *, device_type: str = "cuda") -> DeviceMesh:
@@ -50,6 +55,32 @@ def make_sweep_mesh(shape=None, *, device_type: str = "cuda") -> DeviceMesh:
         return DeviceMesh.from_group(dist.group.WORLD, device_type,
                                      mesh_dim_names=axes)
     return init_device_mesh(device_type, shape, mesh_dim_names=axes)
+
+
+def make_model_mesh(shape=(1, 1), *, device_type: str = "cuda") -> DeviceMesh:
+    """A ("data", "model") mesh of ``shape`` = (data, model) ranks over the
+    caller's process group, as ``make_production_mesh`` lays out the
+    JAX package's: rank = data position x model + model position, so a
+    model group is consecutive ranks. Every rank calls it with the same
+    shape, after ``torch.distributed.init_process_group``; the shape must
+    cover the world. The JAX package's production shapes (16 x 16; 2 x
+    16 x 16 with a "pod" axis) are only shapes here: nothing asks for
+    that many ranks."""
+    if device_type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("make_model_mesh(device_type='cuda') needs a CUDA "
+                           "device and none is available; pass "
+                           "device_type='cpu' for ranks on the CPU")
+    if not dist.is_initialized():
+        raise RuntimeError(
+            "make_model_mesh needs a process group: call torch.distributed."
+            "init_process_group (backend, init_method, world_size, rank, "
+            "timeout) on every rank first")
+    shape = tuple(int(s) for s in shape)
+    if len(shape) != 2 or math.prod(shape) != dist.get_world_size():
+        raise ValueError(f"a (data, model) mesh over "
+                         f"{dist.get_world_size()} ranks; got {shape}")
+    return init_device_mesh(device_type, shape,
+                            mesh_dim_names=("data", "model"))
 
 
 def mesh_axes(mesh) -> tuple:

@@ -1,5 +1,6 @@
 """Shared building blocks: init, RMSNorm, group norm, RoPE and M-RoPE,
-gated MLP, embeddings, the LM loss.
+gated MLP, embeddings, the LM loss, and the mesh context threaded
+through the model.
 
 Plain functions on tensors, in the JAX package's layout: activations
 (B, S, d), heads (B, S, H, hd), weights applied as ``x @ W`` with W of
@@ -9,15 +10,157 @@ names them, and call these.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
+from typing import Any, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 
 # the label that takes no part in the loss
 IGNORE = -100
+
+
+# ---------------------------------------------------------------------------
+# mesh context: how the model sees the (data, model) mesh
+# ---------------------------------------------------------------------------
+class _IntoRegion(torch.autograd.Function):
+    """Forward the identity, backward a sum over ``group``: the transpose
+    of a model-replicated input entering a region whose ranks each
+    compute a part of what follows (shard_map's psum over the axes an
+    input's spec leaves out)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _OutOfRegion(torch.autograd.Function):
+    """Forward a sum over ``group``, backward the identity: the ranks'
+    parts of a result added, each rank then holding the whole, so the
+    cotangent of the whole is each part's. (``torch.distributed.nn``'s
+    all_reduce sums again in the backward, m times the cotangent.)"""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        y = x.contiguous().clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshContext:
+    """How the model sees the mesh: the JAX package's ``MeshContext`` over
+    ``torch.distributed`` process groups.
+
+    ``data_group`` (size ``data_size``, this rank at ``data_rank``) holds
+    the ranks that split the batch, ``model_group`` (``model_size``,
+    ``model_rank``) the ranks that split the experts and the head's
+    vocabulary and hold the same rows. A group is None where its size is
+    1: ``LOCAL`` is one card, where every function below is the
+    identity. ``mesh_context`` builds one from a mesh.
+    """
+    data_group: Optional[Any] = None
+    model_group: Optional[Any] = None
+    data_size: int = 1
+    model_size: int = 1
+    data_rank: int = 0
+    model_rank: int = 0
+
+    def into_model(self, x):
+        """A model-replicated input of a model region: the identity, its
+        gradient summed over the model group."""
+        if self.model_group is None:
+            return x
+        return _IntoRegion.apply(x, self.model_group)
+
+    def out_of_model(self, x):
+        """The model ranks' parts summed; the gradient passes unchanged."""
+        if self.model_group is None:
+            return x
+        return _OutOfRegion.apply(x, self.model_group)
+
+    def sum_data(self, x):
+        """The data ranks' values summed (a loss over the global batch);
+        the gradient passes unchanged, each rank differentiating its own
+        rows, and the trainer sums the gradients over the data group."""
+        if self.data_group is None:
+            return x
+        return _OutOfRegion.apply(x, self.data_group)
+
+    def all_reduce_data(self, x, op=dist.ReduceOp.SUM):
+        """``x`` reduced over the data group in place, outside autograd."""
+        if self.data_group is not None:
+            dist.all_reduce(x, op=op, group=self.data_group)
+        return x
+
+    def all_reduce_model(self, x, op=dist.ReduceOp.SUM):
+        """``x`` reduced over the model group in place, outside autograd."""
+        if self.model_group is not None:
+            dist.all_reduce(x, op=op, group=self.model_group)
+        return x
+
+    def expert_range(self, num_experts: int):
+        """(first expert, number of experts) this rank holds: model rank
+        j holds experts [j E/m, (j + 1) E/m)."""
+        if num_experts % self.model_size:
+            raise ValueError(f"{num_experts} experts do not split over "
+                             f"{self.model_size} model ranks")
+        n = num_experts // self.model_size
+        return self.model_rank * n, n
+
+    def data_rows(self, b: int) -> slice:
+        """This rank's rows of a global batch of ``b``: the data rank r's
+        [r b / n, (r + 1) b / n)."""
+        if b % self.data_size:
+            raise ValueError(f"a batch of {b} does not split over "
+                             f"{self.data_size} data ranks")
+        n = b // self.data_size
+        return slice(self.data_rank * n, (self.data_rank + 1) * n)
+
+    def replicated(self) -> "MeshContext":
+        """The same model group with the batch replicated over the data
+        axis (the serve step's ``eff_batch_axes = ()``)."""
+        return dataclasses.replace(self, data_group=None, data_size=1,
+                                   data_rank=0)
+
+
+LOCAL = MeshContext()
+
+
+def _axis(mesh, name):
+    """(group or None where the axis has one rank, size, this rank's
+    position) of a mesh axis."""
+    size = mesh.size(mesh.mesh_dim_names.index(name))
+    if size == 1:
+        return None, 1, 0
+    return mesh.get_group(name), size, mesh.get_local_rank(name)
+
+
+def mesh_context(mesh) -> MeshContext:
+    """The ``MeshContext`` of a ("data", "model") ``DeviceMesh``
+    (``launch.mesh.make_model_mesh``) for this rank, ``LOCAL`` for None:
+    each axis's group, size and this rank's position."""
+    if mesh is None:
+        return LOCAL
+    mg, ms, mr = _axis(mesh, "model")
+    dg, ds, dr = _axis(mesh, "data")
+    return MeshContext(data_group=dg, model_group=mg, data_size=ds,
+                       model_size=ms, data_rank=dr, model_rank=mr)
 
 
 def param(*shape, device, dtype) -> nn.Parameter:
@@ -159,7 +302,11 @@ def padded_vocab(vocab_size: int, multiple: int = 128) -> int:
 
 
 def embed_apply(table, tokens):
-    return table[tokens.long()]
+    """The table's rows at ``tokens``. ``F.embedding``, whose backward adds
+    a token's rows in a fixed order on the CPU too (indexing's
+    accumulating backward there adds repeated tokens in an order that
+    varies from run to run)."""
+    return F.embedding(tokens.long(), table)
 
 
 def lm_head_apply(table, x, vocab_size: int):

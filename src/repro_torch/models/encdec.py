@@ -19,10 +19,18 @@ over ``encoder_layers``), ``dec_blocks.{i}.xattn.wk`` is
 ``enc_norm``, ``final_norm``, the untied ``lm_head.table``. The cache is a
 list with one entry per decoder layer: {"self": ring {"k", "v"}, "cross":
 (k, v)}.
+
+Training (``loss``, ``forward(..., remat=, with_aux=)``) runs the same
+layers; with ``remat`` each encoder layer, and each decoder layer with its
+cross K/V projection, goes through ``torch.utils.checkpoint`` (JAX
+checkpoints the decoder's scanned layer), so its activations are
+recomputed in the backward, the same bits. The model has no MoE: its aux
+loss is 0, and on a mesh (``mctx``) every rank holds every weight.
 """
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.models import attention as attn
@@ -86,13 +94,23 @@ class DecoderLayer(EncoderLayer):
         return x1, {"self": ring, "cross": cache["cross"]}
 
 
+def _decoder_layer(layer, x, positions, enc_out, cfg):
+    """A decoder layer with its cross K/V projected from ``enc_out`` (one
+    unit of remat, as JAX's scanned layer): (x, self (k, v), cross K/V)."""
+    enc_kv = attn.encode_kv(layer.xattn, enc_out, cfg)
+    x, kv = layer(x, positions, enc_kv, cfg)
+    return x, kv, enc_kv
+
+
 class EncDecModel(nn.Module):
     """tokens (B, S) over audio frame embeddings (B, F, d) -> logits (B,
     S, padded vocab)."""
 
-    def __init__(self, cfg, *, device, dtype=torch.float32):
+    def __init__(self, cfg, *, device, dtype=torch.float32,
+                 mctx=common.LOCAL):
         super().__init__()
         self.cfg = cfg
+        self.mctx = mctx
         kw = dict(device=device, dtype=dtype)
         d = cfg.d_model
         self.frontend_proj = common.param(d, d, **kw)
@@ -115,21 +133,35 @@ class EncDecModel(nn.Module):
         it."""
         return self.lm_head.table
 
-    def loss(self, tokens, labels=None, *, audio_embeds=None, remat=False):
-        """Not ported yet: training an encoder-decoder (ROADMAP.md Queue A).
-        Only decoder-only models train in this port."""
-        raise NotImplementedError(
-            "EncDecModel.loss: training an encoder-decoder is not ported to "
-            "repro_torch yet (ROADMAP.md Queue A)")
+    def loss(self, tokens, labels=None, *, audio_embeds, remat=False):
+        """(ce + aux, {"ce", "aux"}), JAX ``Model.loss`` over
+        ``encdec.forward``: the mean cross-entropy of the decoder's
+        next-token labels (``labels`` (B, S), IGNORE where none; by
+        default the tokens shifted by one, IGNORE last) over the audio
+        frames ``audio_embeds`` (B, F, d); aux is 0."""
+        if labels is None:
+            labels = torch.cat([tokens[:, 1:], torch.full_like(
+                tokens[:, :1], common.IGNORE)], dim=1)
+        hidden, _, aux = self(tokens, audio_embeds=audio_embeds,
+                              return_hidden=True, remat=remat, with_aux=True)
+        ce = common.cross_entropy(
+            common.lm_head_apply(self.head_table, hidden,
+                                 self.cfg.vocab_size),
+            labels, self.cfg.vocab_size)
+        return ce + aux, {"ce": ce, "aux": aux}
 
-    def encode(self, audio_embeds):
+    def encode(self, audio_embeds, remat=False):
         """(B, F, d) stub-frontend frames -> encoder output (B, F, d)."""
         cfg = self.cfg
         x = audio_embeds @ self.frontend_proj
         b, f, _ = x.shape
         positions = torch.arange(f, device=x.device).expand(b, f)
         for layer in self.enc_blocks:
-            x = layer(x, positions, cfg)
+            if remat:
+                x = torch.utils.checkpoint.checkpoint(
+                    layer, x, positions, cfg, use_reentrant=False)
+            else:
+                x = layer(x, positions, cfg)
         return self.enc_norm(x, cfg.norm_eps)
 
     def _out(self, x, return_hidden):
@@ -139,29 +171,42 @@ class EncDecModel(nn.Module):
         return common.lm_head_apply(self.head_table, x, self.cfg.vocab_size)
 
     def forward(self, tokens, *, audio_embeds, collect_cache=False,
-                cache_len=None, return_hidden=False):
+                cache_len=None, return_hidden=False, remat=False,
+                with_aux=False, mctx=None):
         """Teacher-forced forward. tokens: (B, S); audio_embeds: (B, F, d).
         Returns (logits (B, S, padded vocab), or the final hidden states
         with ``return_hidden``; the cache with ``collect_cache``, else
-        None). The self rings hold min(cache_len, window) slots,
-        cache_len defaulting to S, filled with the last of the S
-        positions from slot 0 (the JAX package's fill); the cross K/V are
-        the encoder's, in the activations' dtype."""
+        None), and with ``with_aux`` a third item, the aux loss: a float32
+        0, as JAX's ``encdec.forward`` returns it. The self rings hold
+        min(cache_len, window) slots, cache_len defaulting to S, filled
+        with the last of the S positions from slot 0 (the JAX package's
+        fill); the cross K/V are the encoder's, in the activations' dtype.
+        ``remat`` recomputes each layer in the backward; ``mctx`` is
+        accepted for the step factories' sake (nothing here is split)."""
         cfg = self.cfg
-        enc_out = self.encode(audio_embeds)
+        enc_out = self.encode(audio_embeds, remat)
         x = common.embed_apply(self.embed.table, tokens)
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device).expand(b, s)
         w = _ring_len(cfg, cache_len or s)
         caches = []
         for layer in self.dec_blocks:
-            enc_kv = attn.encode_kv(layer.xattn, enc_out, cfg)
-            x, (k, v) = layer(x, positions, enc_kv, cfg)
+            if remat:
+                x, (k, v), enc_kv = torch.utils.checkpoint.checkpoint(
+                    _decoder_layer, layer, x, positions, enc_out, cfg,
+                    use_reentrant=False)
+            else:
+                x, (k, v), enc_kv = _decoder_layer(layer, x, positions,
+                                                   enc_out, cfg)
             if collect_cache:
                 ring = attn.init_kv_cache(b, w, cfg, x.dtype, x.device)
                 caches.append({"self": attn.fill_kv_cache(
                     ring, k[:, -w:], v[:, -w:]), "cross": enc_kv})
-        return self._out(x, return_hidden), caches if collect_cache else None
+        out = (self._out(x, return_hidden), caches if collect_cache else None)
+        if with_aux:
+            return out + (torch.zeros((), dtype=torch.float32,
+                                      device=x.device),)
+        return out
 
     def init_cache(self, batch, cache_len, dtype=torch.bfloat16):
         """An empty cache: each decoder layer's self ring of min(cache_len,
@@ -187,12 +232,13 @@ class EncDecModel(nn.Module):
                  "cross": attn.encode_kv(layer.xattn, enc_out, self.cfg)}
                 for layer, c in zip(self.dec_blocks, cache)]
 
-    def decode_step(self, tokens1, cache, pos, *, return_hidden=False):
+    def decode_step(self, tokens1, cache, pos, *, return_hidden=False,
+                    mctx=None):
         """tokens1: (B, 1); pos: (B,) absolute position of the new token;
         cache with its cross K/V filled (``forward(collect_cache=True)``
         or ``prefill_cross``). Returns (logits (B, 1, padded vocab), or
         the hidden states with ``return_hidden``; the new cache). The self
-        rings are updated in place."""
+        rings are updated in place. ``mctx`` as in ``forward``."""
         x = common.embed_apply(self.embed.table, tokens1)
         new = []
         for layer, c in zip(self.dec_blocks, cache):

@@ -11,7 +11,13 @@
     loss, metrics = model.loss(tokens, labels)   # decoder-only: ce + aux
 
 A decoder-only config builds a ``transformer.Model``, an
-encoder-decoder config an ``encdec.EncDecModel``.
+encoder-decoder config an ``encdec.EncDecModel``. ``mesh=`` (a
+("data", "model") ``DeviceMesh`` from ``launch.mesh.make_model_mesh``)
+builds the model of this rank: its MoE layers hold only the rank's
+experts, whose values are the slice of the one-card model's drawn from
+the same generator (or of the JAX leaves).
+
+    model = init_params(cfg, gen, mesh=mesh)     # on every rank
 
 Every entry point defaults to ``device="cuda"`` and raises when no card
 is present: nothing moves quietly to the CPU.
@@ -23,8 +29,8 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from repro_torch.models import common, recurrent, xlstm
-from repro_torch.models.common import IGNORE, cross_entropy
+from repro_torch.models import common, moe, recurrent, xlstm
+from repro_torch.models.common import IGNORE, cross_entropy, mesh_context
 from repro_torch.models.encdec import EncDecModel
 from repro_torch.models.transformer import Model
 
@@ -41,20 +47,33 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def build_model(cfg, *, device="cuda", dtype=torch.float32):
+def build_model(cfg, *, device="cuda", dtype=torch.float32, mesh=None):
     """The model for ``cfg`` on ``device``, parameters allocated but not
     yet filled (``init_params`` or ``params_from_jax`` fill them): an
     ``EncDecModel`` for an encoder-decoder config, else the decoder
     (``Model``) of ``attn``, ``lattn``, ``rglru``, ``mlstm`` and ``slstm``
     layers. The MoE router, the xLSTM gates' weights and biases and the
     sLSTM's recurrent weights are float32 whatever ``dtype`` is, as in
-    the JAX package."""
+    the JAX package. ``mesh``: a (data, model) ``DeviceMesh``, None for
+    one card."""
     cls = EncDecModel if cfg.is_encoder_decoder else Model
-    return cls(cfg, device=resolve_device(device), dtype=dtype)
+    return cls(cfg, device=resolve_device(device), dtype=dtype,
+               mctx=mesh_context(mesh))
+
+
+def expert_slices(model) -> Dict[str, slice]:
+    """Parameter name -> the rows of the expert axis it holds, for the
+    expert weights of every MoE layer (all E on one card)."""
+    out = {}
+    for name, mod in model.named_modules():
+        if isinstance(mod, moe.MoE):
+            rows = slice(mod.e0, mod.e0 + mod.e_local)
+            out.update({f"{name}.{leaf}": rows for leaf in moe.EXPERT_LEAVES})
+    return out
 
 
 def init_params(cfg, generator: torch.Generator, device="cuda",
-                dtype=torch.float32):
+                dtype=torch.float32, mesh=None):
     """A model with weights drawn as the JAX package draws them: norm
     scales 1; the RG-LRU's ``lam`` 0.65 and its biases 0; the mLSTM's gate
     bias ``b_if`` 0 for the input gates and 3 for the forget gates, the
@@ -64,9 +83,22 @@ def init_params(cfg, generator: torch.Generator, device="cuda",
 
     The draws run on the generator's device: a CUDA generator fills a
     model on the card in place (seconds for RecurrentGemma-9B's 8.6 B
-    weights), a CPU generator draws on the host and copies."""
-    model = build_model(cfg, device=device, dtype=dtype)
+    weights), a CPU generator draws on the host and copies. On a mesh
+    every rank draws every weight in the same order, the expert weights
+    at their full (E, ...) shape, and keeps its rows: the one-card
+    model's values."""
+    model = build_model(cfg, device=device, dtype=dtype, mesh=mesh)
+    experts = expert_slices(model)
     for name, p in model.named_parameters():
+        rows = experts.get(name)
+        if rows is not None and p.shape[0] != cfg.num_experts:
+            full = torch.empty((cfg.num_experts,) + tuple(p.shape[1:]),
+                               dtype=torch.float32,
+                               device=generator.device)
+            common.trunc_normal_(full, cfg.init_scale, generator)
+            with torch.no_grad():
+                p.copy_(full[rows])
+            continue
         leaf = name.rsplit(".", 1)[-1]
         with torch.no_grad():
             if leaf == "scale":
@@ -122,8 +154,9 @@ def _jax_location(name: str, cfg) -> Tuple[tuple, int, int]:
     return ("blocks", k) + rest, sb, n_sb
 
 
-def params_from_jax(tree, cfg, device="cuda"):
-    """The port's model holding the JAX package's weights.
+def params_from_jax(tree, cfg, device="cuda", mesh=None):
+    """The port's model holding the JAX package's weights (on a mesh, this
+    rank's: its experts' rows of the expert leaves).
 
     ``tree`` is the JAX parameter pytree as nested dicts, lists and tuples
     of numpy arrays (``jax.tree.map(np.asarray, params)``). The stacked
@@ -133,18 +166,24 @@ def params_from_jax(tree, cfg, device="cuda"):
     parameter consumed raises.
     """
     leaves: Dict[tuple, np.ndarray] = dict(_flatten(tree))
-    model = build_model(cfg, device=device, dtype=torch.float32)
+    model = build_model(cfg, device=device, dtype=torch.float32, mesh=mesh)
+    experts = expert_slices(model)
     consumed = set()
     for name, p in model.named_parameters():
         path, layer, n_stacked = _jax_location(name, cfg)
         if path not in leaves:
             raise KeyError(f"params_from_jax: no JAX leaf {path} for {name}")
         leaf = leaves[path]
-        want = tuple(p.shape) if layer < 0 else (n_stacked,) + tuple(p.shape)
+        rows = experts.get(name)
+        shape = tuple(p.shape) if rows is None else \
+            (cfg.num_experts,) + tuple(p.shape[1:])
+        want = shape if layer < 0 else (n_stacked,) + shape
         if leaf.shape != want:
             raise ValueError(f"params_from_jax: {path} has shape {leaf.shape},"
                              f" {cfg.name} needs {want}")
         value = leaf if layer < 0 else leaf[layer]
+        if rows is not None:
+            value = value[rows]
         with torch.no_grad():
             p.copy_(torch.from_numpy(np.array(value, np.float32)))
         consumed.add(path)

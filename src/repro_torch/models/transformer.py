@@ -26,6 +26,12 @@ are dropped and recomputed in the backward, JAX's ``jax.checkpoint(...,
 nothing_saveable)`` per super-block taken a layer at a time. The
 recompute repeats the forward's bits (the kernels and the MoE dispatch
 are deterministic), so the gradients are those of no remat.
+
+On a mesh the model is built for one rank (``mctx``, a
+``common.MeshContext``): its MoE layers hold that rank's experts and
+split the work over the model group (``moe.py``); ``forward`` and
+``decode_step`` take the rank's rows of the batch. Everything else is
+replicated and computes what one card computes.
 """
 from __future__ import annotations
 
@@ -58,7 +64,7 @@ class DecoderLayer(nn.Module):
     the config has one, MoE from layer ``cfg.first_dense_layers`` on (an
     xLSTM layer has none)."""
 
-    def __init__(self, cfg, kind, index, *, device, dtype):
+    def __init__(self, cfg, kind, index, *, device, dtype, mctx=common.LOCAL):
         super().__init__()
         if kind not in KINDS:
             raise ValueError(kind)
@@ -76,25 +82,26 @@ class DecoderLayer(nn.Module):
         if (cfg.d_ff or cfg.is_moe) and kind not in XLSTM_BLOCKS:
             self.norm2 = common.RMSNorm(cfg.d_model, **kw)
             if cfg.is_moe and index >= cfg.first_dense_layers:
-                self.moe = moe.MoE(cfg, **kw)
+                self.moe = moe.MoE(cfg, mctx=mctx, **kw)
             else:
                 self.mlp = common.MLP(cfg.d_model, cfg.d_ff, **kw)
 
-    def _mlp(self, x, cfg, with_aux=False):
+    def _mlp(self, x, cfg, with_aux=False, mctx=common.LOCAL):
         """(x after the MLP sublayer, the MoE load-balance loss times its
         coefficient where ``with_aux`` and the layer is MoE, else None)."""
         if hasattr(self, "moe"):
             h = self.norm2(x, cfg.norm_eps)
             if with_aux:
-                y, aux = moe.moe_apply(self.moe, h, cfg, return_aux=True)
+                y, aux = moe.moe_apply(self.moe, h, cfg, mctx,
+                                       return_aux=True)
                 return x + y, aux
-            return x + self.moe(h, cfg), None
+            return x + self.moe(h, cfg, mctx), None
         if hasattr(self, "mlp"):
             return x + self.mlp(self.norm2(x, cfg.norm_eps), cfg.mlp_act), None
         return x, None
 
     def forward(self, x, positions, cfg, *, pos3=None, collect_cache=False,
-                cache_len=None, with_aux=False):
+                cache_len=None, with_aux=False, mctx=common.LOCAL):
         """Returns (x, cache entry or None, the layer's MoE aux loss where
         ``with_aux`` and the layer is MoE, else None)."""
         h = self.norm1(x, cfg.norm_eps)
@@ -117,10 +124,10 @@ class DecoderLayer(nn.Module):
                 cache = attn.fill_kv_cache(
                     attn.init_kv_cache(x.shape[0], w, cfg, x.dtype, x.device),
                     k, v)
-        x, aux = self._mlp(x + out, cfg, with_aux)
+        x, aux = self._mlp(x + out, cfg, with_aux, mctx)
         return x, cache, aux
 
-    def decode(self, x1, cache, pos, cfg, *, pos3=None):
+    def decode(self, x1, cache, pos, cfg, *, pos3=None, mctx=common.LOCAL):
         """One token. Returns (x1, new cache entry)."""
         h = self.norm1(x1, cfg.norm_eps)
         if self.kind == "rglru":
@@ -131,20 +138,23 @@ class DecoderLayer(nn.Module):
         else:
             out, cache = attn.attn_decode(self.attn, h, cache, pos, cfg,
                                           pos3=pos3)
-        return self._mlp(x1 + out, cfg)[0], cache
+        return self._mlp(x1 + out, cfg, mctx=mctx)[0], cache
 
 
 class Model(nn.Module):
-    """Decoder: tokens (B, S) -> logits (B, S, padded vocab)."""
+    """Decoder: tokens (B, S) -> logits (B, S, padded vocab). ``mctx``: the
+    rank of a mesh it is built for (``LOCAL``: one card)."""
 
-    def __init__(self, cfg, *, device, dtype=torch.float32):
+    def __init__(self, cfg, *, device, dtype=torch.float32,
+                 mctx=common.LOCAL):
         super().__init__()
         self.cfg = cfg
+        self.mctx = mctx
         kw = dict(device=device, dtype=dtype)
         self.embed = common.Embedding(cfg.vocab_size, cfg.d_model, **kw)
         self.final_norm = common.RMSNorm(cfg.d_model, **kw)
         self.layers = nn.ModuleList(
-            DecoderLayer(cfg, kind, i, **kw)
+            DecoderLayer(cfg, kind, i, mctx=mctx, **kw)
             for i, kind in enumerate(cfg.pattern))
         if not cfg.tie_embeddings:
             self.lm_head = common.Embedding(cfg.vocab_size, cfg.d_model, **kw)
@@ -176,7 +186,7 @@ class Model(nn.Module):
 
     def forward(self, tokens, *, vision_embeds=None, collect_cache=False,
                 cache_len=None, return_hidden=False, remat=False,
-                with_aux=False):
+                with_aux=False, mctx=None):
         """tokens: (B, S_text); vision_embeds: (B, V, d) or None, which
         makes the sequence [vision | text] with M-RoPE positions
         (``vlm_positions``). Returns (logits (B, S, padded vocab), or the
@@ -186,11 +196,14 @@ class Model(nn.Module):
         cache_len defaulting to S. With ``with_aux`` a third item, the MoE
         layers' load-balance losses summed (a float32 scalar, 0 without
         MoE), as JAX ``forward`` returns it; ``remat`` recomputes each
-        layer's activations in the backward."""
+        layer's activations in the backward. ``mctx`` (the model's own by
+        default) may replicate the batch over the data axis
+        (``MeshContext.replicated``)."""
         cfg = self.cfg
         x, positions, pos3 = self._embed(tokens, vision_embeds)
         kw = dict(pos3=pos3, collect_cache=collect_cache,
-                  cache_len=cache_len or x.shape[1], with_aux=with_aux)
+                  cache_len=cache_len or x.shape[1], with_aux=with_aux,
+                  mctx=mctx or self.mctx)
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device) \
             if with_aux else None
         caches = []
@@ -251,7 +264,8 @@ class Model(nn.Module):
                 batch, _cache_len_for(cfg, kind, cache_len), cfg, dtype, dev)
         return [entry(layer.kind) for layer in self.layers]
 
-    def decode_step(self, tokens1, cache, pos, *, return_hidden=False):
+    def decode_step(self, tokens1, cache, pos, *, return_hidden=False,
+                    mctx=None):
         """tokens1: (B, 1); pos: (B,) absolute position of the new token.
         Returns (logits (B, 1, padded vocab), or the hidden states with
         ``return_hidden``; the new cache). The attention rings are
@@ -264,7 +278,8 @@ class Model(nn.Module):
             else None
         new = []
         for layer, c in zip(self.layers, cache):
-            x, c = layer.decode(x, c, pos, cfg, pos3=pos3)
+            x, c = layer.decode(x, c, pos, cfg, pos3=pos3,
+                                mctx=mctx or self.mctx)
             new.append(c)
         return self._out(x, return_hidden), new
 

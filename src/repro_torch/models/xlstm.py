@@ -90,8 +90,10 @@ def mlstm_parallel(q, k, v, log_i, log_f, state=None):
     Within a chunk the weight of key j for query t is exp(bsum_t - bsum_j
     + li_j) (bsum the running sum of log f): at most e^8 on and below the
     diagonal, but above it bsum_t - bsum_j can be large and positive, so
-    exp gives inf there, which ``torch.where`` drops (a 0/1 mask would
-    make inf * 0 = NaN)."""
+    exp would give inf there. Those log-weights are set to -inf before the
+    exp: the forward's zeros are JAX's (whose ``where`` drops the inf),
+    and the backward sends 0, not inf * 0 = NaN, into them (JAX's
+    gradient is NaN there, ROADMAP.md's divergences)."""
     b, s, nh, hd = q.shape
     c = min(CHUNK, s)
     if s % c:
@@ -109,7 +111,7 @@ def mlstm_parallel(q, k, v, log_i, log_f, state=None):
         bsum = torch.cumsum(lf, dim=1)                          # (B, c, H)
         # intra-chunk
         logw = bsum[:, :, None, :] - bsum[:, None, :, :] + li[:, None, :, :]
-        w = torch.where(causal, torch.exp(logw), 0.0)           # (B, t, j, H)
+        w = torch.exp(logw.masked_fill(~causal, float("-inf")))  # (B,t,j,H)
         scores = torch.einsum("bthp,bjhp->btjh", qi, ki) * w
         num = torch.einsum("btjh,bjhq->bthq", scores, vi)
         den = scores.sum(dim=2)                                 # (B, c, H)

@@ -70,11 +70,13 @@ def global_norm(tree: Dict[str, torch.Tensor]) -> torch.Tensor:
 
 
 @torch.no_grad()
-def update(params, grads, opt_state, cfg: AdamWConfig):
+def update(params, grads, opt_state, cfg: AdamWConfig, grad_norm=None):
     """One AdamW step: (params, opt_state, {"grad_norm", "lr"}), the
-    parameters and moments updated in place."""
+    parameters and moments updated in place. ``grad_norm``: the global
+    norm where ``grads`` hold only part of the model (a rank's experts,
+    ``trainer.mesh_grad_norm``); by default ``global_norm(grads)``."""
     step = opt_state["step"] + 1
-    gn = global_norm(grads)
+    gn = global_norm(grads) if grad_norm is None else grad_norm
     clip = torch.clamp(cfg.grad_clip / (gn + 1e-9), max=1.0)
     lr = schedule(cfg, step)
     b1c = 1.0 - cfg.beta1 ** step.float()

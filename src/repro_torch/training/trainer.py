@@ -9,7 +9,15 @@ JAX's also takes and returns the parameters. Gradients come from
 and RG-LRU scan of the forward and the backward runs through the
 hand-written kernels (``kernels.ops``). A batch is a dict of (B, S)
 ``tokens`` and ``labels`` (numpy or tensors; moved to the model's
-device), and for a VLM ``vision_embeds``.
+device), for a VLM ``vision_embeds``, for an encoder-decoder
+``audio_embeds`` (B, F, d).
+
+On a (data, model) mesh (``launch.distributed.make_train_step(model,
+mesh)``) each rank differentiates its share of the global batch
+(``data_rows``, ``accumulate``), its loss its local sum over the global
+count of labels; ``all_reduce_grads`` then sums every gradient over the
+data group, leaf by leaf in a fixed order, and AdamW runs the same on
+every rank.
 
     model = init_model(cfg)                       # on the card
     model, opt_state, history = train(model, data, steps, TrainConfig())
@@ -23,6 +31,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch.models.common import LOCAL
 from repro_torch.models.model import init_params, resolve_device
 from repro_torch.training import checkpoint as ckpt
 from repro_torch.training import optimizer as opt
@@ -39,7 +48,7 @@ class TrainConfig:
 
 
 def init_model(cfg, seed: int = 0, *, device="cuda", dtype=torch.float32):
-    """A decoder for ``cfg`` with weights drawn from ``seed`` on ``device``
+    """A model for ``cfg`` with weights drawn from ``seed`` on ``device``
     (the card by default; raises without one unless ``device="cpu"``),
     its parameters trainable."""
     dev = resolve_device(device)
@@ -64,6 +73,51 @@ def to_device(batch: dict, device) -> dict:
         v, torch.Tensor) else v).to(device) for k, v in batch.items()}
 
 
+def model_inputs(model, batch: dict) -> dict:
+    """The forward's extra inputs from ``batch``: an encoder-decoder's
+    ``audio_embeds``, else a VLM's ``vision_embeds`` (None without)."""
+    if model.cfg.is_encoder_decoder:
+        return {"audio_embeds": batch["audio_embeds"]}
+    return {"vision_embeds": batch.get("vision_embeds")}
+
+
+def data_rows(batch: dict, mctx=LOCAL) -> dict:
+    """This data rank's rows of every array of a global batch."""
+    if mctx.data_size == 1:
+        return batch
+    rows = mctx.data_rows(batch["tokens"].shape[0])
+    return {k: v[rows] for k, v in batch.items()}
+
+
+def all_reduce_grads(grads: Dict[str, torch.Tensor], mctx=LOCAL):
+    """Sum every gradient over the data group in place, leaf by leaf in the
+    parameters' order (one all_reduce a leaf, so two runs give the same
+    bits). One card, or one data rank: nothing."""
+    if mctx.data_group is None:
+        return grads
+    for name in grads:
+        grads[name] = mctx.all_reduce_data(grads[name].contiguous())
+    return grads
+
+
+def mesh_grad_norm(grads: Dict[str, torch.Tensor], sharded, mctx=LOCAL):
+    """The global norm of the whole model's gradient on every rank, where
+    the leaves named in ``sharded`` hold this model rank's slice (its
+    experts): their squares summed over the model group, the replicated
+    leaves' added once. None on one card or one model rank
+    (``optimizer.update`` then takes ``global_norm`` itself)."""
+    if mctx.model_group is None:
+        return None
+    parts = [torch.zeros((), dtype=torch.float32,
+                         device=next(iter(grads.values())).device)
+             for _ in range(2)]
+    for name, g in grads.items():
+        i = int(name in sharded)
+        parts[i] = parts[i] + torch.sum(torch.square(g.float()))
+    mctx.all_reduce_model(parts[1])
+    return torch.sqrt(parts[0] + parts[1])
+
+
 def grads_of(loss_fn, params: Dict[str, torch.Tensor], batch: dict):
     """(loss, metrics, grads by name) of ``loss_fn(batch) -> (loss,
     metrics)``; a parameter the loss does not reach gets zeros."""
@@ -75,19 +129,24 @@ def grads_of(loss_fn, params: Dict[str, torch.Tensor], batch: dict):
                            for k, v in metrics.items()}, grads
 
 
-def accumulate(loss_fn, params, batch: dict, n_chunks: int):
+def accumulate(loss_fn, params, batch: dict, n_chunks: int, mctx=LOCAL):
     """``grads_of`` over the batch cut into ``n_chunks`` equal slices of
     its leading dim, each slice's loss, metrics and gradients added as x /
-    n_chunks in float32, in the JAX package's order."""
+    n_chunks in float32, in the JAX package's order. On a mesh ``batch``
+    is the global batch and slice c is this data rank's share of global
+    slice c (rows [c mb + r mb / n, c mb + (r + 1) mb / n)), as JAX's
+    shard_map inside its scan splits each global microbatch."""
     b = batch["tokens"].shape[0]
-    if b % n_chunks:
-        raise ValueError(f"batch {b} does not split into {n_chunks} chunks")
+    if b % (n_chunks * mctx.data_size):
+        raise ValueError(f"batch {b} does not split into {n_chunks} chunks "
+                         f"over {mctx.data_size} data ranks")
     mb = b // n_chunks
     grads = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
              for n, p in params.items()}
     loss, metrics = None, None
     for c in range(n_chunks):
-        sl = {k: v[c * mb:(c + 1) * mb] for k, v in batch.items()}
+        sl = data_rows({k: v[c * mb:(c + 1) * mb] for k, v in batch.items()},
+                       mctx)
         lc, mc, gc = grads_of(loss_fn, params, sl)
         for n in grads:
             grads[n] = grads[n] + gc[n].float() / n_chunks
@@ -107,8 +166,7 @@ def make_train_step(model, tcfg: TrainConfig):
 
     def loss_fn(batch):
         return model.loss(batch["tokens"], batch.get("labels"),
-                          vision_embeds=batch.get("vision_embeds"),
-                          remat=tcfg.remat)
+                          remat=tcfg.remat, **model_inputs(model, batch))
 
     def train_step(opt_state, batch):
         batch = to_device(batch, model.device)

@@ -14,7 +14,7 @@ from repro_torch.configs.cascade_tiers import BATCH_LADDER
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import rglru_scan as _rglru
-from repro_torch.kernels.bvsb import bvsb_plain, chunks
+from repro_torch.kernels.bvsb import bvsb_partials_plain, bvsb_plain, chunks
 from repro_torch.kernels.decode_attention import decode_attention_plain
 from repro_torch.kernels.flash_attention import (attention_lse_plain,
                                                  flash_attention_bwd_plain,
@@ -156,6 +156,51 @@ def test_bvsb_kernel_rows_off_alignment(dev, b, v, dtype):
     x = (torch.randn(b, v + 1, generator=gen, device=dev) * 4).to(dtype)
     _bvsb_twice(x[:, 1:],
                 F32_CONF_ATOL if dtype == torch.float32 else BF16_CONF_ATOL)
+
+
+@pytest.mark.parametrize("b,v,offset", [(4, 12320, 36960), (64, 12320, 0),
+                                         (3, 130, 7), (4, 65536, 1000)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bvsb_partials_kernel_matches_plain(dev, b, v, offset, dtype):
+    """The partial entry's tuples against its plain version: m1, m2 and the
+    global index exact, z to float32 sums in another order; a second call
+    bitwise equal; one counted launch."""
+    gen = torch.Generator(device=dev).manual_seed(v + b)
+    x = (torch.randn(b, v, generator=gen, device=dev) * 4).to(dtype)
+    x[0, v // 2:] = -1e30                # padded columns
+    if v >= 65536:
+        x[1, :v // 2] = float("-inf")    # whole chunks at -inf
+    ops.reset_launch_counts()
+    t = ops.bvsb_partials(x, offset)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["bvsb_partials"] == 1
+    ref = bvsb_partials_plain(x, offset)
+    assert torch.equal(t[:, [0, 1, 3]].cpu(), ref[:, [0, 1, 3]].cpu())
+    torch.testing.assert_close(t[:, 2], ref[:, 2], rtol=1e-5, atol=0)
+    assert torch.equal(t, ops.bvsb_partials(x, offset))
+
+
+@pytest.mark.parametrize("n", [2, 4, 7])
+def test_bvsb_merge_kernel_over_shards_is_one_device_bvsb(dev, n):
+    """Rows cut into n shards, the partial entry on each, the merge entry
+    over the tuples: one-device BvSB (a maximum tied across shards gives
+    margin 0 at the first index), a second call bitwise equal."""
+    gen = torch.Generator(device=dev).manual_seed(n)
+    x = torch.randn(8, 4096, generator=gen, device=dev) * 4
+    x[0, [5, 4000]] = 30.0
+    per = 4096 // n + 1
+    parts = torch.stack([ops.bvsb_partials(x[:, a:a + per].contiguous(), a)
+                         for a in range(0, 4096, per)], dim=1)
+    ops.reset_launch_counts()
+    conf, top1 = ops.bvsb_merge(parts)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["bvsb_merge"] == 1
+    pconf, ptop1 = bvsb_plain(x)
+    torch.testing.assert_close(conf, pconf, atol=F32_CONF_ATOL, rtol=0)
+    assert torch.equal(top1, ptop1)
+    assert float(conf[0]) == 0.0 and int(top1[0]) == 5
+    c2, t2 = ops.bvsb_merge(parts)
+    assert torch.equal(conf, c2) and torch.equal(top1, t2)
 
 
 FLASH_CASES = [(1, 16, 4, 4, 32, None), (64, 16, 8, 8, 48, None),
@@ -331,8 +376,9 @@ def test_reduced_xlstm_and_encdec_steps_on_the_card_match_the_cpu(dev, arch,
     torch.testing.assert_close(runs[0][0], runs[1][0], atol=F32_CONF_ATOL,
                                rtol=0)
     n = cfg.num_layers
-    want = {"bvsb": 5, "flash_attention": 0, "decode_attention": 0,
-            "rglru_scan": 0, "flash_attention_bwd": 0, "rglru_scan_bwd": 0}
+    want = {"bvsb": 5, "bvsb_partials": 0, "bvsb_merge": 0,
+            "flash_attention": 0, "decode_attention": 0, "rglru_scan": 0,
+            "flash_attention_bwd": 0, "rglru_scan_bwd": 0}
     if inputs:
         want.update(flash_attention=cfg.encoder_layers + 2 * n,
                     decode_attention=2 * n * 4)
@@ -582,9 +628,10 @@ def test_reduced_recurrentgemma_steps_on_the_card_match_the_cpu(dev):
             confs.append(conf.cpu())
         runs.append((torch.stack(confs), ops.launch_counts()))
     torch.testing.assert_close(runs[0][0], runs[1][0], atol=1e-5, rtol=0)
-    assert runs[0][1] == {"bvsb": 5, "flash_attention": 1,
-                          "decode_attention": 4, "rglru_scan": 2,
-                          "flash_attention_bwd": 0, "rglru_scan_bwd": 0}
+    assert runs[0][1] == {"bvsb": 5, "bvsb_partials": 0, "bvsb_merge": 0,
+                          "flash_attention": 1, "decode_attention": 4,
+                          "rglru_scan": 2, "flash_attention_bwd": 0,
+                          "rglru_scan_bwd": 0}
     assert runs[1][1] == dict.fromkeys(runs[1][1], 0)
 
 

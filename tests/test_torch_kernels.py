@@ -266,7 +266,11 @@ def test_cpu_tensors_take_the_plain_versions_without_launching():
     a = torch.rand(2, 5, 8)
     assert torch.equal(ops.rglru_scan(a, x[:2, :40].reshape(2, 5, 8)),
                        rglru_scan_plain(a, x[:2, :40].reshape(2, 5, 8)))
-    assert ops.launch_counts() == {"bvsb": 0, "flash_attention": 0,
+    parts = ops.bvsb_partials(x[:, :64], 0)
+    assert torch.equal(ops.bvsb_merge(parts[:, None])[1],
+                       bvsb_plain(x[:, :64])[1])
+    assert ops.launch_counts() == {"bvsb": 0, "bvsb_partials": 0,
+                                   "bvsb_merge": 0, "flash_attention": 0,
                                    "decode_attention": 0, "rglru_scan": 0,
                                    "flash_attention_bwd": 0,
                                    "rglru_scan_bwd": 0}

@@ -1,9 +1,10 @@
 """The port's sharded sweeps held to the JAX package, on four ``gloo``
 ranks on the CPU.
 
-A module-scoped fixture spawns the four ranks once (tests/sharded_ranks.py:
-a ``file://`` rendezvous under the test's temporary directory, one torch
-thread a rank, a group timeout) and they run every case; each test below
+A module-scoped fixture spawns the four ranks once (tests/sharded_ranks.py's
+``Spawned``: a ``file://`` rendezvous under the test's temporary
+directory, one torch thread a rank, a group timeout, a join timeout) and
+they run every case; each test below
 reads its case from every rank, checks that every rank returned the same
 dict, and holds it to the references computed here:
 
@@ -24,17 +25,10 @@ dict, and holds it to the references computed here:
 ``switching.decide_partials`` / ``decide_from_partials`` and the mesh
 helpers that need no ranks are tested in this process.
 """
-import os
-import pathlib
-import pickle
-import subprocess
-import sys
-
 import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
-import torch.multiprocessing as mp
 
 import sharded_ranks as R
 from repro.core import switching as jswitching
@@ -46,11 +40,6 @@ from test_torch_sim import assert_port_matches
 
 torch.set_num_threads(2)
 
-ROOT = pathlib.Path(__file__).resolve().parents[1]
-# a hang ends sooner, at the ranks' group timeout; this bounds ranks that
-# a loaded machine runs slowly (~30 s alone, ~150 s beside a full suite)
-JOIN_TIMEOUT_S = 900
-
 # tests/test_scale.py's split of the device-sharded outputs
 EXACT_KEYS = ("completed", "queue_left", "queue_peak", "sr", "throughput",
               "forwarded_frac", "per_device_sr", "per_device_acc",
@@ -60,73 +49,21 @@ ULP_KEYS = ("accuracy",)
 ULP_TRACES = ("thresh", "sr", "acc")
 
 
-class _Ranks:
-    """The four ranks' results, read once every rank has ended."""
+class _Ranks(R.Spawned):
+    """The four ranks' results, each case equal on every rank."""
 
     def __init__(self, tmp):
-        self.tmp = tmp
-        ctx = mp.get_context("spawn")
-        self.procs = [ctx.Process(target=R.rank_main,
-                                  args=(r, str(tmp / "rendezvous"), str(tmp)))
-                      for r in range(R.WORLD)]
-        for p in self.procs:
-            p.start()
-        env = dict(os.environ, JAX_PLATFORMS="cpu",
-                   XLA_FLAGS="--xla_force_host_platform_device_count=4",
-                   PYTHONPATH=os.pathsep.join([str(ROOT / "src"),
-                                               str(ROOT / "tests")]))
-        self.jax_proc = subprocess.Popen(
-            [sys.executable, "-c", "import sys, sharded_ranks; "
-             "sharded_ranks.jax_device_sharded(sys.argv[1])",
-             str(tmp / "jax.pkl")], env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True)
-        self._results = None
-
-    def results(self):
-        if self._results is None:
-            for p in self.procs:
-                p.join(JOIN_TIMEOUT_S)
-            hung = [p.pid for p in self.procs if p.is_alive()]
-            for p in self.procs:
-                if p.is_alive():
-                    p.terminate()
-                    p.join(10)
-            self._results = []
-            for r in range(R.WORLD):
-                path = self.tmp / f"rank{r}.pkl"
-                self._results.append(pickle.loads(path.read_bytes())
-                                     if path.exists() else {})
-            self.hung = hung
-        return self._results
+        super().__init__(tmp, R.rank_main, (), "sweep",
+                         "import sys, sharded_ranks; "
+                         "sharded_ranks.jax_device_sharded(sys.argv[1])", ())
 
     def case(self, name):
         """The case's value, after checking that every rank returned one
         and that they are equal."""
-        per_rank = [res.get(name) for res in self.results()]
-        errors = [v["error"] for res in self._results for v in res.values()
-                  if "error" in v]
-        for r, got in enumerate(per_rank):
-            assert got is not None, (f"rank {r} did not run {name!r} (ranks "
-                                     f"killed at the join timeout: "
-                                     f"{self.hung}); errors: {errors}")
-            assert "error" not in got, f"rank {r}:\n{got['error']}"
+        per_rank = self.per_rank(name)
         for r in range(1, R.WORLD):
-            _assert_same(per_rank[r]["ok"], per_rank[0]["ok"])
-        return per_rank[0]["ok"]
-
-    def jax(self):
-        out, _ = self.jax_proc.communicate(timeout=JOIN_TIMEOUT_S)
-        assert self.jax_proc.returncode == 0, out
-        return pickle.loads((self.tmp / "jax.pkl").read_bytes())
-
-    def close(self):
-        for p in self.procs:
-            if p.is_alive():
-                p.terminate()
-            p.join(10)
-        if self.jax_proc.poll() is None:
-            self.jax_proc.kill()
-            self.jax_proc.communicate(timeout=10)
+            _assert_same(per_rank[r], per_rank[0])
+        return per_rank[0]
 
 
 @pytest.fixture(scope="module")
