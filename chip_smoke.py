@@ -85,11 +85,12 @@ then exits non-zero without the final result line:
    through the async transport ``run_transport`` at 1 and 2 in-flight
    slots, each ``CascadeResult`` field and the launch counts equal to
    ``run_cascade``'s at the same slots (at 1 slot phase 4's own run), the
-   walls printed, and the idle share of a profiled 2-slot rerun; (b)
+   walls printed, and the idle share of a profiled 2-slot rerun of 16 of
+   the 128 samples a device; (b)
    ``serving_vs_sim`` on steady / churn / churn_drift x the three
    schedulers (10 devices x 80 samples), the simulator half on the card:
    every delta within ``SERVING_TOL``, the card's simulator outputs equal
-   to the CPU's under phase 6's rules; (c) 10,000 devices (three tiers,
+   to the CPU's under phase 6's rules; (c) 5,000 devices (three tiers,
    per-device jittered latencies, MultiTASC++ with switching over three
    servers, 3 seeds) through ``jaxsim.run_sweep`` on the card with the
    automatic segmented frontier (G = 128) and with the flat one: equal
@@ -100,9 +101,10 @@ then exits non-zero without the final result line:
 8. sharded sweeps: four ranks spawned on the card (``torch.multiprocessing``,
    a ``gloo`` world group rendezvoused through a file under build/; NCCL
    refuses two ranks on one GPU), each building ``make_sweep_mesh((4,))``:
-   (a) phase 6(a)'s sweep through ``run_sweep_sharded`` (B = 9 padded to
-   12), every field on every rank equal to phase 6(a)'s ``run_sweep`` bit
-   for bit and 9 points counted as sharded; (b) phase 7c's first lane,
+   (a) phase 6's width-sweep run of (a)'s 9 lanes at ``SIM_WIDTH_S``
+   samples through ``run_sweep_sharded`` (B = 9 padded to 12), every
+   field on every rank equal to that ``run_sweep`` bit for bit and 9
+   points counted as sharded; (b) phase 7c's first lane,
    its fleet cut to ``SHARD_N`` devices, through ``run_device_sharded``,
    held on every rank to the same lane through the local segmented engine
    under tests/test_scale.py's rules (dynamics and ``n_events`` exact,
@@ -172,10 +174,14 @@ then exits non-zero without the final result line:
    tokens (two flash forward and one backward launch a layer a step),
    then 2 layers on 1 x 256 tokens card vs CPU under phase 11's rules;
 13. the step factories over a (data, model) mesh, four ``gloo`` ranks
-   spawned on the card as in phase 8 (``make_model_mesh``): (a)
-   granite-moe-1b-a400m at full width and depth on a (1, 4) mesh, 8
-   experts a rank and the head's rows cut in 4: ``make_prefill_step`` on
-   4 x 2,048 tokens, 8 ``make_serve_step`` steps feeding back top-1 (one
+   spawned on the card as in phase 8 (``make_model_mesh``), every layer
+   cut over the model ranks (``launch.shardings``: heads, MLP features,
+   RG-LRU channels, experts, vocabulary rows; the rings on their slots):
+   (a) granite-moe-1b-a400m at full width and depth on a (1, 4) mesh, 4
+   heads, 8 experts and a quarter of the vocabulary a rank:
+   ``make_prefill_step`` on 4 x 2,048 tokens into rings of 2,064 slots
+   (516 a rank), 8 ``make_serve_step`` steps feeding back top-1 (one
+   decode partial and one merge launch an attention layer a step, one
    BvSB partial and one merge launch a call, counted on every rank), 3
    ``make_train_step`` steps of 2 x 2,048 with remat, held to the one-card
    steps on the same weights and tokens (BvSB 1e-5, top-1 equal, the
@@ -186,16 +192,28 @@ then exits non-zero without the final result line:
    one-card run on those rows alone (their own capacity), and the
    gradients at 2 layers against the mean of the two rows' one-card
    gradients; walls, tokens/s, each rank's peak (together at most 72
-   GB) and the all_reduces' share of a clocked step (gloo: a host copy
-   each way, not a fabric); (c) seamless-m4t-medium trained at full
-   width and depth (3 steps of 2 x 512 tokens over 1,024 audio frames,
-   remat; flash's three forms each held to twice its layers a step),
-   (d) xlstm-350m (2 steps of 2 x 256, no kernel: its cells are plain
-   PyTorch), (e) each at 2 layers against the CPU under phase 11's rules.
-   Phase 3 holds the BvSB partial entry to its plain version (shards of
-   granite's head with padded columns, whole chunks at -inf, bf16,
-   bitwise repeats) and the merge over four shards to ``bvsb_plain``,
-   and times both at granite's shard beside their bounds;
+   GB; the earlier layout, the dense layers whole on every rank, took
+   8.153 GB a rank on an H100 80GB HBM3 at 700 W) and the all_reduces' count and share of a clocked step (gloo: a
+   host copy each way, not a fabric); (e) RecurrentGemma-9B at full
+   width and 12 of its 38 layers on a (1, 4) mesh: flash on 4 of 16
+   heads, the scan on
+   1,024 channels a rank, the 2,048-slot local rings 512 slots a rank
+   through the decode partial and merge entries; a prefill of 4 x 3,000
+   tokens (the rings wrap) and 8 serve steps, held to the one-card run of
+   the same weights and tokens (BvSB 1e-5, top-1 equal wherever the top-2
+   logit gap exceeds 1e-4), every rank bitwise equal; (c)
+   seamless-m4t-medium trained at full width and depth (3 steps of 2 x
+   512 tokens over 1,024 audio frames, remat; flash's three forms each
+   held to twice its layers a step), (d) xlstm-350m (2 steps of 2 x 128,
+   no kernel: its cells are plain PyTorch), (f) each at 2 layers against
+   the CPU under phase 11's rules. Phase 3 holds the BvSB partial entry
+   to its plain version (shards of granite's head with padded columns,
+   whole chunks at -inf, bf16, bitwise repeats) and the merge over four
+   shards to ``bvsb_plain``, the decode partial entry on each rank's
+   shard of RecurrentGemma's and granite's rings (full, partly filled,
+   shards empty; three dtype pairs, capped and not) to its plain version
+   and the merge of the gathered partials to the whole ring's plain
+   decode, bitwise repeats, and times all four beside their bounds;
 14. the kernels line: one JSON object describing every ported kernel;
 15. the result line: {"ok": true, "device": {...}}.
 
@@ -208,8 +226,8 @@ granite's and deepseek's prefill: the same rows, device ms), then phases
 phase 3's training part, then phase 11, and prints no result line.
 ``softcap`` runs phases 1 and 2, phase 3's soft-cap part, then phase 12,
 and prints no result line. ``mesh`` runs phases 1 and 2, phase 3's
-partial-entry checks and rows, then phase 13, and prints no result
-line.
+partial-entry checks and rows (BvSB and decode attention), then phase
+13, and prints no result line.
 
 ``throughput`` of the cascade is a virtual-clock figure from the paper's
 latency profiles, not a measurement of the card.
@@ -292,6 +310,7 @@ from repro_torch.training.trainer import (TrainConfig,  # noqa: E402
                                           train, trainable)
 
 N_DEVICES, SAMPLES, SEQ, VOCAB = 16, 128, 16, 2048
+PROFILE_SAMPLES = 16      # a device, in the profiled cascade reruns
 SLO, WINDOW, THRESHOLD = 0.15, 0.25, 0.5
 # tier-low's random weights are drawn at this scale (the tiers' default
 # is 0.02, which leaves every BvSB near 1e-3) so that its confidences
@@ -409,14 +428,28 @@ NO_LAUNCHES = dict.fromkeys(ops.launch_counts(), 0)
 # trained at full width and depth, SEAMT_STEPS steps of SEAMT_B x
 # SEAMT_FRAMES audio frames and SEAMT_S-token prompts; (d) xlstm-350m
 # trained at full width and depth, XLSTMT_STEPS steps of XLSTMT_B x
-# XLSTMT_S tokens; (e) each at 2 layers (seamless 2 + 2) against the CPU
+# XLSTMT_S tokens; (f) each at 2 layers (seamless 2 + 2) against the CPU.
+# Every layer is cut over the model ranks. (a)'s rings hold MESH_RING
+# slots, which its four model ranks divide, so its decode runs the partial
+# and merge entries; (b)'s hold MESH22_RING, which its two do not, so each
+# rank holds the whole ring and decodes its own heads through the
+# whole-ring entry. (e) RecurrentGemma-9B on an RGM_SHAPE mesh at
+# RGM_LAYERS layers (None: full depth): a prefill of RGM_B x RGM_S tokens,
+# RGM_STEPS serve steps, its 2,048-slot local rings cut in four. Its depth
+# is cut from 38 to 12 layers (8 RG-LRU, 4 local attention): at full depth
+# the prefill's all_reduces through the host took 31.0 s of a script that
+# outgrew its time limit
 MESH_RANKS, MESH_SHAPE, MESH_SEED = 4, (1, 4), 3
 MESH_B, MESH_S, MESH_STEPS = 4, 2048, 8
+MESH_RING = MESH_S + 16
+RGM_SHAPE, RGM_B, RGM_S, RGM_STEPS, RGM_LAYERS = (1, 4), 4, 3000, 8, 12
+RGM_PEAK_GB = 76         # (e)'s ranks' peaks together, at most
 MESH_TRAIN_B, MESH_TRAIN_STEPS = 2, 3
 MESH_GRAD_LAYERS, MESH22_STEPS = 2, 4
+MESH22_RING = MESH_S + MESH22_STEPS + 1
 MESH_PEAK_GB = 72        # the ranks' peaks together, at most
 SEAMT_B, SEAMT_FRAMES, SEAMT_S, SEAMT_STEPS = 2, 1024, 512, 3
-XLSTMT_B, XLSTMT_S, XLSTMT_STEPS = 2, 256, 2
+XLSTMT_B, XLSTMT_S, XLSTMT_STEPS = 2, 128, 2
 
 
 def card_rates(name: str):
@@ -437,8 +470,11 @@ def time_ms(fn, iters=25, warmup=10, spin=True):
     work back to back, not the host's launch rate; the spin grows until
     it outlasts the enqueue. ``iters`` stays small because the CUDA driver
     queues only about a thousand pending launches before the host blocks,
-    and a plain version makes some twenty per call. Host time: wall clock
-    per call, synchronised, which is what a caller of ``fn`` waits for.
+    and a plain version makes twenty to a hundred per call: an enqueue
+    that lasts as long as the spin waited behind it with the queue full,
+    and halves ``iters`` rather than grow a spin that cannot help. Host
+    time: wall clock per call, synchronised, which is what a caller of
+    ``fn`` waits for.
 
     ``spin=False`` is for a function that launches more kernels per call
     than the launch queue holds (the plain RG-LRU loop: three per time
@@ -474,7 +510,9 @@ def time_ms(fn, iters=25, warmup=10, spin=True):
         device_ms = start.elapsed_time(end) / iters
         if enqueue * 1e3 < spin / 4e6:
             break        # the enqueue took under half the spin
-        if spin < 2e9:
+        if enqueue * 1e3 >= 0.9 * spin / 2e6 and iters > 1:
+            iters //= 2  # the queue filled: the host waited out the spin
+        elif spin < 2e9:
             spin *= 4
         elif iters > 1:
             iters //= 2  # fewer launches pending behind the spin
@@ -1147,6 +1185,77 @@ def check_decode(dev):
     print("decode_attention refuses bf16 q over an f32 cache and f16")
 
 
+def shard_cases():
+    """(B, W, KV, G, hd, m, lengths) of decode over a ring cut on its W
+    slots, as phase 13 runs it: RecurrentGemma-9B's 2,048-slot local rings
+    over (e)'s four model ranks (full, as after its 3,000-token prompts;
+    partly filled, shards empty) and at B = 64; granite's rings of
+    MESH_RING slots over (a)'s four model ranks and cut in two; a small
+    ring cut eight ways."""
+    rg, gr = (RG_B, 2048, 1, 16, 256), (MESH_B, MESH_RING, 8, 2, 64)
+    return [rg + (4, [2048] * RG_B), rg + (4, [1, 700, 1500, 2048]),
+            (64, 2048, 1, 16, 256, 4, [2048] * 64),
+            gr + (4, [MESH_S + 1] * MESH_B),
+            gr + (2, [1, 600, MESH_RING, MESH_S + 3]),
+            (3, 128, 2, 4, 64, 8, [1, 10, 128])]
+
+
+def check_decode_shards(dev):
+    """Each rank's decode partial entry against its plain version over the
+    kernel's splits (m, l and acc within DECODE_ATOL plus 1e-4 relative),
+    a second call bitwise equal; the merge entry over the ranks' partials
+    summed (the gather) against the plain merge and against the whole
+    ring's plain decode (DECODE_ATOL), a second call bitwise equal; three
+    dtype pairs, uncapped and at gemma's cap (q and k drawn at CAP_QK)."""
+    for b, w, kv, g, hd, m, lengths in shard_cases():
+        ws = w // m
+        ns = _decode.shard_splits(b, kv, ws, _build.sm_count(dev), m)[0]
+        for dt, cdt in DECODE_DTYPES:
+            for cap in (None, CAP):
+                q, k, v, lens = decode_inputs(dev, b, w, kv, g, hd, lengths,
+                                              dt, cdt)
+                if cap:
+                    q, k = (q.float() * CAP_QK).to(dt), \
+                        (k.float() * CAP_QK).to(cdt)
+                parts, p_err, same, close = [], 0.0, True, True
+                for j in range(m):
+                    sk = k[:, j * ws:(j + 1) * ws].contiguous()
+                    sv = v[:, j * ws:(j + 1) * ws].contiguous()
+                    got = ops.decode_attention_partials(q, sk, sv, lens, j, m,
+                                                        cap)
+                    same &= torch.equal(got, ops.decode_attention_partials(
+                        q, sk, sv, lens, j, m, cap))
+                    ref = _decode.decode_attention_partials_plain(
+                        q, sk, sv, lens, j, m, cap, ns)
+                    diff = (got - ref).abs()
+                    p_err = max(p_err, float(diff.max()))
+                    close &= bool((diff <= DECODE_ATOL[dt]
+                                   + 1e-4 * ref.abs()).all())
+                    parts.append(got)
+                gathered = torch.stack(parts).sum(0)
+                out = ops.decode_attention_merge(gathered, q, kv)
+                torch.cuda.synchronize()
+                same &= torch.equal(out, ops.decode_attention_merge(
+                    gathered, q, kv))
+                err = max(max_err(out, _decode.decode_attention_merge_plain(
+                    gathered, q, kv)), max_err(out, decode_attention_plain(
+                        q, k, v, lens, cap)))
+                ok = close and same and err <= DECODE_ATOL[dt] \
+                    and out.dtype == dt
+                print(f"decode shards (B,W,KV,G,hd)=({b},{w},{kv},{g},{hd}) "
+                      f"over {m} ranks, {ns} splits a rank, lengths "
+                      f"{sorted(set(lengths))} {dtype_name(dt, cdt)}"
+                      f"{' capped' if cap else ''}: partials max|err| "
+                      f"{p_err:.3g}, merged max|err| {err:.3g} (atol "
+                      f"{DECODE_ATOL[dt]:g}); again: "
+                      f"{'bitwise equal' if same else 'DIFFER'}")
+                if not ok:
+                    raise AssertionError(
+                        f"decode partial / merge entries disagree at "
+                        f"{(b, w, kv, g, hd)} over {m} ranks "
+                        f"{dtype_name(dt, cdt)} cap {cap}")
+
+
 def rglru_inputs(dev, b, s, d, with_h0, seed=0):
     gen = torch.Generator(device=dev).manual_seed(seed)
     # a in (0.499, 0.999), the range the RG-LRU's gates give
@@ -1488,7 +1597,9 @@ def flex_library(q, k, v, causal, cap, do=None):
     autograd, the forward run once outside), or (None, the reason) where
     the card's install does not compile or run it. SDPA has no score
     modifier, so this is the one PyTorch call that computes capped
-    attention; the port never calls it."""
+    attention; the port never calls it. Prints the seconds its compile
+    and first call took."""
+    t0 = time.perf_counter()
     try:
         from torch.nn.attention.flex_attention import (create_block_mask,
                                                        flex_attention)
@@ -1520,6 +1631,9 @@ def flex_library(q, k, v, causal, cap, do=None):
                                            retain_graph=True)
             out = [g.transpose(1, 2) for g in call()]
         torch.cuda.synchronize()
+        print(f"flex attention{' backward' if do is not None else ''} on q "
+              f"{tuple(q.shape)}, k {tuple(k.shape)}: compiled and called "
+              f"once in {time.perf_counter() - t0:.1f} s")
         return call, out
     except Exception as err:  # noqa: BLE001 - the reason is the result
         torch.cuda.synchronize()
@@ -1643,6 +1757,59 @@ class Timer:
             None, _bound(b * m * 16 + b * 8, 12 * b * m, self.bw,
                          self.flops),
             max_err(conf, pconf), BVSB_ATOL[torch.float32], (b, m, 4))
+
+    def _shard_inputs(self, b, w, kv, g, hd, m):
+        """q, model rank 0's shard of a full ring of w slots cut in m, the
+        ring's lengths (all w), and the shard's split count."""
+        q, k, v, lens = decode_inputs(self.dev, b, w, kv, g, hd, [w] * b)
+        ws = w // m
+        ns = _decode.shard_splits(b, kv, ws, _build.sm_count(self.dev),
+                                  m)[0]
+        return q, k, v, lens, ns, ws
+
+    def decode_partials(self, arch, b, w, kv, g, hd, m=4):
+        """The decode partial entry on model rank 0's shard (B, W/m, KV,
+        hd) f32 of ``arch``'s full ring cut in m; no single PyTorch call
+        gives the partials. Bound: the shard's valid slots, q and the
+        lengths read once, this rank's splits of the buffer written once
+        (the zeros the entry writes over the other ranks' splits, for the
+        gather, are not the function's work), a q.k and a p.v FMA per
+        (query head, slot, head dim)."""
+        q, k, v, lens, ns, ws = self._shard_inputs(b, w, kv, g, hd, m)
+        sk, sv = k[:, :ws].contiguous(), v[:, :ws].contiguous()
+        got = ops.decode_attention_partials(q, sk, sv, lens, 0, m)
+        ref = _decode.decode_attention_partials_plain(q, sk, sv, lens, 0, m,
+                                                      None, ns)
+        own = _decode.partials_rows(b, kv, g, ns) * (2 + hd)
+        moved = (q.numel() + 2 * sk.numel() + own) * 4 + b * 4
+        return self._row(
+            ("decode_attention_partials", f"{arch} shard of {m} B={b}"),
+            lambda: ops.decode_attention_partials(q, sk, sv, lens, 0, m),
+            lambda: _decode.decode_attention_partials_plain(
+                q, sk, sv, lens, 0, m, None, ns), None,
+            _bound(moved, 4 * hd * b * ws * kv * g, self.bw, self.flops),
+            max_err(got, ref), DECODE_ATOL[torch.float32], (b, ws, kv, g, hd))
+
+    def decode_merge(self, arch, b, w, kv, g, hd, m=4):
+        """The decode merge entry over the m ranks' gathered partials of
+        ``arch``'s full ring, against the whole ring's plain decode; no
+        single PyTorch call computes it. Bound: the partials read once, the
+        output written once, a multiply-add of l and of acc and an exp per
+        (split, query head, head dim) element."""
+        q, k, v, lens, ns, ws = self._shard_inputs(b, w, kv, g, hd, m)
+        parts = torch.stack([ops.decode_attention_partials(
+            q, k[:, j * ws:(j + 1) * ws].contiguous(),
+            v[:, j * ws:(j + 1) * ws].contiguous(), lens, j, m)
+            for j in range(m)]).sum(0)
+        out = ops.decode_attention_merge(parts, q, kv)
+        return self._row(
+            ("decode_attention_merge", f"{arch} {m} shards B={b}"),
+            lambda: ops.decode_attention_merge(parts, q, kv),
+            lambda: _decode.decode_attention_merge_plain(parts, q, kv), None,
+            _bound((parts.numel() + q.numel()) * 4,
+                   5 * b * kv * m * ns * g * hd, self.bw, self.flops),
+            max_err(out, decode_attention_plain(q, k, v, lens)),
+            DECODE_ATOL[torch.float32], (b, kv, m * ns, g, hd))
 
     def bvsb_chunks(self, shapes=((8, 2048), (8, 8192), (8, 12288),
                                   (8, 16384), (1, 16384), (64, 16384),
@@ -2141,8 +2308,9 @@ class RecordingEngine(ServerEngine):
         return record
 
 
-def fleet(models, max_in_flight=1):
-    """A fresh cascade: clients, engine, scheduler and data, all seeded."""
+def fleet(models, max_in_flight=1, samples=SAMPLES):
+    """A fresh cascade: clients, engine, scheduler and data (``samples`` a
+    device), all seeded."""
     clients = [RecordingClient(i, models["tier-low"], DEVICE_PROFILES["low"],
                                SLO, WINDOW, THRESHOLD)
                for i in range(N_DEVICES)]
@@ -2157,12 +2325,12 @@ def fleet(models, max_in_flight=1):
                            slo=SLO, init_threshold=THRESHOLD)
     rng = np.random.default_rng(0)
     data = [[rng.integers(0, VOCAB, SEQ).astype(np.int32)
-             for _ in range(SAMPLES)] for _ in range(N_DEVICES)]
+             for _ in range(samples)] for _ in range(N_DEVICES)]
     return clients, engine, sched, data
 
 
-def cascade(models, run=run_cascade, max_in_flight=1):
-    clients, engine, sched, data = fleet(models, max_in_flight)
+def cascade(models, run=run_cascade, max_in_flight=1, samples=SAMPLES):
+    clients, engine, sched, data = fleet(models, max_in_flight, samples)
     res = run(clients, engine, sched, data, window=WINDOW,
               model_switching=True)
     if torch.cuda.is_available():
@@ -2178,22 +2346,30 @@ def _top_kernels(prof, n=6):
     return busy, sum(e.count for e in kernels), top
 
 
-def profile_main_path(models, wall, name="main path", **kw):
-    """Device time of a second, identical run under torch.profiler; the
-    idle share compares it with the unprofiled run's wall time. Only CUDA
-    activity is traced: the host-side operator records cost most of the
-    profiler's time over the run's ~356,000 launches and are not read."""
+def profile_main_path(models, name="main path", **kw):
+    """Device time of a cascade of PROFILE_SAMPLES samples a device under
+    torch.profiler; the idle share compares it with the wall of the same
+    cascade run just before without the profiler. The profiler's cost
+    grows with the launches it traces (the whole run's 356,049 took 91.2 s
+    under it against 7.573 s without, on an NVIDIA H100 80GB HBM3 at
+    700 W), so the run is cut from SAMPLES to PROFILE_SAMPLES a device.
+    Only CUDA activity is traced: the host-side operator records are not
+    read."""
     from torch.profiler import ProfilerActivity, profile
     t0 = time.perf_counter()
+    cascade(models, samples=PROFILE_SAMPLES, **kw)
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        cascade(models, **kw)
+        cascade(models, samples=PROFILE_SAMPLES, **kw)
     busy, launches, top = _top_kernels(prof, 8)
     if busy <= 0:
         raise AssertionError("the profiled rerun traced no device time")
-    print(f"{name} device time (profiled rerun, "
-          f"{time.perf_counter() - t0:.1f} s with the profiler): "
-          f"{busy:.4f} s busy over {wall:.3f} s of unprofiled wall, "
-          f"idle share {1 - busy / wall:.4f}; {launches} kernel launches")
+    print(f"{name} device time (profiled rerun of {PROFILE_SAMPLES} of the "
+          f"{SAMPLES} samples a device, {time.perf_counter() - t0:.1f} s "
+          f"with the profiler): {busy:.4f} s busy over {wall:.3f} s of "
+          f"unprofiled wall of the same run, idle share "
+          f"{1 - busy / wall:.4f}; {launches} kernel launches")
     for e in top:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  "
               f"{e.key[:90]}")
@@ -2256,7 +2432,7 @@ def main_path(dev):
     if failed:
         raise AssertionError(f"main path checks failed: {failed}")
 
-    profile_main_path(models, wall)
+    profile_main_path(models)
 
     # one 64-sample tier-server-heavy batch: card vs the same weights on CPU
     heavy = models["tier-server-heavy"]
@@ -2715,7 +2891,7 @@ def simulator_path(dev):
         if counts != {**NO_LAUNCHES, "bvsb": 1}:
             raise AssertionError(f"simulator path launches {counts}")
         t0 = time.perf_counter()
-        sim_widths(dev)
+        width_ref = sim_widths(dev)
         t1 = time.perf_counter()
         sim_profile(dev)
         t2 = time.perf_counter()
@@ -2733,17 +2909,21 @@ def simulator_path(dev):
               f"rerun {t2 - t1:.1f}, waiting for the CPU lanes "
               f"{time.perf_counter() - t2:.1f}")
     return counts, dict(hetero=hetero, hetero_wall=h_wall, env_wall=e_wall,
-                        peak_gb=peak_gb)
+                        peak_gb=peak_gb, width_ref=width_ref)
 
 
 def sim_widths(dev):
     """(a)'s fleet at SIM_WIDTH_S samples for each B, one call each: its
     wall includes building the buffers, the eager warm-up trips and the
-    graph's capture, as a user's first call of a structure does."""
+    graph's capture, as a user's first call of a structure does. Returns
+    the run of B = 9, (a)'s lanes, and its wall: phase 8's reference."""
+    runs = {}
     for b in SIM_WIDTHS:
         out, wall, trips = sim_run(dev, "hetero", range(b), SIM_WIDTH_S)
+        runs[b] = out, wall
         print(sim_line(f"simulator width B={b} S={SIM_WIDTH_S}", out, wall,
                        trips))
+    return runs[3 * len(SIM_SEEDS)]
 
 
 def sim_profile(dev):
@@ -2778,14 +2958,15 @@ REPLAY_N, REPLAY_S, REPLAY_SEED, REPLAY_SLO = 10, 80, 11, 0.16
 REPLAY_SERVERS = (ServerProfile("sdiff-fast", "synthetic", 0.90, 0.045, 16),
                   ServerProfile("sdiff-heavy", "synthetic", 0.94, 0.070, 16))
 REPLAY_SCENARIOS = ("steady", "churn", "churn_drift")
-# (c) 10,000 devices: n_pad 10,112, the automatic segment width 128. The
+# (c) 5,000 devices (benchmarks/fig_scale.py's 10,000 halved to fit the
+# script's time limit: the card's two runs took 43.5 s and the CPU's lane
+# 82.9 s at 10,000): n_pad 5,120, the automatic segment width 128. The
 # three tiers round-robin, each device's latency its tier's times a
 # jitter in [0.9, 1.1] (benchmarks/fig_scale.py's steady state: few
 # simultaneous completions, so the two frontiers take nearly the same
 # trips), MultiTASC++ with switching over phase 6's three servers, three
-# seeds. S = 3: about one trip a device completion, ~30,000 trips a run,
-# and the CPU's lane takes about a minute in its worker
-SEG_N, SEG_S, SEG_SEEDS = 10_000, 3, (0, 1, 2)
+# seeds. S = 3: about one trip a device completion, ~15,000 trips a run
+SEG_N, SEG_S, SEG_SEEDS = 5_000, 3, (0, 1, 2)
 
 
 def same_result(a, b):
@@ -2840,8 +3021,8 @@ def transport_path(dev, ref_run, ref_counts):
         if bad or got != want:
             raise AssertionError(f"run_transport at {slots} slot(s) differs "
                                  f"from run_cascade")
-    profile_main_path(models, walls[2], "transport (a) 2 slots",
-                      run=run_transport, max_in_flight=2)
+    profile_main_path(models, "transport (a) 2 slots", run=run_transport,
+                      max_in_flight=2)
     return total
 
 
@@ -2944,7 +3125,7 @@ def graph_replay_cost(args, kw, frontier_seg):
 
 
 def seg_path(dev, cpu_lane):
-    """(c): the 10,000-device fleet segmented and flat on the card, equal
+    """(c): the 5,000-device fleet segmented and flat on the card, equal
     but in n_events; lane 0 against the CPU."""
     args, kw = seg_inputs(SEG_N, SEG_S, len(SEG_SEEDS))
     static = jaxsim._static_of(args[0][0], len(args[4]), 0.05, SEG_N)
@@ -3030,10 +3211,12 @@ SHARD_RANKS = 4
 SHARD_GROUP_TIMEOUT_S = 300      # a collective nobody answers fails here
 SHARD_JOIN_TIMEOUT_S = 900       # the parent's deadline for all ranks
 # (b) runs phase 7c's first lane (S 3, seed 0) with its fleet cut from
-# 10,000 devices to 2,000 (n_pad 2,048): four ranks sharing one card spend
-# 6-21 ms an event in the exchange through the host (PERF.md), so
-# the full fleet's 30,085 events took 244-624 s, over the phase's 3 minutes
-SHARD_N = 2000
+# 5,000 devices to 500 (n_pad 512, a segment a rank): four ranks sharing
+# one card spend 6-21 ms an event in the exchange through the host
+# (PERF.md; an H100 80GB HBM3 at 700 W), so 10,000 devices' 30,085
+# events took 244-624 s, 2,000 devices' 6,021 events 57 s and 1,000
+# devices' 3,011 34-44 s, too long for the whole script's time limit
+SHARD_N = 500
 # tests/test_scale.py's rules for the device-sharded engine against the
 # local segmented one: dynamics exact, the float sums over the ranks'
 # partial sums within these relative tolerances
@@ -3084,8 +3267,8 @@ def shard_rank(rank, rendezvous, out_dir, dev_type, work, args):
 
 
 def phase8_work(mesh, dev, sweep_s, seg_n):
-    """A rank's share of phase 8: (a) phase 6(a)'s sweep through
-    run_sweep_sharded, (b) phase 7c's first lane (``seg_n`` devices)
+    """A rank's share of phase 8: (a) (a)'s 9 lanes at ``sweep_s`` samples
+    through run_sweep_sharded, (b) phase 7c's first lane (``seg_n`` devices)
     through run_device_sharded."""
     args, kw = sim_inputs("hetero", range(3 * len(SIM_SEEDS)), sweep_s)
     sweep = shard_timed(dev.type, lambda: jaxsim.run_sweep_sharded(
@@ -3128,15 +3311,20 @@ def shard_ranks(dev_type, work, *args):
             if p.is_alive():
                 p.kill()
                 p.join()
-    results = []
+    results, failed = [], []
     for r, p in enumerate(procs):
         path = out / f"rank{r}.pkl"
         res = pickle.loads(path.read_bytes()) if path.exists() else {}
         if p.exitcode != 0 or "error" in res:
-            raise AssertionError(
-                f"sharded rank {r} failed (exit code {p.exitcode}):\n"
-                f"{res.get('error', 'no result: stopped or timed out')}")
+            failed.append((r, p.exitcode, res.get(
+                "error", "no result: stopped or timed out")))
         results.append(res)
+    if failed:
+        # the ranks that failed on their own first (exit code 1), then those
+        # stopped here or failing in a collective with them
+        failed.sort(key=lambda f: (f[1] != 1, f[0]))
+        raise AssertionError("sharded ranks failed: " + "\n".join(
+            f"rank {r} (exit code {code}):\n{err}" for r, code, err in failed))
     return results, time.perf_counter() - t0
 
 
@@ -3170,12 +3358,13 @@ def shard_compare(got, ref, exact, exact_traces, tol, tol_traces):
 
 def sharded_path(dev, sweep_ref, sweep_s=SIM_S, seg_n=SHARD_N):
     """Phase 8: SHARD_RANKS ranks on the card. (a) run_sweep_sharded of
-    phase 6(a)'s sweep, every field on every rank equal to phase 6(a)'s
-    run_sweep bit for bit, 9 points counted as sharded; (b)
-    run_device_sharded of phase 7c's first lane cut to ``seg_n`` devices,
-    held to the same lane through the local segmented engine under
-    tests/test_scale.py's rules. ``sweep_ref`` is (phase 6(a)'s result,
-    its wall)."""
+    (a)'s 9 lanes at ``sweep_s`` samples, every field on every rank equal
+    to a run_sweep of them on the card bit for bit (the whole script
+    passes phase 6's width-sweep run at SIM_WIDTH_S), 9 points counted
+    as sharded; (b) run_device_sharded of phase 7c's first lane
+    cut to ``seg_n`` devices, held to the same lane through the local
+    segmented engine under tests/test_scale.py's rules. ``sweep_ref`` is
+    (that run's result, its wall)."""
     results, spawn_wall = shard_ranks(dev.type, phase8_work, sweep_s, seg_n)
     hetero, h_wall = sweep_ref
     b = len(hetero["sr"])
@@ -3185,17 +3374,17 @@ def sharded_path(dev, sweep_ref, sweep_s=SIM_S, seg_n=SHARD_N):
                                                       if k != "traces"),
                                tuple(hetero["traces"]), {}, {})
         if bad or st["sharded_points"] != b:
-            raise AssertionError(f"sharded (a) rank {r} differs from phase "
-                                 f"6(a) in {bad}, sharded_points "
+            raise AssertionError(f"sharded (a) rank {r} differs from the "
+                                 f"local run in {bad}, sharded_points "
                                  f"{st['sharded_points']}")
     walls = [res["sweep"][1] for res in results]
     trips = [res["sweep"][2]["trips"] for res in results]
     events = int(hetero["n_events"].sum())
-    print(f"sharded (a) run_sweep_sharded of phase 6(a)'s sweep (N={SIM_N} "
+    print(f"sharded (a) run_sweep_sharded of (a)'s lanes (N={SIM_N} "
           f"S={sweep_s}, B={b} padded to "
           f"{-(-b // SHARD_RANKS) * SHARD_RANKS}, {SHARD_RANKS} gloo ranks "
           f"on one card): every field on every rank equal bit for bit to "
-          f"phase 6(a)'s run_sweep, sharded_points {b}; wall "
+          f"the local run_sweep, sharded_points {b}; wall "
           f"{max(walls):.3f} s (ranks {', '.join(f'{w:.3f}' for w in walls)})"
           f" against the local run's {h_wall:.3f} s; loop trips per rank "
           f"{trips} ({max(walls) / max(trips) * 1e6:.2f} us a trip); "
@@ -4283,14 +4472,19 @@ def mesh_tokens(cfg, dev, b, s, seed):
                          device=dev)
 
 
-def mesh_expected_launches(cfg, steps):
+def mesh_expected_launches(cfg, steps, ring_cut=True):
     """A prefill and ``steps`` serve steps on a mesh: one flash launch an
-    attention layer, one decode launch an attention layer a step, one
-    BvSB partial and one merge launch a call (no whole-row BvSB)."""
+    attention layer and one scan an RG-LRU layer; an attention layer a
+    step one decode partial and one merge launch over rings cut on their
+    slots (else one whole-ring decode launch); one BvSB partial and one
+    merge launch a call (no whole-row BvSB)."""
     n = _attn_layers(cfg)
+    decode = {"decode_attention_partials": n * steps,
+              "decode_attention_merge": n * steps} if ring_cut else \
+        {"decode_attention": n * steps}
     return {**NO_LAUNCHES, "flash_attention": n,
-            "decode_attention": n * steps, "bvsb_partials": 1 + steps,
-            "bvsb_merge": 1 + steps}
+            "rglru_scan": cfg.pattern.count("rglru"), **decode,
+            "bvsb_partials": 1 + steps, "bvsb_merge": 1 + steps}
 
 
 def _timed(fn):
@@ -4302,17 +4496,18 @@ def _timed(fn):
     return out, time.perf_counter() - t0
 
 
-def mesh_serve(model, mesh, dev, tokens, steps):
-    """A prefill and ``steps`` serve steps feeding back top-1 on every rank,
-    the counters read around them: (per-step (conf, top1) on the host,
-    launches, prefill s, a serve step's s (mean after the first), the
-    collectives' tally of one more clocked serve step)."""
+def mesh_serve(model, mesh, dev, tokens, steps, cache_len=MESH_RING):
+    """A prefill into rings of ``cache_len`` slots (min(cache_len, window)
+    for a windowed layer) and ``steps`` serve steps feeding back top-1 on
+    every rank, the counters read around them: (per-step (conf, top1) on
+    the host, launches, prefill s, a serve step's s (mean after the
+    first), the collectives' tally of one more clocked serve step)."""
     prefill = make_prefill_step(model, mesh)
     serve = make_serve_step(model, mesh)
     b, s = tokens.shape
     ops.reset_launch_counts()
     (conf, top1, cache), prefill_s = _timed(
-        lambda: prefill(tokens, cache_len=s + steps + 1))
+        lambda: prefill(tokens, cache_len=cache_len))
     out, walls = [(conf.cpu(), top1.cpu())], []
     for i in range(steps):
         pos = torch.full((b,), s + i, dtype=torch.long, device=dev)
@@ -4334,11 +4529,11 @@ def mesh_grads(cfg, dev, mesh, rows):
     (summed over the data group) and on the one-card model of the same
     weights on each data rank's rows alone, the latter averaged (every
     row has the same count of labels, so den_r / den = 1 / rows): the
-    worst leaf's max |mesh - one-card| over its max |one-card| (an expert
-    leaf against its slice), and the losses."""
+    worst leaf's max |mesh - one-card| over its max |one-card| (a leaf the
+    model ranks cut against its part), and the losses."""
     from repro_torch.launch.distributed import make_loss_fn as loss_of
     from repro_torch.models.common import mesh_context
-    from repro_torch.models.model import expert_slices
+    from repro_torch.models.model import model_parts, part_index
     from repro_torch.training.trainer import all_reduce_grads, data_rows
     cfg = cfg.with_(num_layers=MESH_GRAD_LAYERS)
     mctx = mesh_context(mesh)
@@ -4361,17 +4556,70 @@ def mesh_grads(cfg, dev, mesh, rows):
         ref = gr if ref is None else {k: ref[k] + gr[k] for k in ref}
         ref_loss += float(lr) / rows
     ref = {k: v / rows for k, v in ref.items()}
-    experts = expert_slices(model)
-    errs = {k: _rel(v, ref[k][experts.get(k, slice(None))])
+    parts = model_parts(model)
+    errs = {k: _rel(v, ref[k][part_index(*parts[k]) if k in parts else ()])
             for k, v in g.items()}
     worst = max(errs, key=errs.get)
     return {"worst": worst, "err": errs[worst], "leaves": len(errs),
             "loss": float(loss), "ref_loss": ref_loss}
 
 
+def _rank_layout(model):
+    """What a rank holds of the layout: the shapes of its first attention
+    layer's wq / wk and of its first RG-LRU's w_gate (where the model has
+    them), and its parameter GB."""
+    out = {"params_gb": sum(p.numel() * p.element_size()
+                            for p in model.parameters()) / 1e9}
+    for name, p in model.named_parameters():
+        leaf = name.split(".", 2)[-1]
+        if leaf in ("attn.wq", "attn.wk", "rglru.w_gate", "mlp.w_gate",
+                    "embed.table") and leaf not in out:
+            out[leaf] = tuple(p.shape)
+    return out
+
+
+def rg_mesh_cfg():
+    cfg = get_config(RG_ARCH)
+    return cfg if RGM_LAYERS is None else cfg.with_(num_layers=RGM_LAYERS)
+
+
+def rg_mesh_tokens(cfg, dev):
+    rng = np.random.default_rng(21)
+    return torch.as_tensor(rng.integers(0, cfg.vocab_size, (RGM_B, RGM_S)),
+                           device=dev)
+
+
+def rg_mesh_work(dev):
+    """(e): RecurrentGemma-9B's weights drawn on every rank, each keeping
+    its parts, a prefill of RGM_B x RGM_S tokens and RGM_STEPS serve steps
+    on an RGM_SHAPE mesh."""
+    from repro_torch.launch.mesh import make_model_mesh
+    cfg = rg_mesh_cfg()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    free_gb = torch.cuda.mem_get_info()[0] / 1e9
+    mesh = make_model_mesh(RGM_SHAPE, device_type="cuda")
+    t0 = time.perf_counter()
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(
+        MESH_SEED), device=dev, mesh=mesh)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    steps, counts, prefill_s, step_s, clock = mesh_serve(
+        model, mesh, dev, rg_mesh_tokens(cfg, dev), RGM_STEPS,
+        cache_len=RGM_S + RGM_STEPS + 1)
+    out = dict(steps=steps, counts=counts, prefill_s=prefill_s,
+               step_s=step_s, clock=clock, init_s=init_s,
+               layout=_rank_layout(model), free_gb=free_gb,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
 def mesh_work(_, dev):
     """A rank's share of phase 13: (a) on the MESH_SHAPE mesh, then (b) on
-    (2, 2); its results, launches, walls, collectives and peak memory."""
+    (2, 2), then (e); its results, launches, walls, collectives and peak
+    memory."""
     from repro_torch.launch.mesh import make_model_mesh
     cfg = get_config(GRANITE_ARCH)
     out = {}
@@ -4387,7 +4635,8 @@ def mesh_work(_, dev):
         model, mesh, dev, tokens, MESH_STEPS)
     out["a_serve"] = dict(steps=steps, counts=counts, prefill_s=prefill_s,
                           step_s=step_s, clock=clock, init_s=init_s,
-                          experts=tuple(model.layers[0].moe.w_gate.shape))
+                          experts=tuple(model.layers[0].moe.w_gate.shape),
+                          layout=_rank_layout(model))
     data = SyntheticLM(DataConfig(cfg.vocab_size, MESH_S, MESH_TRAIN_B,
                                   seed=MESH_SEED), device=dev)
     step = make_train_step(model, mesh, remat=True, adamw=opt.AdamWConfig(
@@ -4416,7 +4665,7 @@ def mesh_work(_, dev):
     model = init_params(cfg, torch.Generator(device=dev).manual_seed(
         MESH_SEED), device=dev, mesh=mesh)
     steps, counts, prefill_s, step_s, clock = mesh_serve(
-        model, mesh, dev, tokens, MESH22_STEPS)
+        model, mesh, dev, tokens, MESH22_STEPS, cache_len=MESH22_RING)
     out["b_serve"] = dict(steps=steps, counts=counts, prefill_s=prefill_s,
                           step_s=step_s, clock=clock,
                           experts=tuple(model.layers[0].moe.w_gate.shape))
@@ -4424,6 +4673,8 @@ def mesh_work(_, dev):
     torch.cuda.empty_cache()
     out["b_grads"] = mesh_grads(cfg, dev, mesh, 2)
     out["b_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
+    out["e"] = rg_mesh_work(dev)
     return out
 
 
@@ -4435,12 +4686,12 @@ def _same_steps(results, key):
                for (c, t), (c0, t0) in zip(res[key]["steps"], ref))
 
 
-def _one_rank_steps(model, dev, tokens, steps):
+def _one_rank_steps(model, dev, tokens, steps, cache_len=MESH_RING):
     """The one-card prefill and the serve steps fed the tokens ``steps``
     (a list of (B,) top-1 from the mesh run), conf and top-1 a step."""
     prefill, serve = make_prefill_step(model), make_serve_step(model)
     b, s = tokens.shape
-    conf, top1, cache = prefill(tokens, cache_len=s + len(steps))
+    conf, top1, cache = prefill(tokens, cache_len=cache_len)
     out = [(conf.cpu(), top1.cpu())]
     for i, (_, fed) in enumerate(steps[:-1]):
         pos = torch.full((b,), s + i, dtype=torch.long, device=dev)
@@ -4455,9 +4706,94 @@ def _steps_err(got, ref):
     return err, all(torch.equal(t, rt) for (_, t), (_, rt) in zip(got, ref))
 
 
+def _one_rank_gapped(model, dev, tokens, steps, cache_len):
+    """``_one_rank_steps`` through the model's layers and ``head_bvsb`` (as
+    the one-card step factories run them), with each position's top-2
+    logit gap over the whole head: (conf, top1, gap) a step."""
+    cfg, table = model.cfg, model.head_table
+    b, s = tokens.shape
+    out = []
+
+    def emit(hidden):
+        conf, top1 = head_bvsb(hidden, table, cfg.vocab_size)
+        top2 = torch.topk(hidden[:, -1].float() @ table.float().T, 2).values
+        out.append((conf.cpu(), top1.cpu(), (top2[:, 0] - top2[:, 1]).cpu()))
+    with torch.inference_mode():
+        hidden, cache = model(tokens, collect_cache=True, cache_len=cache_len,
+                              return_hidden=True)
+        emit(hidden[:, -1:])
+        for i, (_, fed) in enumerate(steps[:-1]):
+            pos = torch.full((b,), s + i, dtype=torch.long, device=dev)
+            hidden, cache = model.decode_step(fed.to(dev)[:, None], cache,
+                                              pos, return_hidden=True)
+            emit(hidden)
+    return out
+
+
+def rg_mesh_check(dev, e, results):
+    """(e) against the one-card run of the same weights and tokens, fed
+    the mesh run's top-1: BvSB within BVSB_ATOL, top-1 equal wherever the
+    one-card top-2 logit gap exceeds TOP2_GAP; every rank bitwise equal;
+    the launches; the peaks. Prints the walls and the all_reduces."""
+    cfg = rg_mesh_cfg()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(
+        MESH_SEED), device=dev)
+    tokens = rg_mesh_tokens(cfg, dev)
+    t0 = time.perf_counter()
+    ref = _one_rank_gapped(model, dev, tokens, e["steps"],
+                           RGM_S + RGM_STEPS + 1)
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    one_peak = torch.cuda.max_memory_allocated() / 1e9
+    del model
+    torch.cuda.empty_cache()
+    err = max(max_err(c, rc) for (c, _), (rc, _, _) in zip(e["steps"], ref))
+    clear = [g > TOP2_GAP for _, _, g in ref]
+    top1 = all(torch.equal(t[m], rt[m]) for (_, t), (_, rt, _), m
+               in zip(e["steps"], ref, clear))
+    n_clear = sum(int(m.sum()) for m in clear)
+    same = all(torch.equal(bits(c), bits(c0)) and torch.equal(t, t0)
+               for res in results
+               for (c, t), (c0, t0) in zip(res["e"]["steps"], e["steps"]))
+    want = mesh_expected_launches(cfg, RGM_STEPS)
+    bad = [r for r, res in enumerate(results) if res["e"]["counts"] != want]
+    peaks = [res["e"]["peak_gb"] for res in results]
+    c = e["clock"]
+    print(f"mesh (e) {RG_ARCH} at full width, {cfg.num_layers} layers, on a "
+          f"{RGM_SHAPE} mesh ({MESH_RANKS} gloo ranks on one card; a rank "
+          f"holds {e['layout']}; init {e['init_s']:.3f} s): prefill "
+          f"{RGM_B} x {RGM_S} {e['prefill_s']:.3f} s "
+          f"({RGM_B * RGM_S / e['prefill_s']:.1f} tokens/s), {RGM_STEPS} "
+          f"serve steps {e['step_s'] * 1e3:.2f} ms a step; BvSB max|err| "
+          f"{err:.3g} against the one-card run (its prefill and steps "
+          f"{ref_s:.3f} s, peak {one_peak:.3f} GB), top-1 "
+          f"{'equal' if top1 else 'DIFFERS'} at the {n_clear} of "
+          f"{len(clear) * RGM_B} positions whose top-2 gap exceeds "
+          f"{TOP2_GAP:g}, every rank "
+          f"{'bitwise equal' if same else 'DIFFERS'}; a clocked serve step "
+          f"{c['wall'] * 1e3:.2f} ms, {c['n']} all_reduces "
+          f"{c['s'] * 1e3:.2f} ms ({c['s'] / c['wall']:.4f} of it); each "
+          f"rank's peak {', '.join('%.3f' % x for x in peaks)} GB (together "
+          f"{sum(peaks):.3f}, limit {RGM_PEAK_GB}); launches a rank "
+          f"{e['counts']}")
+    checks = {"(e) BvSB": err <= BVSB_ATOL[torch.float32] and top1,
+              "(e) ranks equal": same, "(e) launches": not bad,
+              "(e) peaks": sum(peaks) <= RGM_PEAK_GB}
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"mesh (e) checks failed: {failed} (launches "
+                             f"off on ranks {bad})")
+    return dict(prefill_s=e["prefill_s"], step_ms=e["step_s"] * 1e3,
+                share=c["s"] / c["wall"], n_all_reduce=c["n"],
+                peak_gb=max(peaks))
+
+
 def mesh_lm_path(dev):
-    """Phase 13 (a) and (b): MESH_RANKS ranks spawned on the card, each
-    running ``mesh_work``; every rank's conf and top-1 equal bit for bit;
+    """Phase 13 (a), (b) and (e): MESH_RANKS ranks spawned on the card,
+    each running ``mesh_work``; every rank's conf and top-1 equal bit for
+    bit; (e) held to its one-card run (``rg_mesh_check``);
     (a) held to the one-card steps on the same weights and tokens (BvSB
     within BVSB_ATOL, top-1 equal, the train losses within
     TRAIN_LOSS_RTOL), (b)'s rows to one-card runs on each data rank's rows
@@ -4478,7 +4814,7 @@ def mesh_lm_path(dev):
     b_ref = [_one_rank_steps(model, dev, tokens[r * half:(r + 1) * half],
                              [(c[r * half:(r + 1) * half],
                                t[r * half:(r + 1) * half])
-                              for c, t in b["steps"]])
+                              for c, t in b["steps"]], MESH22_RING)
              for r in range(2)]
     b_ref = [(torch.cat([x[i][0] for x in b_ref]),
               torch.cat([x[i][1] for x in b_ref]))
@@ -4503,7 +4839,8 @@ def mesh_lm_path(dev):
     same_losses = all(res["a_train"]["losses"] == losses for res in results)
     want = {"a_serve": mesh_expected_launches(cfg, MESH_STEPS),
             "a_train": train_expected_launches(cfg, MESH_TRAIN_STEPS, True),
-            "b_serve": mesh_expected_launches(cfg, MESH22_STEPS)}
+            "b_serve": mesh_expected_launches(cfg, MESH22_STEPS,
+                                              ring_cut=False)}
     bad_counts = [(r, k) for r, res in enumerate(results)
                   for k in want if res[k]["counts"] != want[k]]
     peaks = [res["a_peak_gb"] for res in results], \
@@ -4513,7 +4850,8 @@ def mesh_lm_path(dev):
     n_tok = MESH_B * MESH_S
     print(f"mesh (a) {GRANITE_ARCH} at full width and depth on a "
           f"{MESH_SHAPE} mesh ({MESH_RANKS} gloo ranks on one card, experts "
-          f"{a['experts']} a rank; init {a['init_s']:.3f} s): prefill "
+          f"{a['experts']} a rank, a rank holds {a['layout']}; rings of "
+          f"{MESH_RING} slots; init {a['init_s']:.3f} s): prefill "
           f"{MESH_B} x {MESH_S} {a['prefill_s']:.3f} s ({n_tok / a['prefill_s']:.1f} "
           f"tokens/s), {MESH_STEPS} serve steps {a['step_s'] * 1e3:.2f} ms a "
           f"step; BvSB max|err| {a_err:.3g} against the one-card steps, "
@@ -4536,14 +4874,17 @@ def mesh_lm_path(dev):
           f"all_reduces {tr['clock']['s'] * 1e3:.1f} ms "
           f"({tr['clock']['s'] / tr['clock']['wall']:.4f} of it)")
     print(f"mesh (b) the same weights on a (2, 2) mesh (experts "
-          f"{b['experts']} a rank): prefill {b['prefill_s']:.3f} s, "
+          f"{b['experts']} a rank; rings of {MESH22_RING} slots, whole on "
+          f"every rank): prefill {b['prefill_s']:.3f} s, "
           f"{MESH22_STEPS} serve steps {b['step_s'] * 1e3:.2f} ms a step; "
           f"each data rank's rows against one-card runs on those rows alone "
           f"(their own capacity): BvSB max|err| {b_err:.3g}, top-1 "
           f"{'equal' if b_top1 else 'DIFFERS'}, every rank "
           f"{'bitwise equal' if _same_steps(results, 'b_serve') else 'DIFFERS'}"
           f"; a clocked serve step {b['clock']['wall'] * 1e3:.2f} ms, "
-          f"{b['clock']['s'] / b['clock']['wall']:.4f} in all_reduces")
+          f"{b['clock']['n']} all_reduces "
+          f"({b['clock']['s'] / b['clock']['wall']:.4f} of it); launches a "
+          f"rank {b['counts']}")
     for k, rows in (("a_grads", TRAIN_CHECK_B), ("b_grads", 2)):
         g = grads[k]
         print(f"mesh ({k[0]}) gradients at {MESH_GRAD_LAYERS} layers on "
@@ -4552,7 +4893,8 @@ def mesh_lm_path(dev):
               f"{g['err']:.3g} of its max |g| (tol {TRAIN_GRAD_TOL:g}) over "
               f"{g['leaves']} leaves a rank")
     print(f"mesh: each rank's peak {', '.join('%.3f' % p for p in peaks[0])}"
-          f" GB in (a), {', '.join('%.3f' % p for p in peaks[1])} GB in (b) "
+          f" GB in (a) (the dense layers whole on every rank: 8.153 GB a "
+          f"rank), {', '.join('%.3f' % p for p in peaks[1])} GB in (b) "
           f"(together {sum(peaks[0]):.3f} / {sum(peaks[1]):.3f}, limit "
           f"{MESH_PEAK_GB}); launches a rank {results[0]['a_serve']['counts']}"
           f" (a serve), {results[0]['a_train']['counts']} (a train), "
@@ -4574,19 +4916,22 @@ def mesh_lm_path(dev):
     if failed:
         raise AssertionError(f"mesh checks failed: {failed} (launches off "
                              f"at {bad_counts})")
+    e = rg_mesh_check(dev, results[0]["e"], results)
     total = {}
     for res in results:
         for k in want:
             _add_counts(total, res[k]["counts"])
+        _add_counts(total, res["e"]["counts"])
     return total, dict(prefill_s=a["prefill_s"], step_ms=a["step_s"] * 1e3,
                        train_ms=tr["walls"][-1] * 1e3,
-                       peak_gb=max(sum(p) for p in peaks))
+                       peak_gb=max(sum(p) for p in peaks),
+                       rank_peak_gb=max(peaks[0]), rg=e)
 
 
 def mesh_path(dev):
-    """Phase 13: (a), (b) over the ranks; (c) seamless and (d) xLSTM
-    trained on the card at full width and depth; (e) both against the CPU
-    at 2 layers. Returns (launches, figures)."""
+    """Phase 13: (a), (b) and (e) over the ranks; (c) seamless and (d)
+    xLSTM trained on the card at full width and depth; (f) both against
+    the CPU at 2 layers. Returns (launches, figures)."""
     counts, out = mesh_lm_path(dev)
     sc, out["seamless"] = lm_train_path(
         dev, "13c", get_config(SEAM_ARCH), SEAMT_B, SEAMT_S, SEAMT_STEPS, 2,
@@ -4603,18 +4948,27 @@ def mesh_path(dev):
 
 
 def mesh_rows(timer):
-    """Phase 3's rows of the partial and merge entries at granite's shard
-    (phase 13's B and 64)."""
-    return {"bvsb_partials": {f"B={b}": timer.bvsb_partials(b)
+    """Phase 3's rows of the partial and merge entries: BvSB's at granite's
+    shard (phase 13's B and 64), decode attention's at RecurrentGemma-9B's
+    ring cut in four ((e)'s B and 64) and at granite's ((a)'s)."""
+    rg, gr = (RG_ARCH, 2048, 1, 16, 256), (GRANITE_ARCH, MESH_RING, 8, 2, 64)
+    rows = {"bvsb_partials": {f"B={b}": timer.bvsb_partials(b)
                               for b in (MESH_B, 64)},
             "bvsb_merge": {f"B={b}": timer.bvsb_merge(b)
                            for b in (MESH_B, 64)}}
+    for name, fn in (("decode_attention_partials", timer.decode_partials),
+                     ("decode_attention_merge", timer.decode_merge)):
+        rows[name] = {f"B={RGM_B}": fn(rg[0], RGM_B, *rg[1:]),
+                      "B=64": fn(rg[0], 64, *rg[1:]),
+                      "granite": fn(gr[0], MESH_B, *gr[1:])}
+    return rows
 
 
 def mesh_only(dev, timer):
     """``mesh``: the partial and merge checks and rows of phase 3, then
     phase 13."""
     check_bvsb_partials(dev)
+    check_decode_shards(dev)
     mesh_rows(timer)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -4664,17 +5018,16 @@ def main(argv) -> int:
         return mesh_only(dev, Timer(dev, bw, flops, tc))
 
     t1 = time.perf_counter()
-    check_bvsb(dev)
-    check_flash(dev)
-    check_decode(dev)
-    check_rglru(dev)
-    check_flash_bwd(dev)
-    check_rglru_bwd(dev)
-    check_rglru_bwd_paths(dev)
-    check_grad_guard(dev)
-    check_capped(dev)
-    check_bvsb_partials(dev)
+    laps = []
+    for check in (check_bvsb, check_flash, check_decode, check_rglru,
+                  check_flash_bwd, check_rglru_bwd, check_rglru_bwd_paths,
+                  check_grad_guard, check_capped, check_bvsb_partials,
+                  check_decode_shards):
+        t = time.perf_counter()
+        check(dev)
+        laps.append((check.__name__, time.perf_counter() - t))
     timer = Timer(dev, bw, flops, tc)
+    t = time.perf_counter()
     for b in (1, 16, 64):
         timer.bvsb(b)
     timer.flash("tier-low", 1)
@@ -4693,6 +5046,8 @@ def main(argv) -> int:
                        cache_dt=torch.bfloat16)}
     scan_rows = {"bf16": timer.rglru_rg(dt=torch.bfloat16),
                  "b1": timer.rglru_rg(b=1)}
+    laps.append(("the serving paths' times", time.perf_counter() - t))
+    t = time.perf_counter()
     # the zoo's prefill and decode attention (phase 9), rings full
     zoo_rows = {"flash_attention": {}, "decode_attention": {}}
     for name, _, _ in ZOO_MODELS:
@@ -4701,14 +5056,22 @@ def main(argv) -> int:
         zoo_rows["flash_attention"][name] = timer.flash(name, ZOO_B, ZOO_S)
         zoo_rows["decode_attention"][name] = timer.decode_at(
             name, ZOO_B, ZOO_S, kv, cfg.num_heads // kv, hd)
-    zoo10_timing = zoo10_rows(timer)
-    train_timing = train_rows(timer)
-    cap_timing = cap_rows(timer)
-    mesh_timing = mesh_rows(timer)
-    timer.bvsb_chunks()
-    timer.decode_splits()
-    timer.rglru_tiles()
+    laps.append(("the zoo's times", time.perf_counter() - t))
+    timing = {}
+    for name, rows in (("rest of the zoo", zoo10_rows),
+                       ("training", train_rows), ("soft cap", cap_rows),
+                       ("mesh", mesh_rows)):
+        t = time.perf_counter()
+        timing[name] = rows(timer)
+        laps.append((f"{name} times", time.perf_counter() - t))
+    zoo10_timing, train_timing, cap_timing, mesh_timing = timing.values()
+    for sweep in (timer.bvsb_chunks, timer.decode_splits, timer.rglru_tiles):
+        t = time.perf_counter()
+        sweep()
+        laps.append((sweep.__name__, time.perf_counter() - t))
     torch.cuda.empty_cache()
+    print("kernels phase seconds: " + ", ".join(f"{name} {sec:.1f}"
+                                                for name, sec in laps))
 
     t2 = time.perf_counter()
     counts, engine, cascade_run = main_path(dev)
@@ -4720,7 +5083,7 @@ def main(argv) -> int:
     transport_counts = transport_replay_seg_path(dev, cascade_run, counts)
     t6 = time.perf_counter()
     torch.cuda.empty_cache()
-    sharded_path(dev, (sim["hetero"], sim["hetero_wall"]))
+    sharded_path(dev, sim["width_ref"], sweep_s=SIM_WIDTH_S)
     t7 = time.perf_counter()
     zoo_counts, zoo = zoo_path(dev)
     t8 = time.perf_counter()
@@ -4771,7 +5134,11 @@ def main(argv) -> int:
             ("rglru_scan_bwd", "rglru_scan.cu",
              "src/repro/kernels/rglru_scan.py:44"),
             ("bvsb_partials", "bvsb.cu", "src/repro/kernels/bvsb.py:82"),
-            ("bvsb_merge", "bvsb.cu", "src/repro/kernels/bvsb.py:82")):
+            ("bvsb_merge", "bvsb.cu", "src/repro/kernels/bvsb.py:82"),
+            ("decode_attention_partials", "decode_attention.cu",
+             "src/repro/kernels/decode_attention.py:59"),
+            ("decode_attention_merge", "decode_attention.cu",
+             "src/repro/kernels/decode_attention.py:59")):
         by_path = {"cascade": counts[name], RG_ARCH: rg_counts[name],
                    "simulator": sim_counts[name],
                    "transport": transport_counts[name],
@@ -4781,7 +5148,8 @@ def main(argv) -> int:
                    "softcap": cap_counts[name],
                    "mesh (summed over the ranks)": mesh_counts[name]}
         # a backward kernel's row: RecurrentGemma's training shape; the
-        # partial and merge entries': granite's shard at phase 13's B
+        # partial and merge entries': BvSB's at granite's shard, decode's
+        # at RecurrentGemma's ring cut in four, at phase 13's B
         row = rg_rows.get(name) or (
             mesh_timing[name][f"B={MESH_B}"] if name in mesh_timing else
             train_timing[name][RG_ARCH if name == "flash_attention_bwd"
@@ -4803,6 +5171,8 @@ def main(argv) -> int:
                             if k in b64_rows[name]}
         extra = {"rglru_scan": scan_rows,
                  "decode_attention": decode_rows}.get(name, {})
+        if name.startswith("decode_attention_"):
+            extra = {GRANITE_ARCH: mesh_timing[name]["granite"]}
         entry.update({tag: {k: row[k] for k in keys if k in row}
                       for tag, row in extra.items()})
         if name in zoo_rows:
@@ -4850,7 +5220,13 @@ def main(argv) -> int:
     print(f"mesh path: (a) prefill {meshed['prefill_s']:.3f} s, serve "
           f"{meshed['step_ms']:.2f} ms a step, training "
           f"{meshed['train_ms']:.1f} ms a step, the ranks' peaks together "
-          f"{meshed['peak_gb']:.3f} GB; seamless training "
+          f"{meshed['peak_gb']:.3f} GB (a rank at most "
+          f"{meshed['rank_peak_gb']:.3f}); (e) {RG_ARCH} prefill "
+          f"{meshed['rg']['prefill_s']:.3f} s, serve "
+          f"{meshed['rg']['step_ms']:.2f} ms a step "
+          f"({meshed['rg']['n_all_reduce']} all_reduces, "
+          f"{meshed['rg']['share']:.4f} of a step), a rank's peak at most "
+          f"{meshed['rg']['peak_gb']:.3f} GB; seamless training "
           f"{meshed['seamless']['step_ms']:.1f} ms a step, xLSTM "
           f"{meshed['xlstm']['step_ms']:.1f}")
     for name in (GRANITE_ARCH, RG_ARCH):

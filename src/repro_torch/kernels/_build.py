@@ -26,8 +26,11 @@ import torch
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 # <repo>/build/repro_torch for a source checkout (src/repro_torch/kernels)
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+# --split-compile=0: each nvcc runs its optimisation passes on as many
+# threads as the machine has cores; the flash sources' 40 and 52 kernels
+# otherwise go through ptxas one after another
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC", "--split-compile=0")
 
 # dtype codes shared with csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -60,6 +63,10 @@ _SIGNATURES = {
     + [_c_int] * 3 + [_c_ptr],
     "repro_decode_attention": [_c_ptr] * 6 + [_c_int] * 9 + [_c_ll] * 10
     + [_c_float, _c_float, _c_ptr],
+    "repro_decode_attention_partials": [_c_ptr] * 5 + [_c_int] * 12
+    + [_c_ll] * 8 + [_c_float, _c_float, _c_ptr],
+    "repro_decode_attention_merge": [_c_ptr] * 2 + [_c_int] * 6
+    + [_c_ll] * 2 + [_c_ptr],
 }
 
 _LOCK = threading.Lock()

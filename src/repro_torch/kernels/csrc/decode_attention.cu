@@ -64,6 +64,15 @@
 //   the partial kernel, behind a template flag (kCap) so that the uncapped
 //   instantiations are the code they were; tanhf, not tanh.approx.f32,
 //   whose error times the cap would miss the 1e-4 gate.
+// * A ring cut over ranks on its W slots (decode context parallelism, the
+//   JAX package's cache_shardings; the TPU kernel has no such form, GSPMD
+//   partitions its XLA decode): the partial entry runs the partial kernel
+//   over a rank's shard, lengths clipped to it, and writes the rank's
+//   splits into its place in one buffer of all ranks' splits, rank by rank;
+//   the caller gathers the buffer (a sum of zero-filled buffers) and the
+//   merge entry runs the merge kernel over every rank's splits in that
+//   order, so a repeat is bitwise. An empty shard (the ring not yet filled
+//   past it) writes m = -1e30, l = 0, acc = 0 and weighs nothing.
 #include <cstdint>
 
 #include "common.cuh"
@@ -368,6 +377,11 @@ __device__ __forceinline__ void load_tile(T* slot, const T* kb, const T* vb,
 // One block per (split, KV head, request): the partial softmax state of
 // the group's G query heads over keys [split * chunk, min(.. + chunk,
 // length)), written to m_part / l_part (rows of G) and acc_part (G x hd).
+// Over a shard of a ring (slots [w0, w0 + W) of a wider one) the length is
+// clipped to the shard, and the block writes split split0 + split of
+// ns_total per (request, KV head), so that the shards' partials of all
+// ranks sit in one buffer in rank order; the whole ring is w0 = 0,
+// split0 = 0, ns_total = NS.
 template <typename TQ, typename T, int HD, bool kCap>
 __global__ void __launch_bounds__(kThreads, 2)
 decode_partial_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
@@ -376,7 +390,7 @@ decode_partial_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
                       float* __restrict__ acc_part, int W, int G, int hd,
                       int chunk, long long qsb, long long qsh, CacheStrides ks,
                       CacheStrides vs, float scale, float cap, float inv_cap,
-                      int aligned) {
+                      int aligned, int w0, int ns_total, int split0) {
   using M = Mma<TQ, T, HD>;
   constexpr int ldk = ld_k<T, HD>(), ldv = ld_v<T, HD>();
   constexpr int kSlot = slot_elems<T, HD>();
@@ -388,10 +402,13 @@ decode_partial_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
   const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, c = lane & 3;
-  const int len = min(lengths[b], W);
+  // slots of this ring (a shard starting at global slot w0) the length
+  // covers: clip(length - w0, 0, W)
+  const int len = min(max(lengths[b] - w0, 0), W);
   const int k0 = split * chunk, k1 = min(k0 + chunk, len);
   const long long row0 =
-      ((static_cast<long long>(b) * gridDim.y + kvh) * gridDim.x + split) * G;
+      ((static_cast<long long>(b) * gridDim.y + kvh) * ns_total + split0 +
+       split) * G;
 
   if (k1 <= k0) {  // no valid slot: weight 0 in the merge
     for (int e = tid; e < G * hd; e += kThreads) acc_part[row0 * hd + e] = 0.f;
@@ -581,14 +598,16 @@ decode_merge_kernel(const float* __restrict__ m_part,
       from_f32<T>(acc * (1.f / fmaxf(l, 1e-30f)));
 }
 
+// The partial kernel over NS splits (written at split0 of ns_total), then,
+// where o is not null, the merge of all ns_total splits into o.
 template <typename TQ, typename T, int HD, bool kCap>
 cudaError_t launch_hd(const void* q, const void* k, const void* v,
                       const int* lengths, float* scratch, void* o, int B,
                       int W, int H, int KV, int hd, int NS, int chunk,
                       long long qsb, long long qsh, CacheStrides ks,
                       CacheStrides vs, long long osb, long long osh,
-                      float scale, float cap, int aligned,
-                      cudaStream_t stream) {
+                      float scale, float cap, int aligned, int w0,
+                      int ns_total, int split0, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<T, HD>();
   static bool raised = false;  // the dynamic limit, once per instantiation
   if (!raised) {
@@ -599,7 +618,7 @@ cudaError_t launch_hd(const void* q, const void* k, const void* v,
     raised = true;
   }
   const int G = H / KV;
-  const long long rows = static_cast<long long>(B) * KV * NS * G;
+  const long long rows = static_cast<long long>(B) * KV * ns_total * G;
   float* m_part = scratch;
   float* l_part = scratch + rows;
   float* acc_part = scratch + 2 * rows;
@@ -607,16 +626,18 @@ cudaError_t launch_hd(const void* q, const void* k, const void* v,
       <<<dim3(NS, KV, B), kThreads, smem, stream>>>(
       static_cast<const TQ*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), lengths, m_part, l_part, acc_part, W, G, hd,
-      chunk, qsb, qsh, ks, vs, scale, cap, kCap ? 1.f / cap : 0.f, aligned);
+      chunk, qsb, qsh, ks, vs, scale, cap, kCap ? 1.f / cap : 0.f, aligned,
+      w0, ns_total, split0);
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  if (err != cudaSuccess || o == nullptr) return err;
   const dim3 merge_grid((G * hd + kMergeThreads - 1) / kMergeThreads, KV, B);
   return launch_dependent(decode_merge_kernel<TQ>, merge_grid,
                           dim3(kMergeThreads), stream,
                           static_cast<const float*>(m_part),
                           static_cast<const float*>(l_part),
                           static_cast<const float*>(acc_part),
-                          static_cast<TQ*>(o), NS, G, hd, osb, osh);
+                          static_cast<TQ*>(o), ns_total, G, hd, osb,
+                          osh);
 }
 
 template <typename TQ, typename T, bool kCap>
@@ -625,19 +646,19 @@ cudaError_t launch_cap(const void* q, const void* k, const void* v,
                        int W, int H, int KV, int hd, int NS, int chunk,
                        long long qsb, long long qsh, CacheStrides ks,
                        CacheStrides vs, long long osb, long long osh,
-                       float scale, float cap, int aligned,
-                       cudaStream_t stream) {
+                       float scale, float cap, int aligned, int w0,
+                       int ns_total, int split0, cudaStream_t stream) {
   if (hd <= 64)
-    return launch_hd<TQ, T, 64, kCap>(q, k, v, lengths, scratch, o, B, W, H,
-                                      KV, hd, NS, chunk, qsb, qsh, ks, vs, osb,
-                                      osh, scale, cap, aligned, stream);
+    return launch_hd<TQ, T, 64, kCap>(
+        q, k, v, lengths, scratch, o, B, W, H, KV, hd, NS, chunk, qsb, qsh, ks,
+        vs, osb, osh, scale, cap, aligned, w0, ns_total, split0, stream);
   if (hd <= 128)
-    return launch_hd<TQ, T, 128, kCap>(q, k, v, lengths, scratch, o, B, W, H,
-                                       KV, hd, NS, chunk, qsb, qsh, ks, vs,
-                                       osb, osh, scale, cap, aligned, stream);
-  return launch_hd<TQ, T, 256, kCap>(q, k, v, lengths, scratch, o, B, W, H,
-                                     KV, hd, NS, chunk, qsb, qsh, ks, vs, osb,
-                                     osh, scale, cap, aligned, stream);
+    return launch_hd<TQ, T, 128, kCap>(
+        q, k, v, lengths, scratch, o, B, W, H, KV, hd, NS, chunk, qsb, qsh, ks,
+        vs, osb, osh, scale, cap, aligned, w0, ns_total, split0, stream);
+  return launch_hd<TQ, T, 256, kCap>(
+      q, k, v, lengths, scratch, o, B, W, H, KV, hd, NS, chunk, qsb, qsh, ks,
+      vs, osb, osh, scale, cap, aligned, w0, ns_total, split0, stream);
 }
 
 template <typename TQ, typename T>
@@ -646,7 +667,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    int H, int KV, int hd, int NS, int chunk, long long qsb,
                    long long qsh, CacheStrides ks, CacheStrides vs,
                    long long osb, long long osh, float scale, float cap,
-                   cudaStream_t stream) {
+                   int w0, int ns_total, int split0, cudaStream_t stream) {
   // cp.async needs every row start 16-byte aligned and whole tile rows
   const long long e = 16 / sizeof(T);
   auto al = [&](const void* p, const CacheStrides& st) {
@@ -658,10 +679,45 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   if (cap > 0.f)
     return launch_cap<TQ, T, true>(q, k, v, lengths, scratch, o, B, W, H, KV,
                                    hd, NS, chunk, qsb, qsh, ks, vs, osb, osh,
-                                   scale, cap, aligned, stream);
+                                   scale, cap, aligned, w0, ns_total, split0,
+                                   stream);
   return launch_cap<TQ, T, false>(q, k, v, lengths, scratch, o, B, W, H, KV,
                                   hd, NS, chunk, qsb, qsh, ks, vs, osb, osh,
-                                  scale, cap, aligned, stream);
+                                  scale, cap, aligned, w0, ns_total, split0,
+                                  stream);
+}
+
+// The three type pairs; o null runs the partial kernel alone.
+int dispatch(const void* q, const void* k, const void* v, const void* lengths,
+             void* scratch, void* o, int q_dtype, int c_dtype, int B, int W,
+             int H, int KV, int hd, int NS, int chunk, long long qsb,
+             long long qsh, long long ksb, long long ksw, long long ksh,
+             long long vsb, long long vsw, long long vsh, long long osb,
+             long long osh, float scale, float cap, int w0, int ns_total,
+             int split0, void* stream) {
+  if (hd > kMaxHD || hd <= 0 || KV <= 0 || H % KV != 0 || H / KV > kMaxG ||
+      NS <= 0 || ns_total > kMaxSplits || split0 < 0 ||
+      split0 + NS > ns_total || chunk <= 0 || chunk % kTile != 0 ||
+      static_cast<long long>(NS) * chunk < W || B <= 0 || B > 65535 ||
+      KV > 65535 || w0 < 0 || !(cap >= 0.f))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const CacheStrides ks{ksb, ksw, ksh}, vs{vsb, vsw, vsh};
+  const int* len = static_cast<const int*>(lengths);
+  float* sc = static_cast<float*>(scratch);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (q_dtype == kF32 && c_dtype == kF32)
+    return launch<float, float>(q, k, v, len, sc, o, B, W, H, KV, hd, NS,
+                                chunk, qsb, qsh, ks, vs, osb, osh, scale, cap,
+                                w0, ns_total, split0, s);
+  if (q_dtype == kBF16 && c_dtype == kBF16)
+    return launch<__nv_bfloat16, __nv_bfloat16>(
+        q, k, v, len, sc, o, B, W, H, KV, hd, NS, chunk, qsb, qsh, ks, vs, osb,
+        osh, scale, cap, w0, ns_total, split0, s);
+  if (q_dtype == kF32 && c_dtype == kBF16)
+    return launch<float, __nv_bfloat16>(q, k, v, len, sc, o, B, W, H, KV, hd,
+                                        NS, chunk, qsb, qsh, ks, vs, osb, osh,
+                                        scale, cap, w0, ns_total, split0, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -683,27 +739,64 @@ extern "C" int repro_decode_attention(
     long long ksb, long long ksw, long long ksh, long long vsb, long long vsw,
     long long vsh, long long osb, long long osh, float scale, float cap,
     void* stream) {
+  if (o == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return repro::dispatch(q, k, v, lengths, scratch, o, q_dtype, c_dtype, B,
+                         W, H, KV, hd, NS, chunk, qsb, qsh, ksb, ksw, ksh, vsb,
+                         vsw, vsh, osb, osh, scale, cap, 0, NS, 0, stream);
+}
+
+// The partial entry, for decode over a shard of a ring cut over ranks on
+// its slots (context parallelism): k/v hold slots [w0, w0 + W) of the ring
+// and lengths are the whole ring's, clipped here to the shard. Runs the
+// partial kernel alone, its NS splits written as splits [split0, split0 +
+// NS) of ns_total per (request, KV head) into scratch, B * KV * ns_total *
+// G * (2 + hd) floats: m (rows of B * KV * ns_total * G), then l, then acc
+// (rows x hd), a split's row order (request, KV head, split, query head of
+// the group). The caller zero-fills the rest, so that a sum of the ranks'
+// buffers gathers them. A split with no slot in its length writes m =
+// -1e30, l = 0, acc = 0: the merge weighs it at exp(-1e30 - max) = 0.
+// ns_total <= 256. Other arguments as repro_decode_attention's.
+extern "C" int repro_decode_attention_partials(
+    const void* q, const void* k, const void* v, const void* lengths,
+    void* scratch, int q_dtype, int c_dtype, int B, int W, int H, int KV,
+    int hd, int NS, int chunk, int w0, int ns_total, int split0,
+    long long qsb, long long qsh, long long ksb, long long ksw, long long ksh,
+    long long vsb, long long vsw, long long vsh, float scale, float cap,
+    void* stream) {
+  return repro::dispatch(q, k, v, lengths, scratch, nullptr, q_dtype, c_dtype,
+                         B, W, H, KV, hd, NS, chunk, qsb, qsh, ksb, ksw, ksh,
+                         vsb, vsw, vsh, 0, 0, scale, cap, w0, ns_total, split0,
+                         stream);
+}
+
+// The merge entry: the ns_total splits of every (request, KV head) in
+// scratch (the partial entry's layout, all ranks' splits gathered) merged
+// in split order, as the whole-ring call merges its own, into o (B, H, hd)
+// with (batch, head) strides, in o_dtype (f32 or bf16).
+extern "C" int repro_decode_attention_merge(
+    const void* scratch, void* o, int o_dtype, int B, int H, int KV, int hd,
+    int ns_total, long long osb, long long osh, void* stream) {
   using namespace repro;
   if (hd > kMaxHD || hd <= 0 || KV <= 0 || H % KV != 0 || H / KV > kMaxG ||
-      NS <= 0 || NS > kMaxSplits || chunk <= 0 || chunk % kTile != 0 ||
-      static_cast<long long>(NS) * chunk < W || B <= 0 || B > 65535 ||
-      KV > 65535 || !(cap >= 0.f))
+      ns_total <= 0 || ns_total > kMaxSplits || B <= 0 || B > 65535 ||
+      KV > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const CacheStrides ks{ksb, ksw, ksh}, vs{vsb, vsw, vsh};
-  const int* len = static_cast<const int*>(lengths);
-  float* sc = static_cast<float*>(scratch);
+  const int G = H / KV;
+  const long long rows = static_cast<long long>(B) * KV * ns_total * G;
+  const float* m_part = static_cast<const float*>(scratch);
+  const float* l_part = m_part + rows;
+  const float* acc_part = m_part + 2 * rows;
+  const dim3 grid((G * hd + kMergeThreads - 1) / kMergeThreads, KV, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (q_dtype == kF32 && c_dtype == kF32)
-    return launch<float, float>(q, k, v, len, sc, o, B, W, H, KV, hd, NS,
-                                chunk, qsb, qsh, ks, vs, osb, osh, scale, cap,
-                                s);
-  if (q_dtype == kBF16 && c_dtype == kBF16)
-    return launch<__nv_bfloat16, __nv_bfloat16>(
-        q, k, v, len, sc, o, B, W, H, KV, hd, NS, chunk, qsb, qsh, ks, vs, osb,
-        osh, scale, cap, s);
-  if (q_dtype == kF32 && c_dtype == kBF16)
-    return launch<float, __nv_bfloat16>(q, k, v, len, sc, o, B, W, H, KV, hd,
-                                        NS, chunk, qsb, qsh, ks, vs, osb, osh,
-                                        scale, cap, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (o_dtype == kF32)
+    decode_merge_kernel<float><<<grid, kMergeThreads, 0, s>>>(
+        m_part, l_part, acc_part, static_cast<float*>(o), ns_total, G, hd, osb,
+        osh);
+  else if (o_dtype == kBF16)
+    decode_merge_kernel<__nv_bfloat16><<<grid, kMergeThreads, 0, s>>>(
+        m_part, l_part, acc_part, static_cast<__nv_bfloat16*>(o), ns_total, G,
+        hd, osb, osh);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -17,8 +17,8 @@ threads are none of them lost.
 Under autograd (grad mode on and an input that requires grad) a CUDA call
 of flash attention or of the RG-LRU scan goes through the kernel's
 ``torch.autograd.Function``, whose backward is a kernel too, counted as
-``flash_attention_bwd`` / ``rglru_scan_bwd``; BvSB (its partial and merge
-entries too) and decode attention have no backward, and such a call
+``flash_attention_bwd`` / ``rglru_scan_bwd``; BvSB and decode attention
+(the partial and merge entries of both too) have no backward, and such a call
 raises. No CUDA call returns an output
 cut off from the graph. The serving step factories run under
 ``torch.inference_mode()``.
@@ -39,6 +39,8 @@ bvsb_partials = _bvsb.bvsb_partials
 bvsb_merge = _bvsb.bvsb_merge
 flash_attention = _flash.flash_attention
 decode_attention = _decode.decode_attention
+decode_attention_partials = _decode.decode_attention_partials
+decode_attention_merge = _decode.decode_attention_merge
 rglru_scan = _rglru.rglru_scan
 
 # kernel -> (its wrapper's module, the module's count of its launches)
@@ -47,6 +49,8 @@ _COUNTS = {"bvsb": (_bvsb, "launches"),
            "bvsb_merge": (_bvsb, "merge_launches"),
            "flash_attention": (_flash, "launches"),
            "decode_attention": (_decode, "launches"),
+           "decode_attention_partials": (_decode, "partials_launches"),
+           "decode_attention_merge": (_decode, "merge_launches"),
            "rglru_scan": (_rglru, "launches"),
            "flash_attention_bwd": (_flash, "bwd_launches"),
            "rglru_scan_bwd": (_rglru, "bwd_launches")}

@@ -32,8 +32,11 @@ every rank calling the same step with the same global arrays and a model
 built with ``mesh=``) the steps run the JAX package's three parallel
 regions:
 
-* the MoE layers' expert parallelism (``models/moe.py``);
-* ``vocab_parallel_ce``: model rank j takes rows [j PV/m, (j+1) PV/m) of
+* the layers' tensor parallelism: attention heads, MLP features,
+  RG-LRU channels, the MoE layers' experts, the embedding's rows, and
+  decode attention over a ring cut on its slots (``models/``,
+  ``launch/shardings.py``);
+* ``vocab_parallel_ce``: model rank j holds rows [j PV/m, (j+1) PV/m) of
   the head, a max over the model group, z and the gold logit summed over
   it, the labels' count over the data group;
 * ``vocab_parallel_bvsb``: over more than one model rank, the BvSB
@@ -57,7 +60,7 @@ import torch.distributed as dist
 
 from repro_torch.kernels import ops
 from repro_torch.models.common import IGNORE, LOCAL, mesh_context
-from repro_torch.models.model import expert_slices
+from repro_torch.models.model import model_parts
 from repro_torch.training import optimizer as opt
 from repro_torch.training.trainer import (accumulate, all_reduce_grads,
                                           data_rows, grads_of,
@@ -68,21 +71,13 @@ from repro_torch.training.trainer import (accumulate, all_reduce_grads,
 PAD_LOGIT = -1e30
 
 
-def _vocab_shard(table, mctx):
-    """(first row, rows) of the head this model rank takes."""
-    pv = table.shape[0]
-    if pv % mctx.model_size:
-        raise ValueError(f"a head of {pv} rows does not split over "
-                         f"{mctx.model_size} model ranks")
-    vloc = pv // mctx.model_size
-    return mctx.model_rank * vloc, vloc
-
-
 def _shard_logits(h, table, mctx, vocab_size):
-    """f32 logits of ``h`` (..., d) over this rank's rows of ``table``, the
-    columns past the vocabulary at PAD_LOGIT; and the first column."""
-    v0, vloc = _vocab_shard(table, mctx)
-    logits = h.float() @ table[v0:v0 + vloc].float().T
+    """f32 logits of ``h`` (..., d) over ``table``, this rank's rows of the
+    head (the model's own: ``common.Embedding`` holds them), the columns
+    past the vocabulary at PAD_LOGIT; and the first column."""
+    vloc = table.shape[0]
+    v0 = mctx.model_rank * vloc
+    logits = h.float() @ table.float().T
     if v0 + vloc > vocab_size:
         pad = torch.arange(v0, v0 + vloc, device=logits.device) >= vocab_size
         logits = logits.masked_fill(pad, PAD_LOGIT)
@@ -91,17 +86,17 @@ def _shard_logits(h, table, mctx, vocab_size):
 
 def vocab_parallel_ce(hidden, table, labels, mctx, vocab_size: int):
     """hidden (B, S, d) and labels (B, S), this data rank's rows; table
-    (PV, d), the whole head -> the mean cross-entropy over the global
-    batch's labels != -100, JAX's ``vocab_parallel_ce``. Model rank j
-    takes the head's rows [j PV/m, (j+1) PV/m) (``hidden`` and ``table``
-    entering through ``MeshContext.into_model``, so their gradients are
-    summed over the model group); padded columns are -1e30; the max
+    (PV/m, d), this rank's rows [j PV/m, (j+1) PV/m) of the head -> the
+    mean cross-entropy over the global batch's labels != -100, JAX's
+    ``vocab_parallel_ce``. ``hidden`` enters through
+    ``MeshContext.into_model`` (its gradient summed over the model group);
+    padded columns are -1e30; the max
     stabiliser carries no gradient and is a MAX over the model group; z
     and the gold logit are summed over it (``out_of_model``), the loss's
     numerator and the labels' count over the data group. The head's
     product stays ``torch.matmul``, as JAX leaves it to XLA."""
-    logits, v0 = _shard_logits(mctx.into_model(hidden),
-                               mctx.into_model(table), mctx, vocab_size)
+    logits, v0 = _shard_logits(mctx.into_model(hidden), table, mctx,
+                               vocab_size)
     vloc = logits.shape[-1]
     m = mctx.all_reduce_model(logits.detach().amax(dim=-1),
                               dist.ReduceOp.MAX)
@@ -124,8 +119,9 @@ def head_ce(hidden, table, labels, vocab_size: int):
 
 
 def vocab_parallel_bvsb(hidden, table, mctx, vocab_size: int):
-    """hidden (B, 1, d), this data rank's rows; table (PV, d) -> (bvsb (B,)
-    f32, top1 (B,) int32) of those rows, Eq. 2 over the whole vocabulary
+    """hidden (B, 1, d), this data rank's rows; table (PV/m, d), this
+    rank's rows of the head -> (bvsb (B,) f32, top1 (B,) int32) of those
+    rows, Eq. 2 over the whole vocabulary
     with no (B, PV) logits gathered: the BvSB kernel's partial entry folds
     the rank's columns into (m1, m2, z, global index) tuples, gathered over
     the model group in rank order, and its merge entry merges them. With
@@ -225,12 +221,12 @@ def make_train_step(model, mesh=None, *, remat: bool = True,
     ``optimizer.init(trainable(model))``. On a mesh each rank takes its
     rows (with ``accum_steps``, its share of each global microbatch), and
     the gradients are summed over the data group before the update, the
-    clipping norm over the whole model (a rank's experts' squares summed
-    over the model group)."""
+    clipping norm over the whole model (the squares of a rank's parts of
+    the leaves the model ranks cut summed over the model group)."""
     mctx = _context(model, mesh)
     params = trainable(model)
     loss_fn = make_loss_fn(model, remat=remat, mctx=mctx)
-    sharded = set(expert_slices(model))
+    sharded = set(model_parts(model))
 
     def train_step(opt_state, batch):
         batch = to_device(batch, model.device)

@@ -19,6 +19,8 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.models import layout
+
 
 # the label that takes no part in the loss
 IGNORE = -100
@@ -69,10 +71,16 @@ class MeshContext:
 
     ``data_group`` (size ``data_size``, this rank at ``data_rank``) holds
     the ranks that split the batch, ``model_group`` (``model_size``,
-    ``model_rank``) the ranks that split the experts and the head's
-    vocabulary and hold the same rows. A group is None where its size is
-    1: ``LOCAL`` is one card, where every function below is the
-    identity. ``mesh_context`` builds one from a mesh.
+    ``model_rank``) the ranks that split the model's layers (heads,
+    features, channels, experts, vocabulary rows: ``models.layout``)
+    and hold the same rows. A group is None where its size is 1:
+    ``LOCAL`` is one card, where every function below is the identity.
+    ``mesh_context`` builds one from a mesh.
+
+    A region of a layer that the model ranks split takes its replicated
+    input through ``into_model`` (a replicated weight that each rank uses
+    only a part of too, so that its gradient is summed over the ranks)
+    and hands its result out through ``out_of_model``.
     """
     data_group: Optional[Any] = None
     model_group: Optional[Any] = None
@@ -114,14 +122,33 @@ class MeshContext:
             dist.all_reduce(x, op=op, group=self.model_group)
         return x
 
+    def gather_model(self, x, dim: int):
+        """The model ranks' parts of ``x`` along ``dim``, in rank order, on
+        every rank, outside autograd: a zeroed buffer with this rank's
+        part in its place, summed over the model group (exact; gloo
+        gathers no CUDA tensors)."""
+        if self.model_group is None:
+            return x
+        shape = list(x.shape)
+        n = shape[dim]
+        shape[dim] = n * self.model_size
+        buf = x.new_zeros(shape)
+        buf.narrow(dim, self.model_rank * n, n).copy_(x)
+        return self.all_reduce_model(buf)
+
+    def part(self, n: int, what: str = "a dim"):
+        """(start, size) of this rank's part of ``n`` cut over the model
+        ranks: model rank j holds [j n/m, (j + 1) n/m)."""
+        if n % self.model_size:
+            raise ValueError(f"{what} of {n} does not split over "
+                             f"{self.model_size} model ranks")
+        size = n // self.model_size
+        return self.model_rank * size, size
+
     def expert_range(self, num_experts: int):
         """(first expert, number of experts) this rank holds: model rank
         j holds experts [j E/m, (j + 1) E/m)."""
-        if num_experts % self.model_size:
-            raise ValueError(f"{num_experts} experts do not split over "
-                             f"{self.model_size} model ranks")
-        n = num_experts // self.model_size
-        return self.model_rank * n, n
+        return self.part(num_experts, "an expert axis")
 
     def data_rows(self, b: int) -> slice:
         """This rank's rows of a global batch of ``b``: the data rank r's
@@ -171,6 +198,21 @@ def param(*shape, device, dtype) -> nn.Parameter:
                         requires_grad=False)
 
 
+def cut_param(module: nn.Module, path, whole, cfg=None, *, mctx, device,
+              dtype) -> None:
+    """Set the parameter ``path[-1]`` of ``module``, of whole shape
+    ``whole``: this rank's part of it where the model ranks cut it
+    (``layout.model_dim`` of ``path``, the block's names and the leaf's),
+    the dim recorded in ``module.model_cuts`` (``model.model_parts``
+    reads it); else the whole leaf."""
+    dim = layout.model_dim(path, whole, mctx.model_size, cfg)
+    shape = list(whole)
+    if dim is not None:
+        shape[dim] = mctx.part(whole[dim], ".".join(path))[1]
+        module.__dict__.setdefault("model_cuts", {})[path[-1]] = dim
+    setattr(module, path[-1], param(*shape, device=device, dtype=dtype))
+
+
 class RMSNorm(nn.Module):
     def __init__(self, d, *, device, dtype):
         super().__init__()
@@ -181,23 +223,40 @@ class RMSNorm(nn.Module):
 
 
 class MLP(nn.Module):
-    def __init__(self, d, f, *, device, dtype):
-        super().__init__()
-        self.w_gate = param(d, f, device=device, dtype=dtype)
-        self.w_up = param(d, f, device=device, dtype=dtype)
-        self.w_down = param(f, d, device=device, dtype=dtype)
+    """Gated MLP. Where the layout cuts it (``layout.model_dim`` of the
+    ``block`` it sits in: a dense MLP whose width f the model ranks
+    divide, the shared experts) it is tensor-parallel: w_gate / w_up hold
+    the rank's f/m columns, w_down its f/m rows, the input enters through
+    ``into_model`` and the rows' partial products leave summed through
+    ``out_of_model`` (``tp``); else every rank holds it whole."""
 
-    def forward(self, x, act):
+    def __init__(self, d, f, *, device, dtype, mctx=LOCAL, block=("mlp",)):
+        super().__init__()
+        kw = dict(mctx=mctx, device=device, dtype=dtype)
+        cut_param(self, block + ("w_gate",), (d, f), **kw)
+        cut_param(self, block + ("w_up",), (d, f), **kw)
+        cut_param(self, block + ("w_down",), (f, d), **kw)
+        self.tp = bool(getattr(self, "model_cuts", None))
+
+    def partial(self, x, act):
+        """This rank's partial output of an input already in the region."""
         return mlp_apply(self.w_gate, self.w_up, self.w_down, x, act)
+
+    def forward(self, x, act, mctx=LOCAL):
+        if not self.tp:
+            return self.partial(x, act)
+        return mctx.out_of_model(self.partial(mctx.into_model(x), act))
 
 
 class Embedding(nn.Module):
     """Embedding table over the padded vocab, shared with the LM head
-    when the config ties them."""
+    when the config ties them. Over model ranks its rows are cut: rank j
+    holds rows [j PV/m, (j + 1) PV/m)."""
 
-    def __init__(self, vocab, d, *, device, dtype):
+    def __init__(self, vocab, d, *, device, dtype, mctx=LOCAL):
         super().__init__()
-        self.table = param(padded_vocab(vocab), d, device=device, dtype=dtype)
+        cut_param(self, ("table",), (padded_vocab(vocab), d), mctx=mctx,
+                  device=device, dtype=dtype)
 
 
 def trunc_normal_(t: torch.Tensor, scale: float,
@@ -207,11 +266,14 @@ def trunc_normal_(t: torch.Tensor, scale: float,
     The distribution of the JAX package's ``dense_init``, not its bits.
     Drawn on the generator's device: in place when that is ``t``'s
     device, else drawn there and copied (a CPU generator gives the same
-    weights on every device).
+    weights on every device). A generator made for "cuda" names no
+    index: it draws on the current card.
     """
     with torch.no_grad():
-        if torch.device(generator.device) == t.device \
-                and t.dtype == torch.float32:
+        gen_dev = torch.device(generator.device)
+        if gen_dev.type == "cuda" and gen_dev.index is None:
+            gen_dev = torch.device("cuda", torch.cuda.current_device())
+        if gen_dev == t.device and t.dtype == torch.float32:
             torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0,
                                         generator=generator)
             return t.mul_(scale)
@@ -301,12 +363,21 @@ def padded_vocab(vocab_size: int, multiple: int = 128) -> int:
     return ((vocab_size + multiple - 1) // multiple) * multiple
 
 
-def embed_apply(table, tokens):
+def embed_apply(table, tokens, mctx=LOCAL):
     """The table's rows at ``tokens``. ``F.embedding``, whose backward adds
     a token's rows in a fixed order on the CPU too (indexing's
     accumulating backward there adds repeated tokens in an order that
-    varies from run to run)."""
-    return F.embedding(tokens.long(), table)
+    varies from run to run). Over model ranks ``table`` is this rank's
+    rows: each rank looks up the tokens among them, zeros elsewhere, and
+    the ranks' results are summed (``out_of_model``), exact since one rank
+    gives each token's row."""
+    if mctx.model_size == 1:
+        return F.embedding(tokens.long(), table)
+    rows = table.shape[0]
+    local = tokens.long() - mctx.model_rank * rows
+    mine = (local >= 0) & (local < rows)
+    x = F.embedding(torch.where(mine, local, 0), table)
+    return mctx.out_of_model(torch.where(mine[..., None], x, 0.0))
 
 
 def lm_head_apply(table, x, vocab_size: int):

@@ -25,7 +25,12 @@ layers; with ``remat`` each encoder layer, and each decoder layer with its
 cross K/V projection, goes through ``torch.utils.checkpoint`` (JAX
 checkpoints the decoder's scanned layer), so its activations are
 recomputed in the backward, the same bits. The model has no MoE: its aux
-loss is 0, and on a mesh (``mctx``) every rank holds every weight.
+loss is 0. On a mesh (``mctx``) every attention and MLP of both stacks is
+cut over the model ranks as the decoder's are (``attention.py``,
+``common.MLP``), the embedding and head tables by rows; the cache's cross
+K/V hold every KV head on every rank (gathered once where wk / wv are
+cut), as ``cache_shardings`` replicates them, and each rank reads its
+heads' from them.
 """
 from __future__ import annotations
 
@@ -35,6 +40,7 @@ from torch import nn
 
 from repro_torch.models import attention as attn
 from repro_torch.models import common
+from repro_torch.models.transformer import _whole_head
 
 
 def _ring_len(cfg, cache_len):
@@ -44,61 +50,62 @@ def _ring_len(cfg, cache_len):
 
 
 class EncoderLayer(nn.Module):
-    def __init__(self, cfg, *, device, dtype):
+    def __init__(self, cfg, *, device, dtype, mctx=common.LOCAL):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.norm1 = common.RMSNorm(cfg.d_model, **kw)
-        self.attn = attn.Attention(cfg, **kw)
+        self.attn = attn.Attention(cfg, mctx=mctx, **kw)
         self.norm2 = common.RMSNorm(cfg.d_model, **kw)
-        self.mlp = common.MLP(cfg.d_model, cfg.d_ff, **kw)
+        self.mlp = common.MLP(cfg.d_model, cfg.d_ff, mctx=mctx, **kw)
 
-    def forward(self, x, positions, cfg):
+    def forward(self, x, positions, cfg, mctx=common.LOCAL):
         """Bidirectional self-attention, then the MLP."""
         out, _ = attn.self_attention(self.attn, self.norm1(x, cfg.norm_eps),
-                                     positions, cfg, causal=False)
+                                     positions, cfg, causal=False, mctx=mctx)
         x = x + out
-        return x + self.mlp(self.norm2(x, cfg.norm_eps), cfg.mlp_act)
+        return x + self.mlp(self.norm2(x, cfg.norm_eps), cfg.mlp_act, mctx)
 
 
 class DecoderLayer(EncoderLayer):
     """An encoder layer's parameters plus the cross-attention's: ``normx``
     and ``xattn``."""
 
-    def __init__(self, cfg, *, device, dtype):
-        super().__init__(cfg, device=device, dtype=dtype)
+    def __init__(self, cfg, *, device, dtype, mctx=common.LOCAL):
+        super().__init__(cfg, device=device, dtype=dtype, mctx=mctx)
         kw = dict(device=device, dtype=dtype)
         self.normx = common.RMSNorm(cfg.d_model, **kw)
-        self.xattn = attn.Attention(cfg, cross=True, **kw)
+        self.xattn = attn.Attention(cfg, cross=True, mctx=mctx, **kw)
 
-    def forward(self, x, positions, enc_kv, cfg):
+    def forward(self, x, positions, enc_kv, cfg, mctx=common.LOCAL):
         """Causal self-attention, cross-attention over ``enc_kv``, the MLP.
         Returns (x, (k, v) of the self-attention, k rotated)."""
         eps = cfg.norm_eps
         out, kv = attn.self_attention(self.attn, self.norm1(x, eps),
                                       positions, cfg,
-                                      window=cfg.sliding_window)
+                                      window=cfg.sliding_window, mctx=mctx)
         x = x + out
         x = x + attn.cross_attention(self.xattn, self.normx(x, eps), enc_kv,
-                                     cfg)
-        return x + self.mlp(self.norm2(x, eps), cfg.mlp_act), kv
+                                     cfg, mctx)
+        return x + self.mlp(self.norm2(x, eps), cfg.mlp_act, mctx), kv
 
-    def decode(self, x1, cache, pos, cfg):
+    def decode(self, x1, cache, pos, cfg, mctx=common.LOCAL):
         """One token over the layer's cache entry; returns (x1, entry)."""
         eps = cfg.norm_eps
         out, ring = attn.attn_decode(self.attn, self.norm1(x1, eps),
-                                     cache["self"], pos, cfg)
+                                     cache["self"], pos, cfg, mctx=mctx)
         x1 = x1 + out
         x1 = x1 + attn.cross_attn_decode(self.xattn, self.normx(x1, eps),
-                                         cache["cross"], cfg)
-        x1 = x1 + self.mlp(self.norm2(x1, eps), cfg.mlp_act)
+                                         cache["cross"], cfg, mctx)
+        x1 = x1 + self.mlp(self.norm2(x1, eps), cfg.mlp_act, mctx)
         return x1, {"self": ring, "cross": cache["cross"]}
 
 
-def _decoder_layer(layer, x, positions, enc_out, cfg):
+def _decoder_layer(layer, x, positions, enc_out, cfg, mctx=common.LOCAL):
     """A decoder layer with its cross K/V projected from ``enc_out`` (one
-    unit of remat, as JAX's scanned layer): (x, self (k, v), cross K/V)."""
-    enc_kv = attn.encode_kv(layer.xattn, enc_out, cfg)
-    x, kv = layer(x, positions, enc_kv, cfg)
+    unit of remat, as JAX's scanned layer): (x, self (k, v), cross K/V of
+    the rank's stored KV heads)."""
+    enc_kv = attn.encode_kv(layer.xattn, enc_out, cfg, mctx)
+    x, kv = layer(x, positions, enc_kv, cfg, mctx)
     return x, kv, enc_kv
 
 
@@ -114,14 +121,15 @@ class EncDecModel(nn.Module):
         kw = dict(device=device, dtype=dtype)
         d = cfg.d_model
         self.frontend_proj = common.param(d, d, **kw)
-        self.embed = common.Embedding(cfg.vocab_size, d, **kw)
+        self.embed = common.Embedding(cfg.vocab_size, d, mctx=mctx, **kw)
         self.enc_blocks = nn.ModuleList(
-            EncoderLayer(cfg, **kw) for _ in range(cfg.encoder_layers))
+            EncoderLayer(cfg, mctx=mctx, **kw)
+            for _ in range(cfg.encoder_layers))
         self.enc_norm = common.RMSNorm(d, **kw)
         self.dec_blocks = nn.ModuleList(
-            DecoderLayer(cfg, **kw) for _ in range(cfg.num_layers))
+            DecoderLayer(cfg, mctx=mctx, **kw) for _ in range(cfg.num_layers))
         self.final_norm = common.RMSNorm(d, **kw)
-        self.lm_head = common.Embedding(cfg.vocab_size, d, **kw)
+        self.lm_head = common.Embedding(cfg.vocab_size, d, mctx=mctx, **kw)
 
     @property
     def device(self) -> torch.device:
@@ -145,30 +153,31 @@ class EncDecModel(nn.Module):
         hidden, _, aux = self(tokens, audio_embeds=audio_embeds,
                               return_hidden=True, remat=remat, with_aux=True)
         ce = common.cross_entropy(
-            common.lm_head_apply(self.head_table, hidden,
+            common.lm_head_apply(_whole_head(self), hidden,
                                  self.cfg.vocab_size),
             labels, self.cfg.vocab_size)
         return ce + aux, {"ce": ce, "aux": aux}
 
-    def encode(self, audio_embeds, remat=False):
+    def encode(self, audio_embeds, remat=False, mctx=None):
         """(B, F, d) stub-frontend frames -> encoder output (B, F, d)."""
-        cfg = self.cfg
+        cfg, mctx = self.cfg, mctx or self.mctx
         x = audio_embeds @ self.frontend_proj
         b, f, _ = x.shape
         positions = torch.arange(f, device=x.device).expand(b, f)
         for layer in self.enc_blocks:
             if remat:
                 x = torch.utils.checkpoint.checkpoint(
-                    layer, x, positions, cfg, use_reentrant=False)
+                    layer, x, positions, cfg, mctx, use_reentrant=False)
             else:
-                x = layer(x, positions, cfg)
+                x = layer(x, positions, cfg, mctx)
         return self.enc_norm(x, cfg.norm_eps)
 
     def _out(self, x, return_hidden):
         x = self.final_norm(x, self.cfg.norm_eps)
         if return_hidden:
             return x
-        return common.lm_head_apply(self.head_table, x, self.cfg.vocab_size)
+        return common.lm_head_apply(_whole_head(self), x,
+                                    self.cfg.vocab_size)
 
     def forward(self, tokens, *, audio_embeds, collect_cache=False,
                 cache_len=None, return_hidden=False, remat=False,
@@ -181,11 +190,12 @@ class EncDecModel(nn.Module):
         min(cache_len, window) slots, cache_len defaulting to S, filled
         with the last of the S positions from slot 0 (the JAX package's
         fill); the cross K/V are the encoder's, in the activations' dtype.
-        ``remat`` recomputes each layer in the backward; ``mctx`` is
-        accepted for the step factories' sake (nothing here is split)."""
-        cfg = self.cfg
-        enc_out = self.encode(audio_embeds, remat)
-        x = common.embed_apply(self.embed.table, tokens)
+        ``remat`` recomputes each layer in the backward; ``mctx`` (the
+        model's own by default) may replicate the batch over the data
+        axis."""
+        cfg, mctx = self.cfg, mctx or self.mctx
+        enc_out = self.encode(audio_embeds, remat, mctx)
+        x = common.embed_apply(self.embed.table, tokens, mctx)
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device).expand(b, s)
         w = _ring_len(cfg, cache_len or s)
@@ -193,15 +203,16 @@ class EncDecModel(nn.Module):
         for layer in self.dec_blocks:
             if remat:
                 x, (k, v), enc_kv = torch.utils.checkpoint.checkpoint(
-                    _decoder_layer, layer, x, positions, enc_out, cfg,
+                    _decoder_layer, layer, x, positions, enc_out, cfg, mctx,
                     use_reentrant=False)
             else:
                 x, (k, v), enc_kv = _decoder_layer(layer, x, positions,
-                                                   enc_out, cfg)
+                                                   enc_out, cfg, mctx)
             if collect_cache:
-                ring = attn.init_kv_cache(b, w, cfg, x.dtype, x.device)
+                ring = attn.init_kv_cache(b, w, cfg, x.dtype, x.device, mctx)
                 caches.append({"self": attn.fill_kv_cache(
-                    ring, k[:, -w:], v[:, -w:]), "cross": enc_kv})
+                    ring, k[:, -w:], v[:, -w:], mctx, layer.attn),
+                    "cross": _all_kv(layer.xattn, enc_kv, mctx)})
         out = (self._out(x, return_hidden), caches if collect_cache else None)
         if with_aux:
             return out + (torch.zeros((), dtype=torch.float32,
@@ -217,7 +228,8 @@ class EncDecModel(nn.Module):
         shape = (batch, cfg.audio_frames, cfg.num_kv_heads,
                  cfg.resolved_head_dim)
         return [{"self": attn.init_kv_cache(batch, _ring_len(cfg, cache_len),
-                                            cfg, dtype, self.device),
+                                            cfg, dtype, self.device,
+                                            self.mctx),
                  "cross": tuple(torch.zeros(shape, dtype=dtype,
                                             device=self.device)
                                 for _ in range(2))}
@@ -228,8 +240,10 @@ class EncDecModel(nn.Module):
         the encoder output's dtype, as the JAX package's ``prefill_cross``
         returns them. Returns the new cache; the rings are kept."""
         enc_out = self.encode(audio_embeds)
-        return [{"self": c["self"],
-                 "cross": attn.encode_kv(layer.xattn, enc_out, self.cfg)}
+        return [{"self": c["self"], "cross": _all_kv(
+                    layer.xattn, attn.encode_kv(layer.xattn, enc_out,
+                                                self.cfg, self.mctx),
+                    self.mctx)}
                 for layer, c in zip(self.dec_blocks, cache)]
 
     def decode_step(self, tokens1, cache, pos, *, return_hidden=False,
@@ -239,9 +253,15 @@ class EncDecModel(nn.Module):
         or ``prefill_cross``). Returns (logits (B, 1, padded vocab), or
         the hidden states with ``return_hidden``; the new cache). The self
         rings are updated in place. ``mctx`` as in ``forward``."""
-        x = common.embed_apply(self.embed.table, tokens1)
+        mctx = mctx or self.mctx
+        x = common.embed_apply(self.embed.table, tokens1, mctx)
         new = []
         for layer, c in zip(self.dec_blocks, cache):
-            x, c = layer.decode(x, c, pos, self.cfg)
+            x, c = layer.decode(x, c, pos, self.cfg, mctx)
             new.append(c)
         return self._out(x, return_hidden), new
+
+
+def _all_kv(p, enc_kv, mctx):
+    """A cross-attention's (k, v) with every KV head, for the cache."""
+    return tuple(attn.all_kv(p, t, mctx) for t in enc_kv)

@@ -13,9 +13,11 @@
 A decoder-only config builds a ``transformer.Model``, an
 encoder-decoder config an ``encdec.EncDecModel``. ``mesh=`` (a
 ("data", "model") ``DeviceMesh`` from ``launch.mesh.make_model_mesh``)
-builds the model of this rank: its MoE layers hold only the rank's
-experts, whose values are the slice of the one-card model's drawn from
-the same generator (or of the JAX leaves).
+builds the model of this rank: every parameter that the model ranks cut
+(``models.layout``: heads, MLP features, RG-LRU channels, experts,
+vocabulary rows) holds only the rank's part, whose values are the
+one-card model's drawn from the same generator (or the JAX leaves),
+sliced (``model_parts``).
 
     model = init_params(cfg, gen, mesh=mesh)     # on every rank
 
@@ -29,13 +31,13 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from repro_torch.models import common, moe, recurrent, xlstm
+from repro_torch.models import common, recurrent, xlstm
 from repro_torch.models.common import IGNORE, cross_entropy, mesh_context
 from repro_torch.models.encdec import EncDecModel
 from repro_torch.models.transformer import Model
 
 __all__ = ["EncDecModel", "IGNORE", "Model", "build_model", "cross_entropy",
-           "init_params", "params_from_jax"]
+           "init_params", "model_parts", "params_from_jax"]
 
 
 def resolve_device(device) -> torch.device:
@@ -61,15 +63,30 @@ def build_model(cfg, *, device="cuda", dtype=torch.float32, mesh=None):
                mctx=mesh_context(mesh))
 
 
-def expert_slices(model) -> Dict[str, slice]:
-    """Parameter name -> the rows of the expert axis it holds, for the
-    expert weights of every MoE layer (all E on one card)."""
-    out = {}
-    for name, mod in model.named_modules():
-        if isinstance(mod, moe.MoE):
-            rows = slice(mod.e0, mod.e0 + mod.e_local)
-            out.update({f"{name}.{leaf}": rows for leaf in moe.EXPERT_LEAVES})
+def model_parts(model) -> Dict[str, Tuple[int, slice]]:
+    """Parameter name -> (dim, this rank's part of it) for every parameter
+    the model ranks cut: the dims the modules recorded as they allocated
+    their parts (``common.cut_param``, the rule ``layout.model_dim``),
+    model rank j holding [j n, (j + 1) n) of it. Empty on one card."""
+    if model.mctx.model_size == 1:
+        return {}
+    j, out = model.mctx.model_rank, {}
+    for prefix, module in model.named_modules():
+        for leaf, dim in getattr(module, "model_cuts", {}).items():
+            n = getattr(module, leaf).shape[dim]
+            name = f"{prefix}.{leaf}" if prefix else leaf
+            out[name] = (dim, slice(j * n, (j + 1) * n))
     return out
+
+
+def part_index(dim: int, rows: slice) -> tuple:
+    """The index of a part (``model_parts``) into its whole leaf."""
+    return (slice(None),) * dim + (rows,)
+
+
+def _whole_shape(p, dim: int, mctx) -> tuple:
+    return tuple(n * mctx.model_size if i == dim else n
+                 for i, n in enumerate(p.shape))
 
 
 def init_params(cfg, generator: torch.Generator, device="cuda",
@@ -84,20 +101,20 @@ def init_params(cfg, generator: torch.Generator, device="cuda",
     The draws run on the generator's device: a CUDA generator fills a
     model on the card in place (seconds for RecurrentGemma-9B's 8.6 B
     weights), a CPU generator draws on the host and copies. On a mesh
-    every rank draws every weight in the same order, the expert weights
-    at their full (E, ...) shape, and keeps its rows: the one-card
+    every rank draws every weight in the same order, each cut one at its
+    whole shape, and keeps its part (``model_parts``): the one-card
     model's values."""
     model = build_model(cfg, device=device, dtype=dtype, mesh=mesh)
-    experts = expert_slices(model)
+    parts = model_parts(model)
     for name, p in model.named_parameters():
-        rows = experts.get(name)
-        if rows is not None and p.shape[0] != cfg.num_experts:
-            full = torch.empty((cfg.num_experts,) + tuple(p.shape[1:]),
-                               dtype=torch.float32,
-                               device=generator.device)
+        if name in parts:
+            dim, rows = parts[name]
+            full = torch.empty(_whole_shape(p, dim, model.mctx),
+                               dtype=torch.float32, device=generator.device)
             common.trunc_normal_(full, cfg.init_scale, generator)
             with torch.no_grad():
-                p.copy_(full[rows])
+                p.copy_(full[part_index(dim, rows)])
+            del full
             continue
         leaf = name.rsplit(".", 1)[-1]
         with torch.no_grad():
@@ -156,7 +173,7 @@ def _jax_location(name: str, cfg) -> Tuple[tuple, int, int]:
 
 def params_from_jax(tree, cfg, device="cuda", mesh=None):
     """The port's model holding the JAX package's weights (on a mesh, this
-    rank's: its experts' rows of the expert leaves).
+    rank's part of each leaf the ranks cut, ``model_parts``).
 
     ``tree`` is the JAX parameter pytree as nested dicts, lists and tuples
     of numpy arrays (``jax.tree.map(np.asarray, params)``). The stacked
@@ -167,23 +184,23 @@ def params_from_jax(tree, cfg, device="cuda", mesh=None):
     """
     leaves: Dict[tuple, np.ndarray] = dict(_flatten(tree))
     model = build_model(cfg, device=device, dtype=torch.float32, mesh=mesh)
-    experts = expert_slices(model)
+    parts = model_parts(model)
     consumed = set()
     for name, p in model.named_parameters():
         path, layer, n_stacked = _jax_location(name, cfg)
         if path not in leaves:
             raise KeyError(f"params_from_jax: no JAX leaf {path} for {name}")
         leaf = leaves[path]
-        rows = experts.get(name)
-        shape = tuple(p.shape) if rows is None else \
-            (cfg.num_experts,) + tuple(p.shape[1:])
+        part = parts.get(name)
+        shape = tuple(p.shape) if part is None else \
+            _whole_shape(p, part[0], model.mctx)
         want = shape if layer < 0 else (n_stacked,) + shape
         if leaf.shape != want:
             raise ValueError(f"params_from_jax: {path} has shape {leaf.shape},"
                              f" {cfg.name} needs {want}")
         value = leaf if layer < 0 else leaf[layer]
-        if rows is not None:
-            value = value[rows]
+        if part is not None:
+            value = value[part_index(*part)]
         with torch.no_grad():
             p.copy_(torch.from_numpy(np.array(value, np.float32)))
         consumed.add(path)

@@ -37,8 +37,10 @@ cotangent carries the experts' part back into it instead. The aux loss
 is the mean over the data group (JAX's pmean over the batch axes).
 
 Shared experts (DeepSeekMoE / Moonlight, the JAX ``_shared_expert``) are
-a ``common.MLP`` of width f x n_shared added to the routed output,
-outside the region, replicated.
+a ``common.MLP`` of width f x n_shared added to the routed output, cut
+over the model ranks like a dense MLP where they divide its width: its
+partial output joins the routed one inside the region, one sum over the
+model group for both (else it is whole on every rank and added after).
 """
 from __future__ import annotations
 
@@ -48,10 +50,6 @@ from torch import nn
 from repro_torch.models import common
 
 CAPACITY_FACTOR = 1.25
-
-
-# the parameters that hold one slice of the expert axis per model rank
-EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
 
 
 class MoE(nn.Module):
@@ -64,14 +62,15 @@ class MoE(nn.Module):
         super().__init__()
         d, e = cfg.d_model, cfg.num_experts
         f = cfg.moe_d_ff or cfg.d_ff
-        self.e0, self.e_local = mctx.expert_range(e)
+        self.e0 = mctx.expert_range(e)[0]
         kw = dict(device=device, dtype=dtype)
         self.router = common.param(d, e, device=device, dtype=torch.float32)
-        self.w_gate = common.param(self.e_local, d, f, **kw)
-        self.w_up = common.param(self.e_local, d, f, **kw)
-        self.w_down = common.param(self.e_local, f, d, **kw)
+        for leaf, whole in (("w_gate", (e, d, f)), ("w_up", (e, d, f)),
+                            ("w_down", (e, f, d))):
+            common.cut_param(self, ("moe", leaf), whole, mctx=mctx, **kw)
         if cfg.num_shared_experts:
-            self.shared = common.MLP(d, f * cfg.num_shared_experts, **kw)
+            self.shared = common.MLP(d, f * cfg.num_shared_experts,
+                                     mctx=mctx, block=("moe", "shared"), **kw)
 
     def forward(self, x, cfg, mctx=common.LOCAL):
         return moe_apply(self, x, cfg, mctx)
@@ -159,13 +158,17 @@ def moe_apply(p: MoE, x, cfg, mctx=common.LOCAL, *,
     b, s, d = x.shape
     xf = x.reshape(b * s, d)
     gates, ids, probs = route(xf, p.router, cfg)
-    y = local_expert_compute(mctx.into_model(xf), p.w_gate, p.w_up,
-                             p.w_down, mctx.into_model(gates), ids, cfg,
+    xin = mctx.into_model(xf)
+    y = local_expert_compute(xin, p.w_gate, p.w_up, p.w_down,
+                             mctx.into_model(gates), ids, cfg,
                              common.activation(cfg.mlp_act),
                              capacity(b * s, cfg), p.e0)
+    shared = p.shared if cfg.num_shared_experts else None
+    if shared is not None and shared.tp:
+        y = y + shared.partial(xin, cfg.mlp_act).to(y.dtype)
     y = mctx.out_of_model(y).reshape(b, s, d).to(x.dtype)
-    if cfg.num_shared_experts:
-        y = y + p.shared(x, cfg.mlp_act).to(y.dtype)
+    if shared is not None and not shared.tp:
+        y = y + shared(x, cfg.mlp_act).to(y.dtype)
     if return_aux:
         aux = aux_load_balance_loss(probs, ids, cfg)
         if mctx.data_size > 1:

@@ -28,10 +28,13 @@ recompute repeats the forward's bits (the kernels and the MoE dispatch
 are deterministic), so the gradients are those of no remat.
 
 On a mesh the model is built for one rank (``mctx``, a
-``common.MeshContext``): its MoE layers hold that rank's experts and
-split the work over the model group (``moe.py``); ``forward`` and
-``decode_step`` take the rank's rows of the batch. Everything else is
-replicated and computes what one card computes.
+``common.MeshContext``) and holds that rank's part of each layer
+(``models.layout``): its attention heads, MLP columns, RG-LRU
+channels, experts (``moe.py``) and embedding rows, split over the model
+group; ``forward`` and ``decode_step`` take the rank's rows of the batch.
+The xLSTM blocks, the norms and the router are whole on every rank. The
+caches hold the rank's part too: a ring's slots where the model ranks
+divide them (``attention.py``), an RG-LRU state's channels.
 """
 from __future__ import annotations
 
@@ -72,19 +75,19 @@ class DecoderLayer(nn.Module):
         self.kind = kind
         self.norm1 = common.RMSNorm(cfg.d_model, **kw)
         if kind == "rglru":
-            self.rglru = recurrent.RGLRU(cfg, **kw)
+            self.rglru = recurrent.RGLRU(cfg, mctx=mctx, **kw)
         elif kind == "mlstm":
             self.mlstm = xlstm.MLSTM(cfg, **kw)
         elif kind == "slstm":
             self.slstm = xlstm.SLSTM(cfg, **kw)
         else:
-            self.attn = attn.Attention(cfg, **kw)
+            self.attn = attn.Attention(cfg, mctx=mctx, **kw)
         if (cfg.d_ff or cfg.is_moe) and kind not in XLSTM_BLOCKS:
             self.norm2 = common.RMSNorm(cfg.d_model, **kw)
             if cfg.is_moe and index >= cfg.first_dense_layers:
                 self.moe = moe.MoE(cfg, mctx=mctx, **kw)
             else:
-                self.mlp = common.MLP(cfg.d_model, cfg.d_ff, **kw)
+                self.mlp = common.MLP(cfg.d_model, cfg.d_ff, mctx=mctx, **kw)
 
     def _mlp(self, x, cfg, with_aux=False, mctx=common.LOCAL):
         """(x after the MLP sublayer, the MoE load-balance loss times its
@@ -97,7 +100,8 @@ class DecoderLayer(nn.Module):
                 return x + y, aux
             return x + self.moe(h, cfg, mctx), None
         if hasattr(self, "mlp"):
-            return x + self.mlp(self.norm2(x, cfg.norm_eps), cfg.mlp_act), None
+            return x + self.mlp(self.norm2(x, cfg.norm_eps), cfg.mlp_act,
+                                mctx), None
         return x, None
 
     def forward(self, x, positions, cfg, *, pos3=None, collect_cache=False,
@@ -107,7 +111,7 @@ class DecoderLayer(nn.Module):
         h = self.norm1(x, cfg.norm_eps)
         cache = None
         if self.kind == "rglru":
-            out, state = recurrent.rglru_block(self.rglru, h)
+            out, state = recurrent.rglru_block(self.rglru, h, mctx=mctx)
             if collect_cache:
                 cache = state
         elif self.kind in XLSTM_BLOCKS:
@@ -118,12 +122,13 @@ class DecoderLayer(nn.Module):
         else:
             out, (k, v) = attn.self_attention(
                 self.attn, h, positions, cfg,
-                window=_window_for(cfg, self.kind), pos3=pos3)
+                window=_window_for(cfg, self.kind), pos3=pos3, mctx=mctx)
             if collect_cache:
                 w = _cache_len_for(cfg, self.kind, cache_len)
                 cache = attn.fill_kv_cache(
-                    attn.init_kv_cache(x.shape[0], w, cfg, x.dtype, x.device),
-                    k, v)
+                    attn.init_kv_cache(x.shape[0], w, cfg, x.dtype, x.device,
+                                       mctx),
+                    k, v, mctx, self.attn)
         x, aux = self._mlp(x + out, cfg, with_aux, mctx)
         return x, cache, aux
 
@@ -131,13 +136,13 @@ class DecoderLayer(nn.Module):
         """One token. Returns (x1, new cache entry)."""
         h = self.norm1(x1, cfg.norm_eps)
         if self.kind == "rglru":
-            out, cache = recurrent.rglru_decode(self.rglru, h, cache)
+            out, cache = recurrent.rglru_decode(self.rglru, h, cache, mctx)
         elif self.kind in XLSTM_BLOCKS:
             out, cache = XLSTM_BLOCKS[self.kind][1](
                 getattr(self, self.kind), h, cfg, cache)
         else:
             out, cache = attn.attn_decode(self.attn, h, cache, pos, cfg,
-                                          pos3=pos3)
+                                          pos3=pos3, mctx=mctx)
         return self._mlp(x1 + out, cfg, mctx=mctx)[0], cache
 
 
@@ -151,13 +156,15 @@ class Model(nn.Module):
         self.cfg = cfg
         self.mctx = mctx
         kw = dict(device=device, dtype=dtype)
-        self.embed = common.Embedding(cfg.vocab_size, cfg.d_model, **kw)
+        self.embed = common.Embedding(cfg.vocab_size, cfg.d_model,
+                                      mctx=mctx, **kw)
         self.final_norm = common.RMSNorm(cfg.d_model, **kw)
         self.layers = nn.ModuleList(
             DecoderLayer(cfg, kind, i, mctx=mctx, **kw)
             for i, kind in enumerate(cfg.pattern))
         if not cfg.tie_embeddings:
-            self.lm_head = common.Embedding(cfg.vocab_size, cfg.d_model, **kw)
+            self.lm_head = common.Embedding(cfg.vocab_size, cfg.d_model,
+                                            mctx=mctx, **kw)
 
     @property
     def device(self) -> torch.device:
@@ -171,10 +178,10 @@ class Model(nn.Module):
         x = self.final_norm(x, self.cfg.norm_eps)
         return x if return_hidden else self.head(x)
 
-    def _embed(self, tokens, vision_embeds):
+    def _embed(self, tokens, vision_embeds, mctx):
         """(x (B, S, d), positions (B, S), M-RoPE ids (3, B, S) or None),
         the vision embeddings in front of the text where given."""
-        x = common.embed_apply(self.embed.table, tokens)
+        x = common.embed_apply(self.embed.table, tokens, mctx)
         b = x.shape[0]
         pos3 = None
         if vision_embeds is not None:
@@ -200,10 +207,11 @@ class Model(nn.Module):
         default) may replicate the batch over the data axis
         (``MeshContext.replicated``)."""
         cfg = self.cfg
-        x, positions, pos3 = self._embed(tokens, vision_embeds)
+        mctx = mctx or self.mctx
+        x, positions, pos3 = self._embed(tokens, vision_embeds, mctx)
         kw = dict(pos3=pos3, collect_cache=collect_cache,
                   cache_len=cache_len or x.shape[1], with_aux=with_aux,
-                  mctx=mctx or self.mctx)
+                  mctx=mctx)
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device) \
             if with_aux else None
         caches = []
@@ -220,8 +228,10 @@ class Model(nn.Module):
         return out + (aux_total,) if with_aux else out
 
     def head(self, hidden):
-        """Logits over the padded vocab of final hidden states."""
-        return common.lm_head_apply(self.head_table, hidden,
+        """Logits over the padded vocab of final hidden states (one card:
+        over model ranks the step factories' vocab-parallel heads take
+        the rank's rows)."""
+        return common.lm_head_apply(_whole_head(self), hidden,
                                     self.cfg.vocab_size)
 
     def loss(self, tokens, labels=None, *, vision_embeds=None, remat=False):
@@ -251,9 +261,10 @@ class Model(nn.Module):
         cfg, dev = self.cfg, self.device
         d = cfg.d_model
 
-        def entry(kind):
+        def entry(kind, layer):
             if kind == "rglru":
-                return recurrent.rglru_init_state(batch, d, dtype, dev)
+                return recurrent.rglru_init_state(
+                    batch, layer.rglru.w_out.shape[0], dtype, dev)
             if kind == "mlstm":
                 return xlstm.mlstm_init_state(batch, cfg.num_heads,
                                               d // cfg.num_heads, dev)
@@ -261,8 +272,9 @@ class Model(nn.Module):
                 return xlstm.slstm_init_state(batch, d, cfg.slstm_num_heads,
                                               dev)
             return attn.init_kv_cache(
-                batch, _cache_len_for(cfg, kind, cache_len), cfg, dtype, dev)
-        return [entry(layer.kind) for layer in self.layers]
+                batch, _cache_len_for(cfg, kind, cache_len), cfg, dtype, dev,
+                self.mctx)
+        return [entry(layer.kind, layer) for layer in self.layers]
 
     def decode_step(self, tokens1, cache, pos, *, return_hidden=False,
                     mctx=None):
@@ -271,17 +283,28 @@ class Model(nn.Module):
         ``return_hidden``; the new cache). The attention rings are
         updated in place."""
         cfg = self.cfg
-        x = common.embed_apply(self.embed.table, tokens1)
+        mctx = mctx or self.mctx
+        x = common.embed_apply(self.embed.table, tokens1, mctx)
         # M-RoPE decodes at the absolute position on all three axes, as the
         # JAX package does (its prefill starts the text at the grid size)
         pos3 = pos[None, :, None].expand(3, -1, 1) if cfg.mrope_sections \
             else None
         new = []
         for layer, c in zip(self.layers, cache):
-            x, c = layer.decode(x, c, pos, cfg, pos3=pos3,
-                                mctx=mctx or self.mctx)
+            x, c = layer.decode(x, c, pos, cfg, pos3=pos3, mctx=mctx)
             new.append(c)
         return self._out(x, return_hidden), new
+
+
+def _whole_head(model):
+    """The model's head table, which must be whole: a model of a rank of a
+    mesh holds its rows only, and its logits go through the step
+    factories' vocab-parallel heads."""
+    if model.mctx.model_size > 1:
+        raise ValueError("a model built for a mesh holds its rank's rows of "
+                         "the head: use launch.distributed's steps "
+                         "(vocab_parallel_ce / vocab_parallel_bvsb)")
+    return model.head_table
 
 
 def vlm_positions(b, v, s_text, device=None):

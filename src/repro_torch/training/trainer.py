@@ -102,9 +102,10 @@ def all_reduce_grads(grads: Dict[str, torch.Tensor], mctx=LOCAL):
 
 def mesh_grad_norm(grads: Dict[str, torch.Tensor], sharded, mctx=LOCAL):
     """The global norm of the whole model's gradient on every rank, where
-    the leaves named in ``sharded`` hold this model rank's slice (its
-    experts): their squares summed over the model group, the replicated
-    leaves' added once. None on one card or one model rank
+    the leaves named in ``sharded`` hold this model rank's part
+    (``models.model.model_parts``: heads, features, channels, experts,
+    vocabulary rows): their squares summed over the model group, the
+    replicated leaves' added once. None on one card or one model rank
     (``optimizer.update`` then takes ``global_norm`` itself)."""
     if mctx.model_group is None:
         return None

@@ -321,12 +321,17 @@ def jax_device_sharded(out_file):
 # the step factories over a (data, model) mesh (tests/test_torch_mesh.py)
 # ---------------------------------------------------------------------------
 # the reduced configs and meshes the mesh tests run, and their sizes: B
-# prompts of S tokens (seamless over its reduced 64 audio frames), SERVE
-# decode steps of seeded tokens, one train step of B x S tokens
+# prompts of S tokens (seamless over its reduced 64 audio frames) into
+# rings of MESH_CACHE slots (S + SERVE: cut on its slots at (2, 2), whole
+# at (1, 4); RecurrentGemma's local window of 128, cut at both, the
+# prompts filling one shard), SERVE decode steps of seeded tokens, one
+# train step of B x S tokens
 MESH_ARCHS = ("granite-moe-1b-a400m", "deepseek-moe-16b",
-              "seamless-m4t-medium")
+              "seamless-m4t-medium", "recurrentgemma-9b")
 MESH_SHAPES = ((2, 2), (1, 4))
 MESH_B, MESH_S, MESH_SERVE = 4, 8, 2
+MESH_CACHE = {arch: MESH_S + MESH_SERVE for arch in MESH_ARCHS}
+MESH_CACHE["recurrentgemma-9b"] = 128
 MESH_ADAMW = dict(lr=1e-2, warmup_steps=2, total_steps=20)
 # the tie across shards: a (2, 4) hidden over a (512, 4) head (four
 # shards of 128 rows) whose largest logit is at rows 5 and 300
@@ -372,11 +377,13 @@ def _t(x):
     return None if x is None else torch.from_numpy(np.asarray(x))
 
 
-def _serve_run(prefill_fn, serve_fn, prefill, serve):
-    """conf / top-1 of the prefill and of each serve step, numpy."""
+def _serve_run(prefill_fn, serve_fn, prefill, serve, cache_len):
+    """conf / top-1 of the prefill and of each serve step, numpy; and the
+    prefill's rings: (whole ring's slots, this rank's slots, its valid
+    slots after the last step) a ring."""
     import torch
     out = []
-    conf, top1, cache = prefill_fn(_t(prefill["tokens"]),
+    conf, top1, cache = prefill_fn(_t(prefill["tokens"]), cache_len,
                                    audio_embeds=_t(prefill.get(
                                        "audio_embeds")))
     out.append((conf.numpy(), top1.numpy()))
@@ -384,15 +391,30 @@ def _serve_run(prefill_fn, serve_fn, prefill, serve):
         pos = torch.full((MESH_B,), MESH_S + i, dtype=torch.long)
         conf, top1, cache = serve_fn(_t(tok), cache, pos)
         out.append((conf.numpy(), top1.numpy()))
+    return out, _rings(cache)
+
+
+def _rings(cache):
+    """(W, this rank's slots, its slots written so far) of each ring of a
+    cache after the serve steps (a cut ring's shard past the written
+    slots holds zeros)."""
+    from repro_torch.models.attention import ring_slots
+    out = []
+    for entry in cache:
+        ring = entry.get("self", entry)
+        if "k" in ring:
+            written = int((ring["k"][0].abs().sum((1, 2)) != 0).sum())
+            out.append((ring_slots(ring), ring["k"].shape[1], written))
     return out
 
 
-def _gaps(model, cfg, prefill, serve, mctx):
+def _gaps(model, cfg, prefill, serve, mctx, table, cache_len):
     """This data rank's rows of the batch and the top-2 logit gap at each
     served position of those rows (where a float-order difference may
-    swap top-1), from the model's hidden states over the whole head."""
+    swap top-1), from the model's hidden states over the whole head
+    ``table``."""
     import torch
-    table = model.head_table.double()
+    table = torch.from_numpy(np.asarray(table)).double()
     rows = mctx.data_rows(MESH_B)
 
     def gap(hidden):
@@ -402,7 +424,8 @@ def _gaps(model, cfg, prefill, serve, mctx):
         if cfg.is_encoder_decoder else {}
     with torch.inference_mode():
         hidden, cache = model(_t(prefill["tokens"][rows]), collect_cache=True,
-                              return_hidden=True, mctx=mctx, **inputs)
+                              cache_len=cache_len, return_hidden=True,
+                              mctx=mctx, **inputs)
         gaps = [gap(hidden)]
         for i, tok in enumerate(serve):
             pos = torch.full((rows.stop - rows.start,), MESH_S + i,
@@ -438,13 +461,18 @@ def _train_run(model, mesh, mctx, train, accum=1):
             "grad_loss": float(loss)}
 
 
+def head_table(tree, cfg):
+    """The whole head's table of a JAX parameter tree."""
+    return tree["embed" if cfg.tie_embeddings else "lm_head"]["table"]
+
+
 def _mesh_cases(trees):
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch import distributed as pdist
     from repro_torch.launch import mesh as mesh_mod
     from repro_torch.models.common import mesh_context
-    from repro_torch.models.model import expert_slices, params_from_jax
+    from repro_torch.models.model import model_parts, params_from_jax
 
     meshes = {shape: mesh_mod.make_model_mesh(shape, device_type="cpu")
               for shape in MESH_SHAPES}
@@ -453,22 +481,27 @@ def _mesh_cases(trees):
         cfg = get_config(arch).reduced()
         mesh = meshes[shape]
         mctx = mesh_context(mesh)
+        cache_len = MESH_CACHE[arch]
         prefill, serve, train = mesh_inputs(cfg, MESH_ARCHS.index(arch))
         model = params_from_jax(trees[arch], cfg, device="cpu", mesh=mesh)
-        out = {"steps": _serve_run(pdist.make_prefill_step(model, mesh),
-                                   pdist.make_serve_step(model, mesh),
-                                   prefill, serve),
-               "experts": {k: (v.start, v.stop, tuple(
+        steps, rings = _serve_run(pdist.make_prefill_step(model, mesh),
+                                  pdist.make_serve_step(model, mesh),
+                                  prefill, serve, cache_len)
+        out = {"steps": steps, "rings": rings,
+               "parts": {k: (dim, rows.start, rows.stop, tuple(
                    model.get_parameter(k).shape))
-                   for k, v in expert_slices(model).items()},
+                   for k, (dim, rows) in model_parts(model).items()},
+               "bytes": sum(p.numel() * p.element_size()
+                            for p in model.parameters()),
                "positions": (mctx.data_rank, mctx.model_rank),
-               "gaps": _gaps(model, cfg, prefill, serve, mctx),
+               "gaps": _gaps(model, cfg, prefill, serve, mctx,
+                             head_table(trees[arch], cfg), cache_len),
                **_train_run(model, mesh, mctx, train)}
         if shape[0] == 1:       # the port's one-rank run on the same inputs
             local = params_from_jax(trees[arch], cfg, device="cpu")
             out["local_steps"] = _serve_run(pdist.make_prefill_step(local),
                                             pdist.make_serve_step(local),
-                                            prefill, serve)
+                                            prefill, serve, cache_len)[0]
             local = params_from_jax(trees[arch], cfg, device="cpu")
             out["local"] = _train_run(local, None, mesh_context(
                 None), train)
@@ -477,6 +510,8 @@ def _mesh_cases(trees):
     def tie():
         hidden, table, vocab = tie_inputs()
         mctx = mesh_context(meshes[(1, 4)])
+        rows = table.shape[0] // mctx.model_size
+        table = table[mctx.model_rank * rows:(mctx.model_rank + 1) * rows]
         with torch.inference_mode():
             conf, top1 = pdist.vocab_parallel_bvsb(_t(hidden), _t(table),
                                                    mctx, vocab)
@@ -538,16 +573,22 @@ def mesh_rank_main(rank, init_file, out_dir, trees_file):
 
 
 def jax_mesh_reference(trees_file, out_file):
-    """The JAX package's step factories on 4-device CPU meshes (run with
+    """The JAX package's steps on 4-device CPU meshes (run with
     XLA_FLAGS=--xla_force_host_platform_device_count=4 in a process of its
-    own, Auto axes): for each arch and mesh, conf / top-1 of the prefill
-    and serve steps, the gradients of the train step's loss and one train
-    step; and its vocab-parallel BvSB on the tie."""
+    own, Auto axes), under the layout the port copies: the parameters
+    placed by ``param_shardings`` (TP only, ``fsdp=False``, for the
+    prefill and serve steps; ``fsdp=True`` for training), the cache by
+    ``cache_shardings``. For each arch and mesh, conf / top-1 of the
+    prefill (``make_prefill_step``'s body with the rings' ``cache_len``,
+    which the factory does not take) and of the serve steps, the
+    gradients of the train step's loss and one train step; and its
+    vocab-parallel BvSB on the tie."""
     import jax
     from jax.sharding import AxisType
 
     from repro.configs import get_config
     from repro.launch import distributed as jdist
+    from repro.launch import shardings as jshard
     from repro.launch.mesh import batch_axes_of
     from repro.models.common import MeshContext
     from repro.models.model import build_model
@@ -564,31 +605,44 @@ def jax_mesh_reference(trees_file, out_file):
         for arch in MESH_ARCHS:
             cfg = get_config(arch).reduced()
             jm = build_model(cfg)
-            tree = trees[arch]
             prefill, serve, train = mesh_inputs(cfg, MESH_ARCHS.index(arch))
-            table_key = "embed" if cfg.tie_embeddings else "lm_head"
+            tp = jax.device_put(trees[arch], jshard.param_shardings(
+                mesh, trees[arch], fsdp=False))
+            fsdp = jax.device_put(trees[arch], jshard.param_shardings(
+                mesh, trees[arch], fsdp=True))
 
-            def loss_fn(params, batch, jm=jm, cfg=cfg, table_key=table_key):
+            def loss_fn(params, batch, jm=jm, cfg=cfg):
                 hidden, _, aux = jm.forward(params, batch, mctx, remat=True,
                                             return_hidden=True)
                 ce = jdist.vocab_parallel_ce(
-                    hidden, params[table_key]["table"], batch["labels"],
+                    hidden, head_table(params, cfg), batch["labels"],
                     mesh, ba, cfg.vocab_size)
                 return ce + aux
-            jprefill = jax.jit(jdist.make_prefill_step(jm, mesh))
+
+            def prefill_fn(params, batch, jm=jm, cfg=cfg,
+                           cache_len=MESH_CACHE[arch]):
+                hidden, cache, _ = jm.forward(
+                    params, batch, mctx, collect_cache=True,
+                    cache_len=cache_len, return_hidden=True)
+                conf, top1 = jdist.vocab_parallel_bvsb(
+                    hidden[:, -1:, :], head_table(params, cfg), mesh, ba,
+                    cfg.vocab_size)
+                return conf, top1, cache
             jserve = jax.jit(jdist.make_serve_step(jm, mesh, MESH_B))
             jstep = jax.jit(jdist.make_train_step(
                 jm, mesh, remat=True, adamw=jopt.AdamWConfig(**MESH_ADAMW)))
             with mesh:
                 steps = []
-                conf, top1, cache = jprefill(tree, prefill)
+                conf, top1, cache = jax.jit(prefill_fn)(tp, prefill)
+                cache = jax.device_put(cache, jshard.cache_shardings(
+                    mesh, cache, MESH_B))
                 steps.append((np.asarray(conf), np.asarray(top1)))
                 for i, tok in enumerate(serve):
                     pos = np.full((MESH_B,), MESH_S + i, np.int32)
-                    conf, top1, cache = jserve(tree, tok, cache, pos)
+                    conf, top1, cache = jserve(tp, tok, cache, pos)
                     steps.append((np.asarray(conf), np.asarray(top1)))
-                grads = jax.jit(jax.grad(loss_fn))(tree, train)
-                params, state, met = jstep(tree, jopt.init(tree), train)
+                grads = jax.jit(jax.grad(loss_fn))(fsdp, train)
+                params, state, met = jstep(fsdp, jopt.init(fsdp), train)
             out[f"{arch} {shape}"] = {
                 "steps": steps,
                 "grads": jax.tree.map(np.asarray, grads),
@@ -601,10 +655,10 @@ def jax_mesh_reference(trees_file, out_file):
     jstep = jax.jit(jdist.make_train_step(
         build_model(cfg), mesh, remat=True, accum_steps=2,
         adamw=jopt.AdamWConfig(**MESH_ADAMW)))
+    fsdp = jax.device_put(trees[MESH_ARCHS[0]], jshard.param_shardings(
+        mesh, trees[MESH_ARCHS[0]], fsdp=True))
     with mesh:
-        _, _, met = jstep(trees[MESH_ARCHS[0]],
-                          jopt.init(trees[MESH_ARCHS[0]]),
-                          mesh_inputs(cfg, 0)[2])
+        _, _, met = jstep(fsdp, jopt.init(fsdp), mesh_inputs(cfg, 0)[2])
     out["accum"] = {k: float(v) for k, v in met.items()}
     mesh = jax.make_mesh((1, 4), ("data", "model"),
                          axis_types=(AxisType.Auto,) * 2)

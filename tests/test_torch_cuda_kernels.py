@@ -377,7 +377,9 @@ def test_reduced_xlstm_and_encdec_steps_on_the_card_match_the_cpu(dev, arch,
                                rtol=0)
     n = cfg.num_layers
     want = {"bvsb": 5, "bvsb_partials": 0, "bvsb_merge": 0,
-            "flash_attention": 0, "decode_attention": 0, "rglru_scan": 0,
+            "flash_attention": 0, "decode_attention": 0,
+            "decode_attention_partials": 0, "decode_attention_merge": 0,
+            "rglru_scan": 0,
             "flash_attention_bwd": 0, "rglru_scan_bwd": 0}
     if inputs:
         want.update(flash_attention=cfg.encoder_layers + 2 * n,
@@ -533,6 +535,60 @@ def test_decode_kernel_strided_query_and_masked_slots(dev):
         out[1], decode_attention_plain(q, k, v, lens)[1], atol=1e-4, rtol=0)
 
 
+# (B, W, KV, G, hd, m, lengths): RecurrentGemma-9B's local-attention ring
+# over four ranks, granite's ring of 2,064 slots over four and two, and a
+# small ring with empty shards
+SHARD_CASES = [
+    (4, 2048, 1, 16, 256, 4, [3000, 3007, 1, 700]),
+    (4, 2064, 8, 2, 64, 4, [2049, 2056, 2064, 9]),
+    (4, 2064, 8, 2, 64, 2, [2049, 2056, 2064, 9]),
+    (3, 128, 1, 4, 64, 4, [8, 10, 128]),
+]
+
+
+@pytest.mark.parametrize("b,w,kvh,g,hd,m,lengths", SHARD_CASES)
+@pytest.mark.parametrize("qd,cd", [(torch.float32, torch.float32),
+                                   (torch.bfloat16, torch.bfloat16),
+                                   (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("cap", [None, 50.0])
+def test_decode_shard_entries_match_plain(dev, b, w, kvh, g, hd, m, lengths,
+                                          qd, cd, cap):
+    """The partial entry on each rank's shard against its plain version
+    over the kernel's own splits, the sum of the ranks' buffers merged by
+    the merge entry against the plain merge and against the whole-ring
+    plain decode; every launch twice, bitwise equal."""
+    from repro_torch.kernels import decode_attention as _decode
+    q = torch.randn(b, kvh * g, hd, device=dev).to(qd) * 2
+    k = torch.randn(b, w, kvh, hd, device=dev).to(cd)
+    v = torch.randn(b, w, kvh, hd, device=dev).to(cd)
+    lens = torch.tensor(lengths, device=dev)
+    ws = w // m
+    ns, _ = _decode.shard_splits(b, kvh, ws, _build.sm_count(dev), m)
+    ops.reset_launch_counts()
+    parts = []
+    for j in range(m):
+        ks, vs = k[:, j * ws:(j + 1) * ws], v[:, j * ws:(j + 1) * ws]
+        got = ops.decode_attention_partials(q, ks, vs, lens, j, m, cap)
+        assert torch.equal(ops.decode_attention_partials(
+            q, ks, vs, lens, j, m, cap), got)
+        ref = _decode.decode_attention_partials_plain(q, ks, vs, lens, j, m,
+                                                      cap, ns)
+        assert got.shape == ref.shape
+        torch.testing.assert_close(got, ref, atol=DECODE_ATOL[qd], rtol=1e-4)
+        parts.append(got)
+    gathered = torch.stack(parts).sum(0)
+    out = ops.decode_attention_merge(gathered, q, kvh)
+    assert torch.equal(ops.decode_attention_merge(gathered, q, kvh), out)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["decode_attention_partials"] == 2 * m
+    assert ops.launch_counts()["decode_attention_merge"] == 2
+    assert out.dtype == qd and not torch.isnan(out).any()
+    for want in (_decode.decode_attention_merge_plain(gathered, q, kvh),
+                 decode_attention_plain(q, k, v, lens, soft_cap=cap)):
+        torch.testing.assert_close(out.float(), want.float(),
+                                   atol=DECODE_ATOL[qd], rtol=0)
+
+
 def _rglru_inputs(dev, b, s, d, view, dtype, with_h0):
     """a, u (B, S, D) in ``dtype``, cut to ``view`` after the cast: None
     (contiguous), "offset" ([:, :, 1:], the base 4 or 2 bytes off 16) or
@@ -630,6 +686,8 @@ def test_reduced_recurrentgemma_steps_on_the_card_match_the_cpu(dev):
     torch.testing.assert_close(runs[0][0], runs[1][0], atol=1e-5, rtol=0)
     assert runs[0][1] == {"bvsb": 5, "bvsb_partials": 0, "bvsb_merge": 0,
                           "flash_attention": 1, "decode_attention": 4,
+                          "decode_attention_partials": 0,
+                          "decode_attention_merge": 0,
                           "rglru_scan": 2, "flash_attention_bwd": 0,
                           "rglru_scan_bwd": 0}
     assert runs[1][1] == dict.fromkeys(runs[1][1], 0)

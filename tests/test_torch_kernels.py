@@ -271,7 +271,10 @@ def test_cpu_tensors_take_the_plain_versions_without_launching():
                        bvsb_plain(x[:, :64])[1])
     assert ops.launch_counts() == {"bvsb": 0, "bvsb_partials": 0,
                                    "bvsb_merge": 0, "flash_attention": 0,
-                                   "decode_attention": 0, "rglru_scan": 0,
+                                   "decode_attention": 0,
+                                   "decode_attention_partials": 0,
+                                   "decode_attention_merge": 0,
+                                   "rglru_scan": 0,
                                    "flash_attention_bwd": 0,
                                    "rglru_scan_bwd": 0}
 

@@ -3,17 +3,23 @@ on four ``gloo`` ranks on the CPU.
 
 A module-scoped fixture draws the JAX package's weights for the reduced
 granite-moe-1b-a400m (MoE, tied table), deepseek-moe-16b (a dense first
-layer, a shared expert, an untied head) and seamless-m4t-medium (the
-encoder-decoder), then starts the four ranks once
+layer, a shared expert, an untied head), seamless-m4t-medium (the
+encoder-decoder) and recurrentgemma-9b (RG-LRU blocks over 16 gate
+blocks, one KV head, a local window of 128), then starts the four ranks
+once
 (tests/sharded_ranks.py's ``Spawned`` running ``mesh_rank_main``: a
 ``file://`` rendezvous under the test's temporary directory, one torch
 thread a rank, a group timeout, a join timeout) and, beside them, the
-JAX package's own step factories on 4-device CPU meshes with Auto axes
-(``jax_mesh_reference``, a subprocess with XLA_FLAGS set). On meshes (2, 2) and (1, 4) each rank runs
-``make_prefill_step`` on 4 prompts of 8 tokens, 2 ``make_serve_step``
-steps of seeded tokens, the gradients of the train step's loss and one
-``make_train_step``; on (1, 4) also the port's one-rank steps on the same
-inputs. The tests below read the ranks' results.
+JAX package's own steps on 4-device CPU meshes with Auto axes, its
+parameters placed by ``param_shardings`` and its cache by
+``cache_shardings`` (``jax_mesh_reference``, a subprocess with XLA_FLAGS
+set). On meshes (2, 2) and (1, 4) each rank runs ``make_prefill_step`` on
+4 prompts of 8 tokens into rings of ``MESH_CACHE`` slots, 2
+``make_serve_step`` steps of seeded tokens, the gradients of the train
+step's loss and one ``make_train_step``, every layer but the norms and
+the router cut over the model ranks (``launch.shardings``); on (1, 4)
+also the port's one-rank steps on the same inputs. The tests below read
+the ranks' results.
 
 Tolerances: conf 1e-5 absolute and top-1 equal wherever the top-2 logit
 gap exceeds 1e-4 (float32 sums over the model ranks in another order);
@@ -41,7 +47,9 @@ from repro.models.model import build_model as jbuild_model
 from repro_torch.configs import get_config
 from repro_torch.kernels.bvsb import (bvsb_merge_plain, bvsb_partials_plain,
                                       bvsb_plain)
-from repro_torch.models.model import _jax_location
+from repro_torch.launch.shardings import param_spec, spec_model_dim
+from repro_torch.models.layout import model_dim
+from repro_torch.models.model import _jax_location, part_index
 
 torch.set_num_threads(2)
 
@@ -71,6 +79,7 @@ class _MeshRanks(R.Spawned):
                          "import sys, sharded_ranks; "
                          "sharded_ranks.jax_mesh_reference(*sys.argv[1:])",
                          (trees_file,))
+        self.trees = trees
 
     def case(self, name):
         return self.per_rank(name)
@@ -94,9 +103,24 @@ def _leaf(tree, name, cfg):
     return tree if layer < 0 else tree[layer]
 
 
-def _expert_rows(res, name):
-    start, stop, _ = res["experts"].get(name, (None, None, None))
-    return slice(start, stop)
+def _part(res, name):
+    """The index of this rank's part of a leaf into the whole leaf."""
+    if name not in res["parts"]:
+        return ()
+    dim, start, stop, _ = res["parts"][name]
+    return part_index(dim, slice(start, stop))
+
+
+def _flat(tree, path=()):
+    """(path of key names, leaf) of a JAX parameter tree of numpy arrays."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _flat(v, path + (str(k),))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _flat(v, path + (str(i),))
+    else:
+        yield path, np.asarray(tree)
 
 
 def _leaf_err(got, ref):
@@ -145,8 +169,8 @@ def test_prefill_and_serve_steps_match_jax(ranks, arch, shape):
 def test_train_step_matches_jax(ranks, arch, shape):
     """One train step on every rank: the loss and the step's metrics
     against JAX's, each gradient (summed over the data group) and the
-    step's first moment against the JAX leaf or this rank's slice of its
-    expert leaf, the updated parameters likewise."""
+    step's first moment against the JAX leaf or this rank's part of it
+    (``model_parts``), the updated parameters likewise."""
     cfg = get_config(arch).reduced()
     ref = ranks.jax(f"{arch} {shape}")
     lr = R.MESH_ADAMW["lr"]
@@ -157,7 +181,7 @@ def test_train_step_matches_jax(ranks, arch, shape):
         assert res["grad_loss"] == pytest.approx(ref["metrics"]["loss"],
                                                  rel=LOSS_RTOL)
         for name, g in res["grads"].items():
-            rows = _expert_rows(res, name)
+            rows = _part(res, name)
             want = _leaf(ref["grads"], name, cfg)[rows]
             assert g.shape == want.shape, name
             assert _leaf_err(g, want) <= GRAD_TOL, (name, _leaf_err(g, want))
@@ -194,7 +218,7 @@ def test_one_by_m_mesh_is_the_one_rank_run(ranks, arch):
         assert res["metrics"]["loss"] == pytest.approx(
             local["metrics"]["loss"], rel=LOSS_RTOL)
         for name, g in res["grads"].items():
-            want = local["grads"][name][_expert_rows(res, name)]
+            want = local["grads"][name][_part(res, name)]
             assert _leaf_err(g, want) <= GRAD_TOL, name
 
 
@@ -208,14 +232,65 @@ def test_experts_are_held_only_by_their_rank(ranks, shape):
     per_rank = ranks.case(f"deepseek-moe-16b {shape}")
     for r, res in enumerate(per_rank):
         assert res["positions"] == divmod(r, m)
-        assert res["experts"]
-        for name, (start, stop, pshape) in res["experts"].items():
-            j = res["positions"][1]
-            assert (start, stop) == (j * e // m, (j + 1) * e // m), name
+        j = res["positions"][1]
+        experts = {k: v for k, v in res["parts"].items()
+                   if ".moe.w_" in k}
+        assert experts
+        for name, (dim, start, stop, pshape) in experts.items():
+            assert (dim, start, stop) == (0, j * e // m, (j + 1) * e // m)
             assert pshape[0] == e // m, name
         for name, p in res["params"].items():
-            if name not in res["experts"]:
+            if name not in res["parts"]:
                 assert np.array_equal(p, per_rank[0]["params"][name]), name
+
+
+@pytest.mark.parametrize("arch,shape", CASES, ids=CASE_IDS)
+def test_each_rank_holds_only_its_model_part(ranks, arch, shape):
+    """Each rank's parameter bytes are the sum over the JAX leaves of the
+    part the layout gives it: a leaf the port cuts (``layout.model_dim``)
+    a 1/m share, the rest whole; the leaves ``param_spec`` cuts but the
+    port keeps whole are exactly the named departure (wk / wv where m does
+    not divide the KV heads: recurrentgemma's one KV head); each rank's
+    parts are [j n, (j+1) n) of their leaf."""
+    cfg = get_config(arch).reduced()
+    m = shape[1]
+    tree = ranks.trees[arch]
+    want, departures = 0, set()
+    for path, leaf in _flat(tree):
+        dim = model_dim(path, leaf.shape, m, cfg)
+        spec_dim = spec_model_dim(param_spec(path, leaf.shape, model_size=m))
+        want += leaf.size * 4 // (m if dim is not None else 1)
+        if dim is None and spec_dim is not None:
+            departures.add(path[-1])
+    assert departures == ({"wk", "wv"} if cfg.num_kv_heads % m else set())
+    for res in ranks.case(f"{arch} {shape}"):
+        assert res["bytes"] == want
+        assert res["parts"]
+        j = res["positions"][1]
+        for name, (dim, start, stop, pshape) in res["parts"].items():
+            assert (start, stop) == (j * pshape[dim], (j + 1) * pshape[dim])
+
+
+def test_rings_cut_on_their_slots_and_whole(ranks):
+    """A ring the model ranks divide is cut on its slots: granite's 10
+    slots over (2, 2)'s two model ranks and recurrentgemma's 128 over
+    both meshes; granite's 10 over (1, 4)'s four stay whole. The 8 + 2
+    written slots of recurrentgemma's ring lie in model rank 0's shard,
+    the other shards empty."""
+    for arch, shape, cut in (("granite-moe-1b-a400m", (2, 2), True),
+                             ("granite-moe-1b-a400m", (1, 4), False),
+                             ("recurrentgemma-9b", (2, 2), True),
+                             ("recurrentgemma-9b", (1, 4), True)):
+        w = R.MESH_CACHE[arch]
+        for res in ranks.case(f"{arch} {shape}"):
+            assert res["rings"]
+            j = res["positions"][1]
+            for whole, mine, written in res["rings"]:
+                assert whole == w
+                assert mine == (w // shape[1] if cut else w)
+                if arch == "recurrentgemma-9b":
+                    used = R.MESH_S + R.MESH_SERVE
+                    assert written == min(max(used - j * mine, 0), mine)
 
 
 def test_model_mesh_helpers(ranks):
