@@ -424,12 +424,18 @@ NO_LAUNCHES = dict.fromkeys(ops.launch_counts(), 0)
 # gradients at MESH_GRAD_LAYERS layers on TRAIN_CHECK_B x TRAIN_CHECK_S
 # tokens. (b) the same model on a (2, 2) mesh, the prefill and
 # MESH22_STEPS serve steps, the gradients at MESH_GRAD_LAYERS layers on 2 x
-# TRAIN_CHECK_S tokens (a row a data rank). (c) seamless-m4t-medium
-# trained at full width and depth, SEAMT_STEPS steps of SEAMT_B x
-# SEAMT_FRAMES audio frames and SEAMT_S-token prompts; (d) xlstm-350m
-# trained at full width and depth, XLSTMT_STEPS steps of XLSTMT_B x
-# XLSTMT_S tokens; (f) each at 2 layers (seamless 2 + 2) against the CPU.
-# Every layer is cut over the model ranks. (a)'s rings hold MESH_RING
+# TRAIN_CHECK_S tokens (a row a data rank); then trained at full width and
+# depth, MESH_TRAIN_STEPS steps (remat, MESH_TRAIN_B x MESH_S) stored FSDP
+# (each matrix's other dim over the two data ranks) and one step of the
+# same first batch on the resident weights: each rank's stored bytes
+# (parameters and AdamW's moments), its peak, the all_reduces of a step.
+# (c) seamless-m4t-medium trained at full width and depth, SEAMT_STEPS
+# steps of SEAMT_B x SEAMT_FRAMES audio frames and SEAMT_S-token prompts;
+# (d) xlstm-350m at full width and depth on an XLM_SHAPE mesh, one mLSTM
+# and one sLSTM head a rank: a prefill of XLM_B x XLM_S tokens, XLM_STEPS
+# serve steps, XLSTMT_STEPS train steps of XLSTMT_B x XLSTMT_S tokens, held
+# to the one-card run; (f) seamless and xLSTM at 2 layers (seamless 2 + 2)
+# against the CPU. Every layer is cut over the model ranks. (a)'s rings hold MESH_RING
 # slots, which its four model ranks divide, so its decode runs the partial
 # and merge entries; (b)'s hold MESH22_RING, which its two do not, so each
 # rank holds the whole ring and decodes its own heads through the
@@ -450,6 +456,7 @@ MESH22_RING = MESH_S + MESH22_STEPS + 1
 MESH_PEAK_GB = 72        # the ranks' peaks together, at most
 SEAMT_B, SEAMT_FRAMES, SEAMT_S, SEAMT_STEPS = 2, 1024, 512, 3
 XLSTMT_B, XLSTMT_S, XLSTMT_STEPS = 2, 128, 2
+XLM_SHAPE, XLM_B, XLM_S, XLM_STEPS = (1, 4), 4, 512, 8
 
 
 def card_rates(name: str):
@@ -4616,10 +4623,80 @@ def rg_mesh_work(dev):
     return out
 
 
+def stored_gb(params, state) -> float:
+    """GB a rank stores for training: its parameters and AdamW's two
+    moments."""
+    def size(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+    return (size(params.values()) + size(state["mu"].values())
+            + size(state["nu"].values())) / 1e9
+
+
+def mesh_train(model, mesh, dev, steps, b, s):
+    """``steps`` train steps (remat) of ``b`` x ``s`` SyntheticLM tokens
+    on this rank's ``model``, the last one clocked: the losses, the
+    unclocked walls, the clocked step's all_reduces, the launches and the
+    GB the rank stores (its parameters and AdamW's moments)."""
+    params = trainable(model)
+    state = opt.init(params)
+    stored = stored_gb(params, state)
+    data = SyntheticLM(DataConfig(model.cfg.vocab_size, s, b,
+                                  seed=MESH_SEED), device=dev)
+    step = make_train_step(model, mesh, remat=True, adamw=opt.AdamWConfig(
+        warmup_steps=2, total_steps=steps))
+    ops.reset_launch_counts()
+    losses, walls = [], []
+    for i in range(steps - 1):
+        (state, m), w = _timed(lambda: step(state, data.batch_at(i)))
+        losses.append(float(m["loss"]))
+        walls.append(w)
+    with collective_clock() as tally:
+        (state, m), w = _timed(lambda: step(state, data.batch_at(
+            steps - 1)))
+    losses.append(float(m["loss"]))
+    return dict(losses=losses, walls=walls, counts=ops.launch_counts(),
+                clock=dict(tally, wall=w), stored_gb=stored)
+
+
+def xlstm_mesh_tokens(cfg, dev):
+    rng = np.random.default_rng(23)
+    return torch.as_tensor(rng.integers(0, cfg.vocab_size, (XLM_B, XLM_S)),
+                           device=dev)
+
+
+def xlstm_mesh_work(dev):
+    """(d): xlstm-350m's weights drawn on every rank, each keeping its
+    heads, on an XLM_SHAPE mesh: a prefill of XLM_B x XLM_S tokens and
+    XLM_STEPS serve steps, then XLSTMT_STEPS train steps (remat) of
+    XLSTMT_B x XLSTMT_S SyntheticLM tokens."""
+    from repro_torch.launch.mesh import make_model_mesh
+    cfg = get_config(XLSTM_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = make_model_mesh(XLM_SHAPE, device_type="cuda")
+    t0 = time.perf_counter()
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(
+        MESH_SEED), device=dev, mesh=mesh)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    steps, counts, prefill_s, step_s, clock = mesh_serve(
+        model, mesh, dev, xlstm_mesh_tokens(cfg, dev), XLM_STEPS)
+    out = dict(steps=steps, counts=counts, prefill_s=prefill_s,
+               step_s=step_s, clock=clock, init_s=init_s,
+               layout={"mlstm.w_up": tuple(model.layers[0].mlstm.w_up.shape),
+                       "slstm.w_in": tuple(model.layers[1].slstm.w_in.shape)})
+    out["train"] = mesh_train(model, mesh, dev, XLSTMT_STEPS, XLSTMT_B,
+                              XLSTMT_S)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
 def mesh_work(_, dev):
     """A rank's share of phase 13: (a) on the MESH_SHAPE mesh, then (b) on
-    (2, 2), then (e); its results, launches, walls, collectives and peak
-    memory."""
+    (2, 2), then (e) and (d); its results, launches, walls, collectives and
+    peak memory."""
     from repro_torch.launch.mesh import make_model_mesh
     cfg = get_config(GRANITE_ARCH)
     out = {}
@@ -4637,24 +4714,9 @@ def mesh_work(_, dev):
                           step_s=step_s, clock=clock, init_s=init_s,
                           experts=tuple(model.layers[0].moe.w_gate.shape),
                           layout=_rank_layout(model))
-    data = SyntheticLM(DataConfig(cfg.vocab_size, MESH_S, MESH_TRAIN_B,
-                                  seed=MESH_SEED), device=dev)
-    step = make_train_step(model, mesh, remat=True, adamw=opt.AdamWConfig(
-        warmup_steps=2, total_steps=MESH_TRAIN_STEPS))
-    state = opt.init(trainable(model))
-    ops.reset_launch_counts()
-    losses, walls = [], []
-    for i in range(MESH_TRAIN_STEPS - 1):
-        (state, m), w = _timed(lambda: step(state, data.batch_at(i)))
-        losses.append(float(m["loss"]))
-        walls.append(w)
-    with collective_clock() as tally:
-        (state, m), w = _timed(lambda: step(state, data.batch_at(
-            MESH_TRAIN_STEPS - 1)))
-    losses.append(float(m["loss"]))
-    out["a_train"] = dict(losses=losses, walls=walls, counts=ops.
-                          launch_counts(), clock=dict(tally, wall=w))
-    del model, state, step
+    out["a_train"] = mesh_train(model, mesh, dev, MESH_TRAIN_STEPS,
+                                MESH_TRAIN_B, MESH_S)
+    del model
     torch.cuda.empty_cache()
     out["a_grads"] = mesh_grads(cfg, dev, mesh, TRAIN_CHECK_B)
     out["a_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
@@ -4674,7 +4736,17 @@ def mesh_work(_, dev):
     out["b_grads"] = mesh_grads(cfg, dev, mesh, 2)
     out["b_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     torch.cuda.empty_cache()
+    for key, fsdp, n in (("b_fsdp", True, MESH_TRAIN_STEPS),
+                         ("b_resident", False, 1)):
+        torch.cuda.reset_peak_memory_stats()
+        model = init_params(cfg, torch.Generator(device=dev).manual_seed(
+            MESH_SEED), device=dev, mesh=mesh, fsdp=fsdp)
+        out[key] = mesh_train(model, mesh, dev, n, MESH_TRAIN_B, MESH_S)
+        out[key]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del model
+        torch.cuda.empty_cache()
     out["e"] = rg_mesh_work(dev)
+    out["d"] = xlstm_mesh_work(dev)
     return out
 
 
@@ -4790,10 +4862,135 @@ def rg_mesh_check(dev, e, results):
                 peak_gb=max(peaks))
 
 
+def fsdp_report(results):
+    """(b)'s training stored FSDP and resident: prints each rank's stored
+    GB (parameters and moments), its peak, the losses, the walls and the
+    all_reduces of a clocked step of each; checks that the first-step
+    losses agree within TRAIN_LOSS_RTOL, every rank's losses are equal,
+    and FSDP stores less a rank."""
+    runs = {k: [res[k] for res in results] for k in ("b_fsdp", "b_resident")}
+    f0, r0 = runs["b_fsdp"][0], runs["b_resident"][0]
+    first_err = abs(f0["losses"][0] - r0["losses"][0]) / abs(r0["losses"][0])
+    for key, label in (("b_fsdp", "stored FSDP over the data ranks"),
+                       ("b_resident", "resident (fsdp=False)")):
+        rs = runs[key]
+        c = rs[0]["clock"]
+        print(f"mesh (b) training {label}: {len(rs[0]['losses'])} step(s) of "
+              f"{MESH_TRAIN_B} x {MESH_S} (remat), losses "
+              f"{', '.join('%.6f' % x for x in rs[0]['losses'])}; each "
+              f"rank stores {', '.join('%.3f' % r['stored_gb'] for r in rs)}"
+              f" GB (parameters and moments), peaks "
+              f"{', '.join('%.3f' % r['peak_gb'] for r in rs)} GB; unclocked "
+              f"steps {', '.join('%.1f' % (w * 1e3) for w in rs[0]['walls'])}"
+              f" ms; a clocked step {c['wall'] * 1e3:.1f} ms, {c['n']} "
+              f"all_reduces {c['s'] * 1e3:.1f} ms ({c['s'] / c['wall']:.4f} "
+              f"of it; gloo between four processes on one card: host "
+              f"copies, not a fabric)")
+    print(f"mesh (b) first-step loss FSDP {f0['losses'][0]:.6f} / resident "
+          f"{r0['losses'][0]:.6f} (rel {first_err:.3g}, tol "
+          f"{TRAIN_LOSS_RTOL:g})")
+    stored = {k: max(r["stored_gb"] for r in rs) for k, rs in runs.items()}
+    checks = {
+        "(b) FSDP first loss": first_err <= TRAIN_LOSS_RTOL,
+        "(b) FSDP ranks equal": all(
+            r["losses"] == rs[0]["losses"] for rs in runs.values()
+            for r in rs),
+        "(b) FSDP stores less": stored["b_fsdp"] < stored["b_resident"],
+    }
+    figures = {k: dict(stored_gb=stored[k],
+                       peak_gb=max(r["peak_gb"] for r in rs),
+                       step_ms=rs[0]["clock"]["wall"] * 1e3,
+                       n_all_reduce=rs[0]["clock"]["n"],
+                       share=rs[0]["clock"]["s"] / rs[0]["clock"]["wall"])
+               for k, rs in runs.items()}
+    return dict(checks=checks, figures=figures)
+
+
+def xlstm_mesh_check(dev, d, results):
+    """(d) against the one-card run of the same weights and tokens, fed
+    the mesh run's top-1: BvSB within BVSB_ATOL, top-1 equal wherever the
+    one-card top-2 logit gap exceeds TOP2_GAP, every rank bitwise equal;
+    the first train step's loss within TRAIN_LOSS_RTOL of the one-card
+    step's on the same batch; the launches."""
+    cfg = get_config(XLSTM_ARCH)
+    torch.cuda.empty_cache()
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(
+        MESH_SEED), device=dev)
+    t0 = time.perf_counter()
+    ref = _one_rank_gapped(model, dev, xlstm_mesh_tokens(cfg, dev),
+                           d["steps"], MESH_RING)
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    data = SyntheticLM(DataConfig(cfg.vocab_size, XLSTMT_S, XLSTMT_B,
+                                  seed=MESH_SEED), device=dev)
+    step = make_train_step(model, remat=True, adamw=opt.AdamWConfig(
+        warmup_steps=2, total_steps=XLSTMT_STEPS))
+    t0 = time.perf_counter()
+    _, met = step(opt.init(trainable(model)), data.batch_at(0))
+    ref_loss = float(met["loss"])
+    ref_step_s = time.perf_counter() - t0
+    del model, step
+    torch.cuda.empty_cache()
+    err = max(max_err(c, rc) for (c, _), (rc, _, _) in zip(d["steps"], ref))
+    clear = [g > TOP2_GAP for _, _, g in ref]
+    top1 = all(torch.equal(t[m], rt[m]) for (_, t), (_, rt, _), m
+               in zip(d["steps"], ref, clear))
+    n_clear = sum(int(m.sum()) for m in clear)
+    same = all(torch.equal(bits(c), bits(c0)) and torch.equal(t, t0)
+               for res in results
+               for (c, t), (c0, t0) in zip(res["d"]["steps"], d["steps"]))
+    losses = d["train"]["losses"]
+    loss_err = abs(losses[0] - ref_loss) / abs(ref_loss)
+    same_losses = all(res["d"]["train"]["losses"] == losses
+                      for res in results)
+    want = (mesh_expected_launches(cfg, XLM_STEPS),
+            train_expected_launches(cfg, XLSTMT_STEPS, True))
+    bad = [r for r, res in enumerate(results)
+           if (res["d"]["counts"], res["d"]["train"]["counts"]) != want]
+    peaks = [res["d"]["peak_gb"] for res in results]
+    c, tc = d["clock"], d["train"]["clock"]
+    print(f"mesh (d) {XLSTM_ARCH} at full width and depth on a {XLM_SHAPE} "
+          f"mesh (one mLSTM and one sLSTM head a rank, {d['layout']}; init "
+          f"{d['init_s']:.3f} s): prefill {XLM_B} x {XLM_S} "
+          f"{d['prefill_s']:.3f} s, {XLM_STEPS} serve steps "
+          f"{d['step_s'] * 1e3:.2f} ms a step; BvSB max|err| {err:.3g} "
+          f"against the one-card run (its prefill and steps {ref_s:.3f} s), "
+          f"top-1 {'equal' if top1 else 'DIFFERS'} at the {n_clear} of "
+          f"{len(clear) * XLM_B} positions whose top-2 gap exceeds "
+          f"{TOP2_GAP:g}, every rank "
+          f"{'bitwise equal' if same else 'DIFFERS'}; a clocked serve step "
+          f"{c['wall'] * 1e3:.2f} ms, {c['n']} all_reduces "
+          f"{c['s'] * 1e3:.2f} ms ({c['s'] / c['wall']:.4f} of it)")
+    print(f"mesh (d) training: {XLSTMT_STEPS} steps of {XLSTMT_B} x "
+          f"{XLSTMT_S} (remat), losses "
+          f"{', '.join('%.6f' % x for x in losses)}, the first against the "
+          f"one-card step's {ref_loss:.6f} (rel {loss_err:.3g}; its wall "
+          f"{ref_step_s:.3f} s), every rank's equal: {same_losses}; steps "
+          f"{', '.join('%.1f' % (w * 1e3) for w in d['train']['walls'])} "
+          f"ms, a clocked step {tc['wall'] * 1e3:.1f} ms, {tc['n']} "
+          f"all_reduces ({tc['s'] / tc['wall']:.4f} of it); each rank's "
+          f"peak {', '.join('%.3f' % x for x in peaks)} GB;"
+          f" launches a rank {d['counts']} (serve), "
+          f"{d['train']['counts']} (train)")
+    checks = {"(d) BvSB": err <= BVSB_ATOL[torch.float32] and top1,
+              "(d) ranks equal": same and same_losses,
+              "(d) first loss": loss_err <= TRAIN_LOSS_RTOL,
+              "(d) launches": not bad}
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"mesh (d) checks failed: {failed} (launches "
+                             f"off on ranks {bad})")
+    return dict(prefill_s=d["prefill_s"], step_ms=d["step_s"] * 1e3,
+                train_ms=d["train"]["walls"][-1] * 1e3, peak_gb=max(peaks),
+                loss=losses)
+
+
 def mesh_lm_path(dev):
-    """Phase 13 (a), (b) and (e): MESH_RANKS ranks spawned on the card,
-    each running ``mesh_work``; every rank's conf and top-1 equal bit for
-    bit; (e) held to its one-card run (``rg_mesh_check``);
+    """Phase 13 (a), (b), (d) and (e): MESH_RANKS ranks spawned on the
+    card, each running ``mesh_work``; every rank's conf and top-1 equal bit
+    for bit; (e) and (d) held to their one-card runs (``rg_mesh_check``,
+    ``xlstm_mesh_check``); (b)'s FSDP training to its resident step
+    (``fsdp_report``);
     (a) held to the one-card steps on the same weights and tokens (BvSB
     within BVSB_ATOL, top-1 equal, the train losses within
     TRAIN_LOSS_RTOL), (b)'s rows to one-card runs on each data rank's rows
@@ -4840,11 +5037,16 @@ def mesh_lm_path(dev):
     want = {"a_serve": mesh_expected_launches(cfg, MESH_STEPS),
             "a_train": train_expected_launches(cfg, MESH_TRAIN_STEPS, True),
             "b_serve": mesh_expected_launches(cfg, MESH22_STEPS,
-                                              ring_cut=False)}
+                                              ring_cut=False),
+            "b_fsdp": train_expected_launches(cfg, MESH_TRAIN_STEPS, True),
+            "b_resident": train_expected_launches(cfg, 1, True)}
     bad_counts = [(r, k) for r, res in enumerate(results)
                   for k in want if res[k]["counts"] != want[k]]
     peaks = [res["a_peak_gb"] for res in results], \
-        [res["b_peak_gb"] for res in results]
+        [res["b_peak_gb"] for res in results], \
+        [res["b_fsdp"]["peak_gb"] for res in results], \
+        [res["b_resident"]["peak_gb"] for res in results]
+    fsdp = fsdp_report(results)
     grads = {k: max((res[k] for res in results), key=lambda g: g["err"])
              for k in ("a_grads", "b_grads")}
     n_tok = MESH_B * MESH_S
@@ -4898,8 +5100,9 @@ def mesh_lm_path(dev):
           f"(together {sum(peaks[0]):.3f} / {sum(peaks[1]):.3f}, limit "
           f"{MESH_PEAK_GB}); launches a rank {results[0]['a_serve']['counts']}"
           f" (a serve), {results[0]['a_train']['counts']} (a train), "
-          f"{results[0]['b_serve']['counts']} (b serve); {MESH_RANKS} ranks "
-          f"spawned, run and joined in {spawn_wall:.1f} s")
+          f"{results[0]['b_serve']['counts']} (b serve), "
+          f"{results[0]['b_fsdp']['counts']} (b FSDP train); {MESH_RANKS} "
+          f"ranks spawned, run and joined in {spawn_wall:.1f} s")
     checks = {
         "(a) BvSB": a_err <= BVSB_ATOL[torch.float32] and a_top1,
         "(a) ranks equal": _same_steps(results, "a_serve"),
@@ -4911,36 +5114,37 @@ def mesh_lm_path(dev):
             for g in grads.values()),
         "launches": not bad_counts,
         "peaks": max(sum(p) for p in peaks) <= MESH_PEAK_GB,
+        **fsdp["checks"],
     }
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"mesh checks failed: {failed} (launches off "
                              f"at {bad_counts})")
     e = rg_mesh_check(dev, results[0]["e"], results)
+    xl = xlstm_mesh_check(dev, results[0]["d"], results)
     total = {}
     for res in results:
         for k in want:
             _add_counts(total, res[k]["counts"])
-        _add_counts(total, res["e"]["counts"])
+        for counts in (res["e"]["counts"], res["d"]["counts"],
+                       res["d"]["train"]["counts"]):
+            _add_counts(total, counts)
     return total, dict(prefill_s=a["prefill_s"], step_ms=a["step_s"] * 1e3,
                        train_ms=tr["walls"][-1] * 1e3,
                        peak_gb=max(sum(p) for p in peaks),
-                       rank_peak_gb=max(peaks[0]), rg=e)
+                       rank_peak_gb=max(peaks[0]), rg=e, xlstm=xl,
+                       fsdp=fsdp["figures"])
 
 
 def mesh_path(dev):
-    """Phase 13: (a), (b) and (e) over the ranks; (c) seamless and (d)
-    xLSTM trained on the card at full width and depth; (f) both against
-    the CPU at 2 layers. Returns (launches, figures)."""
+    """Phase 13: (a), (b), (d) and (e) over the ranks; (c) seamless
+    trained on the card at full width and depth; (f) seamless and xLSTM
+    against the CPU at 2 layers. Returns (launches, figures)."""
     counts, out = mesh_lm_path(dev)
     sc, out["seamless"] = lm_train_path(
         dev, "13c", get_config(SEAM_ARCH), SEAMT_B, SEAMT_S, SEAMT_STEPS, 2,
         frames=SEAMT_FRAMES)
     _add_counts(counts, sc)
-    xc, out["xlstm"] = lm_train_path(
-        dev, "13d", get_config(XLSTM_ARCH), XLSTMT_B, XLSTMT_S, XLSTMT_STEPS,
-        3, profiled=False)
-    _add_counts(counts, xc)
     for arch in (SEAM_ARCH, XLSTM_ARCH):
         train_check_cpu(dev, arch, 2)
         torch.cuda.empty_cache()
@@ -5226,9 +5430,17 @@ def main(argv) -> int:
           f"{meshed['rg']['step_ms']:.2f} ms a step "
           f"({meshed['rg']['n_all_reduce']} all_reduces, "
           f"{meshed['rg']['share']:.4f} of a step), a rank's peak at most "
-          f"{meshed['rg']['peak_gb']:.3f} GB; seamless training "
-          f"{meshed['seamless']['step_ms']:.1f} ms a step, xLSTM "
-          f"{meshed['xlstm']['step_ms']:.1f}")
+          f"{meshed['rg']['peak_gb']:.3f} GB; (b) training a rank stores "
+          f"{meshed['fsdp']['b_fsdp']['stored_gb']:.3f} GB FSDP / "
+          f"{meshed['fsdp']['b_resident']['stored_gb']:.3f} resident, peak "
+          f"{meshed['fsdp']['b_fsdp']['peak_gb']:.3f} / "
+          f"{meshed['fsdp']['b_resident']['peak_gb']:.3f} GB, a step "
+          f"{meshed['fsdp']['b_fsdp']['step_ms']:.1f} / "
+          f"{meshed['fsdp']['b_resident']['step_ms']:.1f} ms; (d) "
+          f"{XLSTM_ARCH} prefill {meshed['xlstm']['prefill_s']:.3f} s, serve "
+          f"{meshed['xlstm']['step_ms']:.2f} ms a step, training "
+          f"{meshed['xlstm']['train_ms']:.1f} ms a step; seamless training "
+          f"{meshed['seamless']['step_ms']:.1f} ms a step")
     for name in (GRANITE_ARCH, RG_ARCH):
         w = trained[name]
         print(f"{name} training: {w['params']} parameters, "

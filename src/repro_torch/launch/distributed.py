@@ -33,8 +33,8 @@ built with ``mesh=``) the steps run the JAX package's three parallel
 regions:
 
 * the layers' tensor parallelism: attention heads, MLP features,
-  RG-LRU channels, the MoE layers' experts, the embedding's rows, and
-  decode attention over a ring cut on its slots (``models/``,
+  RG-LRU channels, xLSTM heads, the MoE layers' experts, the embedding's
+  rows, and decode attention over a ring cut on its slots (``models/``,
   ``launch/shardings.py``);
 * ``vocab_parallel_ce``: model rank j holds rows [j PV/m, (j+1) PV/m) of
   the head, a max over the model group, z and the gold logit summed over
@@ -52,6 +52,19 @@ the JAX serve step's ``eff_batch_axes``. The train step sums the
 gradients over the data group (``training.trainer.all_reduce_grads``).
 Gathers are all_reduce sums of zero-filled buffers, since ``gloo`` (ranks
 sharing one card) reduces CUDA tensors but does not gather them.
+
+A model built with ``fsdp=True`` (``param_shardings(fsdp=True)``, the
+JAX train step's placement) stores each matrix's other dim over the data
+ranks; the steps run it unchanged. Each layer gathers its leaves over the
+data group when it runs (inside its remat region, so the backward gathers
+again), the head's table is gathered where the CE and BvSB read it
+(``head_rows``), and the gradients of those leaves come out of the
+gathers' backward already summed over the data group and cut to the
+rank's shard (ZeRO-3's reduce-scatter), so ``all_reduce_grads`` skips
+them and AdamW's moments live on the shard. Serving usually keeps
+``fsdp=False`` (weights resident, no gathers on the decode path); an
+FSDP model's prefill and serve steps gather a layer at a time too, under
+``inference_mode``, as JAX's ``--serve-fsdp`` baseline places it.
 """
 from __future__ import annotations
 
@@ -60,7 +73,7 @@ import torch.distributed as dist
 
 from repro_torch.kernels import ops
 from repro_torch.models.common import IGNORE, LOCAL, mesh_context
-from repro_torch.models.model import model_parts
+from repro_torch.models.model import data_parts, model_parts
 from repro_torch.training import optimizer as opt
 from repro_torch.training.trainer import (accumulate, all_reduce_grads,
                                           data_rows, grads_of,
@@ -202,7 +215,7 @@ def make_loss_fn(model, *, remat: bool = True, mctx=LOCAL):
             mctx=mctx, **model_inputs(model, batch))
         if hidden.shape[1] != labels.shape[1]:  # vlm: vision prefix
             hidden = hidden[:, -labels.shape[1]:]
-        ce = vocab_parallel_ce(hidden, model.head_table, labels, mctx,
+        ce = vocab_parallel_ce(hidden, model.head_rows(), labels, mctx,
                                cfg.vocab_size)
         return ce + aux, {"ce": ce, "aux": aux}
 
@@ -220,13 +233,13 @@ def make_train_step(model, mesh=None, *, remat: bool = True,
     trainable and updated in place; ``opt_state`` is
     ``optimizer.init(trainable(model))``. On a mesh each rank takes its
     rows (with ``accum_steps``, its share of each global microbatch), and
-    the gradients are summed over the data group before the update, the
-    clipping norm over the whole model (the squares of a rank's parts of
-    the leaves the model ranks cut summed over the model group)."""
+    the gradients are summed over the data group before the update (an
+    FSDP leaf's already by its gather's backward), the clipping norm over
+    the whole model (``mesh_grad_norm``)."""
     mctx = _context(model, mesh)
     params = trainable(model)
     loss_fn = make_loss_fn(model, remat=remat, mctx=mctx)
-    sharded = set(model_parts(model))
+    sharded, fsdp = set(model_parts(model)), set(data_parts(model))
 
     def train_step(opt_state, batch):
         batch = to_device(batch, model.device)
@@ -236,9 +249,10 @@ def make_train_step(model, mesh=None, *, remat: bool = True,
         else:
             loss, metrics, grads = accumulate(loss_fn, params, batch,
                                               accum_steps, mctx)
-        all_reduce_grads(grads, mctx)
+        all_reduce_grads(grads, mctx, fsdp)
         _, opt_state, om = opt.update(params, grads, opt_state, adamw,
-                                      mesh_grad_norm(grads, sharded, mctx))
+                                      mesh_grad_norm(grads, sharded, mctx,
+                                                     fsdp))
         return opt_state, {"loss": loss, **metrics, **om}
 
     return train_step
@@ -272,7 +286,7 @@ def make_prefill_step(model, mesh=None):
                                   cache_len=cache_len, return_hidden=True,
                                   mctx=ctx, **inputs)
             conf, top1 = vocab_parallel_bvsb(hidden[:, -1:, :],
-                                             model.head_table, ctx,
+                                             model.head_rows(), ctx,
                                              cfg.vocab_size)
             conf, top1 = gather_rows(conf, top1, ctx, b)
         return conf, top1, cache
@@ -297,7 +311,7 @@ def make_serve_step(model, mesh=None):
         with torch.inference_mode():
             hidden, cache = model.decode_step(tokens1[rows], cache, pos[rows],
                                               return_hidden=True, mctx=ctx)
-            conf, top1 = vocab_parallel_bvsb(hidden, model.head_table, ctx,
+            conf, top1 = vocab_parallel_bvsb(hidden, model.head_rows(), ctx,
                                              cfg.vocab_size)
             conf, top1 = gather_rows(conf, top1, ctx, b)
         return conf, top1, cache

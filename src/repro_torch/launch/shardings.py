@@ -14,17 +14,27 @@ None (replicated), an axis name, or a tuple of axis names, as
     (B, W, KV, hd) cut on W over "model" where "model" divides W (decode
     context parallelism), the batch over the data axes.
   * ``batch_spec``: the batch dim over the data axes where they divide it.
+  * ``param_shardings`` / ``opt_shardings``: ``param_spec`` over every
+    leaf of a model, with the FSDP axes where ``fsdp`` (training: each
+    matrix's other dim over the data axes, ZeRO-3) and without (serving:
+    weights resident, no per-layer gathers); AdamW's moments follow the
+    parameters.
 
-The port stores and computes the "model" part of these specs (the models
-take it through ``models.common.MeshContext``) by its own rule,
-``models.layout.model_dim``: ``param_spec``'s model part but for the two
+The port stores and computes these specs by its own rules (the models
+take them through ``models.common.MeshContext``):
+``models.layout.model_dim``, ``param_spec``'s model part but for the
 departures that module names (attention projections whose head count
-"model" does not divide, and the xLSTM blocks, stay whole). FSDP
-storage, the data part of a parameter's spec, is not ported yet.
+"model" does not divide stay whole; an xLSTM block stays whole where
+"model" does not divide its heads, and the mLSTM's ``w_up`` is cut by
+gate), and ``models.layout.data_dim``, its FSDP entry, where the model is
+built with ``fsdp=True`` (``models.model.build_model``). Its caches
+follow ``cache_spec`` but for the xLSTM states, which a block cut by heads
+stores cut by heads (``models/xlstm.py``), where ``cache_spec`` cuts the
+mLSTM's C on its p rows and replicates the other states over "model".
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 MODEL = "model"
 
@@ -78,6 +88,32 @@ def param_spec(names: Sequence[str], shape: Sequence[int], *,
     if name == "router":
         return lead((None, None))
     return ()                                  # norms, biases, scalars
+
+
+def param_shardings(leaves: Mapping[tuple, Sequence[int]], *,
+                    batch_axes: Tuple[str, ...] = ("data",),
+                    data_size: int = 1, model_size: int = 16,
+                    fsdp: bool = True) -> Dict[tuple, tuple]:
+    """The JAX package's ``param_shardings``: path -> ``param_spec`` of
+    every leaf of ``leaves`` (path -> shape), over data axes
+    ``batch_axes`` of ``data_size`` ranks and ``model_size`` model ranks.
+    ``fsdp`` (training) stores each matrix's other dim over the data
+    axes; without it (serving) the weights are cut over "model" only."""
+    axes, size = (tuple(batch_axes), data_size) if fsdp else ((), 1)
+    return {path: param_spec(path, shape, fsdp_axes=axes, fsdp_size=size,
+                             model_size=model_size)
+            for path, shape in leaves.items()}
+
+
+def opt_shardings(leaves: Mapping[tuple, Sequence[int]], *,
+                  batch_axes: Tuple[str, ...] = ("data",),
+                  data_size: int = 1, model_size: int = 16) -> dict:
+    """The JAX package's ``opt_shardings``: AdamW's moments stored as the
+    parameters are for training (``fsdp=True``), the step count
+    replicated."""
+    ps = param_shardings(leaves, batch_axes=batch_axes, data_size=data_size,
+                         model_size=model_size)
+    return {"mu": ps, "nu": ps, "step": ()}
 
 
 def spec_model_dim(spec: tuple) -> Optional[int]:

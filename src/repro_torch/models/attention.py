@@ -145,7 +145,7 @@ def read_kv(p: Attention, t):
 
 def all_kv(p: Attention, t, mctx=common.LOCAL):
     """Every KV head of ``t`` (B, T, kv_stored, hd), gathered over the
-    model ranks where wk / wv are cut (outside autograd)."""
+    model ranks where wk / wv are cut (``MeshContext.gather_model``)."""
     return mctx.gather_model(t, 2) if p.heads.kv_cut else t
 
 

@@ -10,6 +10,7 @@ names them, and call these.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from typing import Any, Optional
@@ -64,6 +65,34 @@ class _OutOfRegion(torch.autograd.Function):
         return g, None
 
 
+class _Gather(torch.autograd.Function):
+    """Forward the ranks' parts of ``x`` along ``dim`` in rank order on
+    every rank of ``group``: a zeroed buffer with this rank's part in its
+    place, summed over the group (exact; gloo gathers no CUDA tensors).
+    Backward the cotangent summed over the group, this rank's slice of it
+    kept (a reduce-scatter through an all_reduce): each rank's cotangent
+    of the whole is its own rows' or heads' part."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, size, rank):
+        ctx.args = dim, group, rank, x.shape[dim]
+        shape = list(x.shape)
+        shape[dim] *= size
+        buf = x.new_zeros(shape)
+        buf.narrow(dim, rank * x.shape[dim], x.shape[dim]).copy_(x)
+        dist.all_reduce(buf, group=group)
+        return buf
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, group, rank, n = ctx.args
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=group)
+        part = g.narrow(dim, rank * n, n).clone(
+            memory_format=torch.contiguous_format)
+        return part, None, None, None, None
+
+
 @dataclasses.dataclass(frozen=True)
 class MeshContext:
     """How the model sees the mesh: the JAX package's ``MeshContext`` over
@@ -81,6 +110,11 @@ class MeshContext:
     input through ``into_model`` (a replicated weight that each rank uses
     only a part of too, so that its gradient is summed over the ranks)
     and hands its result out through ``out_of_model``.
+
+    ``fsdp``: the model built in this context stores each matrix's other
+    dim cut over the data ranks (``layout.data_dim``, ``cut_param``);
+    each layer gathers those leaves (``gathered``) when it runs, through
+    the model's own context, whatever context splits the batch.
     """
     data_group: Optional[Any] = None
     model_group: Optional[Any] = None
@@ -88,6 +122,7 @@ class MeshContext:
     model_size: int = 1
     data_rank: int = 0
     model_rank: int = 0
+    fsdp: bool = False
 
     def into_model(self, x):
         """A model-replicated input of a model region: the identity, its
@@ -124,17 +159,22 @@ class MeshContext:
 
     def gather_model(self, x, dim: int):
         """The model ranks' parts of ``x`` along ``dim``, in rank order, on
-        every rank, outside autograd: a zeroed buffer with this rank's
-        part in its place, summed over the model group (exact; gloo
-        gathers no CUDA tensors)."""
+        every rank; the gradient summed over the model group, this rank's
+        part of it kept (``_Gather``)."""
         if self.model_group is None:
             return x
-        shape = list(x.shape)
-        n = shape[dim]
-        shape[dim] = n * self.model_size
-        buf = x.new_zeros(shape)
-        buf.narrow(dim, self.model_rank * n, n).copy_(x)
-        return self.all_reduce_model(buf)
+        return _Gather.apply(x, dim, self.model_group, self.model_size,
+                             self.model_rank)
+
+    def gather_data(self, x, dim: int):
+        """The data ranks' parts of an FSDP leaf ``x`` along ``dim``, in
+        rank order, on every rank: ZeRO-3's gather; its backward sums the
+        gradient over the data group and keeps this rank's part, ZeRO-3's
+        reduce-scatter (``_Gather``)."""
+        if self.data_group is None:
+            return x
+        return _Gather.apply(x, dim, self.data_group, self.data_size,
+                             self.data_rank)
 
     def part(self, n: int, what: str = "a dim"):
         """(start, size) of this rank's part of ``n`` cut over the model
@@ -144,6 +184,15 @@ class MeshContext:
                              f"{self.model_size} model ranks")
         size = n // self.model_size
         return self.model_rank * size, size
+
+    def data_part(self, n: int, what: str = "a dim"):
+        """(start, size) of this rank's part of ``n`` cut over the data
+        ranks (FSDP storage): data rank r holds [r n/d, (r + 1) n/d)."""
+        if n % self.data_size:
+            raise ValueError(f"{what} of {n} does not split over "
+                             f"{self.data_size} data ranks")
+        size = n // self.data_size
+        return self.data_rank * size, size
 
     def expert_range(self, num_experts: int):
         """(first expert, number of experts) this rank holds: model rank
@@ -178,16 +227,18 @@ def _axis(mesh, name):
     return mesh.get_group(name), size, mesh.get_local_rank(name)
 
 
-def mesh_context(mesh) -> MeshContext:
+def mesh_context(mesh, fsdp: bool = False) -> MeshContext:
     """The ``MeshContext`` of a ("data", "model") ``DeviceMesh``
     (``launch.mesh.make_model_mesh``) for this rank, ``LOCAL`` for None:
-    each axis's group, size and this rank's position."""
+    each axis's group, size and this rank's position; ``fsdp`` for a
+    model stored FSDP over the data ranks."""
     if mesh is None:
         return LOCAL
     mg, ms, mr = _axis(mesh, "model")
     dg, ds, dr = _axis(mesh, "data")
     return MeshContext(data_group=dg, model_group=mg, data_size=ds,
-                       model_size=ms, data_rank=dr, model_rank=mr)
+                       model_size=ms, data_rank=dr, model_rank=mr,
+                       fsdp=fsdp)
 
 
 def param(*shape, device, dtype) -> nn.Parameter:
@@ -204,13 +255,63 @@ def cut_param(module: nn.Module, path, whole, cfg=None, *, mctx, device,
     ``whole``: this rank's part of it where the model ranks cut it
     (``layout.model_dim`` of ``path``, the block's names and the leaf's),
     the dim recorded in ``module.model_cuts`` (``model.model_parts``
-    reads it); else the whole leaf."""
+    reads it), and where the model is stored FSDP (``mctx.fsdp``) its
+    data rank's part of the dim the data ranks cut (``layout.data_dim``),
+    recorded in ``module.data_cuts`` (``model.data_parts``, ``gathered``);
+    else the whole leaf."""
     dim = layout.model_dim(path, whole, mctx.model_size, cfg)
+    ddim = layout.data_dim(path, whole, mctx.data_size) if mctx.fsdp \
+        else None
     shape = list(whole)
+    what = ".".join(path)
     if dim is not None:
-        shape[dim] = mctx.part(whole[dim], ".".join(path))[1]
+        shape[dim] = mctx.part(whole[dim], what)[1]
         module.__dict__.setdefault("model_cuts", {})[path[-1]] = dim
+    if ddim is not None:
+        shape[ddim] = mctx.data_part(whole[ddim], what)[1]
+        module.__dict__.setdefault("data_cuts", {})[path[-1]] = ddim
     setattr(module, path[-1], param(*shape, device=device, dtype=dtype))
+
+
+def _fsdp_leaves(module: nn.Module):
+    """(owner module, leaf, data dim) of every FSDP leaf of ``module`` and
+    its submodules, found once."""
+    found = module.__dict__.get("_fsdp_leaves")
+    if found is None:
+        found = [(sub, leaf, dim) for sub in module.modules()
+                 for leaf, dim in sub.__dict__.get("data_cuts", {}).items()]
+        module.__dict__["_fsdp_leaves"] = found
+    return found
+
+
+@contextlib.contextmanager
+def gathered(module: nn.Module, store):
+    """Run the block with every FSDP leaf of ``module`` gathered whole over
+    the data ranks (``store``: the model's own ``MeshContext``), its
+    gradient reduce-scattered back to the shard; the shards are put back,
+    and the gathered leaves freed, when the block ends. A layer's forward
+    runs in it, inside its remat region, so that remat gathers again in
+    the backward rather than keeping every layer's gathered weights."""
+    leaves = _fsdp_leaves(module)
+    saved = []
+    try:
+        for sub, leaf, dim in leaves:
+            shard = sub._parameters[leaf]
+            saved.append((sub, leaf, shard))
+            sub._parameters[leaf] = store.gather_data(shard, dim)
+        yield
+    finally:
+        for sub, leaf, shard in saved:
+            sub._parameters[leaf] = shard
+
+
+def stored(module: nn.Module, leaf: str, store):
+    """The parameter ``leaf`` of ``module`` whole over the data ranks:
+    gathered (``MeshContext.gather_data``) where the model stores it
+    FSDP, else itself."""
+    p = getattr(module, leaf)
+    dim = module.__dict__.get("data_cuts", {}).get(leaf)
+    return p if dim is None else store.gather_data(p, dim)
 
 
 class RMSNorm(nn.Module):

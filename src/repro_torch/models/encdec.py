@@ -30,7 +30,10 @@ cut over the model ranks as the decoder's are (``attention.py``,
 ``common.MLP``), the embedding and head tables by rows; the cache's cross
 K/V hold every KV head on every rank (gathered once where wk / wv are
 cut), as ``cache_shardings`` replicates them, and each rank reads its
-heads' from them.
+heads' from them. Stored FSDP (``mctx.fsdp``), each encoder layer, and
+each decoder layer with its cross K/V projection, gathers its leaves over
+the data ranks inside its remat region (``common.gathered``), as the
+decoder-only stack does.
 """
 from __future__ import annotations
 
@@ -40,7 +43,7 @@ from torch import nn
 
 from repro_torch.models import attention as attn
 from repro_torch.models import common
-from repro_torch.models.transformer import _whole_head
+from repro_torch.models.transformer import _whole_head, run_gathered
 
 
 def _ring_len(cfg, cache_len):
@@ -100,12 +103,15 @@ class DecoderLayer(EncoderLayer):
         return x1, {"self": ring, "cross": cache["cross"]}
 
 
-def _decoder_layer(layer, x, positions, enc_out, cfg, mctx=common.LOCAL):
+def _decoder_layer(layer, store, x, positions, enc_out, cfg,
+                   mctx=common.LOCAL):
     """A decoder layer with its cross K/V projected from ``enc_out`` (one
-    unit of remat, as JAX's scanned layer): (x, self (k, v), cross K/V of
+    unit of remat, as JAX's scanned layer), its FSDP leaves gathered
+    through ``store`` (the model's context): (x, self (k, v), cross K/V of
     the rank's stored KV heads)."""
-    enc_kv = attn.encode_kv(layer.xattn, enc_out, cfg, mctx)
-    x, kv = layer(x, positions, enc_kv, cfg, mctx)
+    with common.gathered(layer, store):
+        enc_kv = attn.encode_kv(layer.xattn, enc_out, cfg, mctx)
+        x, kv = layer(x, positions, enc_kv, cfg, mctx)
     return x, kv, enc_kv
 
 
@@ -138,8 +144,13 @@ class EncDecModel(nn.Module):
     @property
     def head_table(self) -> torch.Tensor:
         """The untied LM head, as the JAX package's step factories pick
-        it."""
+        it (as stored: this rank's rows and data part)."""
         return self.lm_head.table
+
+    def head_rows(self) -> torch.Tensor:
+        """This model rank's rows of the head, gathered whole over the data
+        ranks where the model stores it FSDP."""
+        return common.stored(self.lm_head, "table", self.mctx)
 
     def loss(self, tokens, labels=None, *, audio_embeds, remat=False):
         """(ce + aux, {"ce", "aux"}), JAX ``Model.loss`` over
@@ -167,9 +178,10 @@ class EncDecModel(nn.Module):
         for layer in self.enc_blocks:
             if remat:
                 x = torch.utils.checkpoint.checkpoint(
-                    layer, x, positions, cfg, mctx, use_reentrant=False)
+                    run_gathered, layer, self.mctx, x, positions, cfg, mctx,
+                    use_reentrant=False)
             else:
-                x = layer(x, positions, cfg, mctx)
+                x = run_gathered(layer, self.mctx, x, positions, cfg, mctx)
         return self.enc_norm(x, cfg.norm_eps)
 
     def _out(self, x, return_hidden):
@@ -195,7 +207,8 @@ class EncDecModel(nn.Module):
         axis."""
         cfg, mctx = self.cfg, mctx or self.mctx
         enc_out = self.encode(audio_embeds, remat, mctx)
-        x = common.embed_apply(self.embed.table, tokens, mctx)
+        x = common.embed_apply(common.stored(self.embed, "table", self.mctx),
+                               tokens, mctx)
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device).expand(b, s)
         w = _ring_len(cfg, cache_len or s)
@@ -203,11 +216,11 @@ class EncDecModel(nn.Module):
         for layer in self.dec_blocks:
             if remat:
                 x, (k, v), enc_kv = torch.utils.checkpoint.checkpoint(
-                    _decoder_layer, layer, x, positions, enc_out, cfg, mctx,
-                    use_reentrant=False)
+                    _decoder_layer, layer, self.mctx, x, positions, enc_out,
+                    cfg, mctx, use_reentrant=False)
             else:
-                x, (k, v), enc_kv = _decoder_layer(layer, x, positions,
-                                                   enc_out, cfg, mctx)
+                x, (k, v), enc_kv = _decoder_layer(
+                    layer, self.mctx, x, positions, enc_out, cfg, mctx)
             if collect_cache:
                 ring = attn.init_kv_cache(b, w, cfg, x.dtype, x.device, mctx)
                 caches.append({"self": attn.fill_kv_cache(
@@ -240,11 +253,13 @@ class EncDecModel(nn.Module):
         the encoder output's dtype, as the JAX package's ``prefill_cross``
         returns them. Returns the new cache; the rings are kept."""
         enc_out = self.encode(audio_embeds)
-        return [{"self": c["self"], "cross": _all_kv(
-                    layer.xattn, attn.encode_kv(layer.xattn, enc_out,
-                                                self.cfg, self.mctx),
-                    self.mctx)}
-                for layer, c in zip(self.dec_blocks, cache)]
+        out = []
+        for layer, c in zip(self.dec_blocks, cache):
+            with common.gathered(layer.xattn, self.mctx):
+                kv = attn.encode_kv(layer.xattn, enc_out, self.cfg, self.mctx)
+            out.append({"self": c["self"],
+                        "cross": _all_kv(layer.xattn, kv, self.mctx)})
+        return out
 
     def decode_step(self, tokens1, cache, pos, *, return_hidden=False,
                     mctx=None):
@@ -254,10 +269,12 @@ class EncDecModel(nn.Module):
         the hidden states with ``return_hidden``; the new cache). The self
         rings are updated in place. ``mctx`` as in ``forward``."""
         mctx = mctx or self.mctx
-        x = common.embed_apply(self.embed.table, tokens1, mctx)
+        x = common.embed_apply(common.stored(self.embed, "table", self.mctx),
+                               tokens1, mctx)
         new = []
         for layer, c in zip(self.dec_blocks, cache):
-            x, c = layer.decode(x, c, pos, self.cfg, mctx)
+            with common.gathered(layer, self.mctx):
+                x, c = layer.decode(x, c, pos, self.cfg, mctx)
             new.append(c)
         return self._out(x, return_hidden), new
 

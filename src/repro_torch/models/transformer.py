@@ -30,11 +30,19 @@ are deterministic), so the gradients are those of no remat.
 On a mesh the model is built for one rank (``mctx``, a
 ``common.MeshContext``) and holds that rank's part of each layer
 (``models.layout``): its attention heads, MLP columns, RG-LRU
-channels, experts (``moe.py``) and embedding rows, split over the model
-group; ``forward`` and ``decode_step`` take the rank's rows of the batch.
-The xLSTM blocks, the norms and the router are whole on every rank. The
-caches hold the rank's part too: a ring's slots where the model ranks
-divide them (``attention.py``), an RG-LRU state's channels.
+channels, experts (``moe.py``), xLSTM heads (``xlstm.py``) and embedding
+rows, split over the model group; ``forward`` and ``decode_step`` take
+the rank's rows of the batch. The norms and the router are whole on every
+rank. The caches hold the rank's part too: a ring's slots where the model
+ranks divide them (``attention.py``), an RG-LRU state's channels, an
+xLSTM state's heads.
+
+A model stored FSDP (``mctx.fsdp``, ``build_model(..., fsdp=True)``)
+holds each matrix's other dim cut over the data ranks. Each layer gathers
+its leaves (``common.gathered``, through the model's own context) when it
+runs and drops them after, inside its remat region, so that the backward
+gathers them again (and reduce-scatters their gradients) a layer at a
+time; the tables are gathered where the embedding and the head use them.
 """
 from __future__ import annotations
 
@@ -77,9 +85,9 @@ class DecoderLayer(nn.Module):
         if kind == "rglru":
             self.rglru = recurrent.RGLRU(cfg, mctx=mctx, **kw)
         elif kind == "mlstm":
-            self.mlstm = xlstm.MLSTM(cfg, **kw)
+            self.mlstm = xlstm.MLSTM(cfg, mctx=mctx, **kw)
         elif kind == "slstm":
-            self.slstm = xlstm.SLSTM(cfg, **kw)
+            self.slstm = xlstm.SLSTM(cfg, mctx=mctx, **kw)
         else:
             self.attn = attn.Attention(cfg, mctx=mctx, **kw)
         if (cfg.d_ff or cfg.is_moe) and kind not in XLSTM_BLOCKS:
@@ -116,7 +124,7 @@ class DecoderLayer(nn.Module):
                 cache = state
         elif self.kind in XLSTM_BLOCKS:
             out, state = XLSTM_BLOCKS[self.kind][0](
-                getattr(self, self.kind), h, cfg)
+                getattr(self, self.kind), h, cfg, mctx=mctx)
             if collect_cache:
                 cache = state
         else:
@@ -139,7 +147,7 @@ class DecoderLayer(nn.Module):
             out, cache = recurrent.rglru_decode(self.rglru, h, cache, mctx)
         elif self.kind in XLSTM_BLOCKS:
             out, cache = XLSTM_BLOCKS[self.kind][1](
-                getattr(self, self.kind), h, cfg, cache)
+                getattr(self, self.kind), h, cfg, cache, mctx=mctx)
         else:
             out, cache = attn.attn_decode(self.attn, h, cache, pos, cfg,
                                           pos3=pos3, mctx=mctx)
@@ -172,7 +180,14 @@ class Model(nn.Module):
 
     @property
     def head_table(self) -> torch.Tensor:
+        """The head's table as stored: this rank's rows (and data part)."""
         return (self.embed if self.cfg.tie_embeddings else self.lm_head).table
+
+    def head_rows(self) -> torch.Tensor:
+        """This model rank's rows of the head's table, gathered whole over
+        the data ranks where the model stores it FSDP."""
+        head = self.embed if self.cfg.tie_embeddings else self.lm_head
+        return common.stored(head, "table", self.mctx)
 
     def _out(self, x, return_hidden):
         x = self.final_norm(x, self.cfg.norm_eps)
@@ -181,7 +196,8 @@ class Model(nn.Module):
     def _embed(self, tokens, vision_embeds, mctx):
         """(x (B, S, d), positions (B, S), M-RoPE ids (3, B, S) or None),
         the vision embeddings in front of the text where given."""
-        x = common.embed_apply(self.embed.table, tokens, mctx)
+        x = common.embed_apply(common.stored(self.embed, "table", self.mctx),
+                               tokens, mctx)
         b = x.shape[0]
         pos3 = None
         if vision_embeds is not None:
@@ -218,9 +234,11 @@ class Model(nn.Module):
         for layer in self.layers:
             if remat:
                 x, c, aux = torch.utils.checkpoint.checkpoint(
-                    layer, x, positions, cfg, use_reentrant=False, **kw)
+                    run_gathered, layer, self.mctx, x, positions, cfg,
+                    use_reentrant=False, **kw)
             else:
-                x, c, aux = layer(x, positions, cfg, **kw)
+                x, c, aux = run_gathered(layer, self.mctx, x, positions, cfg,
+                                         **kw)
             if aux is not None:
                 aux_total = aux_total + aux
             caches.append(c)
@@ -265,12 +283,13 @@ class Model(nn.Module):
             if kind == "rglru":
                 return recurrent.rglru_init_state(
                     batch, layer.rglru.w_out.shape[0], dtype, dev)
-            if kind == "mlstm":
-                return xlstm.mlstm_init_state(batch, cfg.num_heads,
+            if kind == "mlstm":           # the rank's heads
+                return xlstm.mlstm_init_state(batch, layer.mlstm.heads[1],
                                               d // cfg.num_heads, dev)
             if kind == "slstm":
-                return xlstm.slstm_init_state(batch, d, cfg.slstm_num_heads,
-                                              dev)
+                nh = layer.slstm.heads[1]
+                return xlstm.slstm_init_state(
+                    batch, d * nh // cfg.slstm_num_heads, nh, dev)
             return attn.init_kv_cache(
                 batch, _cache_len_for(cfg, kind, cache_len), cfg, dtype, dev,
                 self.mctx)
@@ -284,27 +303,37 @@ class Model(nn.Module):
         updated in place."""
         cfg = self.cfg
         mctx = mctx or self.mctx
-        x = common.embed_apply(self.embed.table, tokens1, mctx)
+        x = common.embed_apply(common.stored(self.embed, "table", self.mctx),
+                               tokens1, mctx)
         # M-RoPE decodes at the absolute position on all three axes, as the
         # JAX package does (its prefill starts the text at the grid size)
         pos3 = pos[None, :, None].expand(3, -1, 1) if cfg.mrope_sections \
             else None
         new = []
         for layer, c in zip(self.layers, cache):
-            x, c = layer.decode(x, c, pos, cfg, pos3=pos3, mctx=mctx)
+            with common.gathered(layer, self.mctx):
+                x, c = layer.decode(x, c, pos, cfg, pos3=pos3, mctx=mctx)
             new.append(c)
         return self._out(x, return_hidden), new
 
 
+def run_gathered(layer, store, *args, **kw):
+    """``layer(*args, **kw)`` with its FSDP leaves gathered over the data
+    ranks (``common.gathered``, ``store`` the model's own context); the
+    unit that remat recomputes, gathers included."""
+    with common.gathered(layer, store):
+        return layer(*args, **kw)
+
+
 def _whole_head(model):
-    """The model's head table, which must be whole: a model of a rank of a
-    mesh holds its rows only, and its logits go through the step
-    factories' vocab-parallel heads."""
+    """The model's head table, which must be whole over the model ranks: a
+    model of a rank of a mesh holds its rows only, and its logits go
+    through the step factories' vocab-parallel heads."""
     if model.mctx.model_size > 1:
         raise ValueError("a model built for a mesh holds its rank's rows of "
                          "the head: use launch.distributed's steps "
                          "(vocab_parallel_ce / vocab_parallel_bvsb)")
-    return model.head_table
+    return model.head_rows()
 
 
 def vlm_positions(b, v, s_text, device=None):

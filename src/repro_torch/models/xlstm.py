@@ -15,6 +15,32 @@ as a division, the mLSTM's output over ``max(|q . n|, 1)``, the sLSTM's
 
 Decode carries O(1) state: mLSTM (C (B, H, p, p), n (B, H, p)), sLSTM
 (h (B, d), c, n, m (B, H, p)), all float32 whatever the model's dtype.
+
+Over model ranks (``common.MeshContext``) a block whose heads the ranks
+divide (``layout.xlstm_split``) is cut by heads: rank j computes heads
+[j H/m, (j+1) H/m), every feature being head-major.
+
+* mLSTM: ``w_up``'s rank columns are its cell-input and output-gate
+  columns (``layout.mlstm_up_columns``); the cell input xc is gathered
+  over the model group (``MeshContext.gather_model``, its gradient
+  reduce-scattered back) before wq / wk / wv, which hold the rank's heads'
+  columns, and the gates; ``w_if`` / ``b_if`` stay whole, as JAX
+  replicates them, and the rank reads its (i, f) columns through
+  ``into_model``. The chunkwise cell, the group norm and silu(z) are the
+  rank's heads'; ``w_down`` holds their rows, its partial products leave
+  through ``out_of_model``.
+* sLSTM: ``w_in`` / ``b_in``'s contiguous quarter (m = 4) is one head's
+  four gates, since the cell reshapes them to (B, H, p, 4); ``b_in`` and
+  the recurrent ``r`` stay whole, as JAX replicates them, read at the
+  rank's heads through ``into_model``. The position loop runs on the
+  rank's heads with no collective a position; h (B, S, d/m) is gathered
+  over the model group for the FFN, whose ``w_ff1`` holds the rank's
+  columns and ``w_ff2`` its rows (summed through ``out_of_model``).
+
+The decode states hold the rank's heads: C (B, H/m, p, p), n (B, H/m, p),
+h (B, d/m), c, n, m (B, H/m, p) (``cache_spec`` cuts C on its p rows and
+keeps the other states but h whole; a storage departure, the values
+unchanged).
 """
 from __future__ import annotations
 
@@ -22,7 +48,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models import common
+from repro_torch.models import common, layout
 
 CHUNK = 128
 GATE_CLAMP = 8.0
@@ -36,20 +62,23 @@ ZERO_INIT = ("b_in",)
 class MLSTM(nn.Module):
     """mLSTM parameters, named and shaped as the JAX ``mlstm_init`` makes
     them: w_up (d, 3d) = [cell input (2d) | output gate (d)], wq/wk/wv
-    (2d, d), w_if (2d, 2H) and b_if (2H,) float32, w_down (d, d)."""
+    (2d, d), w_if (2d, 2H) and b_if (2H,) float32, w_down (d, d); over
+    model ranks that divide H, the rank's heads' parts (``heads``: its
+    first head and count)."""
 
-    def __init__(self, cfg, *, device, dtype):
+    def __init__(self, cfg, *, device, dtype, mctx=common.LOCAL):
         super().__init__()
         d, h = cfg.d_model, cfg.num_heads
-        kw = dict(device=device, dtype=dtype)
+        kw = dict(mctx=mctx, device=device, dtype=dtype)
         f32 = dict(device=device, dtype=torch.float32)
-        self.w_up = common.param(d, 3 * d, **kw)
-        self.wq = common.param(2 * d, d, **kw)
-        self.wk = common.param(2 * d, d, **kw)
-        self.wv = common.param(2 * d, d, **kw)
+        self.tp = layout.xlstm_split(cfg, "mlstm", mctx.model_size)
+        self.heads = mctx.part(h, "the mLSTM's heads") if self.tp else (0, h)
+        common.cut_param(self, ("mlstm", "w_up"), (d, 3 * d), cfg, **kw)
+        for leaf in ("wq", "wk", "wv"):
+            common.cut_param(self, ("mlstm", leaf), (2 * d, d), cfg, **kw)
         self.w_if = common.param(2 * d, 2 * h, **f32)
         self.b_if = common.param(2 * h, **f32)
-        self.w_down = common.param(d, d, **kw)
+        common.cut_param(self, ("mlstm", "w_down"), (d, d), cfg, **kw)
 
 
 def init_gate_bias_(b_if: torch.Tensor) -> torch.Tensor:
@@ -62,17 +91,30 @@ def init_gate_bias_(b_if: torch.Tensor) -> torch.Tensor:
     return b_if
 
 
-def _mlstm_qkvg(p: MLSTM, x, nh):
+def _mlstm_qkvg(p: MLSTM, x, nh, mctx=common.LOCAL):
+    """q, k, v (B, S, hn, p), the gates (B, S, hn) and z (B, S, hn p) of
+    the rank's hn heads of the ``nh``."""
     b, s, d = x.shape
     hd = d // nh
+    h0, hn = p.heads
+    w_if, b_if = p.w_if, p.b_if
+    if p.tp:
+        x = mctx.into_model(x)
+        cols = torch.cat([torch.arange(h0, h0 + hn, device=x.device),
+                          nh + torch.arange(h0, h0 + hn, device=x.device)])
+        w_if = mctx.into_model(w_if)[:, cols]
+        b_if = mctx.into_model(b_if)[cols]
     u = x @ p.w_up
-    xc, z = u[..., :2 * d], u[..., 2 * d:]
-    q = (xc @ p.wq).reshape(b, s, nh, hd)
-    k = (xc @ p.wk).reshape(b, s, nh, hd) / float(hd) ** 0.5
-    v = (xc @ p.wv).reshape(b, s, nh, hd)
-    gl = xc.float() @ p.w_if + p.b_if
-    log_i = torch.clamp(gl[..., :nh], -GATE_CLAMP, GATE_CLAMP)   # (B, S, H)
-    log_f = F.logsigmoid(torch.clamp(gl[..., nh:], -GATE_CLAMP, GATE_CLAMP))
+    c = 2 * hn * hd
+    xc, z = u[..., :c], u[..., c:]
+    if p.tp:
+        xc = mctx.gather_model(xc, 2)
+    q = (xc @ p.wq).reshape(b, s, hn, hd)
+    k = (xc @ p.wk).reshape(b, s, hn, hd) / float(hd) ** 0.5
+    v = (xc @ p.wv).reshape(b, s, hn, hd)
+    gl = xc.float() @ w_if + b_if
+    log_i = torch.clamp(gl[..., :hn], -GATE_CLAMP, GATE_CLAMP)   # (B, S, hn)
+    log_f = F.logsigmoid(torch.clamp(gl[..., hn:], -GATE_CLAMP, GATE_CLAMP))
     return q, k, v, log_i, log_f, z
 
 
@@ -142,24 +184,26 @@ def mlstm_decode_cell(q1, k1, v1, li, lf, state):
     return h, {"C": big_c, "n": n}
 
 
-def _mlstm_out(p: MLSTM, h, z, x):
+def _mlstm_out(p: MLSTM, h, z, x, mctx=common.LOCAL):
     b, s = x.shape[:2]
     h = common.groupnorm(h).reshape(b, s, -1)
-    return (h.to(x.dtype) * F.silu(z)) @ p.w_down
+    out = (h.to(x.dtype) * F.silu(z)) @ p.w_down
+    return mctx.out_of_model(out) if p.tp else out
 
 
-def mlstm_block(p: MLSTM, x, cfg, state=None):
-    """x: (B, S, d) -> (out (B, S, d), state). Full sequence (prefill)."""
-    q, k, v, li, lf, z = _mlstm_qkvg(p, x, cfg.num_heads)
+def mlstm_block(p: MLSTM, x, cfg, state=None, mctx=common.LOCAL):
+    """x: (B, S, d) -> (out (B, S, d), state of the rank's heads). Full
+    sequence (prefill)."""
+    q, k, v, li, lf, z = _mlstm_qkvg(p, x, cfg.num_heads, mctx)
     h, new_state = mlstm_parallel(q, k, v, li, lf, state)
-    return _mlstm_out(p, h, z, x), new_state
+    return _mlstm_out(p, h, z, x, mctx), new_state
 
 
-def mlstm_block_decode(p: MLSTM, x1, cfg, state):
-    q, k, v, li, lf, z = _mlstm_qkvg(p, x1, cfg.num_heads)
+def mlstm_block_decode(p: MLSTM, x1, cfg, state, mctx=common.LOCAL):
+    q, k, v, li, lf, z = _mlstm_qkvg(p, x1, cfg.num_heads, mctx)
     h, new_state = mlstm_decode_cell(q[:, 0], k[:, 0], v[:, 0], li[:, 0],
                                      lf[:, 0], state)
-    return _mlstm_out(p, h[:, None], z, x1), new_state
+    return _mlstm_out(p, h[:, None], z, x1, mctx), new_state
 
 
 # ---------------------------------------------------------------------------
@@ -169,29 +213,46 @@ class SLSTM(nn.Module):
     """sLSTM parameters, named and shaped as the JAX ``slstm_init`` makes
     them: w_in (d, 4d), b_in (4d,) float32, the block-diagonal recurrent
     r (H, p, 4p) float32, the GeLU FFN w_ff1 (d, f), w_ff2 (f, d) with f =
-    4d/3 rounded up to a multiple of 128."""
+    4d/3 rounded up to a multiple of 128; over model ranks that divide H,
+    the rank's heads' columns of w_in (``heads``: its first head and
+    count) and its share of the FFN's features."""
 
-    def __init__(self, cfg, *, device, dtype):
+    def __init__(self, cfg, *, device, dtype, mctx=common.LOCAL):
         super().__init__()
         d, h = cfg.d_model, cfg.slstm_num_heads
         hd = d // h
         f_ff = ((4 * d // 3) + 127) // 128 * 128
-        kw = dict(device=device, dtype=dtype)
+        kw = dict(mctx=mctx, device=device, dtype=dtype)
         f32 = dict(device=device, dtype=torch.float32)
-        self.w_in = common.param(d, 4 * d, **kw)
+        self.tp = layout.xlstm_split(cfg, "slstm", mctx.model_size)
+        self.heads = mctx.part(h, "the sLSTM's heads") if self.tp else (0, h)
+        common.cut_param(self, ("slstm", "w_in"), (d, 4 * d), cfg, **kw)
         self.b_in = common.param(4 * d, **f32)
         self.r = common.param(h, hd, 4 * hd, **f32)
-        self.w_ff1 = common.param(d, f_ff, **kw)
-        self.w_ff2 = common.param(f_ff, d, **kw)
+        common.cut_param(self, ("slstm", "w_ff1"), (d, f_ff), cfg, **kw)
+        common.cut_param(self, ("slstm", "w_ff2"), (f_ff, d), cfg, **kw)
+        if self.tp and f_ff % mctx.model_size:
+            raise ValueError(f"the sLSTM's FFN of {f_ff} does not split over "
+                             f"{mctx.model_size} model ranks")
 
 
-def slstm_step(p: SLSTM, xw_t, st, nh):
-    """One recurrent step. xw_t: (B, 4d) float32, the input projection;
-    st: the state dict. Returns the new state."""
+def _rank_r(p: SLSTM, mctx):
+    """The recurrent weights of the rank's heads."""
+    if not p.tp:
+        return p.r
+    h0, hn = p.heads
+    return mctx.into_model(p.r)[h0:h0 + hn]
+
+
+def slstm_step(p: SLSTM, xw_t, st, nh, r=None):
+    """One recurrent step. xw_t: (B, 4 nh p) float32, the input
+    projection of ``nh`` heads; st: their state dict; ``r`` their
+    recurrent weights (p.r by default). Returns the new state."""
+    r = p.r if r is None else r
     b = xw_t.shape[0]
     d = xw_t.shape[1] // 4
     hprev = st["h"].reshape(b, nh, d // nh)
-    rec = torch.einsum("bhp,hpq->bhq", hprev, p.r).reshape(b, 4 * d)
+    rec = torch.einsum("bhp,hpq->bhq", hprev, r).reshape(b, 4 * d)
     g = (xw_t + rec).reshape(b, nh, d // nh, 4)
     z = torch.tanh(g[..., 0])
     li = torch.clamp(g[..., 1], -GATE_CLAMP, GATE_CLAMP)
@@ -216,31 +277,48 @@ def slstm_init_state(batch, d, nh, device=None):
     }
 
 
-def _slstm_out(p: SLSTM, h, x, nh):
-    b, s, d = x.shape
-    h = common.groupnorm(h.reshape(b, s, nh, -1)).reshape(b, s, d)
+def _slstm_out(p: SLSTM, h, x, nh, mctx=common.LOCAL):
+    """The group norm of the rank's heads' h (B, S, nh p), then the FFN
+    over the gathered h."""
+    b, s = x.shape[:2]
+    h = common.groupnorm(h.reshape(b, s, nh, -1)).reshape(b, s, -1)
+    if p.tp:
+        h = mctx.gather_model(h, 2)
     gelu = common.activation("gelu")
-    return gelu(h.to(x.dtype) @ p.w_ff1) @ p.w_ff2
+    out = gelu(h.to(x.dtype) @ p.w_ff1) @ p.w_ff2
+    return mctx.out_of_model(out) if p.tp else out
 
 
-def _slstm_in(p: SLSTM, x):
-    return x.float() @ p.w_in.float() + p.b_in
+def _slstm_in(p: SLSTM, x, mctx=common.LOCAL):
+    """x (B, ..., d) -> the rank's heads' gate pre-activations (B, ...,
+    4 hn p) float32."""
+    b_in = p.b_in
+    if p.tp:
+        x = mctx.into_model(x)
+        n = p.w_in.shape[1]
+        lo = p.heads[0] * n // p.heads[1]
+        b_in = mctx.into_model(b_in)[lo:lo + n]
+    return x.float() @ p.w_in.float() + b_in
 
 
-def slstm_block(p: SLSTM, x, cfg, state=None):
-    """x: (B, S, d) -> (out, state): one ``slstm_step`` a position."""
+def slstm_block(p: SLSTM, x, cfg, state=None, mctx=common.LOCAL):
+    """x: (B, S, d) -> (out, state of the rank's heads): one
+    ``slstm_step`` a position."""
     b, s, d = x.shape
-    nh = cfg.slstm_num_heads
-    st = slstm_init_state(b, d, nh, x.device) if state is None else state
-    xw = _slstm_in(p, x)
+    nh = p.heads[1]
+    st = slstm_init_state(b, d * nh // cfg.slstm_num_heads, nh, x.device) \
+        if state is None else state
+    xw = _slstm_in(p, x, mctx)
+    r = _rank_r(p, mctx)
     hs = []
     for t in range(s):
-        st = slstm_step(p, xw[:, t], st, nh)
+        st = slstm_step(p, xw[:, t], st, nh, r)
         hs.append(st["h"])
-    return _slstm_out(p, torch.stack(hs, dim=1), x, nh), st
+    return _slstm_out(p, torch.stack(hs, dim=1), x, nh, mctx), st
 
 
-def slstm_block_decode(p: SLSTM, x1, cfg, state):
-    nh = cfg.slstm_num_heads
-    st = slstm_step(p, _slstm_in(p, x1[:, 0]), state, nh)
-    return _slstm_out(p, st["h"][:, None], x1, nh), st
+def slstm_block_decode(p: SLSTM, x1, cfg, state, mctx=common.LOCAL):
+    nh = p.heads[1]
+    st = slstm_step(p, _slstm_in(p, x1[:, 0], mctx), state, nh,
+                    _rank_r(p, mctx))
+    return _slstm_out(p, st["h"][:, None], x1, nh, mctx), st

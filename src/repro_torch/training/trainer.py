@@ -16,8 +16,10 @@ On a (data, model) mesh (``launch.distributed.make_train_step(model,
 mesh)``) each rank differentiates its share of the global batch
 (``data_rows``, ``accumulate``), its loss its local sum over the global
 count of labels; ``all_reduce_grads`` then sums every gradient over the
-data group, leaf by leaf in a fixed order, and AdamW runs the same on
-every rank.
+data group, leaf by leaf in a fixed order, but an FSDP leaf's (a model
+built with ``fsdp=True``), which its gather's backward has summed and cut
+to the rank's shard; AdamW runs on what each rank stores, its moments
+on the shard.
 
     model = init_model(cfg)                       # on the card
     model, opt_state, history = train(model, data, steps, TrainConfig())
@@ -89,34 +91,43 @@ def data_rows(batch: dict, mctx=LOCAL) -> dict:
     return {k: v[rows] for k, v in batch.items()}
 
 
-def all_reduce_grads(grads: Dict[str, torch.Tensor], mctx=LOCAL):
+def all_reduce_grads(grads: Dict[str, torch.Tensor], mctx=LOCAL,
+                     fsdp=frozenset()):
     """Sum every gradient over the data group in place, leaf by leaf in the
     parameters' order (one all_reduce a leaf, so two runs give the same
-    bits). One card, or one data rank: nothing."""
+    bits), but the FSDP leaves named in ``fsdp`` (``models.model.
+    data_parts``): their gathers' backward summed them over the data group
+    already, and a second sum would double them. One card, or one data
+    rank: nothing."""
     if mctx.data_group is None:
         return grads
     for name in grads:
-        grads[name] = mctx.all_reduce_data(grads[name].contiguous())
+        if name not in fsdp:
+            grads[name] = mctx.all_reduce_data(grads[name].contiguous())
     return grads
 
 
-def mesh_grad_norm(grads: Dict[str, torch.Tensor], sharded, mctx=LOCAL):
+def mesh_grad_norm(grads: Dict[str, torch.Tensor], sharded, mctx=LOCAL,
+                   fsdp=frozenset()):
     """The global norm of the whole model's gradient on every rank, where
     the leaves named in ``sharded`` hold this model rank's part
     (``models.model.model_parts``: heads, features, channels, experts,
-    vocabulary rows): their squares summed over the model group, the
-    replicated leaves' added once. None on one card or one model rank
+    vocabulary rows) and those in ``fsdp`` this data rank's part
+    (``models.model.data_parts``): a leaf's squares summed over the groups
+    that cut it, a replicated leaf's added once. None where no leaf is cut
     (``optimizer.update`` then takes ``global_norm`` itself)."""
-    if mctx.model_group is None:
+    if mctx.model_group is None and not fsdp:
         return None
-    parts = [torch.zeros((), dtype=torch.float32,
-                         device=next(iter(grads.values())).device)
-             for _ in range(2)]
+    # the squares of leaves cut by: neither, model only, data only, both
+    parts = torch.zeros(4, dtype=torch.float32,
+                        device=next(iter(grads.values())).device)
     for name, g in grads.items():
-        i = int(name in sharded)
+        i = int(name in sharded) + 2 * int(name in fsdp)
         parts[i] = parts[i] + torch.sum(torch.square(g.float()))
-    mctx.all_reduce_model(parts[1])
-    return torch.sqrt(parts[0] + parts[1])
+    cut_data = mctx.all_reduce_data(parts[2:].clone()) if fsdp else \
+        parts[2:]
+    cut_model = mctx.all_reduce_model(parts[1] + cut_data[1])
+    return torch.sqrt(parts[0] + cut_model + cut_data[0])
 
 
 def grads_of(loss_fn, params: Dict[str, torch.Tensor], batch: dict):

@@ -324,10 +324,12 @@ def jax_device_sharded(out_file):
 # prompts of S tokens (seamless over its reduced 64 audio frames) into
 # rings of MESH_CACHE slots (S + SERVE: cut on its slots at (2, 2), whole
 # at (1, 4); RecurrentGemma's local window of 128, cut at both, the
-# prompts filling one shard), SERVE decode steps of seeded tokens, one
-# train step of B x S tokens
+# prompts filling one shard; xLSTM has no ring), SERVE decode steps of
+# seeded tokens, one train step of B x S tokens. Training on a mesh with
+# more than one data rank stores the parameters FSDP (``fsdp=True``), as
+# the JAX reference places them; the serve steps keep them resident
 MESH_ARCHS = ("granite-moe-1b-a400m", "deepseek-moe-16b",
-              "seamless-m4t-medium", "recurrentgemma-9b")
+              "seamless-m4t-medium", "recurrentgemma-9b", "xlstm-350m")
 MESH_SHAPES = ((2, 2), (1, 4))
 MESH_B, MESH_S, MESH_SERVE = 4, 8, 2
 MESH_CACHE = {arch: MESH_S + MESH_SERVE for arch in MESH_ARCHS}
@@ -437,11 +439,13 @@ def _gaps(model, cfg, prefill, serve, mctx, table, cache_len):
 
 
 def _train_run(model, mesh, mctx, train, accum=1):
-    """The gradients of the train step's loss (summed over the data group)
-    and one step of ``make_train_step`` (over ``accum`` microbatches):
-    numpy grads, updated parameters, the step's first moments (the
-    gradient it applied, clipped, times 1 - beta1), metrics."""
+    """The gradients of the train step's loss (summed over the data group;
+    an FSDP leaf's by its gather) and one step of ``make_train_step``
+    (over ``accum`` microbatches): numpy grads, updated parameters, the
+    step's first moments (the gradient it applied, clipped, times 1 -
+    beta1), metrics, of what the rank stores."""
     from repro_torch.launch import distributed as pdist
+    from repro_torch.models.model import data_parts
     from repro_torch.training import optimizer as opt
     from repro_torch.training import trainer
 
@@ -450,7 +454,7 @@ def _train_run(model, mesh, mctx, train, accum=1):
     loss_fn = pdist.make_loss_fn(model, remat=True, mctx=mctx)
     loss, metrics, grads = trainer.grads_of(
         loss_fn, params, trainer.data_rows(batch, mctx))
-    trainer.all_reduce_grads(grads, mctx)
+    trainer.all_reduce_grads(grads, mctx, set(data_parts(model)))
     step = pdist.make_train_step(model, mesh, remat=True, accum_steps=accum,
                                  adamw=opt.AdamWConfig(**MESH_ADAMW))
     state, met = step(opt.init(params), train)
@@ -466,13 +470,25 @@ def head_table(tree, cfg):
     return tree["embed" if cfg.tie_embeddings else "lm_head"]["table"]
 
 
+def _layout(model):
+    """(model parts, data parts, parameter bytes) of the rank's model:
+    name -> (dim, index into the whole leaf, stored shape)."""
+    from repro_torch.models.model import data_parts, model_parts
+
+    def rec(parts):
+        return {k: (dim, rows, tuple(model.get_parameter(k).shape))
+                for k, (dim, rows) in parts.items()}
+    return (rec(model_parts(model)), rec(data_parts(model)),
+            sum(p.numel() * p.element_size() for p in model.parameters()))
+
+
 def _mesh_cases(trees):
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch import distributed as pdist
     from repro_torch.launch import mesh as mesh_mod
     from repro_torch.models.common import mesh_context
-    from repro_torch.models.model import model_parts, params_from_jax
+    from repro_torch.models.model import params_from_jax
 
     meshes = {shape: mesh_mod.make_model_mesh(shape, device_type="cpu")
               for shape in MESH_SHAPES}
@@ -487,16 +503,30 @@ def _mesh_cases(trees):
         steps, rings = _serve_run(pdist.make_prefill_step(model, mesh),
                                   pdist.make_serve_step(model, mesh),
                                   prefill, serve, cache_len)
-        out = {"steps": steps, "rings": rings,
-               "parts": {k: (dim, rows.start, rows.stop, tuple(
-                   model.get_parameter(k).shape))
-                   for k, (dim, rows) in model_parts(model).items()},
-               "bytes": sum(p.numel() * p.element_size()
-                            for p in model.parameters()),
+        parts, _, nbytes = _layout(model)
+        out = {"steps": steps, "rings": rings, "parts": parts,
+               "bytes": nbytes,
                "positions": (mctx.data_rank, mctx.model_rank),
                "gaps": _gaps(model, cfg, prefill, serve, mctx,
-                             head_table(trees[arch], cfg), cache_len),
-               **_train_run(model, mesh, mctx, train)}
+                             head_table(trees[arch], cfg), cache_len)}
+        if cfg.pattern[0] == "mlstm":
+            out["w_up"] = model.layers[0].mlstm.w_up.numpy().copy()
+        fsdp = shape[0] > 1
+        if fsdp:
+            # the same steps on the resident weights, for the FSDP run's
+            # comparison, then training on the FSDP model
+            out["resident"] = _train_run(model, mesh, mctx, train)
+            model = params_from_jax(trees[arch], cfg, device="cpu",
+                                    mesh=mesh, fsdp=True)
+            out["fsdp_steps"] = _serve_run(
+                pdist.make_prefill_step(model, mesh),
+                pdist.make_serve_step(model, mesh), prefill, serve,
+                cache_len)[0]
+            model = params_from_jax(trees[arch], cfg, device="cpu",
+                                    mesh=mesh, fsdp=True)
+        out["train_parts"], out["train_data_parts"], out["train_bytes"] = \
+            _layout(model)
+        out.update(_train_run(model, mesh, mctx, train))
         if shape[0] == 1:       # the port's one-rank run on the same inputs
             local = params_from_jax(trees[arch], cfg, device="cpu")
             out["local_steps"] = _serve_run(pdist.make_prefill_step(local),
@@ -530,12 +560,13 @@ def _mesh_cases(trees):
                     (2, 3), device_type="cpu"))}
 
     def accum():
-        """granite on (2, 2), two microbatches: each rank's share of each
-        global microbatch."""
+        """granite on (2, 2), stored FSDP, two microbatches: each rank's
+        share of each global microbatch."""
         arch = MESH_ARCHS[0]
         cfg = get_config(arch).reduced()
         mesh = meshes[(2, 2)]
-        model = params_from_jax(trees[arch], cfg, device="cpu", mesh=mesh)
+        model = params_from_jax(trees[arch], cfg, device="cpu", mesh=mesh,
+                                fsdp=True)
         train = mesh_inputs(cfg, 0)[2]
         return _train_run(model, mesh, mesh_context(mesh), train,
                           accum=2)["metrics"]

@@ -4,8 +4,9 @@ on four ``gloo`` ranks on the CPU.
 A module-scoped fixture draws the JAX package's weights for the reduced
 granite-moe-1b-a400m (MoE, tied table), deepseek-moe-16b (a dense first
 layer, a shared expert, an untied head), seamless-m4t-medium (the
-encoder-decoder) and recurrentgemma-9b (RG-LRU blocks over 16 gate
-blocks, one KV head, a local window of 128), then starts the four ranks
+encoder-decoder), recurrentgemma-9b (RG-LRU blocks over 16 gate
+blocks, one KV head, a local window of 128) and xlstm-350m (an mLSTM and
+an sLSTM block of 4 heads each, cut by heads), then starts the four ranks
 once
 (tests/sharded_ranks.py's ``Spawned`` running ``mesh_rank_main``: a
 ``file://`` rendezvous under the test's temporary directory, one torch
@@ -17,9 +18,12 @@ set). On meshes (2, 2) and (1, 4) each rank runs ``make_prefill_step`` on
 4 prompts of 8 tokens into rings of ``MESH_CACHE`` slots, 2
 ``make_serve_step`` steps of seeded tokens, the gradients of the train
 step's loss and one ``make_train_step``, every layer but the norms and
-the router cut over the model ranks (``launch.shardings``); on (1, 4)
-also the port's one-rank steps on the same inputs. The tests below read
-the ranks' results.
+the router cut over the model ranks (``launch.shardings``); on (2, 2)
+the training runs on a model stored FSDP (``fsdp=True``: each matrix's
+other dim over the data ranks, as JAX's ``param_shardings(fsdp=True)``
+places the reference), beside the same steps on the resident weights;
+on (1, 4) also the port's one-rank steps on the same inputs. The tests
+below read the ranks' results.
 
 Tolerances: conf 1e-5 absolute and top-1 equal wherever the top-2 logit
 gap exceeds 1e-4 (float32 sums over the model ranks in another order);
@@ -30,7 +34,10 @@ sum over the data group and its clipping, times 1 - beta1), within 1e-4
 of the JAX leaf's (or its expert slice's) max; the updated parameters
 within 2 lr of JAX's (Adam's first step moves a parameter by about lr
 sign(g), so a gradient near zero may move the two apart by up to 2 lr,
-as in tests/test_torch_grads.py). The plain BvSB partial and merge entries
+as in tests/test_torch_grads.py). FSDP against the resident weights:
+each gradient within 1e-4 of the leaf's max, the metrics 1e-5 relative,
+conf 1e-5 and top-1 equal where the gap exceeds 1e-4; each rank's bytes
+exactly the leaves' parts. The plain BvSB partial and merge entries
 against ``bvsb_plain`` 1e-6, top-1 exact (on rows without +inf, whose
 BvSB is NaN on either side), for any cut of a row.
 """
@@ -48,7 +55,7 @@ from repro_torch.configs import get_config
 from repro_torch.kernels.bvsb import (bvsb_merge_plain, bvsb_partials_plain,
                                       bvsb_plain)
 from repro_torch.launch.shardings import param_spec, spec_model_dim
-from repro_torch.models.layout import model_dim
+from repro_torch.models.layout import data_dim, model_dim
 from repro_torch.models.model import _jax_location, part_index
 
 torch.set_num_threads(2)
@@ -60,6 +67,7 @@ GRAD_TOL = 1e-4
 MERGE_ATOL = 1e-6
 CASES = [(arch, shape) for arch in R.MESH_ARCHS for shape in R.MESH_SHAPES]
 CASE_IDS = [f"{a}-{s[0]}x{s[1]}" for a, s in CASES]
+FSDP_SHAPE = (2, 2)
 
 
 class _MeshRanks(R.Spawned):
@@ -103,12 +111,16 @@ def _leaf(tree, name, cfg):
     return tree if layer < 0 else tree[layer]
 
 
-def _part(res, name):
-    """The index of this rank's part of a leaf into the whole leaf."""
-    if name not in res["parts"]:
-        return ()
-    dim, start, stop, _ = res["parts"][name]
-    return part_index(dim, slice(start, stop))
+def _part(res, name, train=True):
+    """The index of this rank's stored part of a leaf into the whole leaf:
+    of the trained model (its model and data parts), or of the serving
+    model's (``train=False``: its model part)."""
+    parts = res["train_parts"] if train else res["parts"]
+    dparts = res["train_data_parts"] if train else {}
+    data = dparts[name][:2] if name in dparts else None
+    if name in parts:
+        return part_index(*parts[name][:2], data=data)
+    return () if data is None else part_index(*data)
 
 
 def _flat(tree, path=()):
@@ -169,8 +181,9 @@ def test_prefill_and_serve_steps_match_jax(ranks, arch, shape):
 def test_train_step_matches_jax(ranks, arch, shape):
     """One train step on every rank: the loss and the step's metrics
     against JAX's, each gradient (summed over the data group) and the
-    step's first moment against the JAX leaf or this rank's part of it
-    (``model_parts``), the updated parameters likewise."""
+    step's first moment against the JAX leaf or this rank's stored part of
+    it (``model_parts``, and ``data_parts`` for (2, 2)'s FSDP storage),
+    the updated parameters likewise."""
     cfg = get_config(arch).reduced()
     ref = ranks.jax(f"{arch} {shape}")
     lr = R.MESH_ADAMW["lr"]
@@ -236,11 +249,12 @@ def test_experts_are_held_only_by_their_rank(ranks, shape):
         experts = {k: v for k, v in res["parts"].items()
                    if ".moe.w_" in k}
         assert experts
-        for name, (dim, start, stop, pshape) in experts.items():
-            assert (dim, start, stop) == (0, j * e // m, (j + 1) * e // m)
+        for name, (dim, rows, pshape) in experts.items():
+            assert (dim, rows) == (0, slice(j * e // m, (j + 1) * e // m))
             assert pshape[0] == e // m, name
         for name, p in res["params"].items():
-            if name not in res["parts"]:
+            if name not in res["train_parts"] and \
+                    name not in res["train_data_parts"]:
                 assert np.array_equal(p, per_rank[0]["params"][name]), name
 
 
@@ -250,8 +264,9 @@ def test_each_rank_holds_only_its_model_part(ranks, arch, shape):
     part the layout gives it: a leaf the port cuts (``layout.model_dim``)
     a 1/m share, the rest whole; the leaves ``param_spec`` cuts but the
     port keeps whole are exactly the named departure (wk / wv where m does
-    not divide the KV heads: recurrentgemma's one KV head); each rank's
-    parts are [j n, (j+1) n) of their leaf."""
+    not divide the KV heads: recurrentgemma's one KV head; no xLSTM leaf,
+    whose heads m divides); each rank's parts are [j n, (j+1) n) of their
+    leaf, but the mLSTM's w_up (its heads' columns of each gate)."""
     cfg = get_config(arch).reduced()
     m = shape[1]
     tree = ranks.trees[arch]
@@ -267,8 +282,90 @@ def test_each_rank_holds_only_its_model_part(ranks, arch, shape):
         assert res["bytes"] == want
         assert res["parts"]
         j = res["positions"][1]
-        for name, (dim, start, stop, pshape) in res["parts"].items():
-            assert (start, stop) == (j * pshape[dim], (j + 1) * pshape[dim])
+        for name, (dim, rows, pshape) in res["parts"].items():
+            if name.endswith("mlstm.w_up"):
+                assert len(rows) == pshape[dim], name
+                continue
+            assert (rows.start, rows.stop) == (j * pshape[dim],
+                                               (j + 1) * pshape[dim]), name
+
+
+@pytest.mark.parametrize("arch", R.MESH_ARCHS)
+def test_fsdp_rank_stores_its_model_and_data_part(ranks, arch):
+    """On (2, 2) the trained model is stored FSDP: each rank's parameter
+    bytes equal, exactly, the sum over the JAX leaves of the whole leaf
+    over its model cut (``layout.model_dim``) and its data cut
+    (``layout.data_dim``, ``param_spec``'s FSDP entry); each data part is
+    data rank r's [r n, (r + 1) n) of a dim the model ranks do not cut,
+    and the resident serving model stores no data part."""
+    cfg = get_config(arch).reduced()
+    d, m = FSDP_SHAPE
+    want = 0
+    for path, leaf in _flat(ranks.trees[arch]):
+        mdim = model_dim(path, leaf.shape, m, cfg)
+        ddim = data_dim(path, leaf.shape, d)
+        assert ddim is None or ddim != mdim, path
+        want += leaf.size * 4 // (m if mdim is not None else 1) \
+            // (d if ddim is not None else 1)
+    per_rank = ranks.case(f"{arch} {FSDP_SHAPE}")
+    cut = set()
+    for name in per_rank[0]["params"]:
+        path, layer, _ = _jax_location(name, cfg)
+        shape = _leaf(ranks.trees[arch], name, cfg).shape
+        if data_dim(path, shape, d) is not None:
+            cut.add(name)
+    assert cut
+    for res in per_rank:
+        assert res["train_bytes"] == want
+        assert res["bytes"] > want
+        r = res["positions"][0]
+        assert set(res["train_data_parts"]) == cut
+        for name, (dim, rows, pshape) in res["train_data_parts"].items():
+            assert rows == slice(r * pshape[dim], (r + 1) * pshape[dim])
+            assert name not in res["train_parts"] or \
+                res["train_parts"][name][0] != dim
+
+
+@pytest.mark.parametrize("arch", R.MESH_ARCHS)
+def test_fsdp_and_resident_steps_agree(ranks, arch):
+    """On (2, 2) the FSDP-stored model's train step against the same step
+    on the resident weights: the metrics 1e-5 relative, each gradient and
+    first moment (the FSDP shard against its slice) within 1e-4 of the
+    leaf's max; its prefill and serve steps against the resident ones,
+    conf 1e-5 and top-1 equal where the top-2 gap exceeds 1e-4."""
+    per_rank = ranks.case(f"{arch} {FSDP_SHAPE}")
+    gaps = _gaps(per_rank)
+    for res in per_rank:
+        resident = res["resident"]
+        for key in ("loss", "ce", "aux", "grad_norm", "lr"):
+            assert res["metrics"][key] == pytest.approx(
+                resident["metrics"][key], rel=LOSS_RTOL, abs=1e-7), key
+        for name, g in res["grads"].items():
+            dparts = res["train_data_parts"]
+            rows = part_index(*dparts[name][:2]) if name in dparts else ()
+            for key, got in (("grads", g), ("mu", res["mu"][name])):
+                want = resident[key][name][rows]
+                assert got.shape == want.shape, name
+                assert _leaf_err(got, want) <= GRAD_TOL, (key, name)
+        _assert_steps(res["fsdp_steps"], res["steps"], gaps)
+
+
+@pytest.mark.parametrize("shape", R.MESH_SHAPES)
+def test_mlstm_w_up_holds_its_heads_gate_columns(ranks, shape):
+    """The mLSTM's w_up (d, 3d) = [cell input 2d | output gate d] cut by
+    heads: model rank j holds cell-input columns [j 2d/m, (j+1) 2d/m) and
+    output-gate columns 2d + [j d/m, (j+1) d/m) of the JAX leaf, in that
+    order (the same count as ``param_spec``'s contiguous cut)."""
+    arch = "xlstm-350m"
+    cfg = get_config(arch).reduced()
+    d, m = cfg.d_model, shape[1]
+    leaf = np.asarray(ranks.trees[arch]["blocks"][0]["mlstm"]["w_up"][0])
+    for res in ranks.case(f"{arch} {shape}"):
+        j = res["positions"][1]
+        cols = list(range(j * 2 * d // m, (j + 1) * 2 * d // m)) + \
+            list(range(2 * d + j * d // m, 2 * d + (j + 1) * d // m))
+        assert res["w_up"].shape == (d, 3 * d // m)
+        assert np.array_equal(res["w_up"], leaf[:, cols])
 
 
 def test_rings_cut_on_their_slots_and_whole(ranks):

@@ -5,11 +5,14 @@ Every leaf of every config in ``ARCHS`` at full size (``jax.eval_shape``
 of the JAX parameters, no device): the port's ``param_spec`` equals
 JAX's at model sizes 4 and 16 and FSDP sizes 1, 2 and 16; its cache rule
 equals ``cache_shardings``' specs on an ``AbstractMesh``; its
-``batch_spec`` equals JAX's. The layout the port stores
+``batch_spec`` equals JAX's, and so do its ``param_shardings`` and
+``opt_shardings`` with and without FSDP. The layout the port stores
 (``models.layout.model_dim``, and the shapes a model built for a model rank
 allocates) is ``param_spec``'s model part but for the two named
 departures: attention projections whose head count "model" does not
-divide, and the xLSTM blocks. ``inputs.py``'s meta tensors match
+divide, and an xLSTM block whose heads "model" does not divide; its data
+part (``models.layout.data_dim``, and the shapes a model stored FSDP
+allocates) is ``param_spec``'s FSDP entry. ``inputs.py``'s meta tensors match
 ``repro.launch.inputs``' ``ShapeDtypeStruct``s, shape and dtype, for every
 (arch x ``INPUT_SHAPES``) cell. Everything here is exact.
 """
@@ -67,11 +70,22 @@ def test_param_spec_equals_jax_for_every_leaf(arch, model_size, fsdp_size):
         assert got == tuple(want), (_names(path), got, want)
 
 
-def _rank_model(cfg, m):
-    """The model of the last model rank of m, on ``meta``."""
+def _rank_model(cfg, m, d=1):
+    """The model of the last model rank of m (and, stored FSDP, of the
+    last data rank of d), on ``meta``."""
     cls = build_model(cfg, device="meta").__class__
     return cls(cfg, device=torch.device("meta"),
-               mctx=MeshContext(model_size=m, model_rank=m - 1))
+               mctx=MeshContext(model_size=m, model_rank=m - 1, data_size=d,
+                                data_rank=d - 1, fsdp=d > 1))
+
+
+def _jax_shape(full, name, cfg):
+    """(JAX leaf path, the leaf's shape, its stacked layer or -1) of a port
+    parameter whose one-card shape ``full`` holds."""
+    path, layer, n = _jax_location(name, cfg)
+    shape = tuple(full[name].shape) if layer < 0 else \
+        (n,) + tuple(full[name].shape)
+    return path, shape, layer
 
 
 @pytest.mark.parametrize("arch", ARCH_NAMES)
@@ -80,15 +94,14 @@ def test_each_rank_allocates_only_its_model_part(arch, m):
     """A model built for a model rank allocates each parameter at its full
     shape with the stored model dim cut m ways, and that dim is
     ``param_spec``'s but for the departures, which are named: wq / wk /
-    wv / wo where m does not divide the heads they hold, and the xLSTM
-    blocks' leaves."""
+    wv / wo where m does not divide the heads they hold, and an xLSTM
+    block's leaves where m does not divide its heads (xlstm-350m's four:
+    none at m = 4, both blocks whole at m = 16)."""
     cfg = get_config(arch)
     full = dict(build_model(cfg, device="meta").named_parameters())
     departures = set()
     for name, p in _rank_model(cfg, m).named_parameters():
-        path, layer, n = _jax_location(name, cfg)
-        jshape = tuple(full[name].shape) if layer < 0 else \
-            (n,) + tuple(full[name].shape)
+        path, jshape, layer = _jax_shape(full, name, cfg)
         dim = layout.model_dim(path, jshape, m, cfg)
         spec_dim = shardings.spec_model_dim(shardings.param_spec(
             path, jshape, model_size=m))
@@ -104,13 +117,93 @@ def test_each_rank_allocates_only_its_model_part(arch, m):
     for name in departures:
         leaf = name.rsplit(".", 1)[-1]
         blocks = {"mlstm", "slstm"} & set(name.split("."))
-        assert blocks or (leaf in heads and heads[leaf] % m), name
+        assert (blocks and all(layout.xlstm_heads(cfg, b) % m
+                               for b in blocks)) or \
+            (not blocks and leaf in heads and heads[leaf] % m), name
     if arch == "recurrentgemma-9b" and m == 4:
         # one KV head of 256 over four ranks: JAX's 64-feature pieces
         assert {n.rsplit(".", 1)[-1] for n in departures} == {"wk", "wv"}
     if arch == "xlstm-350m":
-        assert all({"mlstm", "slstm"} & set(n.split("."))
-                   for n in departures) and departures
+        if m == 4:
+            assert not departures
+        else:
+            blocks = {n for n in departures
+                      if {"mlstm", "slstm"} & set(n.split("."))}
+            assert blocks == departures and \
+                {n.split(".")[2] for n in blocks} == {"mlstm", "slstm"}
+
+
+@pytest.mark.parametrize("arch", ARCH_NAMES)
+@pytest.mark.parametrize("data_size", [2, 16])
+def test_data_dim_equals_param_spec_fsdp_entry(arch, data_size):
+    """``layout.data_dim`` is the dim ``param_spec`` puts the FSDP axes on,
+    for every leaf of the config at full size (None where it puts them
+    nowhere)."""
+    leaves = _leaves(_jax_params(arch))
+    cut = 0
+    for path, leaf in leaves:
+        spec = shardings.param_spec(_names(path), leaf.shape,
+                                    fsdp_axes=("data",),
+                                    fsdp_size=data_size)
+        want = spec.index("data") if "data" in spec else None
+        got = layout.data_dim(_names(path), leaf.shape, data_size)
+        assert got == want, (_names(path), got, want)
+        cut += got is not None
+    assert cut
+
+
+@pytest.mark.parametrize("arch", ARCH_NAMES)
+@pytest.mark.parametrize("shape", [(2, 4), (16, 16)])
+def test_each_rank_allocates_its_fsdp_part(arch, shape):
+    """A model stored FSDP for data rank d - 1 and model rank m - 1
+    allocates each parameter with its model dim cut m ways and its data
+    dim (``layout.data_dim``) d ways, two different dims; the leaves
+    ``param_spec`` stores over the data axes are exactly those."""
+    d, m = shape
+    cfg = get_config(arch)
+    full = dict(build_model(cfg, device="meta").named_parameters())
+    n_cut = 0
+    for name, p in _rank_model(cfg, m, d).named_parameters():
+        path, jshape, layer = _jax_shape(full, name, cfg)
+        want = list(jshape)
+        mdim = layout.model_dim(path, jshape, m, cfg)
+        ddim = layout.data_dim(path, jshape, d)
+        spec = shardings.param_spec(path, jshape, fsdp_axes=("data",),
+                                    fsdp_size=d, model_size=m)
+        assert ddim == (spec.index("data") if "data" in spec else None)
+        assert ddim is None or ddim != mdim, name
+        if mdim is not None:
+            want[mdim] //= m
+        if ddim is not None:
+            want[ddim] //= d
+            n_cut += 1
+        if layer >= 0:
+            want = want[1:]
+        assert list(p.shape) == want, (name, tuple(p.shape), want)
+    assert n_cut
+
+
+@pytest.mark.parametrize("arch", ARCH_NAMES)
+@pytest.mark.parametrize("mesh_shape", [(2, 2), (1, 4), (4, 16)])
+def test_param_and_opt_shardings_equal_jax(arch, mesh_shape):
+    """``param_shardings`` with ``fsdp`` on and off, and ``opt_shardings``
+    (the moments as the parameters are for training, the step
+    replicated), against the JAX package's on an ``AbstractMesh``."""
+    mesh = _abstract_mesh(mesh_shape)
+    params = _jax_params(arch)
+    leaves = {tuple(_names(p)): leaf.shape for p, leaf in _leaves(params)}
+    kw = dict(data_size=mesh_shape[0], model_size=mesh_shape[1])
+    for fsdp in (True, False):
+        got = shardings.param_shardings(leaves, fsdp=fsdp, **kw)
+        jtree = jshard.param_shardings(mesh, params, fsdp=fsdp)
+        for path, sh in _leaves(jtree):
+            assert got[tuple(_names(path))] == tuple(sh.spec), path
+    opt = shardings.opt_shardings(leaves, **kw)
+    jopt = jshard.opt_shardings(mesh, params)
+    assert opt["step"] == tuple(jopt["step"].spec)
+    for key in ("mu", "nu"):
+        for path, sh in _leaves(jopt[key]):
+            assert opt[key][tuple(_names(path))] == tuple(sh.spec), path
 
 
 def _abstract_mesh(shape):

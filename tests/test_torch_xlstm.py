@@ -188,6 +188,55 @@ def test_slstm_step_matches_jax(floor):
         _close(tst[key], jst[key])
 
 
+@pytest.mark.parametrize("head", [0, 3])
+def test_slstm_w_in_quarter_holds_one_heads_four_gates(head):
+    """The sLSTM cell reshapes its gate pre-activations (B, 4d) to (B, H,
+    p, 4), so the contiguous quarter ``head`` of w_in's and b_in's 4d
+    columns (what model rank ``head`` of four holds) is that head's four
+    gates: the cell run on that quarter alone, with r's head and the
+    head's state and no other head's, gives JAX's whole block's state of
+    that head (c, n, m: the z, i and f gates) and its h (the o gate) at
+    every position. The gate-major quarter (gate k's columns [k d + head
+    p, k d + (head + 1) p)) does not."""
+    cfg = get_config(ARCH).reduced()
+    _, _, jp, mod = _blocks(cfg, 7)
+    b, s, d, nh = 2, 12, cfg.d_model, cfg.slstm_num_heads
+    hd = d // nh
+    rng = np.random.default_rng(8)
+    jp["b_in"] = (rng.standard_normal(4 * d) * 0.5).astype(np.float32)
+    with torch.no_grad():
+        mod.b_in.copy_(torch.from_numpy(jp["b_in"]))
+    x = rng.standard_normal((b, s, d)).astype(np.float32)
+    st0 = _slstm_state(b, d, nh, 9)
+    xw = x @ jp["w_in"] + jp["b_in"]
+    jst, jh = st0, []
+    for t in range(s):
+        jst = jxlstm._slstm_step(jp, xw[:, t], jst, nh)
+        jh.append(_np(jst["h"]))
+    heads = slice(head * hd, (head + 1) * hd)
+
+    def run(cols):
+        st = {k: torch.from_numpy(np.ascontiguousarray(
+            v[:, heads] if k == "h" else v[:, head:head + 1]))
+            for k, v in st0.items()}
+        xq = torch.from_numpy(np.ascontiguousarray(xw[..., cols]))
+        r = mod.r[head:head + 1]
+        hs = []
+        for t in range(s):
+            st = xlstm.slstm_step(mod, xq[:, t], st, 1, r)
+            hs.append(st["h"])
+        return st, torch.stack(hs, 1)
+
+    st, hs = run(np.arange(head * 4 * hd, (head + 1) * 4 * hd))
+    _close(hs, np.stack(jh, 1)[..., heads])
+    for key in ("c", "n", "m"):
+        _close(st[key], _np(jst[key])[:, head:head + 1])
+    gate_major = np.concatenate([k * d + np.arange(head * hd, (head + 1) * hd)
+                                 for k in range(4)])
+    st, hs = run(gate_major)
+    assert not np.allclose(hs.numpy(), np.stack(jh, 1)[..., heads], **TOL)
+
+
 @pytest.mark.parametrize("with_state", [False, True])
 def test_xlstm_blocks_match_jax(with_state):
     """Both blocks over 48 positions, from the initial states or given
