@@ -5,7 +5,7 @@
     python3 chip_smoke.py zoo    # phases 1-3's zoo part, 9 and 10 alone
     python3 chip_smoke.py train  # phases 1-3's training part and 11 alone
     python3 chip_smoke.py softcap  # phases 1-3's soft-cap part and 12 alone
-    python3 chip_smoke.py mesh   # phases 1-3's mesh part and 13 alone
+    python3 chip_smoke.py mesh   # phases 1-3's mesh part, 13 and 14 (b)
 
 Phases, each printing its own lines; any failure raises, and the script
 then exits non-zero without the final result line:
@@ -29,10 +29,11 @@ then exits non-zero without the final result line:
    times at the paths' shapes (the zoo's models too) and at B = 64
    (CUDA events,
    after warm-up), the scan also in bf16 and at B = 1, flash's bound at
-   the tensor-core rate beside its FP32 CUDA-core bound, the threshold
-   sweep of the two flash kernels, and BvSB cut into chunks, decode
-   attention into splits and the scan's ring into (steps, stages),
-   forced, around the plans' choices. The training part: flash under
+   the tensor-core rate beside its FP32 CUDA-core bound (every bound from
+   ``repro_torch.roofline.analysis``, every time from
+   ``repro_torch.kernels.timing.time_ms``), the threshold sweep of the
+   two flash kernels (the planners' constants are swept in phase 14).
+   The training part: flash under
    autograd (FlashAttentionFn) at each training path's attention and at
    deepseek's and seamless's forms, f32 and bf16: the forward's row
    log-sum-exp against the plain one, dq / dk / dv against
@@ -45,8 +46,7 @@ then exits non-zero without the final result line:
    FP32 rates; the scan: 5 B S D 4 bytes), plain versions and SDPA's
    backward through autograd; the scan's backward on its cp.async ring
    and its per-element path, each forced, bit for bit the plain loop, its
-   rows beside the per-element path's time and a sweep of the ring's
-   (steps, stages) at B = 2 and 1. The soft-cap part: flash forward and
+   rows beside the per-element path's time. The soft-cap part: flash forward and
    backward (each form forced) and decode (three dtype pairs) with
    gemma's cap against their plain versions with the cap, each repeated
    bitwise, and capped rows at gemma-7b's shapes beside the uncapped
@@ -213,9 +213,33 @@ then exits non-zero without the final result line:
    shard of RecurrentGemma's and granite's rings (full, partly filled,
    shards empty; three dtype pairs, capped and not) to its plain version
    and the merge of the gathered partials to the whole ring's plain
-   decode, bitwise repeats, and times all four beside their bounds;
-14. the kernels line: one JSON object describing every ported kernel;
-15. the result line: {"ok": true, "device": {...}}.
+   decode, bitwise repeats, and times all four beside their bounds. Each
+   clocked step's all_reduces must be as many as the collectives
+   ``MeshContext`` books (``models.common.counting_collectives``: the
+   logical gathers, reduces and reduce-scatters), and each rank's stored
+   bytes are kept exact;
+14. tuning and the dry-run: (a) ``kernels.autotune.sweep`` of every
+   planner constant (BvSB's BLOCKS_PER_SM and MIN_CHUNK, decode's
+   BLOCKS_PER_SM and SHARD_MIN_KEYS, the scan's IN_FLIGHT, STAGES and
+   BWD_STEPS) over the paths' shapes, each candidate held to its plain
+   version (float32: BVSB_ATOL / DECODE_ATOL, top-1 exact; the scan
+   bitwise), any disagreement a failure, and printed against its bound
+   (a winner must beat the value in force by more than its timings'
+   spread); the winners persisted to a file under build/ and
+   reloaded, then another BvSB plan: ``ops.cache_token`` changes, the
+   serving executable cache takes a new entry and the cascade's server
+   BvSB under it equals the default plans' (1e-5, top-1), the defaults
+   put back; flash's ``tensor_core_rule`` held to the library's choice;
+   (b) ``launch.dryrun`` of phase 13's granite cells ((a)'s serve step,
+   (b)'s train step stored FSDP and resident) on a fake process group of
+   four ranks in a process of its own: the bytes a rank stores equal
+   phase 13's measured bytes exactly, the collectives its clocked
+   steps', kind by kind; the peak estimate printed beside the measured
+   peak; (c) the timer floors (``timing.time_ms``'s event span and
+   ``time_blocked``'s block at MIN_RES_MULT times their clocks'
+   resolution: the events' documented 0.5 us, perf_counter's measured);
+15. the kernels line: one JSON object describing every ported kernel;
+16. the result line: {"ok": true, "device": {...}}.
 
 ``zoo`` runs phases 1 and 2, phase 3's BvSB, flash and decode checks
 and its zoo timing rows, the MoE dispatch's scan of its one-hot in two
@@ -227,7 +251,8 @@ phase 3's training part, then phase 11, and prints no result line.
 ``softcap`` runs phases 1 and 2, phase 3's soft-cap part, then phase 12,
 and prints no result line. ``mesh`` runs phases 1 and 2, phase 3's
 partial-entry checks and rows (BvSB and decode attention), then phase
-13, and prints no result line.
+13 and phase 14 (b), and prints no result line. ``train`` also sweeps
+the scan's BWD_STEPS as phase 14 does.
 
 ``throughput`` of the cascade is a virtual-clock figure from the paper's
 latency profiles, not a measurement of the card.
@@ -281,6 +306,12 @@ from repro_torch.kernels.decode_attention import \
     decode_attention_plain  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     attention_lse_plain, flash_attention_bwd_plain, flash_attention_plain)
+from repro_torch.kernels import autotune, timing  # noqa: E402
+from repro_torch.kernels.timing import time_ms  # noqa: E402
+from repro_torch.roofline.analysis import (  # noqa: E402
+    bvsb_bound_ms, bvsb_merge_bound_ms, bvsb_partials_bound_ms, rates_for,
+    decode_bound_ms, decode_merge_bound_ms, decode_partials_bound_ms,
+    flash_bounds_ms, flash_bwd_bounds_ms, rglru_bound_ms, rglru_bwd_bound_ms)
 from repro_torch.kernels.rglru_scan import (  # noqa: E402
     rglru_scan_bwd_plain, rglru_scan_plain)
 from repro_torch.launch.distributed import (PAD_LOGIT,  # noqa: E402
@@ -290,6 +321,7 @@ from repro_torch.launch.distributed import (PAD_LOGIT,  # noqa: E402
                                             make_train_step)
 from repro_torch.launch.mesh import make_sweep_mesh  # noqa: E402
 from repro_torch.models import attention, common, moe, xlstm  # noqa: E402
+from repro_torch.models.common import counting_collectives  # noqa: E402
 from repro_torch.models.model import build_model, init_params  # noqa: E402
 from repro_torch.serving.cascade import run_cascade  # noqa: E402
 from repro_torch.serving.client import DeviceClient  # noqa: E402
@@ -457,80 +489,6 @@ MESH_PEAK_GB = 72        # the ranks' peaks together, at most
 SEAMT_B, SEAMT_FRAMES, SEAMT_S, SEAMT_STEPS = 2, 1024, 512, 3
 XLSTMT_B, XLSTMT_S, XLSTMT_STEPS = 2, 128, 2
 XLM_SHAPE, XLM_B, XLM_S, XLM_STEPS = (1, 4), 4, 512, 8
-
-
-def card_rates(name: str):
-    """(HBM bytes/s, FP32 FLOP/s outside the tensor cores, dense
-    tensor-core FLOP/s by input type: TF32 for float32, bf16) from the data
-    sheet of the H100 part nvidia-smi names."""
-    if "PCIe" in name:
-        return 2.0e12, 51e12, {torch.float32: 378e12, torch.bfloat16: 756e12}
-    return 3.35e12, 67e12, {torch.float32: 495e12,        # H100 SXM
-                            torch.bfloat16: 989e12}
-
-
-def time_ms(fn, iters=25, warmup=10, spin=True):
-    """(device ms per call, host ms per call) of ``fn``.
-
-    Device time: a spin kernel holds the stream while the host enqueues
-    ``iters`` calls, so the CUDA events around them time the calls' device
-    work back to back, not the host's launch rate; the spin grows until
-    it outlasts the enqueue. ``iters`` stays small because the CUDA driver
-    queues only about a thousand pending launches before the host blocks,
-    and a plain version makes twenty to a hundred per call: an enqueue
-    that lasts as long as the spin waited behind it with the queue full,
-    and halves ``iters`` rather than grow a spin that cannot help. Host
-    time: wall clock per call, synchronised, which is what a caller of
-    ``fn`` waits for.
-
-    ``spin=False`` is for a function that launches more kernels per call
-    than the launch queue holds (the plain RG-LRU loop: three per time
-    step):
-    the events then span back-to-back calls with no spin, so the device
-    time includes the gaps in which the device waits for the host's
-    launches. It is an upper bound, and the callers say so.
-    """
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    if not spin:
-        t0 = time.perf_counter()
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        host = (time.perf_counter() - t0) * 1e3 / iters
-        return start.elapsed_time(end) / iters, host
-    spin = 20_000_000            # clock cycles: ~10 ms at the H100's ~2 GHz
-    while True:
-        torch.cuda._sleep(spin)
-        start.record()
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        enqueue = time.perf_counter() - t0
-        end.record()
-        torch.cuda.synchronize()
-        device_ms = start.elapsed_time(end) / iters
-        if enqueue * 1e3 < spin / 4e6:
-            break        # the enqueue took under half the spin
-        if enqueue * 1e3 >= 0.9 * spin / 2e6 and iters > 1:
-            iters //= 2  # the queue filled: the host waited out the spin
-        elif spin < 2e9:
-            spin *= 4
-        elif iters > 1:
-            iters //= 2  # fewer launches pending behind the spin
-        else:
-            raise AssertionError("the timed function waits for the device "
-                                 "on every call: no device time to read")
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    torch.cuda.synchronize()
-    return device_ms, (time.perf_counter() - t0) * 1e3 / iters
 
 
 PTXAS_KERNELS = ("flash_tc", "flash_fma", "decode_partial", "decode_merge",
@@ -1514,88 +1472,6 @@ def check_grad_guard(dev):
           "launched")
 
 
-def bvsb_bound_ms(b, v, elt, bw, flops):
-    moved = b * v * elt + b * 8              # logits in, conf + top1 out
-    ops_ = 4 * b * v                         # compare, subtract, exp, add
-    return max(moved / bw, ops_ / flops) * 1e3, \
-        "bytes" if moved / bw >= ops_ / flops else "operations"
-
-
-def _bound(moved, ops_, bw, flops):
-    return max(moved / bw, ops_ / flops) * 1e3, \
-        "bytes" if moved / bw >= ops_ / flops else "operations"
-
-
-def flash_pairs(s, t, causal=True, window=None):
-    """(query, key) pairs attention keeps: min(i + 1, window) keys for
-    query i when causal, every one of S x T otherwise."""
-    w = window or s
-    if not causal:
-        return s * t
-    if s > w:
-        return w * (w + 1) // 2 + (s - w) * w
-    return s * (s + 1) // 2
-
-
-def flash_bwd_bounds_ms(q, k, bw, flops, tc, window=None, causal=True):
-    """(the bound at the tensor-core rate of the inputs' type: TF32 for
-    f32, one product per FMA pair; the bound at the FP32 CUDA-core rate)
-    of the backward: 2.5 times the forward's products (the recomputed
-    q.k, dO.v, and the three products of dV, dK and dQ, against the
-    forward's two), over q, k, v, o, dO and lse read and dq, dk, dv
-    written once."""
-    b, s, h, hd = q.shape
-    pairs = flash_pairs(s, k.shape[1], causal, window)
-    moved = (4 * q.numel() + 4 * k.numel()) * q.element_size() + b * h * s * 4
-    ops_ = 2.5 * 4 * hd * pairs * b * h
-    return (_bound(moved, ops_, bw, tc[q.dtype]),
-            _bound(moved, ops_, bw, flops))
-
-
-def rglru_bwd_bound_ms(a, bw, flops):
-    """a read in its type; h and dh read, da and du written in f32 (5 B S D
-    4 bytes in f32); a multiply, an add and a multiply per element."""
-    return _bound(a.numel() * (a.element_size() + 16), 3 * a.numel(), bw,
-                  flops)
-
-
-def flash_bounds_ms(q, k, bw, flops, tc, window=None, causal=True):
-    """The bound at the rate of the kernel the shape picks (on tensor
-    cores f32 is 3xTF32, three TF32 products per FMA pair, and bf16 one
-    product) and, under its own key, the bound at the FP32 CUDA-core
-    rate. Non-causal (no window): every (query, key) pair, S x T."""
-    b, s, h, hd = q.shape
-    t = k.shape[1]
-    pairs = flash_pairs(s, t, causal, window)
-    moved = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-    ops_ = 4 * hd * pairs * b * h            # q.k and p.v, 2 FLOP per FMA
-    fp32 = _bound(moved, ops_, bw, flops)
-    if not _flash.uses_tensor_cores(s, hd, t):
-        return fp32, fp32
-    products = 3 if q.dtype == torch.float32 else 1
-    return _bound(moved, products * ops_, bw, tc[q.dtype]), fp32
-
-
-def decode_bound_ms(q, k, lengths, bw, flops):
-    """Each valid cache slot read once (K and V, in the cache's type), q
-    read and out written once (in q's type); a q.k and a p.v FMA per
-    (query head, valid slot, head dim)."""
-    b, h, hd = q.shape
-    kv = k.shape[2]
-    slots = int(lengths.clamp(max=k.shape[1]).sum())
-    moved = (2 * q.numel() * q.element_size()
-             + 2 * slots * kv * hd * k.element_size() + lengths.numel() * 4)
-    ops_ = 4 * hd * slots * h
-    return _bound(moved, ops_, bw, flops)
-
-
-def rglru_bound_ms(a, bw, flops):
-    """a and u read once, h written once (f32); a multiply and an add per
-    element."""
-    return _bound(a.numel() * (2 * a.element_size() + 4), 2 * a.numel(),
-                  bw, flops)
-
-
 def flex_library(q, k, v, causal, cap, do=None):
     """(one call of ``torch.nn.attention.flex_attention``, compiled, with a
     tanh ``score_mod`` c tanh(s / c) and a causal block mask where
@@ -1654,8 +1530,9 @@ class Timer:
     the timed inputs is held to its plain version's within the float32
     tolerance (the RG-LRU scan: bit for bit)."""
 
-    def __init__(self, dev, bw, flops, tc):
-        self.dev, self.bw, self.flops, self.tc = dev, bw, flops, tc
+    def __init__(self, dev, rates):
+        self.dev, self.rates = dev, rates
+        self.bw, self.flops = rates.hbm, rates.fp32
         self.rows = {}
 
     def _row(self, key, kernel, plain, library, bound, err, atol, shape,
@@ -1743,7 +1620,7 @@ class Timer:
             ("bvsb_partials", f"{arch} shard of {m} B={b}"),
             lambda: ops.bvsb_partials(x, 0),
             lambda: bvsb_partials_plain(x, 0), library,
-            _bound(b * v * 4 + b * 16, 4 * b * v, self.bw, self.flops),
+            bvsb_partials_bound_ms(b, v, 4, self.bw, self.flops),
             err, BVSB_ATOL[torch.float32], (b, v))
 
     def bvsb_merge(self, b, m=4, arch=GRANITE_ARCH):
@@ -1761,8 +1638,7 @@ class Timer:
         return self._row(
             ("bvsb_merge", f"{arch} {m} shards B={b}"),
             lambda: ops.bvsb_merge(parts), lambda: bvsb_merge_plain(parts),
-            None, _bound(b * m * 16 + b * 8, 12 * b * m, self.bw,
-                         self.flops),
+            None, bvsb_merge_bound_ms(b, m, self.bw, self.flops),
             max_err(conf, pconf), BVSB_ATOL[torch.float32], (b, m, 4))
 
     def _shard_inputs(self, b, w, kv, g, hd, m):
@@ -1787,14 +1663,12 @@ class Timer:
         got = ops.decode_attention_partials(q, sk, sv, lens, 0, m)
         ref = _decode.decode_attention_partials_plain(q, sk, sv, lens, 0, m,
                                                       None, ns)
-        own = _decode.partials_rows(b, kv, g, ns) * (2 + hd)
-        moved = (q.numel() + 2 * sk.numel() + own) * 4 + b * 4
         return self._row(
             ("decode_attention_partials", f"{arch} shard of {m} B={b}"),
             lambda: ops.decode_attention_partials(q, sk, sv, lens, 0, m),
             lambda: _decode.decode_attention_partials_plain(
                 q, sk, sv, lens, 0, m, None, ns), None,
-            _bound(moved, 4 * hd * b * ws * kv * g, self.bw, self.flops),
+            decode_partials_bound_ms(q, sk, lens, 0, ns, self.bw, self.flops),
             max_err(got, ref), DECODE_ATOL[torch.float32], (b, ws, kv, g, hd))
 
     def decode_merge(self, arch, b, w, kv, g, hd, m=4):
@@ -1813,66 +1687,9 @@ class Timer:
             ("decode_attention_merge", f"{arch} {m} shards B={b}"),
             lambda: ops.decode_attention_merge(parts, q, kv),
             lambda: _decode.decode_attention_merge_plain(parts, q, kv), None,
-            _bound((parts.numel() + q.numel()) * 4,
-                   5 * b * kv * m * ns * g * hd, self.bw, self.flops),
+            decode_merge_bound_ms(parts, q, kv, self.bw, self.flops),
             max_err(out, decode_attention_plain(q, k, v, lens)),
             DECODE_ATOL[torch.float32], (b, kv, m * ns, g, hd))
-
-    def bvsb_chunks(self, shapes=((8, 2048), (8, 8192), (8, 12288),
-                                  (8, 16384), (1, 16384), (64, 16384),
-                                  (8, 65536), (RG_B, 256_000),
-                                  (64, 256_000))):
-        """Device us of the BvSB kernel forced to about n chunks a row
-        (``bvsb.run_entry``, not counted), each held to the plain version:
-        where cutting a row (and the merge launch) starts to pay sets the
-        row length from which the plan cuts (MIN_CHUNKS * MIN_CHUNK)."""
-        sms = _build.sm_count(self.dev)
-        for b, v in shapes:
-            x = torch.randn(b, v, device=self.dev) * 4
-            pconf, ptop1 = bvsb_plain(x)
-            planned = _bvsb.chunks(b, v, sms)[0]
-            cells = []
-            for n in sorted({1, 2, 4, 8, 16, 32, 64, planned}):
-                if n > v // _bvsb.VEC or b * n > 8 * sms:
-                    continue
-                conf, top1 = _bvsb.run_entry(x, n)
-                if not (max_err(conf, pconf) <= BVSB_ATOL[torch.float32]
-                        and torch.equal(top1, ptop1)):
-                    raise AssertionError(f"bvsb ({b},{v}) cut into {n} chunks "
-                                         "disagrees with its plain version")
-                ms = time_ms(lambda: _bvsb.run_entry(x, n))[0]
-                cells.append(f"n={n} {ms * 1e3:.2f}")
-            print(f"bvsb chunks (B,V)=({b},{v}) f32, planned "
-                  f"n={planned}, device us: {'; '.join(cells)}")
-
-    def decode_splits(self, batches=(RG_B, 64), w=2048):
-        """Device us of the decode kernel at RecurrentGemma's shape, rings
-        full, forced to about n splits (``decode_attention.run_entry``,
-        not counted), each held to the plain version: how the blocks per
-        SM that the plan picks compare with more and fewer."""
-        sms = _build.sm_count(self.dev)
-        for b in batches:
-            q, k, v, lens = decode_inputs(self.dev, b, w, 1, 16, 256, [w] * b)
-            ref = decode_attention_plain(q, k, v, lens)
-            planned = _decode.splits(b, 1, w, sms)[0]
-            cells = []
-            for n in sorted({1, 2, 4, 8, 16, 32, 64, 128, planned}):
-                if n > w // _decode.TILE or b * n > 8 * sms:
-                    continue
-                err = max_err(_decode.run_entry(q, k, v, lens, n), ref)
-                if not err <= DECODE_ATOL[torch.float32]:
-                    raise AssertionError(f"decode B={b} in {n} splits "
-                                         "disagrees with its plain version")
-                ms = time_ms(lambda: _decode.run_entry(q, k, v, lens, n))[0]
-                cells.append(f"n={n} {ms * 1e3:.2f}")
-            # the card's read rate on the same bytes: one library reduction
-            # over the K and V caches
-            kv = torch.stack((k, v))
-            sum_ms = time_ms(lambda: kv.sum())[0]
-            print(f"decode splits (B,W,KV,G,hd)=({b},{w},1,16,256) f32, "
-                  f"planned n={planned}, device us: {'; '.join(cells)}; "
-                  f"torch.sum over the caches {sum_ms * 1e3:.2f} us "
-                  f"({kv.numel() * 4 / sum_ms / 1e9:.3f} TB/s)")
 
     def flash_rg(self, b=RG_B, s=RG_S, window=2048):
         key = ("flash_attention", f"{RG_ARCH} B={b}")
@@ -1882,8 +1699,9 @@ class Timer:
         mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
         err = max_err(ops.flash_attention(q, k, v, window=window),
                       flash_attention_plain(q, k, v, window=window))
-        bound, fp32 = flash_bounds_ms(q, k, self.bw, self.flops, self.tc,
-                                      window)
+        bound, fp32 = flash_bounds_ms(
+            q, k, self.bw, self.flops, self.rates.tensor_peak(q.dtype), window,
+            tensor_cores=_flash.uses_tensor_cores(s, 256))
         row = self._row(
             key, lambda: ops.flash_attention(q, k, v, window=window),
             lambda: flash_attention_plain(q, k, v, window=window),
@@ -1969,49 +1787,6 @@ class Timer:
             None, rglru_bound_ms(a, self.bw, self.flops), 0.0, 0.0,
             (b, s, d), plain_spin=False, dt=name)
 
-    def rglru_tiles(self, shapes=((RG_B, torch.float32), (1, torch.float32),
-                                  (RG_B, torch.bfloat16)), s=RG_S, d=4096):
-        """Device us of the scan's ring forced to (steps, stages)
-        (``rglru_scan.run_entry``, not counted) around the plan at
-        RecurrentGemma's shape, each bitwise equal to the plain loop;
-        beside them the card's rate over the same bytes, one
-        ``torch.add(a, u, out=h)``: a and u read, h written in f32, as
-        the scan moves them. A yardstick of bytes: no PyTorch call
-        computes the scan."""
-        sms = _build.sm_count(self.dev)
-        for b, dt in shapes:
-            a, u, _ = rglru_inputs(self.dev, b, s, d, False, seed=2)
-            a, u = a.to(dt), u.to(dt)
-            ref = rglru_scan_plain(a, u)
-            elt = a.element_size()
-            plan = _rglru.tiles(b, s, d, elt, sms)
-            row = 2 * _rglru.STRIP * elt
-            base = _rglru.MIN_TILE // row
-            times = {}
-            for steps, stages in sorted(
-                    {(base << k, n) for k in range(4)
-                     for n in range(2, _rglru.MAX_STAGES + 1)} | {plan}):
-                if not torch.equal(_rglru.run_entry(a, u, None, steps, stages),
-                                   ref):
-                    raise AssertionError(f"rglru_scan ({b},{s},{d}) {dt} at "
-                                         f"steps={steps} stages={stages} "
-                                         "differs from its plain version")
-                times[steps, stages] = time_ms(
-                    lambda: _rglru.run_entry(a, u, None, steps, stages))[0]
-            elem_ms = time_ms(lambda: _rglru.run_entry(a, u, aligned=False))[0]
-            h = torch.empty(b, s, d, device=self.dev)
-            add_ms = time_ms(lambda: torch.add(a, u, out=h))[0]
-            moved = a.numel() * (2 * elt + 4)
-            cells = "; ".join(
-                f"{st}x{n} ({st * n * row // 1024} KB) {ms * 1e3:.2f}"
-                for (st, n), ms in times.items())
-            print(f"rglru tiles (B,S,D)=({b},{s},{d}) {str(dt)[6:]}, planned "
-                  f"steps x stages {plan[0]}x{plan[1]} "
-                  f"({moved / times[plan] / 1e9:.3f} TB/s), device us: "
-                  f"{cells}; per-element path {elem_ms * 1e3:.2f}; "
-                  f"torch.add(a, u, out=h) over the same bytes "
-                  f"{add_ms * 1e3:.2f} us ({moved / add_ms / 1e9:.3f} TB/s)")
-
     def flash(self, arch, b, s=16, t=None, causal=True, form="",
               soft_cap=None):
         """Attention at ``arch``'s heads, B prompts of S positions over T
@@ -2030,8 +1805,10 @@ class Timer:
         ref = flash_attention_plain(q, k, v, causal=causal, soft_cap=soft_cap)
         err = max_err(ops.flash_attention(q, k, v, causal=causal,
                                           soft_cap=soft_cap), ref)
-        bound, fp32 = flash_bounds_ms(q, k, self.bw, self.flops, self.tc,
-                                      causal=causal)
+        bound, fp32 = flash_bounds_ms(
+            q, k, self.bw, self.flops, self.rates.tensor_peak(q.dtype),
+            causal=causal,
+            tensor_cores=_flash.uses_tensor_cores(s, hd, k.shape[1]))
         library, note = (lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal, enable_gqa=kv != h)), None
         if soft_cap:
@@ -2075,8 +1852,9 @@ class Timer:
                                              soft_cap=soft_cap)
         ref = plain()
         err = max(_rel(g, r) for g, r in zip(run(), ref))
-        bound, fp32 = flash_bwd_bounds_ms(q, k, self.bw, self.flops, self.tc,
-                                          window, causal)
+        bound, fp32 = flash_bwd_bounds_ms(
+            q, k, self.bw, self.flops, self.rates.tensor_peak(q.dtype),
+            window, causal)
         note = None
         if soft_cap:
             library, got = flex_library(q, k, v, causal, soft_cap, do=do)
@@ -2140,51 +1918,6 @@ class Timer:
               f"path {row['elem_ms'] * 1e3:.2f} us, on the device; "
               f"{row['bound_ms'] / row['ms'] * 100:.1f}% of the bound")
         return row
-
-    def rglru_bwd_tiles(self, shapes=((RGT_B, torch.float32),
-                                      (1, torch.float32),
-                                      (RGT_B, torch.bfloat16)),
-                        s=RGT_S, d=4096):
-        """Device us of the scan's backward ring forced to (steps, stages)
-        (``run_bwd_entry``, not counted) around the plan, each bitwise
-        equal to the plain reverse loop, and of the per-element path; the
-        pick, the fastest, and its rate over the 5 B S D 4 bytes (f32)."""
-        sms = _build.sm_count(self.dev)
-        for b, dt in shapes:
-            a, u, h0 = rglru_inputs(self.dev, b, s, d, True, seed=4)
-            a, u = a.to(dt), u.to(dt)
-            h = _rglru.run_entry(a, u, h0)
-            dh = torch.randn(b, s, d, device=self.dev)
-            ref = rglru_scan_bwd_plain(a, h, dh, h0)
-            elt = a.element_size()
-            plan = _rglru.bwd_tiles(b, s, d, elt, sms)
-            row = _rglru.STRIP * (elt + 8)
-            times = {}
-            for steps, stages in sorted(
-                    {(st, n) for st in (8, 16, 32, 64, 128)
-                     for n in (2, 3, 4, 6)
-                     if st * n * row <= 96 * 1024} | {plan}):
-                got = _rglru.run_bwd_entry(a, h, dh, h0, steps, stages,
-                                           aligned=True)
-                if not all(torch.equal(x, y) for x, y in zip(got, ref)):
-                    raise AssertionError(f"rglru_scan_bwd ({b},{s},{d}) {dt} "
-                                         f"at steps={steps} stages={stages} "
-                                         "differs from its plain version")
-                times[steps, stages] = time_ms(lambda: _rglru.run_bwd_entry(
-                    a, h, dh, h0, steps, stages, aligned=True))[0]
-            elem_ms = time_ms(lambda: _rglru.run_bwd_entry(
-                a, h, dh, h0, aligned=False))[0]
-            moved = a.numel() * (elt + 16)
-            best = min(times, key=times.get)
-            cells = "; ".join(f"{st}x{n} ({st * n * row // 1024} KB) "
-                              f"{ms * 1e3:.2f}"
-                              for (st, n), ms in times.items())
-            print(f"rglru backward tiles (B,S,D)=({b},{s},{d}) "
-                  f"{str(dt)[6:]}, planned steps x stages {plan[0]}x{plan[1]} "
-                  f"{times[plan] * 1e3:.2f} us ({moved / times[plan] / 1e9:.3f}"
-                  f" TB/s), fastest {best[0]}x{best[1]} "
-                  f"{times[best] * 1e3:.2f} us; device us: {cells}; "
-                  f"per-element path {elem_ms * 1e3:.2f}")
 
     def flash_threshold(self, seqs=(16, 32, 40, 48, 64, 80, 96, 128, 256),
                         forward=True):
@@ -4365,7 +4098,6 @@ def train_rows(timer):
     timer.flash_bwd_splits()
     scan = {"f32": timer.rglru_bwd(), "bf16": timer.rglru_bwd(
         dt=torch.bfloat16), "b1": timer.rglru_bwd(b=1)}
-    timer.rglru_bwd_tiles()
     return {"flash_attention_bwd": flash, "rglru_scan_bwd": scan}
 
 
@@ -4379,6 +4111,7 @@ def train_only(dev, timer):
     check_grad_guard(dev)
     train_rows(timer)
     timer.flash_threshold(forward=False)
+    plan_sweep(torch.cuda.get_device_name(dev), [("rglru_scan", "BWD_STEPS")])
     torch.cuda.empty_cache()
     t1 = time.perf_counter()
     training_path(dev)
@@ -4473,6 +4206,18 @@ def collective_clock():
         dist.all_reduce = real
 
 
+def clock_of(clock, wall, logical):
+    """A clocked step's tally: the all_reduces the clock timed (its "n"
+    and "s"), the wall, and the same collectives as ``MeshContext``'s
+    counter books them (the logical operations, their calls and ring
+    bytes a rank), which must be as many."""
+    if logical.calls != clock["n"]:
+        raise AssertionError(f"the mesh context booked {logical.calls} "
+                             f"collectives of a step that made {clock['n']} "
+                             "all_reduces")
+    return dict(clock, wall=wall, logical=logical.as_dict())
+
+
 def mesh_tokens(cfg, dev, b, s, seed):
     gen = torch.Generator(device=dev).manual_seed(seed)
     return torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
@@ -4524,10 +4269,10 @@ def mesh_serve(model, mesh, dev, tokens, steps, cache_len=MESH_RING):
         walls.append(w)
     counts = ops.launch_counts()
     pos = torch.full((b,), s + steps, dtype=torch.long, device=dev)
-    with collective_clock() as clock:
+    with collective_clock() as clock, counting_collectives() as logical:
         _, clocked = _timed(lambda: serve(top1[:, None], cache, pos))
     return out, counts, prefill_s, float(np.mean(walls[1:])), \
-        dict(clock, wall=clocked)
+        clock_of(clock, clocked, logical)
 
 
 def mesh_grads(cfg, dev, mesh, rows):
@@ -4575,8 +4320,8 @@ def _rank_layout(model):
     """What a rank holds of the layout: the shapes of its first attention
     layer's wq / wk and of its first RG-LRU's w_gate (where the model has
     them), and its parameter GB."""
-    out = {"params_gb": sum(p.numel() * p.element_size()
-                            for p in model.parameters()) / 1e9}
+    n = sum(p.numel() * p.element_size() for p in model.parameters())
+    out = {"params_gb": n / 1e9, "params_bytes": n}
     for name, p in model.named_parameters():
         leaf = name.split(".", 2)[-1]
         if leaf in ("attn.wq", "attn.wk", "rglru.w_gate", "mlp.w_gate",
@@ -4623,13 +4368,12 @@ def rg_mesh_work(dev):
     return out
 
 
-def stored_gb(params, state) -> float:
-    """GB a rank stores for training: its parameters and AdamW's two
-    moments."""
-    def size(ts):
-        return sum(t.numel() * t.element_size() for t in ts)
-    return (size(params.values()) + size(state["mu"].values())
-            + size(state["nu"].values())) / 1e9
+def stored_bytes(params, state) -> int:
+    """Bytes a rank stores for training: its parameters and AdamW's state
+    (the two moments and the step)."""
+    ts = [*params.values(), *state["mu"].values(), *state["nu"].values(),
+          state["step"]]
+    return sum(t.numel() * t.element_size() for t in ts)
 
 
 def mesh_train(model, mesh, dev, steps, b, s):
@@ -4639,7 +4383,7 @@ def mesh_train(model, mesh, dev, steps, b, s):
     GB the rank stores (its parameters and AdamW's moments)."""
     params = trainable(model)
     state = opt.init(params)
-    stored = stored_gb(params, state)
+    stored = stored_bytes(params, state)
     data = SyntheticLM(DataConfig(model.cfg.vocab_size, s, b,
                                   seed=MESH_SEED), device=dev)
     step = make_train_step(model, mesh, remat=True, adamw=opt.AdamWConfig(
@@ -4650,12 +4394,13 @@ def mesh_train(model, mesh, dev, steps, b, s):
         (state, m), w = _timed(lambda: step(state, data.batch_at(i)))
         losses.append(float(m["loss"]))
         walls.append(w)
-    with collective_clock() as tally:
+    with collective_clock() as tally, counting_collectives() as logical:
         (state, m), w = _timed(lambda: step(state, data.batch_at(
             steps - 1)))
     losses.append(float(m["loss"]))
     return dict(losses=losses, walls=walls, counts=ops.launch_counts(),
-                clock=dict(tally, wall=w), stored_gb=stored)
+                clock=clock_of(tally, w, logical), stored_gb=stored / 1e9,
+                stored_bytes=stored)
 
 
 def xlstm_mesh_tokens(cfg, dev):
@@ -4898,6 +4643,8 @@ def fsdp_report(results):
         "(b) FSDP stores less": stored["b_fsdp"] < stored["b_resident"],
     }
     figures = {k: dict(stored_gb=stored[k],
+                       stored_bytes=max(r["stored_bytes"] for r in rs),
+                       logical=rs[0]["clock"]["logical"],
                        peak_gb=max(r["peak_gb"] for r in rs),
                        step_ms=rs[0]["clock"]["wall"] * 1e3,
                        n_all_reduce=rs[0]["clock"]["n"],
@@ -5133,7 +4880,12 @@ def mesh_lm_path(dev):
                        train_ms=tr["walls"][-1] * 1e3,
                        peak_gb=max(sum(p) for p in peaks),
                        rank_peak_gb=max(peaks[0]), rg=e, xlstm=xl,
-                       fsdp=fsdp["figures"])
+                       fsdp=fsdp["figures"],
+                       a_serve=dict(params_bytes=max(
+                           res["a_serve"]["layout"]["params_bytes"]
+                           for res in results), n_all_reduce=a["clock"]["n"],
+                           logical=a["clock"]["logical"],
+                           peak_gb=max(peaks[0])))
 
 
 def mesh_path(dev):
@@ -5177,9 +4929,206 @@ def mesh_only(dev, timer):
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     counts, out = mesh_path(dev)
+    t1 = time.perf_counter()
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(1, mp_context=ctx) as pool:
+        dry = pool.submit(dryrun_mesh_cells, _build.sm_count(dev)).result()
+    dryrun_check({"a_serve": out["a_serve"], **out["fsdp"]}, dry)
     print(f"phase seconds: mesh and the new training paths "
-          f"{time.perf_counter() - t0:.1f}; launches {counts}")
+          f"{t1 - t0:.1f}, the dry-run against it "
+          f"{time.perf_counter() - t1:.1f}; launches {counts}")
     return 0
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the plan autotuner, the dry-run against phase 13, timer floors
+# ---------------------------------------------------------------------------
+TUNED_TMP = ROOT / "build" / "tuned_plans_smoke.json"
+# flash's tensor-core rule without the library, held to the library's
+# choice over these (S, T, hd)
+TC_RULE_SEQS, TC_RULE_HDS = (16, 39, 40, 47, 48, 79, 80, 512), (32, 128,
+                                                                 160, 256)
+
+
+def plan_sweep(card, knobs=None):
+    """(a): ``autotune.sweep`` of every plan constant (or of ``knobs``),
+    each candidate held to its plain version at every sweep shape (BvSB
+    and decode in float32 at BVSB_ATOL / DECODE_ATOL's float32 figures,
+    top-1 exact; the scan bit for bit) and printed against its bound; the
+    swept results. Fails if any candidate at any shape disagrees."""
+    assert autotune.F32_ATOL == {"bvsb": BVSB_ATOL[torch.float32],
+                                 "decode_attention":
+                                     DECODE_ATOL[torch.float32]}
+    swept = {knob: autotune.sweep(knob) for knob in knobs or
+             autotune.CANDIDATES}
+    autotune.report(swept, card)
+    bad = autotune.failures(swept)
+    if bad:
+        raise AssertionError("kernels disagree with their plain versions "
+                             "at swept plans: " + "; ".join(bad))
+    return swept
+
+
+def tuned_plans_check(dev, swept, card):
+    """(a) the winners persisted to a file under build/ and reloaded; then a
+    plan other than the one in force (BvSB's fastest other BLOCKS_PER_SM)
+    persisted and reloaded: ``cache_token`` changes, the serving
+    executable cache takes a new entry, and the cascade's server BvSB
+    (tier-server-heavy's classify at its bucket of 8) under it equals the
+    default plans' within BVSB_ATOL, top-1 exact. The defaults are put
+    back and the token with them."""
+    from repro_torch.serving import executables
+    default_token = ops.cache_token(dev)
+    TUNED_TMP.unlink(missing_ok=True)
+    winners = autotune.winners_of(swept)
+    in_force = autotune.persist(winners, card, TUNED_TMP)
+    changed = in_force != ops.DEFAULT_PLANS
+    if (ops.cache_token(dev) != default_token) != changed:
+        raise AssertionError("cache_token does not follow the plans")
+    print(f"autotune winners on {card}: {json.dumps(winners, sort_keys=True)}"
+          f"; persisted to {TUNED_TMP.name} and reloaded: plans "
+          f"{'differ from' if changed else 'equal'} the defaults")
+    model = build_models(dev)["tier-server-heavy"]
+    tokens = torch.as_tensor(np.random.default_rng(5).integers(
+        0, VOCAB, (8, SEQ)), device=dev)
+    ops.reload_plans(TUNED_TMP.with_suffix(".none"))
+    conf0, top0 = executables.classify_fn(model, 8)(model, tokens)
+    other = next(r["value"] for r in swept[("bvsb", "BLOCKS_PER_SM")]
+                 if r["numerics_ok"] and not r["current"])
+    before = executables.cache_stats()["executables"]
+    autotune.persist({"bvsb": {"BLOCKS_PER_SM": other}}, card, TUNED_TMP)
+    token = ops.cache_token(dev)
+    conf, top1 = executables.classify_fn(model, 8)(model, tokens)
+    err = max_err(conf, conf0)
+    ok = token != default_token and torch.equal(top1, top0) and \
+        err <= BVSB_ATOL[torch.float32] and \
+        executables.cache_stats()["executables"] == before + 1
+    print(f"autotune reload: bvsb.BLOCKS_PER_SM={other} in force, "
+          f"cache_token {default_token} -> {token}, a new executable, the "
+          f"cascade's server BvSB max|err| {err:.3g} (tol "
+          f"{BVSB_ATOL[torch.float32]:g}), top-1 equal {torch.equal(top1, top0)}")
+    ops.reload_plans(TUNED_TMP.with_suffix(".none"))
+    TUNED_TMP.unlink(missing_ok=True)
+    if not ok or ops.cache_token(dev) != default_token or \
+            ops.plans() != ops.DEFAULT_PLANS:
+        raise AssertionError("the reloaded plans do not serve the cascade's "
+                             "BvSB, or the defaults did not come back")
+
+
+def tensor_core_rule_check():
+    """The roofline's flash work takes the tensor-core rule without the
+    library (``flash_attention.tensor_core_rule``): held to the library's
+    choice, forward and backward."""
+    bad = [(s, t, hd, bwd) for s in TC_RULE_SEQS for t in TC_RULE_SEQS
+           for hd in TC_RULE_HDS for bwd in (False, True)
+           if _flash.tensor_core_rule(s, hd, t, bwd) != (
+               _flash.uses_tensor_cores_bwd if bwd else
+               _flash.uses_tensor_cores)(s, hd, t)]
+    if bad:
+        raise AssertionError(f"tensor_core_rule differs from the library at "
+                             f"{bad[:4]}")
+    print(f"tensor_core_rule = the library's choice at "
+          f"{len(TC_RULE_SEQS) ** 2 * len(TC_RULE_HDS) * 2} (S, T, hd, "
+          "direction)")
+
+
+def dryrun_mesh_cells(sms):
+    """(b)'s dry-run, in a process of its own (a fake process group of
+    MESH_RANKS ranks, this process rank 0): phase 13's granite cells on
+    ``meta`` in f32, the decode splits planned for ``sms`` SMs: (a)'s serve
+    step on MESH_SHAPE into rings of MESH_RING slots, (b)'s train step of
+    MESH_TRAIN_B x MESH_S on (2, 2), stored FSDP and resident."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_model_mesh
+    _build.META_SMS = sms
+    cfg = get_config(GRANITE_ARCH)
+    serve = InputShape("phase13_serve", MESH_S, MESH_B, "decode")
+    train = InputShape("phase13_train", MESH_S, MESH_TRAIN_B, "train")
+    out = {}
+    with dryrun.fake_world(MESH_RANKS):
+        mesh = make_model_mesh(MESH_SHAPE, device_type="cpu")
+        out["a_serve"] = dryrun.dry_run(cfg, serve, mesh, dtype=torch.float32,
+                                        cache_len=MESH_RING)
+        mesh = make_model_mesh((2, 2), device_type="cpu")
+        for key, fsdp in (("b_fsdp", True), ("b_resident", False)):
+            out[key] = dryrun.dry_run(cfg, train, mesh, dtype=torch.float32,
+                                      fsdp=fsdp, accum_steps=1)
+    return out
+
+
+def dryrun_check(measured, dry):
+    """(b): the dry-run's bytes a rank equal phase 13's measured ones
+    exactly ((a)'s parameters; (b)'s parameters and AdamW's state), its
+    collectives the measured step's, call for call and bytes for bytes of
+    every logical kind (the gather buffers' dtype aside: the dry-run
+    decodes over bf16 rings, phase 13 over the prefill's f32 ones, so (a)'s
+    bytes are printed, not compared); its peak estimate printed beside the
+    measured peak."""
+    rows = (("a_serve", "params_bytes", "param_bytes_per_device"),
+            ("b_fsdp", "stored_bytes", None), ("b_resident", "stored_bytes",
+                                               None))
+    ok = True
+    for key, have, want in rows:
+        d = dry[key]
+        got = d[want] if want else d["param_bytes_per_device"] + \
+            d["opt_bytes_per_device"]
+        m = measured[key]
+        same_bytes = got == m[have]
+        same_calls = d["collective_calls"] == m["n_all_reduce"]
+        same_ops = {k: v["calls"] for k, v in d["collectives"].items()} == \
+            {k: v["calls"] for k, v in m["logical"].items()}
+        same_ring = key == "a_serve" or {
+            k: v["bytes"] for k, v in d["collectives"].items()} == {
+            k: v["bytes"] for k, v in m["logical"].items()}
+        ok &= same_bytes and same_calls and same_ops and same_ring
+        print(f"dry-run vs phase 13 {key}: stored a rank {got} B (measured "
+              f"{m[have]} B, equal {same_bytes}); collectives "
+              f"{d['collective_calls']} (measured {m['n_all_reduce']} "
+              f"all_reduces; by kind equal {same_ops}, ring bytes equal "
+              f"{same_ring}: {json.dumps(d['collectives'])}); peak estimate "
+              f"{d['memory_analysis']['peak_bytes'] / 1e9:.3f} GB (measured "
+              f"{m['peak_gb']:.3f} GB); dry-run {d['wall_s']} s on the CPU")
+    if not ok:
+        raise AssertionError("the dry-run disagrees with phase 13's "
+                             "measurement")
+
+
+def timer_floor_check():
+    """(c): ``time_ms``'s events span at least MIN_RES_MULT times their
+    documented resolution (a short kernel grows its calls until they do)
+    and ``time_blocked``'s block at least MIN_RES_MULT times
+    perf_counter's."""
+    x = torch.ones(1024, device="cuda")
+    floor_ms = timing.MIN_RES_MULT * timing.EVENT_RESOLUTION_MS
+    ms, _ = time_ms(lambda: x.add_(1.0), iters=1)
+    per, block, reps = timing.time_blocked(
+        lambda: (x.add_(1.0), torch.cuda.synchronize()))
+    floor_s = timing.MIN_RES_MULT * timing.timer_resolution()
+    print(f"timer floors: CUDA event resolution "
+          f"{timing.EVENT_RESOLUTION_MS * 1e3:.1f} us (documented), span "
+          f"floor {floor_ms * 1e3:.1f} us; a 1,024-float add "
+          f"{ms * 1e3:.3f} us on the device; time_blocked {reps} reps in "
+          f"{block * 1e6:.1f} us >= {floor_s * 1e6:.3f} us "
+          f"({per * 1e6:.3f} us a call, synchronised)")
+    if block < floor_s or not ms > 0:
+        raise AssertionError("a timed span is under its floor")
+
+
+def tuning_path(dev, measured):
+    """Phase 14: (a) the plan sweep, the tuned file round trip (keyed by
+    the card's name, as ``ops.reload_plans`` reads it) and the
+    tensor-core rule; (b) the dry-run of phase 13's cells (a process of
+    its own, started first) against ``measured``; (c) the timer floors."""
+    card = torch.cuda.get_device_name(dev)
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(1, mp_context=ctx) as pool:
+        dry = pool.submit(dryrun_mesh_cells, _build.sm_count(dev))
+        swept = plan_sweep(card)
+        tuned_plans_check(dev, swept, card)
+        tensor_core_rule_check()
+        timer_floor_check()
+        dryrun_check(measured, dry.result())
 
 
 def main(argv) -> int:
@@ -5201,7 +5150,7 @@ def main(argv) -> int:
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
-    bw, flops, tc = card_rates(card)
+    rates = rates_for(card)
 
     t0 = time.perf_counter()
     log = io.StringIO()
@@ -5213,13 +5162,13 @@ def main(argv) -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s (set-up; "
           f"{len(_build.sources())} sources, key {_build.build_key()})")
     if argv == ["zoo"]:
-        return zoo_only(dev, Timer(dev, bw, flops, tc))
+        return zoo_only(dev, Timer(dev, rates))
     if argv == ["train"]:
-        return train_only(dev, Timer(dev, bw, flops, tc))
+        return train_only(dev, Timer(dev, rates))
     if argv == ["softcap"]:
-        return softcap_only(dev, Timer(dev, bw, flops, tc))
+        return softcap_only(dev, Timer(dev, rates))
     if argv == ["mesh"]:
-        return mesh_only(dev, Timer(dev, bw, flops, tc))
+        return mesh_only(dev, Timer(dev, rates))
 
     t1 = time.perf_counter()
     laps = []
@@ -5230,7 +5179,7 @@ def main(argv) -> int:
         t = time.perf_counter()
         check(dev)
         laps.append((check.__name__, time.perf_counter() - t))
-    timer = Timer(dev, bw, flops, tc)
+    timer = Timer(dev, rates)
     t = time.perf_counter()
     for b in (1, 16, 64):
         timer.bvsb(b)
@@ -5269,10 +5218,6 @@ def main(argv) -> int:
         timing[name] = rows(timer)
         laps.append((f"{name} times", time.perf_counter() - t))
     zoo10_timing, train_timing, cap_timing, mesh_timing = timing.values()
-    for sweep in (timer.bvsb_chunks, timer.decode_splits, timer.rglru_tiles):
-        t = time.perf_counter()
-        sweep()
-        laps.append((sweep.__name__, time.perf_counter() - t))
     torch.cuda.empty_cache()
     print("kernels phase seconds: " + ", ".join(f"{name} {sec:.1f}"
                                                 for name, sec in laps))
@@ -5301,6 +5246,9 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     t11 = time.perf_counter()
     mesh_counts, meshed = mesh_path(dev)
+    torch.cuda.empty_cache()
+    t12 = time.perf_counter()
+    tuning_path(dev, {"a_serve": meshed["a_serve"], **meshed["fsdp"]})
     print(f"phase seconds: build {t1 - t0:.1f}, kernels {t2 - t1:.1f}, "
           f"cascade path with its profiled rerun {t3 - t2:.1f}, "
           f"{RG_ARCH} path with its CPU check {t4 - t3:.1f}, simulator "
@@ -5311,8 +5259,9 @@ def main(argv) -> int:
           f"with its profiled reruns and CPU checks {t9 - t8:.1f}, "
           f"training with its CPU checks {t10 - t9:.1f}, soft-capped "
           f"{CAP_ARCH} with its CPU checks {t11 - t10:.1f}, mesh and the new "
-          f"training paths with their CPU checks "
-          f"{time.perf_counter() - t11:.1f}; all phases "
+          f"training paths with their CPU checks {t12 - t11:.1f}, plan "
+          f"sweep, tuned plans, dry-run against phase 13 and timer floors "
+          f"{time.perf_counter() - t12:.1f}; all phases "
           f"{time.perf_counter() - t0:.1f}")
 
     # the kernels line times each kernel at the RecurrentGemma path's shape;

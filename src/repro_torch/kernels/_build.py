@@ -72,6 +72,9 @@ _SIGNATURES = {
 _LOCK = threading.Lock()
 _LIB = None
 _SMS = {}
+# the SMs that plan a call on ``meta`` tensors, where no card is asked: the
+# production card's (an H100 SXM5 has 132); the dry-run may set it
+META_SMS = 132
 
 
 def sources():
@@ -156,12 +159,24 @@ def check(rc: int, name: str) -> None:
 def sm_count(device: torch.device) -> int:
     """Streaming multiprocessors of a CUDA device, read once per device:
     the property query costs some 100 us of host time, more than the
-    kernels that plan their grids by it."""
+    kernels that plan their grids by it. A ``meta`` device has META_SMS."""
+    if device.type == "meta":
+        return META_SMS
     n = _SMS.get(device.index)
     if n is None:
         n = _SMS[device.index] = torch.cuda.get_device_properties(
             device).multi_processor_count
     return n
+
+
+def device_kind(name: str, t: torch.Tensor) -> str:
+    """The device kind a kernel wrapper serves ``t`` on: "cpu" (the plain
+    version), "cuda" (the kernel) or "meta" (no launch, the work booked);
+    any other device raises."""
+    kind = t.device.type
+    if kind not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"{name}: no kernel for device {t.device}")
+    return kind
 
 
 def stream_ptr(t: torch.Tensor) -> int:

@@ -14,6 +14,11 @@ ranks' tuples, in rank order, into BvSB and top-1: the same two kernels
 (chunk and merge), with the one-device semantics (first index on ties, a
 maximum duplicated across ranks gives margin 0). ``bvsb_partials_plain``
 and ``bvsb_merge_plain`` are their plain versions.
+
+On ``meta`` tensors (the dry-run, ``launch/dryrun.py``) each wrapper
+checks its inputs as for the card, launches nothing, counts no launch,
+returns outputs of the kernel's shapes and dtypes and books the kernel's
+work (``roofline.analysis.record``).
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.roofline import analysis as ra
 
 BLOCKS_PER_SM = 4   # chunk blocks the plan aims at on each SM
 MIN_CHUNK = 4096    # columns a chunk block folds at least
@@ -164,10 +170,7 @@ def run_partials_entry(logits: torch.Tensor, col_offset: int,
     planned chunks (``chunks``) or, for measuring, about ``n_chunks``."""
     _check(logits)
     b, v = logits.shape
-    if col_offset < 0 or col_offset + v > MAX_INDEX:
-        raise ValueError(f"bvsb_partials: columns [{col_offset}, "
-                         f"{col_offset + v}) pass 2^24, where a float index "
-                         f"stops being exact")
+    _check_offset(col_offset, v)
     n, per = chunks(b, v, _build.sm_count(logits.device)) \
         if n_chunks is None else _cut(v, n_chunks)
     tuples = torch.empty(b, 4, dtype=torch.float32, device=logits.device)
@@ -183,10 +186,7 @@ def run_partials_entry(logits: torch.Tensor, col_offset: int,
 
 def run_merge_entry(parts: torch.Tensor):
     """``bvsb_merge``'s launch on a CUDA tensor, uncounted."""
-    if parts.dim() != 3 or parts.shape[-1] != 4 or \
-            parts.dtype != torch.float32 or 0 in parts.shape[:2]:
-        raise ValueError(f"bvsb_merge: parts must be (B, n, 4) float32, got "
-                         f"{tuple(parts.shape)} {parts.dtype}")
+    _check_parts(parts)
     parts = parts.contiguous()
     if parts.data_ptr() % 16:
         parts = parts.clone()
@@ -199,6 +199,25 @@ def run_merge_entry(parts: torch.Tensor):
     return conf, top1
 
 
+def _meta_conf_top1(b: int):
+    return (torch.empty(b, dtype=torch.float32, device="meta"),
+            torch.empty(b, dtype=torch.int32, device="meta"))
+
+
+def _check_offset(col_offset: int, v: int):
+    if col_offset < 0 or col_offset + v > MAX_INDEX:
+        raise ValueError(f"bvsb_partials: columns [{col_offset}, "
+                         f"{col_offset + v}) pass 2^24, where a float index "
+                         f"stops being exact")
+
+
+def _check_parts(parts):
+    if parts.dim() != 3 or parts.shape[-1] != 4 or \
+            parts.dtype != torch.float32 or 0 in parts.shape[:2]:
+        raise ValueError(f"bvsb_merge: parts must be (B, n, 4) float32, got "
+                         f"{tuple(parts.shape)} {parts.dtype}")
+
+
 def bvsb_partials(logits: torch.Tensor, col_offset: int = 0):
     """(B, V) logits, a rank's columns [col_offset, col_offset + V) of the
     vocabulary -> (B, 4) f32 tuples (m1, m2, z, global top-1 index).
@@ -208,12 +227,17 @@ def bvsb_partials(logits: torch.Tensor, col_offset: int = 0):
     takes several chunks), on the current stream, counted once a call. No
     backward: a CUDA call autograd would record raises."""
     global partials_launches
-    if logits.device.type == "cpu":
+    kind = _build.device_kind("bvsb_partials", logits)
+    if kind == "cpu":
         return bvsb_partials_plain(logits, col_offset)
-    if logits.device.type != "cuda":
-        raise ValueError(f"bvsb_partials: no kernel for device "
-                         f"{logits.device}")
     _build.refuse_grad("bvsb_partials", logits)
+    if kind == "meta":
+        _check(logits)
+        b, v = logits.shape
+        _check_offset(col_offset, v)
+        ra.record("bvsb_partials",
+                  ra.bvsb_partials_work(b, v, logits.element_size()))
+        return torch.empty(b, 4, dtype=torch.float32, device="meta")
     out = run_partials_entry(logits, col_offset)
     with COUNT_LOCK:
         partials_launches += 1
@@ -225,11 +249,14 @@ def bvsb_merge(parts: torch.Tensor):
     f32, top1 (B,) int32). CPU tensor: ``bvsb_merge_plain``; CUDA tensor:
     the merge kernel, a warp a row, counted."""
     global merge_launches
-    if parts.device.type == "cpu":
+    kind = _build.device_kind("bvsb_merge", parts)
+    if kind == "cpu":
         return bvsb_merge_plain(parts)
-    if parts.device.type != "cuda":
-        raise ValueError(f"bvsb_merge: no kernel for device {parts.device}")
     _build.refuse_grad("bvsb_merge", parts)
+    if kind == "meta":
+        _check_parts(parts)
+        ra.record("bvsb_merge", ra.bvsb_merge_work(*parts.shape[:2]))
+        return _meta_conf_top1(parts.shape[0])
     out = run_merge_entry(parts)
     with COUNT_LOCK:
         merge_launches += 1
@@ -244,11 +271,14 @@ def bvsb(logits: torch.Tensor):
     kernel has no backward: a CUDA call that autograd would record raises.
     """
     global launches
-    if logits.device.type == "cpu":
+    kind = _build.device_kind("bvsb", logits)
+    if kind == "cpu":
         return bvsb_plain(logits)
-    if logits.device.type != "cuda":
-        raise ValueError(f"bvsb: no kernel for device {logits.device}")
     _build.refuse_grad("bvsb", logits)
+    if kind == "meta":
+        _check(logits)
+        ra.record("bvsb", ra.bvsb_work(*logits.shape, logits.element_size()))
+        return _meta_conf_top1(logits.shape[0])
     out = run_entry(logits)
     with COUNT_LOCK:
         launches += 1

@@ -26,6 +26,13 @@ The buffer holds m (rows of B * KV * splits * G, the running maximum), l
 order (request, KV head, split, query head of the group), the splits of
 rank 0 first; a split with no slot within its length has m = -1e30, l = 0
 and acc = 0, and weighs exp(-1e30 - max) = 0 in the merge.
+
+On ``meta`` tensors (the dry-run) each wrapper checks its inputs and
+plans its splits as for the card (``_build.sm_count`` gives a ``meta``
+device the production card's SMs), launches and counts nothing, returns
+outputs of the kernel's shapes and books its work into
+``roofline.analysis``. The lengths are unknown there, so the work is a
+full ring's (or shard's), as the dry-run's decode shapes hold it.
 """
 from __future__ import annotations
 
@@ -36,6 +43,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.roofline import analysis as ra
 from repro_torch.kernels.flash_attention import cap_operand
 
 NEG_INF = -1e30
@@ -244,22 +252,43 @@ def run_entry(q, k_cache, v_cache, lengths, n_splits: Optional[int] = None,
     return out
 
 
-def run_partials_entry(q, k_shard, v_shard, lengths, rank=0, ranks=1,
-                       soft_cap=None):
-    """``decode_attention_partials``' launch on CUDA tensors over the
-    planned splits (``shard_splits``), uncounted."""
+def _plan_partials(q, k_shard, v_shard, lengths, rank, ranks):
+    """Check a partial entry's inputs; its (splits, slots a split)."""
     _check(q, k_shard, v_shard, lengths)
     if not 0 <= rank < ranks or ranks > MAX_SPLITS:
         raise ValueError(f"decode_attention_partials: rank {rank} of "
                          f"{ranks}")
-    cap = cap_operand(soft_cap)
-    b, h, hd = q.shape
-    _, ws, kvh, _ = k_shard.shape
-    g = h // kvh
+    b, ws, kvh = k_shard.shape[:3]
     ns, chunk = shard_splits(b, kvh, ws, _build.sm_count(q.device), ranks)
     if ranks * ns > MAX_SPLITS:
         raise ValueError(f"decode_attention_partials: {ranks} x {ns} splits "
                          f"pass {MAX_SPLITS}")
+    return ns, chunk
+
+
+def _check_merge(parts, q, kv_heads):
+    """Check a merge entry's inputs; the buffer's (m, l, acc) views."""
+    b, h, hd = q.shape
+    if parts.dtype != torch.float32 or not parts.is_contiguous() or \
+            parts.device != q.device:
+        raise ValueError("decode_attention_merge: a contiguous float32 "
+                         "buffer on q's device")
+    if q.dtype not in _build.DTYPE_CODES or kv_heads <= 0 or h % kv_heads \
+            or h // kv_heads > MAX_GROUP or not 0 < hd <= MAX_HEAD_DIM:
+        raise ValueError(f"decode_attention_merge: q {tuple(q.shape)} "
+                         f"{q.dtype} over {kv_heads} KV heads")
+    return _views(parts, b, kv_heads, h // kv_heads, hd)
+
+
+def run_partials_entry(q, k_shard, v_shard, lengths, rank=0, ranks=1,
+                       soft_cap=None):
+    """``decode_attention_partials``' launch on CUDA tensors over the
+    planned splits (``shard_splits``), uncounted."""
+    ns, chunk = _plan_partials(q, k_shard, v_shard, lengths, rank, ranks)
+    cap = cap_operand(soft_cap)
+    b, h, hd = q.shape
+    _, ws, kvh, _ = k_shard.shape
+    g = h // kvh
     lengths = lengths.to(torch.int32).contiguous()
     parts = torch.zeros(partials_rows(b, kvh, g, ranks * ns) * (2 + hd),
                         dtype=torch.float32, device=q.device)
@@ -276,15 +305,7 @@ def run_partials_entry(q, k_shard, v_shard, lengths, rank=0, ranks=1,
 def run_merge_entry(parts, q, kv_heads: int):
     """``decode_attention_merge``'s launch on CUDA tensors, uncounted."""
     b, h, hd = q.shape
-    if parts.dtype != torch.float32 or not parts.is_contiguous() or \
-            parts.device != q.device:
-        raise ValueError("decode_attention_merge: a contiguous float32 "
-                         "buffer on q's device")
-    if q.dtype not in _build.DTYPE_CODES or kv_heads <= 0 or h % kv_heads \
-            or h // kv_heads > MAX_GROUP or not 0 < hd <= MAX_HEAD_DIM:
-        raise ValueError(f"decode_attention_merge: q {tuple(q.shape)} "
-                         f"{q.dtype} over {kv_heads} KV heads")
-    m, _, _ = _views(parts, b, kv_heads, h // kv_heads, hd)
+    m, _, _ = _check_merge(parts, q, kv_heads)
     out = torch.empty(b, h, hd, dtype=q.dtype, device=q.device)
     _build.check(_build.library().repro_decode_attention_merge(
         parts.data_ptr(), out.data_ptr(), _build.DTYPE_CODES[q.dtype], b, h,
@@ -300,11 +321,18 @@ def decode_attention(q, k_cache, v_cache, lengths, soft_cap=None):
     ``soft_cap`` c caps the scaled scores at c tanh(s / c). The kernel has
     no backward: a CUDA call that autograd would record raises."""
     global launches
-    if q.device.type == "cpu":
+    kind = _build.device_kind("decode_attention", q)
+    if kind == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, lengths, soft_cap)
-    if q.device.type != "cuda":
-        raise ValueError(f"decode_attention: no kernel for device {q.device}")
     _build.refuse_grad("decode_attention", q, k_cache, v_cache)
+    if kind == "meta":
+        _check(q, k_cache, v_cache, lengths)
+        cap_operand(soft_cap)
+        b, h, hd = q.shape
+        _, w, kvh, _ = k_cache.shape
+        ra.record("decode_attention", ra.decode_work(
+            b, h, hd, kvh, b * w, q.element_size(), k_cache.element_size()))
+        return torch.empty(b, h, hd, dtype=q.dtype, device="meta")
     out = run_entry(q, k_cache, v_cache, lengths, soft_cap=soft_cap)
     with COUNT_LOCK:
         launches += 1
@@ -322,13 +350,21 @@ def decode_attention_partials(q, k_shard, v_shard, lengths, rank=0, ranks=1,
     plain on CPU tensors. No backward: a CUDA call autograd would record
     raises."""
     global partials_launches
-    if q.device.type == "cpu":
+    kind = _build.device_kind("decode_attention_partials", q)
+    if kind == "cpu":
         return decode_attention_partials_plain(q, k_shard, v_shard, lengths,
                                                rank, ranks, soft_cap)
-    if q.device.type != "cuda":
-        raise ValueError(f"decode_attention_partials: no kernel for device "
-                         f"{q.device}")
     _build.refuse_grad("decode_attention_partials", q, k_shard, v_shard)
+    if kind == "meta":
+        ns, _ = _plan_partials(q, k_shard, v_shard, lengths, rank, ranks)
+        cap_operand(soft_cap)
+        b, h, hd = q.shape
+        _, ws, kvh, _ = k_shard.shape
+        ra.record("decode_attention_partials", ra.decode_partials_work(
+            b, h, hd, kvh, b * ws, ns, q.element_size(),
+            k_shard.element_size()))
+        return torch.zeros(partials_rows(b, kvh, h // kvh, ranks * ns)
+                           * (2 + hd), dtype=torch.float32, device="meta")
     out = run_partials_entry(q, k_shard, v_shard, lengths, rank, ranks,
                              soft_cap=soft_cap)
     with COUNT_LOCK:
@@ -342,12 +378,16 @@ def decode_attention_merge(parts, q, kv_heads: int):
     heads. CUDA kernel (the merge entry) on CUDA tensors, counted; plain
     on CPU tensors."""
     global merge_launches
-    if parts.device.type == "cpu":
+    kind = _build.device_kind("decode_attention_merge", parts)
+    if kind == "cpu":
         return decode_attention_merge_plain(parts, q, kv_heads)
-    if parts.device.type != "cuda":
-        raise ValueError(f"decode_attention_merge: no kernel for device "
-                         f"{parts.device}")
     _build.refuse_grad("decode_attention_merge", parts, q)
+    if kind == "meta":
+        m, _, _ = _check_merge(parts, q, kv_heads)
+        b, h, hd = q.shape
+        ra.record("decode_attention_merge", ra.decode_merge_work(
+            b, h, hd, kv_heads, m.shape[2], q.element_size()))
+        return torch.empty(b, h, hd, dtype=q.dtype, device="meta")
     out = run_merge_entry(parts, q, kv_heads)
     with COUNT_LOCK:
         merge_launches += 1

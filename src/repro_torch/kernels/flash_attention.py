@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.roofline import analysis as ra
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256  # csrc/flash_attention.cu kMaxHD
@@ -42,6 +43,11 @@ BWD_KEYS = 64
 MAX_BWD_SPLITS = 16
 BWD_WAVES = 12         # dK/dV blocks wanted per SM before splitting stops
 MIN_SPLIT_TILES = 16   # streamed row tiles a split walks, at least
+# min(S, T) from which the C entry points pick the tensor-core kernels, at
+# hd <= 128 and above (csrc/flash_attention.cu and flash_attention_bwd.cu
+# kTensorCoreMinSeq, kTensorCoreMinSeqWide)
+TC_MIN_SEQ = (48, 80)
+TC_MIN_SEQ_BWD = (40, 16)
 
 
 def bwd_rows(hd: int) -> int:
@@ -161,6 +167,16 @@ def uses_tensor_cores_bwd(s: int, hd: int, t: Optional[int] = None) -> bool:
     (else the CUDA-core FMA kernels); needs the library."""
     return bool(_build.library().repro_flash_bwd_uses_tensor_cores(
         s, s if t is None else t, hd))
+
+
+def tensor_core_rule(s: int, hd: int, t: Optional[int] = None,
+                     backward: bool = False) -> bool:
+    """The C entry points' choice without the library: the tensor-core
+    kernels from min(S, T) = TC_MIN_SEQ (TC_MIN_SEQ_BWD for the backward)
+    up, the first value at hd <= 128, the second above. ``chip_smoke.py``
+    holds it to ``uses_tensor_cores`` / ``uses_tensor_cores_bwd``."""
+    first, wide = TC_MIN_SEQ_BWD if backward else TC_MIN_SEQ
+    return min(s, s if t is None else t) >= (first if hd <= 128 else wide)
 
 
 def bwd_splits(b: int, s: int, t: int, h: int, kv: int, hd: int,
@@ -286,6 +302,32 @@ def run_bwd_entry(q, k, v, o, lse, do, *, causal: bool = True,
     return dq, dk, dv
 
 
+def _meta_work(q, k, causal, window, backward=False):
+    b, s, h, hd = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    work = ra.flash_bwd_work if backward else ra.flash_work
+    return work(b, s, t, h, kvh, hd, q.element_size(), causal=causal,
+                window=window,
+                tensor_cores=tensor_core_rule(s, hd, t, backward))
+
+
+def meta_entry(q, k, v, *, causal: bool = True,
+               window: Optional[int] = None, soft_cap=None,
+               with_lse: bool = False):
+    """``run_entry`` on ``meta`` tensors: the same checks, no launch, the
+    forward's work booked; (out, and with ``with_lse`` the lse)."""
+    _check(q, k, v, causal)
+    cap_operand(soft_cap)
+    if window is not None and window < 1:
+        raise ValueError(f"flash_attention: window {window} < 1")
+    ra.record("flash_attention", _meta_work(q, k, causal, window))
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    if not with_lse:
+        return out
+    b, s, h, _ = q.shape
+    return out, torch.empty(b, h, s, dtype=torch.float32, device="meta")
+
+
 class FlashAttentionFn(torch.autograd.Function):
     """Flash attention on the card with its hand-written backward: the
     forward kernel keeps each row's log-sum-exp, and the backward
@@ -295,11 +337,15 @@ class FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, window, soft_cap):
         global launches
-        out, lse = run_entry(_build.library().repro_flash_attention, q, k, v,
-                             causal=causal, window=window, soft_cap=soft_cap,
-                             with_lse=True)
-        with COUNT_LOCK:
-            launches += 1
+        if q.device.type == "meta":
+            out, lse = meta_entry(q, k, v, causal=causal, window=window,
+                                  soft_cap=soft_cap, with_lse=True)
+        else:
+            out, lse = run_entry(_build.library().repro_flash_attention, q, k,
+                                 v, causal=causal, window=window,
+                                 soft_cap=soft_cap, with_lse=True)
+            with COUNT_LOCK:
+                launches += 1
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.window, ctx.soft_cap = causal, window, soft_cap
         return out
@@ -308,6 +354,13 @@ class FlashAttentionFn(torch.autograd.Function):
     def backward(ctx, do):
         global bwd_launches
         q, k, v, out, lse = ctx.saved_tensors
+        if q.device.type == "meta":
+            ra.record("flash_attention_bwd",
+                      _meta_work(q, k, ctx.causal, ctx.window, backward=True))
+            return (torch.empty(q.shape, dtype=q.dtype, device="meta"),
+                    torch.empty(k.shape, dtype=k.dtype, device="meta"),
+                    torch.empty(v.shape, dtype=v.dtype, device="meta"),
+                    None, None, None)
         if do.stride(3) != 1:
             do = do.contiguous()
         dq, dk, dv = run_bwd_entry(q, k, v, out, lse, do, causal=ctx.causal,
@@ -326,13 +379,15 @@ def flash_attention(q, k, v, *, causal: bool = True,
     ``causal`` with k/v of another length than q raises ValueError;
     ``soft_cap`` c caps the scaled scores at c tanh(s / c)."""
     global launches
-    if q.device.type == "cpu":
+    kind = _build.device_kind("flash_attention", q)
+    if kind == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      soft_cap=soft_cap)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: no kernel for device {q.device}")
     if _build.wants_grad(q, k, v):
         return FlashAttentionFn.apply(q, k, v, causal, window, soft_cap)
+    if kind == "meta":
+        return meta_entry(q, k, v, causal=causal, window=window,
+                          soft_cap=soft_cap)
     out = run_entry(_build.library().repro_flash_attention, q, k, v,
                     causal=causal, window=window, soft_cap=soft_cap)
     with COUNT_LOCK:

@@ -19,6 +19,11 @@ through the same kind of ring, a tile holding a, dh and h shifted by one
 step (``bwd_tiles`` plans it, ``is_aligned_bwd`` says whether the copies
 can serve), else per-element loads. On the CPU autograd differentiates
 ``rglru_scan_plain``.
+
+On ``meta`` tensors (the dry-run) the scan and, under autograd through
+``RGLRUScanFn``, its backward check their inputs, launch and count
+nothing, return outputs of the kernels' shapes and book their work into
+``roofline.analysis``.
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.roofline import analysis as ra
 
 STRIP = 32               # csrc/rglru_scan.cu kStrip: channels a warp owns
 MAX_STAGES = 8           # csrc/rglru_scan.cu kMaxStages: ring tiles
@@ -214,6 +220,14 @@ def run_bwd_entry(a, h, dh, h0=None, steps: Optional[int] = None,
     return da, du, dh0
 
 
+def meta_entry(a, u, h0=None):
+    """``run_entry`` on ``meta`` tensors: the same checks, no launch, the
+    scan's work booked; h."""
+    _check(a, u, h0)
+    ra.record("rglru_scan", ra.rglru_work(*a.shape, a.element_size()))
+    return torch.empty(a.shape, dtype=torch.float32, device="meta")
+
+
 class RGLRUScanFn(torch.autograd.Function):
     """The scan on the card with its hand-written backward; saves a and the
     output h (the backward does not rescan). Each direction counts one
@@ -222,9 +236,12 @@ class RGLRUScanFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, a, u, h0):
         global launches
-        h = run_entry(a, u, h0)
-        with COUNT_LOCK:
-            launches += 1
+        if a.device.type == "meta":
+            h = meta_entry(a, u, h0)
+        else:
+            h = run_entry(a, u, h0)
+            with COUNT_LOCK:
+                launches += 1
         ctx.save_for_backward(a, h, h0)
         ctx.u_dtype = u.dtype
         return h
@@ -233,9 +250,16 @@ class RGLRUScanFn(torch.autograd.Function):
     def backward(ctx, dh):
         global bwd_launches
         a, h, h0 = ctx.saved_tensors
-        da, du, dh0 = run_bwd_entry(a, h, dh.float().contiguous(), h0)
-        with COUNT_LOCK:
-            bwd_launches += 1
+        if a.device.type == "meta":
+            ra.record("rglru_scan_bwd",
+                      ra.rglru_bwd_work(*a.shape, a.element_size()))
+            da = torch.empty(a.shape, dtype=torch.float32, device="meta")
+            du = torch.empty_like(da)
+            dh0 = None if h0 is None else torch.empty_like(h0)
+        else:
+            da, du, dh0 = run_bwd_entry(a, h, dh.float().contiguous(), h0)
+            with COUNT_LOCK:
+                bwd_launches += 1
         return da.to(a.dtype), du.to(ctx.u_dtype), dh0
 
 
@@ -243,12 +267,13 @@ def rglru_scan(a, u, h0=None):
     """h (B, S, D) float32; CUDA kernel on CUDA tensors, plain on CPU. A
     CUDA call that autograd records goes through ``RGLRUScanFn``."""
     global launches
-    if a.device.type == "cpu":
+    kind = _build.device_kind("rglru_scan", a)
+    if kind == "cpu":
         return rglru_scan_plain(a, u, h0)
-    if a.device.type != "cuda":
-        raise ValueError(f"rglru_scan: no kernel for device {a.device}")
     if _build.wants_grad(a, u, h0):
         return RGLRUScanFn.apply(a, u, h0)
+    if kind == "meta":
+        return meta_entry(a, u, h0)
     h = run_entry(a, u, h0)
     with COUNT_LOCK:
         launches += 1

@@ -145,7 +145,7 @@ def vocab_parallel_bvsb(hidden, table, mctx, vocab_size: int):
     parts = ops.bvsb_partials(logits, v0)                     # (B, 4)
     buf = parts.new_zeros(parts.shape[0], mctx.model_size, 4)
     buf[:, mctx.model_rank] = parts
-    return ops.bvsb_merge(mctx.all_reduce_model(buf))
+    return ops.bvsb_merge(mctx.all_reduce_model(buf, kind="gather"))
 
 
 def head_bvsb(hidden, table, vocab_size: int):
@@ -164,7 +164,7 @@ def gather_rows(conf, top1, mctx, b: int):
     rows = mctx.data_rows(b)
     buf[rows, 0] = conf
     buf[rows, 1] = top1.float()
-    mctx.all_reduce_data(buf)
+    mctx.all_reduce_data(buf, kind="gather")
     return buf[:, 0].contiguous(), buf[:, 1].to(torch.int32)
 
 

@@ -83,6 +83,27 @@ def make_model_mesh(shape=(1, 1), *, device_type: str = "cuda") -> DeviceMesh:
                             mesh_dim_names=("data", "model"))
 
 
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda") -> DeviceMesh:
+    """The JAX package's production mesh as a ("data", "model") mesh: 16 x
+    16 (256 ranks), or with ``multi_pod`` its 2 x 16 x 16 ("pod", "data",
+    "model"; 512 ranks) as 32 x 16. The pod and data axes may be taken as
+    one data group of 32: the JAX package cuts the batch and FSDP's
+    storage over both together (``src/repro/launch/shardings.py``
+    ``_fsdp_info``), rank = (pod x 16 + data) x 16 + model in both. The
+    caller's process group covers that many ranks (the dry-run's is a
+    ``fake`` one); ``mesh_tag`` names it "16x16" or "2x16x16"."""
+    return make_model_mesh((32 if multi_pod else 16, 16),
+                           device_type=device_type)
+
+
+def mesh_tag(mesh) -> str:
+    """The production name of a model mesh: "2x16x16" for the 32 x 16 that
+    stands for two pods, else "data x model"."""
+    data, model = mesh.shape
+    return "2x16x16" if (data, model) == (32, 16) else f"{data}x{model}"
+
+
 def mesh_axes(mesh) -> tuple:
     return tuple(mesh.mesh_dim_names)
 

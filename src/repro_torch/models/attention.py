@@ -331,7 +331,7 @@ def attn_decode(p: Attention, x1, cache, pos, cfg, *, pos3=None,
         if L.kv_cut:
             buf[:, h + L.kv0:h + L.kv0 + L.kvn] = k_new
             buf[:, h + kv + L.kv0:h + kv + L.kv0 + L.kvn] = v_new
-        mctx.all_reduce_model(buf)
+        mctx.all_reduce_model(buf, kind="gather")
         if want_q:
             q = buf[:, :h]
         if L.kv_cut:
@@ -342,7 +342,8 @@ def attn_decode(p: Attention, x1, cache, pos, cfg, *, pos3=None,
         parts = ops.decode_attention_partials(
             q, cache["k"], cache["v"], lengths, mctx.model_rank,
             mctx.model_size, soft_cap=cfg.logit_soft_cap)
-        out = ops.decode_attention_merge(mctx.all_reduce_model(parts), q, kv)
+        out = ops.decode_attention_merge(
+            mctx.all_reduce_model(parts, kind="gather"), q, kv)
         out = out[:, L.h0:L.h0 + L.hn]
     else:
         out = ops.decode_attention(q, read_kv(p, cache["k"]),

@@ -30,35 +30,96 @@ IGNORE = -100
 # ---------------------------------------------------------------------------
 # mesh context: how the model sees the (data, model) mesh
 # ---------------------------------------------------------------------------
+class CollectiveTally:
+    """The collectives a ``counting_collectives`` block issued through a
+    ``MeshContext``, each as the logical operation it performs (an
+    all_reduce of a zeroed buffer is a gather, the gather's backward a
+    reduce-scatter): by (kind, mesh axis, group size), the calls and the
+    bytes a rank sends on a ring (``ring_bytes``)."""
+
+    def __init__(self):
+        self.ops = {}
+
+    def add(self, kind: str, axis: str, size: int, nbytes: float) -> None:
+        op = self.ops.setdefault((kind, axis, size), {"calls": 0,
+                                                      "bytes": 0.0})
+        op["calls"] += 1
+        op["bytes"] += ring_bytes(kind, size, nbytes)
+
+    @property
+    def calls(self) -> int:
+        return sum(op["calls"] for op in self.ops.values())
+
+    @property
+    def bytes(self) -> float:
+        return sum(op["bytes"] for op in self.ops.values())
+
+    def as_dict(self) -> dict:
+        """{"<kind> <axis> x<size>": {"calls", "bytes"}}."""
+        return {f"{k} {a} x{n}": dict(op)
+                for (k, a, n), op in sorted(self.ops.items())}
+
+
+def ring_bytes(kind: str, size: int, nbytes: float) -> float:
+    """Bytes a rank sends on a ring of ``size`` ranks for a collective over
+    a tensor of ``nbytes`` (a reduce's operand, a gather's whole result, a
+    reduce-scatter's whole input, an all-to-all's buffer): 2 (n - 1) / n of
+    it for a reduce (reduce-scatter, then gather), (n - 1) / n for the
+    others."""
+    share = (size - 1) / size * nbytes
+    return 2 * share if kind == "reduce" else share
+
+
+_COLLECTIVE_TALLIES = []
+
+
+@contextlib.contextmanager
+def counting_collectives():
+    """Count every collective a ``MeshContext`` issues while the block
+    runs (its autograd backwards included): yields a ``CollectiveTally``."""
+    tally = CollectiveTally()
+    _COLLECTIVE_TALLIES.append(tally)
+    try:
+        yield tally
+    finally:
+        _COLLECTIVE_TALLIES.remove(tally)
+
+
+def _all_reduce(x, axis, kind, op=dist.ReduceOp.SUM):
+    """``x`` reduced in place over ``axis`` = (group, name, size), booked
+    as the logical ``kind``."""
+    group, name, size = axis
+    for tally in _COLLECTIVE_TALLIES:
+        tally.add(kind, name, size, x.numel() * x.element_size())
+    dist.all_reduce(x, op=op, group=group)
+    return x
+
+
 class _IntoRegion(torch.autograd.Function):
-    """Forward the identity, backward a sum over ``group``: the transpose
-    of a model-replicated input entering a region whose ranks each
-    compute a part of what follows (shard_map's psum over the axes an
+    """Forward the identity, backward a sum over ``axis``'s group: the
+    transpose of a model-replicated input entering a region whose ranks
+    each compute a part of what follows (shard_map's psum over the axes an
     input's spec leaves out)."""
 
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
+    def forward(ctx, x, axis):
+        ctx.axis = axis
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
-        return g, None
+        return _all_reduce(g.contiguous().clone(), ctx.axis, "reduce"), None
 
 
 class _OutOfRegion(torch.autograd.Function):
-    """Forward a sum over ``group``, backward the identity: the ranks'
-    parts of a result added, each rank then holding the whole, so the
-    cotangent of the whole is each part's. (``torch.distributed.nn``'s
+    """Forward a sum over ``axis``'s group, backward the identity: the
+    ranks' parts of a result added, each rank then holding the whole, so
+    the cotangent of the whole is each part's. (``torch.distributed.nn``'s
     all_reduce sums again in the backward, m times the cotangent.)"""
 
     @staticmethod
-    def forward(ctx, x, group):
-        y = x.contiguous().clone()
-        dist.all_reduce(y, group=group)
-        return y
+    def forward(ctx, x, axis):
+        return _all_reduce(x.contiguous().clone(), axis, "reduce")
 
     @staticmethod
     def backward(ctx, g):
@@ -67,30 +128,28 @@ class _OutOfRegion(torch.autograd.Function):
 
 class _Gather(torch.autograd.Function):
     """Forward the ranks' parts of ``x`` along ``dim`` in rank order on
-    every rank of ``group``: a zeroed buffer with this rank's part in its
-    place, summed over the group (exact; gloo gathers no CUDA tensors).
-    Backward the cotangent summed over the group, this rank's slice of it
-    kept (a reduce-scatter through an all_reduce): each rank's cotangent
-    of the whole is its own rows' or heads' part."""
+    every rank of ``axis``'s group: a zeroed buffer with this rank's part
+    in its place, summed over the group (exact; gloo gathers no CUDA
+    tensors). Backward the cotangent summed over the group, this rank's
+    slice of it kept (a reduce-scatter through an all_reduce): each rank's
+    cotangent of the whole is its own rows' or heads' part."""
 
     @staticmethod
-    def forward(ctx, x, dim, group, size, rank):
-        ctx.args = dim, group, rank, x.shape[dim]
+    def forward(ctx, x, dim, axis, rank):
+        ctx.args = dim, axis, rank, x.shape[dim]
         shape = list(x.shape)
-        shape[dim] *= size
+        shape[dim] *= axis[2]
         buf = x.new_zeros(shape)
         buf.narrow(dim, rank * x.shape[dim], x.shape[dim]).copy_(x)
-        dist.all_reduce(buf, group=group)
-        return buf
+        return _all_reduce(buf, axis, "gather")
 
     @staticmethod
     def backward(ctx, g):
-        dim, group, rank, n = ctx.args
-        g = g.contiguous().clone()
-        dist.all_reduce(g, group=group)
+        dim, axis, rank, n = ctx.args
+        g = _all_reduce(g.contiguous().clone(), axis, "reduce-scatter")
         part = g.narrow(dim, rank * n, n).clone(
             memory_format=torch.contiguous_format)
-        return part, None, None, None, None
+        return part, None, None, None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,6 +174,10 @@ class MeshContext:
     dim cut over the data ranks (``layout.data_dim``, ``cut_param``);
     each layer gathers those leaves (``gathered``) when it runs, through
     the model's own context, whatever context splits the batch.
+
+    Every collective goes through ``torch.distributed.all_reduce`` (gloo
+    gathers no CUDA tensors) and is booked, as the logical operation it
+    performs, into each open ``counting_collectives`` tally.
     """
     data_group: Optional[Any] = None
     model_group: Optional[Any] = None
@@ -124,18 +187,26 @@ class MeshContext:
     model_rank: int = 0
     fsdp: bool = False
 
+    @property
+    def _model(self):
+        return self.model_group, "model", self.model_size
+
+    @property
+    def _data(self):
+        return self.data_group, "data", self.data_size
+
     def into_model(self, x):
         """A model-replicated input of a model region: the identity, its
         gradient summed over the model group."""
         if self.model_group is None:
             return x
-        return _IntoRegion.apply(x, self.model_group)
+        return _IntoRegion.apply(x, self._model)
 
     def out_of_model(self, x):
         """The model ranks' parts summed; the gradient passes unchanged."""
         if self.model_group is None:
             return x
-        return _OutOfRegion.apply(x, self.model_group)
+        return _OutOfRegion.apply(x, self._model)
 
     def sum_data(self, x):
         """The data ranks' values summed (a loss over the global batch);
@@ -143,18 +214,21 @@ class MeshContext:
         rows, and the trainer sums the gradients over the data group."""
         if self.data_group is None:
             return x
-        return _OutOfRegion.apply(x, self.data_group)
+        return _OutOfRegion.apply(x, self._data)
 
-    def all_reduce_data(self, x, op=dist.ReduceOp.SUM):
-        """``x`` reduced over the data group in place, outside autograd."""
+    def all_reduce_data(self, x, op=dist.ReduceOp.SUM, kind="reduce"):
+        """``x`` reduced over the data group in place, outside autograd;
+        ``kind`` "gather" for a zeroed buffer that each rank fills in its
+        place (booked as the gather it performs)."""
         if self.data_group is not None:
-            dist.all_reduce(x, op=op, group=self.data_group)
+            _all_reduce(x, self._data, kind, op)
         return x
 
-    def all_reduce_model(self, x, op=dist.ReduceOp.SUM):
-        """``x`` reduced over the model group in place, outside autograd."""
+    def all_reduce_model(self, x, op=dist.ReduceOp.SUM, kind="reduce"):
+        """``x`` reduced over the model group in place, outside autograd;
+        ``kind`` as ``all_reduce_data``'s."""
         if self.model_group is not None:
-            dist.all_reduce(x, op=op, group=self.model_group)
+            _all_reduce(x, self._model, kind, op)
         return x
 
     def gather_model(self, x, dim: int):
@@ -163,8 +237,7 @@ class MeshContext:
         part of it kept (``_Gather``)."""
         if self.model_group is None:
             return x
-        return _Gather.apply(x, dim, self.model_group, self.model_size,
-                             self.model_rank)
+        return _Gather.apply(x, dim, self._model, self.model_rank)
 
     def gather_data(self, x, dim: int):
         """The data ranks' parts of an FSDP leaf ``x`` along ``dim``, in
@@ -173,8 +246,7 @@ class MeshContext:
         reduce-scatter (``_Gather``)."""
         if self.data_group is None:
             return x
-        return _Gather.apply(x, dim, self.data_group, self.data_size,
-                             self.data_rank)
+        return _Gather.apply(x, dim, self._data, self.data_rank)
 
     def part(self, n: int, what: str = "a dim"):
         """(start, size) of this rank's part of ``n`` cut over the model

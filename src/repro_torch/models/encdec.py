@@ -172,7 +172,7 @@ class EncDecModel(nn.Module):
     def encode(self, audio_embeds, remat=False, mctx=None):
         """(B, F, d) stub-frontend frames -> encoder output (B, F, d)."""
         cfg, mctx = self.cfg, mctx or self.mctx
-        x = audio_embeds @ self.frontend_proj
+        x = audio_embeds.to(self.frontend_proj.dtype) @ self.frontend_proj
         b, f, _ = x.shape
         positions = torch.arange(f, device=x.device).expand(b, f)
         for layer in self.enc_blocks:

@@ -144,9 +144,16 @@ def local_expert_compute(x_flat, w_gate, w_up, w_down, gates, ids, cfg, act,
 
 
 def aux_load_balance_loss(probs, ids, cfg):
-    """Switch-style load-balance loss from router probs and assignments."""
+    """Switch-style load-balance loss from router probs and assignments.
+    The assignments are counted into a buffer of E (a scatter-add of ones,
+    exact below 2^24 a bucket): ``torch.bincount``'s output size depends on
+    the data, so ``meta`` tensors (the dry-run) cannot run it."""
     e = cfg.num_experts
-    counts = torch.bincount(ids.reshape(-1), minlength=e).float()
+    flat = ids.reshape(-1)
+    counts = torch.zeros(e, dtype=torch.float32, device=ids.device
+                         ).scatter_add_(0, flat, torch.ones(
+                             flat.shape, dtype=torch.float32,
+                             device=ids.device))
     frac = counts / torch.clamp(counts.sum(), min=1.0)
     return e * torch.sum(probs.mean(dim=0) * frac)
 

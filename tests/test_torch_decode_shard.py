@@ -109,6 +109,12 @@ def test_an_empty_shard_writes_nothing_that_weighs():
         q, k, v, lengths), atol=ATOL[torch.float32], rtol=0)
 
 
+class _Elsewhere(torch.Tensor):
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
 def test_ops_take_the_plain_versions_on_the_cpu_without_launching():
     q, k, v = _ring(2, 32, 2, 2, 16, seed=4)
     lengths = torch.tensor([3, 32])
@@ -121,12 +127,14 @@ def test_ops_take_the_plain_versions_on_the_cpu_without_launching():
                        decode_attention_merge_plain(parts, q, 2))
     assert ops.launch_counts()["decode_attention_partials"] == 0
     assert ops.launch_counts()["decode_attention_merge"] == 0
-    meta = torch.zeros(2, 4, 16, device="meta")
+    # a device with neither a kernel nor a plain version ("xpu"; ``meta``
+    # is served since the dry-run: tests/test_torch_roofline.py)
+    other = torch.zeros(2, 4, 16).as_subclass(_Elsewhere)
     with pytest.raises(ValueError):
-        ops.decode_attention_partials(meta, meta[:, None], meta[:, None],
-                                      lengths.to("meta"))
+        ops.decode_attention_partials(other, other[:, None], other[:, None],
+                                      lengths)
     with pytest.raises(ValueError):
-        ops.decode_attention_merge(meta.flatten(), meta, 2)
+        ops.decode_attention_merge(other.flatten(), other, 2)
     with pytest.raises(ValueError, match="no partials buffer"):
         decode_attention_merge_plain(parts[:-1], q, 2)
 
