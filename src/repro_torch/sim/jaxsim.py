@@ -1270,7 +1270,8 @@ class _DeviceEngine(_Engine):
         # the queue is empty at t = 0: the frontier is the fleet's minimum
         G = self.static.seg
         none = torch.zeros((), dtype=torch.bool, device=self.device)
-        self._pack(none, *(torch.zeros(1, G, device=self.device),) * 4,
+        self._pack(none, *(torch.zeros(1, G, dtype=_F32,
+                                       device=self.device),) * 4,
                    none[None])
         self._all_reduce(self.xbuf, dist.ReduceOp.MIN)
         self._unpack()

@@ -40,7 +40,16 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.launch.mesh", "repro_torch.training.optimizer",
             "repro_torch.training.trainer", "repro_torch.training.distill",
             "repro_torch.training.data",
-            "repro_torch.training.checkpoint"} <= set(mods)
+            "repro_torch.training.checkpoint",
+            "repro_torch.analysis", "repro_torch.analysis.__main__",
+            "repro_torch.analysis.allowlist",
+            "repro_torch.analysis.concurrency_rules",
+            "repro_torch.analysis.driver", "repro_torch.analysis.findings",
+            "repro_torch.analysis.graph_tools",
+            "repro_torch.analysis.host_rules",
+            "repro_torch.analysis.lane_rules",
+            "repro_torch.analysis.runtime",
+            "repro_torch.analysis.trace_rules"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
