@@ -14,6 +14,13 @@ record; the caller hands the record back through ``complete`` at its
 ``finish`` time, freeing the slot. ``step`` refuses to dispatch while
 every slot is occupied.
 
+While the span recorder is on (``serving/spans.py``), ``execute``
+records ``engine.execute`` with its children
+``engine.stack``, ``engine.copy_in`` (the blocking copy to the card),
+``engine.forward`` (the host time in which the classify function launches
+its kernels) and ``engine.copy_out`` (the two reads back, which wait for
+the card), all keyed by the batch id.
+
 Latency accounting is virtual: the calibrated ``ServerProfile`` latency
 curve gives each batch's duration, while the logits are real.
 
@@ -33,6 +40,7 @@ import torch
 
 from repro_torch.configs.cascade_tiers import ServerProfile
 from repro_torch.models.model import Model
+from repro_torch.serving import spans
 from repro_torch.serving.batching import pick_bucket
 from repro_torch.serving.executables import classify_fn
 from repro_torch.serving.queue import Request, RequestQueue
@@ -139,16 +147,21 @@ class ServerEngine:
         a later ``switch`` never retargets an in-flight batch."""
         sm = record.pop("_served")
         reqs = record["requests"]
-        if sm.oracle is not None:
-            conf, pred = sm.oracle(reqs)
-            conf, pred = np.asarray(conf), np.asarray(pred)
-        else:
-            batch = torch.as_tensor(
-                np.stack([np.asarray(r.sample) for r in reqs]),
-                device=sm.model.device)
-            fn = classify_fn(sm.model, record["bucket"], self.confidence)
-            conf, pred = fn(sm.model, batch)
-            conf, pred = conf.cpu().numpy(), pred.cpu().numpy()
+        bid = record["batch_id"]
+        with spans.span("engine.execute", bid):
+            if sm.oracle is not None:
+                conf, pred = sm.oracle(reqs)
+                conf, pred = np.asarray(conf), np.asarray(pred)
+            else:
+                with spans.span("engine.stack", bid):
+                    rows = np.stack([np.asarray(r.sample) for r in reqs])
+                with spans.span("engine.copy_in", bid):
+                    batch = torch.as_tensor(rows, device=sm.model.device)
+                fn = classify_fn(sm.model, record["bucket"], self.confidence)
+                with spans.span("engine.forward", bid):
+                    conf, pred = fn(sm.model, batch)
+                with spans.span("engine.copy_out", bid):
+                    conf, pred = conf.cpu().numpy(), pred.cpu().numpy()
         record["conf"] = conf[:len(reqs)]
         record["pred"] = pred[:len(reqs)]
         return record

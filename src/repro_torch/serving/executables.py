@@ -16,7 +16,8 @@ not a compiled artifact, and the cache keeps the JAX package's
 hits/misses contract. ``kernels.ops.cache_token`` in the key keeps the
 card's entries (CUDA kernels) apart from the CPU's (plain versions).
 Lookups, inserts and the counters run under ``_LOCK``: the serving
-transport's worker threads call ``classify_fn`` concurrently.
+transport's worker threads call ``classify_fn`` concurrently. The
+model's head runs in a ``model.head`` span (``serving/spans.py``).
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ import torch
 
 from repro_torch.core import decision
 from repro_torch.kernels import ops
+from repro_torch.serving import spans
 
 _CACHE: Dict[Tuple, Callable] = {}
 _HITS = 0
@@ -53,7 +55,9 @@ def classify_fn(model, bucket: int, metric: str = "bvsb") -> Callable:
 
             def fn(model, tokens):
                 with torch.inference_mode():
-                    logits, _ = model(tokens)
+                    hidden, _ = model(tokens, return_hidden=True)
+                    with spans.span("model.head"):
+                        logits = model.head(hidden)
                     return metric_fn(logits[:, -1, :])
 
             _CACHE[key] = fn

@@ -20,6 +20,10 @@ drop, so the serving loop can surface every drop to the scheduler and
 complete the victim with its device-local result. Drop/peak counters
 (``n_rejected``/``n_shed``/``peak``) ride the queue for the engine's
 backpressure telemetry.
+
+While the span recorder (``serving/spans.py``) is on, ``put`` stamps a
+request's arrival and ``pop_batch`` records its ``queue.wait`` span,
+keyed by ``request_key``.
 """
 from __future__ import annotations
 
@@ -27,6 +31,8 @@ import dataclasses
 import threading
 from collections import deque
 from typing import Any, Optional
+
+from repro_torch.serving import spans
 
 POLICIES = ("reject", "shed_oldest")
 
@@ -38,6 +44,14 @@ class Request:
     enqueue_time: float
     start_time: float            # when on-device inference began
     payload: Any = None          # opaque (e.g. sample index, label)
+    put_ns: Optional[int] = None  # put's spans.stamp(), while recording
+
+
+def request_key(req: Request) -> tuple:
+    """(device id, sample): the serving loops' payloads lead with the
+    sample's index."""
+    p = req.payload
+    return req.device_id, p[0] if isinstance(p, tuple) else p
 
 
 class RequestQueue:
@@ -70,6 +84,7 @@ class RequestQueue:
         the capacity check and the append/shed are one atomic section,
         so concurrent producers can neither oversubscribe the bound nor
         shed the same head twice."""
+        req.put_ns = spans.stamp()
         with self._lock:
             if self.capacity is not None and len(self._q) >= self.capacity:
                 if self.policy == "reject":
@@ -86,7 +101,11 @@ class RequestQueue:
     def pop_batch(self, max_n: int) -> list[Request]:
         with self._lock:
             n = min(max_n, len(self._q))
-            return [self._q.popleft() for _ in range(n)]
+            out = [self._q.popleft() for _ in range(n)]
+        if spans.on():
+            for r in out:
+                spans.record("queue.wait", r.put_ns, request_key(r))
+        return out
 
     def __len__(self) -> int:
         return len(self._q)

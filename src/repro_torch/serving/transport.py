@@ -37,6 +37,14 @@ which thread launched it. The kernel launch counters and the classify
 cache are locked for the same reason (``kernels/ops.py``,
 ``serving/executables.py``).
 
+While the span recorder is on (``serving/spans.py``) the threads record
+where they wait and work: ``transport.cluster`` (ingestion: one
+same-instant cluster's local inference up to its token being put),
+``transport.barrier`` (dispatch, parked from the WINDOW token until
+``resume``), ``transport.pool_wait`` (a batch from ``pool.submit`` to its
+worker entering ``execute``, keyed by the batch id) and
+``transport.wait_result`` (dispatch, blocked in ``fut.result()``).
+
 Lock order: ``ServerEngine._lock -> RequestQueue._lock``;
 ``CascadeBook._lock`` and ``_Channel._lock`` are leaves. No code path
 takes the engine lock while it holds any other.
@@ -53,6 +61,7 @@ from typing import List
 import numpy as np
 
 from repro_torch.core import switching
+from repro_torch.serving import spans
 from repro_torch.serving.cascade import CascadeBook, CascadeResult, window_step
 from repro_torch.serving.client import DeviceClient
 from repro_torch.serving.engine import ServerEngine
@@ -161,6 +170,7 @@ def run_transport(clients: List[DeviceClient], engine: ServerEngine,
 
         cursor = np.zeros(n, int)
         cluster: list = []         # forwards buffered for the open cluster
+        cluster_t0 = None          # its spans.stamp()
 
         def on_device(t, i):
             if cursor[i] >= len(datasets[i]):
@@ -200,6 +210,8 @@ def run_transport(clients: List[DeviceClient], engine: ServerEngine,
                 elif kind == EV_LEAVE:
                     departed[payload] = True
                 elif kind == EV_DEV:
+                    if cluster_t0 is None:
+                        cluster_t0 = spans.stamp()
                     on_device(t, payload)
                     # hand the whole same-instant cluster over at once:
                     # simultaneous forwards form one batch
@@ -207,6 +219,8 @@ def run_transport(clients: List[DeviceClient], engine: ServerEngine,
                             or heap[0][1] != EV_DEV:
                         channel.put(t, CLUSTER, cluster)
                         cluster = []
+                        spans.record("transport.cluster", cluster_t0)
+                        cluster_t0 = None
                 elif kind == EV_WINDOW:
                     channel.put(t, WINDOW, None)
                     drained.wait()
@@ -238,6 +252,12 @@ def run_transport(clients: List[DeviceClient], engine: ServerEngine,
         pending: list = []         # (finish, seq, future of the record)
         seq = itertools.count()
 
+        def forward(rec, t_submit):
+            """A worker's job: the batch's ``engine.execute``, after the
+            span of its wait for the worker."""
+            spans.record("transport.pool_wait", t_submit, rec["batch_id"])
+            return engine.execute(rec)
+
         def drain(t):
             """Launch batches while the engine has free slots and the
             ladder admits one; the forwards go to the worker pool."""
@@ -246,11 +266,12 @@ def run_transport(clients: List[DeviceClient], engine: ServerEngine,
                 if rec is None:
                     return
                 scheduler.on_server_batch(len(rec["requests"]))
-                fut = pool.submit(engine.execute, rec)
+                fut = pool.submit(forward, rec, spans.stamp())
                 heapq.heappush(pending, (rec["finish"], next(seq), fut))
 
         def finish(f, fut):
-            out = fut.result()     # wall-clock wait on the forward
+            with spans.span("transport.wait_result"):
+                out = fut.result()  # wall-clock wait on the forward
             engine.complete(out)
             for r, pred in zip(out["requests"], out["pred"]):
                 j, label, _local = r.payload
@@ -289,9 +310,10 @@ def run_transport(clients: List[DeviceClient], engine: ServerEngine,
                             book.drop(victim, t_tok, scheduler)
                     drain(t_tok)
                 elif kind == WINDOW:
-                    resume.clear()
-                    drained.set()
-                    resume.wait()
+                    with spans.span("transport.barrier"):
+                        resume.clear()
+                        drained.set()
+                        resume.wait()
                 else:              # CUT: stop at the max_time horizon
                     break
         except BaseException as e:  # noqa: BLE001 (re-raised by the caller)
