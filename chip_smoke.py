@@ -52,7 +52,10 @@ then exits non-zero without the final result line:
    gemma's cap against their plain versions with the cap, each repeated
    bitwise, and capped rows at gemma-7b's shapes beside the uncapped
    ones, the library flex attention with a tanh score_mod where the
-   card's install compiles it;
+   card's install compiles it. The MoE route kernels (``moe_dispatch``,
+   ``moe_combine``) at granite's and deepseek-moe-16b's widths on b x 197
+   tokens (b 16 and 32, the benchmark cells' two largest buckets), every
+   output equal to the plain version's, timed beside their byte bounds;
 4. cascade path: the live cascade — 16 device clients on tier-low, a
    server engine hosting tier-server-fast and tier-server-heavy with
    model switching, the MultiTASC++ scheduler — through ``run_cascade``,
@@ -326,13 +329,15 @@ from repro_torch.kernels.bvsb import (bvsb_merge_plain,  # noqa: E402
                                       bvsb_partials_plain, bvsb_plain)
 from repro_torch.kernels.decode_attention import \
     decode_attention_plain  # noqa: E402
+from repro_torch.kernels.moe_route import (  # noqa: E402
+    moe_combine_plain, moe_dispatch_plain)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     attention_lse_plain, flash_attention_bwd_plain, flash_attention_plain)
 from repro_torch.kernels import autotune, timing  # noqa: E402
 from repro_torch.kernels.timing import time_ms  # noqa: E402
 from repro_torch.roofline.analysis import (  # noqa: E402
-    bvsb_bound_ms, bvsb_merge_bound_ms, bvsb_partials_bound_ms, rates_for,
-    decode_bound_ms, decode_merge_bound_ms, decode_partials_bound_ms,
+    bound, bvsb_bound_ms, bvsb_merge_bound_ms, bvsb_partials_bound_ms,
+    moe_combine_work, moe_dispatch_work, rates_for, decode_bound_ms, decode_merge_bound_ms, decode_partials_bound_ms,
     flash_bounds_ms, flash_bwd_bounds_ms, rglru_bound_ms, rglru_bwd_bound_ms)
 from repro_torch.kernels.rglru_scan import (  # noqa: E402
     rglru_scan_bwd_plain, rglru_scan_plain)
@@ -394,6 +399,12 @@ ZOO_B, ZOO_S, ZOO_VISION = 4, 2048, 1024
 ZOO_CHECK_LAYERS, ZOO_CHECK_B, ZOO_CHECK_S, ZOO_CHECK_STEPS = 2, 2, 64, 4
 ROUTE_GAP = 1e-6    # router probabilities closer than this may swap experts
 MOE_ATOL = 1e-4
+# the MoE route kernels' timing rows: b x 197 tokens (a benchmark cell's
+# sample) at the cascade's two largest buckets, float32; the kernels
+# line's own row is granite's at the largest
+MOE_ROUTE_ARCHS = ("granite-moe-1b-a400m", "deepseek-moe-16b")
+MOE_ROUTE_BUCKETS = (16, 32)
+MOE_ROUTE_POSITIONS = 197
 
 # phase 10, the rest of the zoo at full width and depth: xlstm-350m on B
 # prompts of S tokens, then STEPS decode steps; its profiled rerun is a
@@ -1550,7 +1561,7 @@ class Timer:
     per shape, each shape timed once, on inputs shaped as the main path
     gives them (float32 unless a row says bf16); the kernel's output on
     the timed inputs is held to its plain version's within the float32
-    tolerance (the RG-LRU scan: bit for bit)."""
+    tolerance (the RG-LRU scan and the MoE route: bit for bit)."""
 
     def __init__(self, dev, rates):
         self.dev, self.rates = dev, rates
@@ -1605,6 +1616,48 @@ class Timer:
             lambda: torch.topk(torch.softmax(x, dim=-1), 2, dim=-1),
             bvsb_bound_ms(b, v, 4, self.bw, self.flops),
             max_err(conf, pconf), BVSB_ATOL[torch.float32], (b, v))
+
+    def moe_route(self, arch, b):
+        """``moe_dispatch`` and ``moe_combine`` at ``arch``'s widths on b x
+        MOE_ROUTE_POSITIONS tokens, all experts local, the capacity
+        ``moe.capacity`` gives, ids and gates from a top-k over random
+        router logits: every output equal to the plain version's on the
+        card (``torch.equal``); the combine's bound counts the kept rows.
+        No single PyTorch call computes either."""
+        key = f"{arch} B={b}"
+        cfg = get_config(arch)
+        e, k, d = cfg.num_experts, cfg.num_experts_per_tok, cfg.d_model
+        n = b * MOE_ROUTE_POSITIONS
+        cap = moe.capacity(n, cfg)
+        gen = torch.Generator(device=self.dev).manual_seed(b)
+        gates, ids = torch.topk(torch.softmax(torch.randn(
+            n, e, generator=gen, device=self.dev), -1), k, dim=-1)
+        gates = gates / gates.sum(-1, keepdim=True)
+        x = torch.randn(n, d, generator=gen, device=self.dev)
+        out = torch.randn(e, cap, d, generator=gen, device=self.dev)
+        got = ops.moe_dispatch(ids, x, e, cap)
+        want = moe_dispatch_plain(ids, x, e, cap)
+        for name, g, w in zip(("expert", "row", "keep", "buffer"), got, want):
+            if not torch.equal(g, w):
+                raise AssertionError(f"moe_dispatch {key}: {name} differs "
+                                     f"from the plain version's")
+        if not torch.equal(ops.moe_combine(out, *got[:3], gates),
+                           moe_combine_plain(out, *want[:3], gates)):
+            raise AssertionError(f"moe_combine {key}: y differs from the "
+                                 f"plain version's")
+        kept, shape = int(want[2].sum()), (n, k, d, e, cap)
+        return {
+            "moe_dispatch": self._row(
+                ("moe_dispatch", key), lambda: ops.moe_dispatch(ids, x, e, cap),
+                lambda: moe_dispatch_plain(ids, x, e, cap), None,
+                bound(moe_dispatch_work(n, k, d, e, cap, 4), self.bw,
+                      self.flops), 0.0, 0.0, shape),
+            "moe_combine": self._row(
+                ("moe_combine", key),
+                lambda: ops.moe_combine(out, *got[:3], gates),
+                lambda: moe_combine_plain(out, *want[:3], gates), None,
+                bound(moe_combine_work(n, k, d, e, cap, 4, kept=kept),
+                      self.bw, self.flops), 0.0, 0.0, shape)}
 
     def bvsb_rows(self, b, v, arch=RG_ARCH):
         """Contiguous (B, V) rows, as the serving head hands them over."""
@@ -3200,12 +3253,21 @@ def sharded_path(dev, sweep_ref, sweep_s=SIM_S, seg_n=SHARD_N):
 # ---------------------------------------------------------------------------
 # phase 9: the decoder zoo (MoE, dense GQA, Qwen2-VL's M-RoPE)
 # ---------------------------------------------------------------------------
+def moe_expected_launches(cfg, calls):
+    """One MoE dispatch and one combine launch a MoE layer a forward, for
+    ``calls`` forwards outside autograd."""
+    m = cfg.num_layers - cfg.first_dense_layers if cfg.is_moe else 0
+    return {"moe_dispatch": m * calls, "moe_combine": m * calls}
+
+
 def zoo_expected_launches(cfg, steps):
     """One flash launch an attention layer at the prefill, one decode
-    launch an attention layer a step, one BvSB launch a call."""
+    launch an attention layer a step, one BvSB launch a call, and the MoE
+    layers' dispatch and combine a call."""
     n = sum(kind in ("attn", "lattn") for kind in cfg.pattern)
     return {**NO_LAUNCHES, "bvsb": 1 + steps, "flash_attention": n,
-            "decode_attention": n * steps}
+            "decode_attention": n * steps,
+            **moe_expected_launches(cfg, 1 + steps)}
 
 
 def zoo_inputs(cfg, dev, b, n_text, n_embeds, seed):
@@ -3772,10 +3834,22 @@ def zoo10_rows(timer):
     }
 
 
+def moe_route_rows(timer):
+    """The MoE route kernels' rows: {kernel: {"<arch> B=<b>": row}} at
+    MOE_ROUTE_ARCHS' widths and MOE_ROUTE_BUCKETS."""
+    rows = {"moe_dispatch": {}, "moe_combine": {}}
+    for arch in MOE_ROUTE_ARCHS:
+        for b in MOE_ROUTE_BUCKETS:
+            for name, row in timer.moe_route(arch, b).items():
+                rows[name][f"{arch} B={b}"] = row
+    torch.cuda.empty_cache()
+    return rows
+
+
 def zoo_only(dev, timer):
     """``chip_smoke.py zoo``: phase 3's attention and BvSB checks and its
-    zoo timing rows (phases 9 and 10), the dispatch's two forms, then
-    phases 9 and 10."""
+    zoo timing rows (phases 9 and 10) and MoE route rows, the dispatch's
+    two forms, then phases 9 and 10."""
     t0 = time.perf_counter()
     check_bvsb(dev)
     check_flash(dev)
@@ -3787,6 +3861,7 @@ def zoo_only(dev, timer):
         timer.decode_at(name, ZOO_B, ZOO_S, kv, cfg.num_heads // kv,
                         cfg.resolved_head_dim)
     zoo10_rows(timer)
+    moe_route_rows(timer)
     dispatch_forms(dev)
     torch.cuda.empty_cache()
     t1 = time.perf_counter()
@@ -4251,14 +4326,16 @@ def mesh_expected_launches(cfg, steps, ring_cut=True):
     attention layer and one scan an RG-LRU layer; an attention layer a
     step one decode partial and one merge launch over rings cut on their
     slots (else one whole-ring decode launch); one BvSB partial and one
-    merge launch a call (no whole-row BvSB)."""
+    merge launch a call (no whole-row BvSB); the MoE layers' dispatch and
+    combine a call, each rank over its own experts."""
     n = _attn_layers(cfg)
     decode = {"decode_attention_partials": n * steps,
               "decode_attention_merge": n * steps} if ring_cut else \
         {"decode_attention": n * steps}
     return {**NO_LAUNCHES, "flash_attention": n,
             "rglru_scan": cfg.pattern.count("rglru"), **decode,
-            "bvsb_partials": 1 + steps, "bvsb_merge": 1 + steps}
+            "bvsb_partials": 1 + steps, "bvsb_merge": 1 + steps,
+            **moe_expected_launches(cfg, 1 + steps)}
 
 
 def _timed(fn):
@@ -5398,11 +5475,13 @@ def main(argv) -> int:
     timing = {}
     for name, rows in (("rest of the zoo", zoo10_rows),
                        ("training", train_rows), ("soft cap", cap_rows),
-                       ("mesh", mesh_rows)):
+                       ("mesh", mesh_rows), ("MoE route", moe_route_rows)):
         t = time.perf_counter()
         timing[name] = rows(timer)
         laps.append((f"{name} times", time.perf_counter() - t))
-    zoo10_timing, train_timing, cap_timing, mesh_timing = timing.values()
+    zoo10_timing, train_timing, cap_timing, mesh_timing, moe_timing = \
+        timing.values()
+    moe_main = f"{GRANITE_ARCH} B={MOE_ROUTE_BUCKETS[-1]}"
     torch.cuda.empty_cache()
     print("kernels phase seconds: " + ", ".join(f"{name} {sec:.1f}"
                                                 for name, sec in laps))
@@ -5479,7 +5558,9 @@ def main(argv) -> int:
             ("decode_attention_partials", "decode_attention.cu",
              "src/repro/kernels/decode_attention.py:59"),
             ("decode_attention_merge", "decode_attention.cu",
-             "src/repro/kernels/decode_attention.py:59")):
+             "src/repro/kernels/decode_attention.py:59"),
+            ("moe_dispatch", "moe_route.cu", "src/repro/models/moe.py:63"),
+            ("moe_combine", "moe_route.cu", "src/repro/models/moe.py:63")):
         by_path = {"cascade": counts[name], RG_ARCH: rg_counts[name],
                    "simulator": sim_counts[name],
                    "transport": transport_counts[name],
@@ -5490,16 +5571,20 @@ def main(argv) -> int:
                    "mesh (summed over the ranks)": mesh_counts[name]}
         # a backward kernel's row: RecurrentGemma's training shape; the
         # partial and merge entries': BvSB's at granite's shard, decode's
-        # at RecurrentGemma's ring cut in four, at phase 13's B
-        row = rg_rows.get(name) or (
-            mesh_timing[name][f"B={MESH_B}"] if name in mesh_timing else
-            train_timing[name][RG_ARCH if name == "flash_attention_bwd"
-                               else "f32"])
+        # at RecurrentGemma's ring cut in four, at phase 13's B; the MoE
+        # route's: granite's at the cascade's largest bucket
+        path = "mesh" if name in mesh_timing else RG_ARCH
+        if name in moe_timing:
+            row, path = moe_timing[name][moe_main], moe_main
+        else:
+            row = rg_rows.get(name) or (
+                mesh_timing[name][f"B={MESH_B}"] if name in mesh_timing else
+                train_timing[name][RG_ARCH if name == "flash_attention_bwd"
+                                   else "f32"])
         entry = {"name": name, "route": "cuda",
                  "source": f"src/repro_torch/kernels/csrc/{source}",
                  "replaces": replaces, "launches": sum(by_path.values()),
-                 "launches_by_path": by_path,
-                 "path": "mesh" if name in mesh_timing else RG_ARCH,
+                 "launches_by_path": by_path, "path": path,
                  **{k: row[k] for k in keys if k in row}}
         if name in mesh_timing:
             entry["b64"] = {k: mesh_timing[name]["B=64"][k] for k in keys
@@ -5527,6 +5612,10 @@ def main(argv) -> int:
             entry["training"] = {
                 form: {k: r[k] for k in keys if k in r}
                 for form, r in train_timing[name].items()}
+        if name in moe_timing:
+            entry["moe_route"] = {
+                form: {k: r[k] for k in keys if k in r}
+                for form, r in moe_timing[name].items()}
         if name in cap_timing:
             entry["soft_cap"] = {
                 form: {k: r[k] for k in keys + ("library_note",) if k in r}

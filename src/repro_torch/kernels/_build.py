@@ -67,6 +67,11 @@ _SIGNATURES = {
     + [_c_ll] * 8 + [_c_float, _c_float, _c_ptr],
     "repro_decode_attention_merge": [_c_ptr] * 2 + [_c_int] * 6
     + [_c_ll] * 2 + [_c_ptr],
+    "repro_moe_dispatch": [_c_ptr, _c_ptr, _c_int, _c_ll, _c_int, _c_ll,
+                           _c_ll, _c_int, _c_ll, _c_ll, _c_ll, _c_int,
+                           _c_int] + [_c_ptr] * 6,
+    "repro_moe_combine": [_c_ptr, _c_int] + [_c_ptr] * 5
+    + [_c_ll, _c_int, _c_ll, _c_ll, _c_ptr],
 }
 
 _LOCK = threading.Lock()

@@ -2,8 +2,8 @@
 
 Every hot-path consumer (``serving/executables.py`` and
 ``launch/distributed.py`` through BvSB, ``models/attention.py``,
-``models/recurrent.py``) calls the functions here. Dispatch follows the
-tensor's device, never a mode switch:
+``models/recurrent.py``, ``models/moe.py``) calls the functions here.
+Dispatch follows the tensor's device, never a mode switch:
 
 * a CPU tensor runs the kernel's plain PyTorch version;
 * a CUDA tensor launches the hand-written CUDA kernel, or raises.
@@ -17,9 +17,10 @@ threads are none of them lost.
 Under autograd (grad mode on and an input that requires grad) a CUDA call
 of flash attention or of the RG-LRU scan goes through the kernel's
 ``torch.autograd.Function``, whose backward is a kernel too, counted as
-``flash_attention_bwd`` / ``rglru_scan_bwd``; BvSB and decode attention
-(the partial and merge entries of both too) have no backward, and such a call
-raises. No CUDA call returns an output
+``flash_attention_bwd`` / ``rglru_scan_bwd``; BvSB, decode attention
+(the partial and merge entries of both too) and the MoE dispatch and
+combine have no backward, and such a call raises (``models/moe.py`` runs
+the plain versions under autograd). No CUDA call returns an output
 cut off from the graph. The serving step factories run under
 ``torch.inference_mode()``.
 
@@ -48,6 +49,7 @@ import torch
 from repro_torch.kernels import bvsb as _bvsb
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import moe_route as _moe
 from repro_torch.kernels import rglru_scan as _rglru
 
 bvsb = _bvsb.bvsb
@@ -58,6 +60,8 @@ decode_attention = _decode.decode_attention
 decode_attention_partials = _decode.decode_attention_partials
 decode_attention_merge = _decode.decode_attention_merge
 rglru_scan = _rglru.rglru_scan
+moe_dispatch = _moe.moe_dispatch
+moe_combine = _moe.moe_combine
 
 # kernel -> (its wrapper's module, the module's count of its launches)
 _COUNTS = {"bvsb": (_bvsb, "launches"),
@@ -69,7 +73,9 @@ _COUNTS = {"bvsb": (_bvsb, "launches"),
            "decode_attention_merge": (_decode, "merge_launches"),
            "rglru_scan": (_rglru, "launches"),
            "flash_attention_bwd": (_flash, "bwd_launches"),
-           "rglru_scan_bwd": (_rglru, "bwd_launches")}
+           "rglru_scan_bwd": (_rglru, "bwd_launches"),
+           "moe_dispatch": (_moe, "dispatch_launches"),
+           "moe_combine": (_moe, "combine_launches")}
 _KERNELS = {name: mod for name, (mod, _) in _COUNTS.items()}
 
 

@@ -27,6 +27,12 @@ tokens:
   5. the ranks' partial outputs summed over the model group
      (``MeshContext.out_of_model``, JAX's psum).
 
+Steps 2 and 4 outside autograd (serving) go through ``ops.moe_dispatch``
+and ``ops.moe_combine``: on a card the two CUDA kernels of
+``kernels/moe_route.py``, which fill the buffer and sum the k
+contributions without a dummy bucket, bit for bit the PyTorch ops that
+run on the CPU and under autograd.
+
 The gradient: the tokens and the gates enter the region through
 ``MeshContext.into_model`` (the backward sums their cotangents over the
 model group, each rank having seen only its experts' assignments). The
@@ -47,6 +53,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch.kernels import _build, moe_route, ops
 from repro_torch.models import common
 
 CAPACITY_FACTOR = 1.25
@@ -96,51 +103,25 @@ def route(x_flat, router_w, cfg):
     return gates, ids, probs
 
 
-def dispatch(ids, num_experts: int, cap: int, e0: int = 0):
-    """Buffer slots of the N * k assignments ``ids`` (N, k), token-major
-    then top-k slot, among experts [e0, e0 + num_experts): (local expert
-    (N k,), row (N k,), kept (N k,) bool). The p-th assignment to an
-    expert takes row p; those at p >= ``cap``, and those to an expert
-    outside the range, are dropped to (num_experts, 0), the dummy bucket.
-
-    p is the JAX package's cumsum of a one-hot over the assignments, taken
-    along rows of the transposed (E, N k) one-hot: the same integers, but
-    a scan along the contiguous dim, where CUDA's scan down the N k rows
-    of an (N k, E) one-hot runs one thread a column (14.6 ms a layer at
-    granite's 65,536 assignments on an H100)."""
-    flat = ids.reshape(-1) - e0
-    local = (flat >= 0) & (flat < num_experts)
-    flat = torch.where(local, flat, 0)
-    experts = torch.arange(num_experts, device=flat.device)
-    hot = (flat[None, :] == experts[:, None]) & local[None, :]
-    row = torch.gather(hot.cumsum(1), 0, flat[None, :])[0] - 1
-    keep = local & (row < cap)
-    return (torch.where(keep, flat, num_experts), torch.where(keep, row, 0),
-            keep)
+dispatch = moe_route.dispatch_plain
 
 
-def local_expert_compute(x_flat, w_gate, w_up, w_down, gates, ids, cfg, act,
-                         cap, e0=0):
+def local_expert_compute(x_flat, w_gate, w_up, w_down, gates, ids, act, cap,
+                         e0=0):
     """Steps 2-4 above for the experts [e0, e0 + len(w_gate)). x_flat (N,
-    d) -> (N, d), the tokens' outputs from those experts alone."""
-    n, d = x_flat.shape
-    e, k = w_gate.shape[0], cfg.num_experts_per_tok
-    expert, row, keep = dispatch(ids, e, cap, e0)
-    tok = torch.arange(n, device=x_flat.device).repeat_interleave(k)
-    # kept assignments own distinct rows; dropped ones all land in the
-    # dummy bucket, which is cut off before the products
-    buf = x_flat.new_zeros(e + 1, cap, d)
-    buf[expert, row] = torch.where(keep[:, None], x_flat[tok], 0)
-    buf = buf[:e]
+    d) -> (N, d), the tokens' outputs from those experts alone. Outside
+    autograd (serving) the way into and out of the buffer is the kernel
+    pair of ``kernels/moe_route.py`` through ``ops`` (on the CPU their
+    plain versions); under autograd it is those plain versions, the
+    differentiable ops."""
+    if _build.wants_grad(x_flat, w_gate, w_up, w_down, gates):
+        into, out_of = moe_route.moe_dispatch_plain, \
+            moe_route.moe_combine_plain
+    else:
+        into, out_of = ops.moe_dispatch, ops.moe_combine
+    expert, row, keep, buf = into(ids, x_flat, w_gate.shape[0], cap, e0)
     h = act(torch.bmm(buf, w_gate)) * torch.bmm(buf, w_up)
-    out = torch.cat([torch.bmm(h, w_down), buf.new_zeros(1, cap, d)])
-    contrib = out[expert, row] * (gates.reshape(-1) * keep).to(
-        out.dtype)[:, None]
-    contrib = contrib.view(n, k, d)
-    y = contrib[:, 0]
-    for j in range(1, k):
-        y = y + contrib[:, j]
-    return y
+    return out_of(torch.bmm(h, w_down), expert, row, keep, gates)
 
 
 def aux_load_balance_loss(probs, ids, cfg):
@@ -167,7 +148,7 @@ def moe_apply(p: MoE, x, cfg, mctx=common.LOCAL, *,
     gates, ids, probs = route(xf, p.router, cfg)
     xin = mctx.into_model(xf)
     y = local_expert_compute(xin, p.w_gate, p.w_up, p.w_down,
-                             mctx.into_model(gates), ids, cfg,
+                             mctx.into_model(gates), ids,
                              common.activation(cfg.mlp_act),
                              capacity(b * s, cfg), p.e0)
     shared = p.shared if cfg.num_shared_experts else None

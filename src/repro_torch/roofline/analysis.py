@@ -121,6 +121,24 @@ def bvsb_merge_work(b: int, n: int) -> Work:
     return Work(b * n * 16 + b * 8, 12 * b * n)
 
 
+def moe_dispatch_work(n, k, d, e, cap, elt) -> Work:
+    """The MoE dispatch: ids (N, k) int64 and x (N, d) read, the (E, cap,
+    d) buffer and each assignment's expert, row (int64) and keep written;
+    no arithmetic."""
+    return Work(n * k * 8 + n * d * elt + e * cap * d * elt + n * k * 17,
+                0.0)
+
+
+def moe_combine_work(n, k, d, e, cap, elt, kept=None) -> Work:
+    """The MoE combine: each kept assignment's output row read (``kept``
+    of them; from shapes alone at most min(N k, E cap)), the triples and
+    gates (N, k) read, y (N, d) written; a multiply an element and slot,
+    an add an element and slot after the first."""
+    rows = min(n * k, e * cap) if kept is None else kept
+    return Work(rows * d * elt + n * k * 21 + n * d * elt,
+                n * d * (2 * k - 1))
+
+
 def flash_pairs(s, t, causal=True, window=None):
     """(query, key) pairs attention keeps: min(i + 1, window) keys for
     query i when causal, every one of S x T otherwise."""

@@ -132,7 +132,8 @@ def kernels_booked():
 
     names = ("bvsb", "bvsb_partials", "bvsb_merge", "flash_attention",
              "decode_attention", "decode_attention_partials",
-             "decode_attention_merge", "rglru_scan")
+             "decode_attention_merge", "rglru_scan", "moe_dispatch",
+             "moe_combine")
     saved = {n: booked(n) for n in names}
     for n, (_, run) in saved.items():
         setattr(ops, n, run)

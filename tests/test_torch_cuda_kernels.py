@@ -11,7 +11,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.configs.cascade_tiers import BATCH_LADDER
-from repro_torch.kernels import _build, ops
+from repro_torch.kernels import _build, moe_route, ops
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import rglru_scan as _rglru
 from repro_torch.kernels.bvsb import bvsb_partials_plain, bvsb_plain, chunks
@@ -380,7 +380,8 @@ def test_reduced_xlstm_and_encdec_steps_on_the_card_match_the_cpu(dev, arch,
             "flash_attention": 0, "decode_attention": 0,
             "decode_attention_partials": 0, "decode_attention_merge": 0,
             "rglru_scan": 0,
-            "flash_attention_bwd": 0, "rglru_scan_bwd": 0}
+            "flash_attention_bwd": 0, "rglru_scan_bwd": 0,
+            "moe_dispatch": 0, "moe_combine": 0}
     if inputs:
         want.update(flash_attention=cfg.encoder_layers + 2 * n,
                     decode_attention=2 * n * 4)
@@ -689,7 +690,8 @@ def test_reduced_recurrentgemma_steps_on_the_card_match_the_cpu(dev):
                           "decode_attention_partials": 0,
                           "decode_attention_merge": 0,
                           "rglru_scan": 2, "flash_attention_bwd": 0,
-                          "rglru_scan_bwd": 0}
+                          "rglru_scan_bwd": 0, "moe_dispatch": 0,
+                          "moe_combine": 0}
     assert runs[1][1] == dict.fromkeys(runs[1][1], 0)
 
 
@@ -766,6 +768,153 @@ def test_moe_apply_on_the_card_matches_the_cpu(dev, pull):
     torch.testing.assert_close(y.reshape(n, -1).cpu()[agree],
                                y_cpu.reshape(n, -1)[agree], atol=MOE_ATOL,
                                rtol=0)
+
+
+# the MoE route kernels at granite's and deepseek-moe-16b's widths (E, k,
+# d), for N = b x 197 tokens at the cascade's buckets b
+MOE_WIDTHS = {"granite-moe-1b-a400m": (32, 8, 1024),
+              "deepseek-moe-16b": (64, 6, 2048)}
+MOE_BUCKETS = (1, 2, 4, 8, 16, 32)
+MOE_POSITIONS = 197
+
+
+def _route_inputs(gen, dev, n, e, k, pull=0.0):
+    """ids and renormalised gates of a top-k over random router logits,
+    ``pull`` added to expert 0's."""
+    logits = torch.randn(n, e, generator=gen, device=dev)
+    logits[:, 0] += pull
+    gates, ids = torch.topk(torch.softmax(logits, -1), k, dim=-1)
+    return ids, gates / gates.sum(-1, keepdim=True)
+
+
+@pytest.mark.parametrize("case", ["whole", "drops", "slice", "bf16"])
+@pytest.mark.parametrize("b", MOE_BUCKETS)
+@pytest.mark.parametrize("arch", sorted(MOE_WIDTHS))
+def test_moe_route_kernels_equal_plain(dev, arch, b, case):
+    """``moe_dispatch`` and ``moe_combine`` on the card equal their plain
+    versions run on the card, every output bit for bit: all experts, a
+    routing pulled onto expert 0 past its capacity ("drops"), a rank's
+    quarter of the experts from e0 = E / 2 ("slice"), bfloat16 rows; one
+    counted launch each."""
+    e, k, d = MOE_WIDTHS[arch]
+    n = b * MOE_POSITIONS
+    gen = torch.Generator(device=dev).manual_seed(1000 * b + e)
+    ids, gates = _route_inputs(gen, dev, n, e, k,
+                               pull=4.0 if case == "drops" else 0.0)
+    e_local, e0 = (e // 4, e // 2) if case == "slice" else (e, 0)
+    dtype = torch.bfloat16 if case == "bf16" else torch.float32
+    cap = max(int(moe.CAPACITY_FACTOR * n * k / e), 8)
+    x = torch.randn(n, d, generator=gen, device=dev).to(dtype)
+    ops.reset_launch_counts()
+    got = ops.moe_dispatch(ids, x, e_local, cap, e0)
+    want = moe_route.moe_dispatch_plain(ids, x, e_local, cap, e0)
+    out = torch.randn(e_local, cap, d, generator=gen, device=dev).to(dtype)
+    y = ops.moe_combine(out, *got[:3], gates)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["moe_dispatch"] == 1 and counts["moe_combine"] == 1
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype and torch.equal(g, w)
+    if case == "drops":
+        assert not want[2].all()
+    assert torch.equal(y, moe_route.moe_combine_plain(out, *want[:3], gates))
+
+
+_MOE_LAYERS = {}
+
+
+def _moe_layer(arch, dev):
+    """The arch's MoE sublayer at full width on the card (kept between
+    tests)."""
+    if arch not in _MOE_LAYERS:
+        cfg = get_config(arch)
+        p = moe.MoE(cfg, device=dev, dtype=torch.float32)
+        gen = torch.Generator(device=dev).manual_seed(7)
+        for t in p.parameters():
+            common.trunc_normal_(t, cfg.init_scale, gen)
+        _MOE_LAYERS.clear()
+        _MOE_LAYERS[arch] = cfg, p
+    return _MOE_LAYERS[arch]
+
+
+@pytest.mark.parametrize("b", MOE_BUCKETS)
+@pytest.mark.parametrize("arch", sorted(MOE_WIDTHS))
+def test_moe_apply_through_the_route_kernels_equals_the_op_chain(
+        dev, arch, b, monkeypatch):
+    """The MoE sublayer at the arch's full width on b x 197 tokens: through
+    the two kernels bit for bit what the plain ops give on the card."""
+    cfg, p = _moe_layer(arch, dev)
+    gen = torch.Generator(device=dev).manual_seed(b)
+    x = torch.randn(b, MOE_POSITIONS, cfg.d_model, generator=gen, device=dev)
+    with torch.inference_mode():
+        ops.reset_launch_counts()
+        y = moe.moe_apply(p, x, cfg)
+        assert ops.launch_counts()["moe_dispatch"] == 1
+        monkeypatch.setattr(ops, "moe_dispatch", moe_route.moe_dispatch_plain)
+        monkeypatch.setattr(ops, "moe_combine", moe_route.moe_combine_plain)
+        assert torch.equal(y, moe.moe_apply(p, x, cfg))
+
+
+@pytest.mark.parametrize("arch,layers", [("granite-moe-1b-a400m", 2),
+                                         ("deepseek-moe-16b", 3)])
+def test_a_forward_launches_the_route_kernels_once_a_moe_layer(dev, arch,
+                                                               layers):
+    """A serving forward (inference mode) of a cut model: one dispatch and
+    one combine launch for each MoE layer (deepseek's first layer is
+    dense)."""
+    cfg = get_config(arch).with_(num_layers=layers)
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, (2, MOE_POSITIONS), device=dev)
+    moe_layers = layers - cfg.first_dense_layers
+    with torch.inference_mode():
+        ops.reset_launch_counts()
+        model(tokens)
+        torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["moe_dispatch"] == moe_layers
+    assert counts["moe_combine"] == moe_layers
+
+
+def test_moe_route_wrappers_refuse_on_the_card(dev):
+    ids = torch.zeros(4, 2, dtype=torch.int64, device=dev)
+    x = torch.randn(4, 64, device=dev)
+    with pytest.raises(ValueError, match="local experts"):
+        ops.moe_dispatch(ids, x, moe_route.MAX_EXPERTS + 1, 8)
+    with pytest.raises(TypeError):
+        ops.moe_dispatch(ids, x.half(), 4, 8)
+    with pytest.raises(TypeError):
+        ops.moe_dispatch(ids.int(), x, 4, 8)
+    expert, row, keep, buf = ops.moe_dispatch(ids, x, 4, 8)
+    with pytest.raises(TypeError):
+        ops.moe_combine(buf.half(), expert, row, keep,
+                        torch.ones(4, 2, device=dev))
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.moe_dispatch(ids, x.requires_grad_(), 4, 8)
+
+
+@pytest.mark.parametrize("case", ["width", "stride", "base"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_route_wrappers_refuse_rows_not_of_16_byte_units_on_the_card(
+        dev, case, dtype):
+    """Rows of six elements, rows 66 elements apart, or a base one element
+    past a 16-byte unit: the wrappers raise before any launch."""
+    def zeros(*shape):
+        return torch.zeros(*shape, dtype=dtype, device=dev)
+    x = {"width": lambda: zeros(4, 6),
+         "stride": lambda: zeros(4, 66)[:, :64],
+         "base": lambda: zeros(4 * 64 + 1)[1:].view(4, 64)}[case]()
+    ids = torch.zeros(4, 2, dtype=torch.int64, device=dev)
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match="16-byte units"):
+        ops.moe_dispatch(ids, x, 4, 8)
+    if case == "width":
+        flat = torch.zeros(8, dtype=torch.int64, device=dev)
+        with pytest.raises(ValueError, match="16-byte units"):
+            ops.moe_combine(zeros(4, 8, 6), flat, flat, flat.bool(),
+                            torch.zeros(4, 2, device=dev))
+    assert ops.launch_counts()["moe_dispatch"] == 0
+    assert ops.launch_counts()["moe_combine"] == 0
 
 
 # ---------------------------------------------------------------------------

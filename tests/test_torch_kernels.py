@@ -24,6 +24,8 @@ from repro_torch.kernels.flash_attention import (BWD_KEYS, BWD_WAVES,
                                                  MIN_SPLIT_TILES, bwd_rows,
                                                  bwd_splits,
                                                  flash_attention_plain)
+from repro_torch.kernels.moe_route import (moe_combine_plain,
+                                           moe_dispatch_plain)
 from repro_torch.kernels.rglru_scan import STRIP as SCAN_STRIP
 from repro_torch.kernels.rglru_scan import (BWD_SMEM, BWD_STEPS, bwd_tiles,
                                             rglru_scan_plain)
@@ -269,6 +271,13 @@ def test_cpu_tensors_take_the_plain_versions_without_launching():
     parts = ops.bvsb_partials(x[:, :64], 0)
     assert torch.equal(ops.bvsb_merge(parts[:, None])[1],
                        bvsb_plain(x[:, :64])[1])
+    ids = torch.from_numpy(rng.integers(0, 4, (4, 2)))
+    route = ops.moe_dispatch(ids, x[:, :8], 4, 3)
+    for got, want in zip(route, moe_dispatch_plain(ids, x[:, :8], 4, 3)):
+        assert torch.equal(got, want)
+    gates = torch.rand(4, 2)
+    assert torch.equal(ops.moe_combine(route[3], *route[:3], gates),
+                       moe_combine_plain(route[3], *route[:3], gates))
     assert ops.launch_counts() == {"bvsb": 0, "bvsb_partials": 0,
                                    "bvsb_merge": 0, "flash_attention": 0,
                                    "decode_attention": 0,
@@ -276,7 +285,8 @@ def test_cpu_tensors_take_the_plain_versions_without_launching():
                                    "decode_attention_merge": 0,
                                    "rglru_scan": 0,
                                    "flash_attention_bwd": 0,
-                                   "rglru_scan_bwd": 0}
+                                   "rglru_scan_bwd": 0,
+                                   "moe_dispatch": 0, "moe_combine": 0}
 
 
 class _Elsewhere(torch.Tensor):

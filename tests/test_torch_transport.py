@@ -411,12 +411,15 @@ def _hammer(fn, threads=8, calls=1000):
 
 
 @pytest.mark.parametrize("name", ["bvsb", "flash_attention",
-                                  "decode_attention", "rglru_scan"])
+                                  "decode_attention", "rglru_scan",
+                                  "moe_dispatch", "moe_combine"])
 def test_launch_counts_exact_under_threads(name, monkeypatch):
     """8 threads x 1,000 calls of a kernel wrapper, its launch stubbed out:
     the count reads 8,000."""
     mod = ops._KERNELS[name]
-    monkeypatch.setattr(mod, "run_entry", lambda *a, **k: None)
+    entry = {"moe_dispatch": "run_dispatch_entry",
+             "moe_combine": "run_combine_entry"}.get(name, "run_entry")
+    monkeypatch.setattr(mod, entry, lambda *a, **k: None)
     monkeypatch.setattr(_build, "library", lambda: type(
         "Lib", (), {"repro_flash_attention": None})())
     card = _OnCard()
@@ -424,7 +427,10 @@ def test_launch_counts_exact_under_threads(name, monkeypatch):
             "flash_attention": lambda: ops.flash_attention(card, card, card),
             "decode_attention": lambda: ops.decode_attention(card, card,
                                                              card, card),
-            "rglru_scan": lambda: ops.rglru_scan(card, card)}[name]
+            "rglru_scan": lambda: ops.rglru_scan(card, card),
+            "moe_dispatch": lambda: ops.moe_dispatch(card, card, 4, 8),
+            "moe_combine": lambda: ops.moe_combine(card, card, card, card,
+                                                   card)}[name]
     ops.reset_launch_counts()
     try:
         _hammer(call)
